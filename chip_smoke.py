@@ -4,14 +4,23 @@
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
-against its plain PyTorch version on the card at the shapes the LSTM
-inference path uses, times kernel, plain version and (where one PyTorch call
-computes the same function) the library, then drives the main path — the
-paper-LSTM plan and request batches through ``lstm_apply`` and
-``lstm_stack_apply`` in every mode — and checks outputs and launch counts.
+against its plain PyTorch version on the card at the shapes its path uses,
+times kernel, plain version and (where one PyTorch call computes the same
+function) the library, then drives three paths, each with the launch
+counters set to 0 just before it and read just after:
 
-Lines printed, in order: ``env``, the card as ``nvidia-smi`` names it,
-``build``, one JSON object ``{"kernels": [...]}``, ``main_path``, and last
+* the paper-LSTM path — the plan and request batches through ``lstm_apply``
+  and ``lstm_stack_apply`` in every mode (K1–K4);
+* ``serve_dense`` — int8-weight serving of granite-3-8b at full width (8 of
+  its 40 layers, bf16, ``quant="int8"``) through ``InferenceEngine.generate``
+  and the slot path ``make_pool`` → ``prefill_into_slot`` →
+  ``masked_decode_step``, every projection through ``int8_matmul`` (K5);
+* ``flash_attention`` — its public op ``kernels.ops.flash_attention`` at a
+  granite-shaped causal case (K6; no model path calls it).
+
+Lines printed, in order: ``env``, ``phase`` lines (seconds per phase),
+``build``, ``serve_dense``, one JSON object ``{"kernels": [...]}``,
+``main_path``, the card as ``nvidia-smi`` names it, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
 not 0 and the last line is not printed.  ``--out FILE`` also writes the whole
 report as JSON.
@@ -19,6 +28,7 @@ report as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -31,9 +41,14 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.fpga import paper_workload  # noqa: E402
 from repro_torch.kernels import bench, ops, runtime  # noqa: E402
 from repro_torch.kernels.activations import activation, activation_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain,
+)
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain  # noqa: E402
 from repro_torch.kernels.lstm_cell import lstm_cell_fused, lstm_cell_plain  # noqa: E402
 from repro_torch.kernels.lstm_quant import quantize_lstm_stack, quantize_lstm_weights  # noqa: E402
 from repro_torch.kernels.lstm_seq import (  # noqa: E402
@@ -42,12 +57,19 @@ from repro_torch.kernels.lstm_seq import (  # noqa: E402
 )
 from repro_torch.launch.train import plan_paper_lstm  # noqa: E402
 from repro_torch.models.lstm import lstm_apply, lstm_stack_apply  # noqa: E402
-from repro_torch.models.params import params_from_numpy  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model import init_model  # noqa: E402
+from repro_torch.models.params import params_from_numpy, tree_map  # noqa: E402
+from repro_torch.models.quant import QuantTensor, layer_of, quantize_weight  # noqa: E402
+from repro_torch.serving import engine as engine_mod  # noqa: E402
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
-# and the f32 rate outside the tensor cores, which is what these kernels use.
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
+# the f32 rate outside the tensor cores, and the dense tensor-core rates of
+# bf16 and int8.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 
 IMPLS = ("exact", "pwl", "lut", "hard")
 PAPER_BATCH = 64
@@ -129,6 +151,7 @@ def device_ms(fn, reps: int = 10):
     """GPU-busy time of one call in ms: the device time of every kernel the
     call launches, from the profiler's trace, without the host's share.
     ``None`` if the trace shows no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -138,15 +161,16 @@ def device_ms(fn, reps: int = 10):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
         if total_us > 0:
             return total_us / reps / 1e3
     return None
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     """Least time the card could take, in ms, and which limit sets it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -404,6 +428,394 @@ def check_stack(dev, quantized: bool):
 
 
 # ---------------------------------------------------------------------------
+# K5 int8_matmul and K6 flash_attention: kernel against plain version
+# ---------------------------------------------------------------------------
+GRANITE = "granite-3-8b"
+SERVE_LAYERS = 8                    # the only cut of granite-3-8b: 40 → 8 layers
+# (M, K, N): the reference's kernel tests, then every projection of the
+# serving path at decode (M = 4 slots), a 64-token prefill and 4 x 64 tokens
+INT8_TEST_SHAPES = [(64, 128, 64), (128, 256, 128), (32, 64, 96)]
+INT8_PROJ_KN = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
+INT8_MAIN = (4, 4096, 12800)        # the entry's own numbers: wg/wu at decode
+INT8_SHAPES = ([INT8_MAIN] + [(m, k, n) for m in (4, 64, 256) for k, n in INT8_PROJ_KN
+                              if (m, k, n) != INT8_MAIN]
+               + INT8_TEST_SHAPES + [(33, 4100, 1030)])
+# (B, H, KV, Sq, Sk, D, causal, dtype): the reference's kernel tests, its bf16
+# case, then granite-shaped causal attention over 2048 tokens
+FLASH_MAIN = (1, 32, 8, 2048, 2048, 128, True, torch.bfloat16)
+FLASH_SHAPES = [FLASH_MAIN, (1, 32, 8, 2048, 2048, 128, True, torch.float32),
+                (1, 4, 4, 128, 128, 32, True, torch.float32),
+                (2, 8, 2, 128, 128, 64, True, torch.float32),
+                (1, 4, 1, 64, 256, 32, False, torch.float32),
+                (2, 2, 2, 256, 256, 16, True, torch.float32),
+                (1, 4, 2, 128, 128, 32, True, torch.bfloat16),
+                (1, 6, 3, 45, 77, 16, True, torch.float32)]
+TOL_BF16 = 3e-2                     # the reference's bf16 flash tolerance
+
+
+def int8_operands(m, k, n, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev)
+    w = torch.randn((k, n), generator=gen, device=dev)
+    xq, sx = ops.quantize_rowwise(x)
+    wq, sw = ops.quantize_colwise(w)
+    return xq, wq, sx, sw
+
+
+def int8_library_ok(m, k, n) -> bool:
+    """torch._int_mm's shape rules on CUDA: more than 16 rows, K and N
+    multiples of 8."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
+
+
+def check_int8_matmul(dev):
+    shapes = []
+    for i, (m, k, n) in enumerate(INT8_SHAPES):
+        xq, wq, sx, sw = int8_operands(m, k, n, dev, 100 + i)
+        got = int8_matmul(xq, wq, sx, sw)
+        want = int8_matmul_plain(xq, wq, sx, sw)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"int8_matmul {(m, k, n)}: not bit-identical to its plain version, "
+                 f"max err {float((got - want).abs().max()):.3e}")
+        library = lambda: (torch._int_mm(xq, wq).float() * sx) * sw[None, :]  # noqa: E731
+        library_ms = time_ms(library) if int8_library_ok(m, k, n) else None
+        bound_ms, bound_by = bound(nbytes(xq, wq, sx, sw) + 4 * m * n, 2.0 * m * k * n,
+                                   PEAK_INT8_OPS)
+        shapes.append({
+            "shape": [m, k, n], "max_abs_err": 0.0, "tolerance": 0.0,
+            "ms": r6(time_ms(lambda: int8_matmul(xq, wq, sx, sw))),
+            "device_ms": r6(device_ms(lambda: int8_matmul(xq, wq, sx, sw))),
+            "plain_ms": r6(time_ms(lambda: int8_matmul_plain(xq, wq, sx, sw), reps=5, rounds=3)),
+            "library_ms": r6(library_ms), "bound_ms": r6(bound_ms), "bound_by": bound_by,
+        })
+    return entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
+                 "src/repro/kernels/int8_matmul.py:62", shapes)
+
+
+def check_quantize_on_card(dev) -> dict:
+    """quantize_params' quantizer on the card gives the CPU's bytes for one
+    full-width weight (granite-3-8b's wg, 4096 x 12800, bf16)."""
+    gen = torch.Generator().manual_seed(7)
+    w = (torch.randn((4096, 12800), generator=gen) / 64.0).to(torch.bfloat16)
+    cpu = quantize_weight(w, lead=0, n_contract=1)
+    card = quantize_weight(w.to(dev), lead=0, n_contract=1)
+    same = (torch.equal(card.q.cpu(), cpu.q)
+            and torch.equal(card.scale.cpu().view(torch.int32), cpu.scale.view(torch.int32)))
+    if not same:
+        fail("quantize_weight on the card differs from the CPU's bytes")
+    return {"shape": [4096, 12800], "dtype": "bfloat16", "bytes_identical": True}
+
+
+def flash_flops(b, h, sq, sk, d, causal) -> float:
+    """Two products of 2 flops per multiply-add over the (query, key) pairs
+    this run needs: with a causal mask, query i sees min(i + 1, Sk) keys."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    return 4.0 * b * h * pairs * d
+
+
+def check_flash(dev):
+    shapes = []
+    for i, (b, h, kv, sq, sk, d, causal, dtype) in enumerate(FLASH_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+        tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        err = compare(got, want, "exact", tol, f"flash_attention {(b, h, kv, sq, sk, d)}")
+        torch.cuda.synchronize()
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+        lib_err = float((sdpa().float() - want.float()).abs().max())
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        bound_ms, bound_by = bound(nbytes(q, k, v) + nbytes(q),
+                                   flash_flops(b, h, sq, sk, d, causal), peak)
+        shapes.append({
+            "shape": [b, h, kv, sq, sk, d], "causal": causal,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tolerance": tol,
+            "ms": r6(time_ms(lambda: flash_attention(q, k, v, causal=causal), reps=10)),
+            "device_ms": r6(device_ms(lambda: flash_attention(q, k, v, causal=causal), reps=5)),
+            "plain_ms": r6(time_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+                                   reps=3, rounds=3)),
+            "library_ms": r6(time_ms(sdpa, reps=10)), "library_max_abs_diff": r6(lib_err),
+            "bound_ms": r6(bound_ms), "bound_by": bound_by,
+        })
+    return entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:95", shapes)
+
+
+def drive_flash_path(dev) -> dict:
+    """K6's own path: its public op at the granite-shaped causal case."""
+    b, h, kv, sq, sk, d, causal, dtype = FLASH_MAIN
+    gen = torch.Generator(device=dev).manual_seed(300)
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if out.shape != q.shape or not bool(torch.isfinite(out.float()).all()):
+        fail("ops.flash_attention: wrong shape or non-finite output")
+    return {"expect": {"flash_attention": 1}}
+
+
+# ---------------------------------------------------------------------------
+# serve_dense: int8-weight serving of granite-3-8b at full width
+# ---------------------------------------------------------------------------
+GEN_PROMPTS, GEN_LEN, GEN_NEW = 4, 64, 8
+SLOT_PROMPTS = (16, 33, 40, 64)     # the last one is admitted after two ticks
+SLOT_BUDGET, SLOT_TICKS = 12, 10
+AGREEMENT_FLOOR = 0.3               # docs/kernels.md: the wiring floor of int8 serving
+# One decoder block on the card against the CPU, bf16, same weights.  The two
+# sum bf16 products in other orders, so their roundings to bf16 (2^-8
+# relative) differ here and there; the attention scores, rounded to bf16
+# before the softmax, carry such a difference into every output of the row,
+# and a last-bit difference can move an activation across a rounding edge of
+# its int8 row quantization (one step of amax / 127).  Measured on an H100:
+# max error 2.2% and mean 0.22% of the block's largest output.  Rule: max
+# within 5e-2 and mean within 5e-3 of the largest output; a wrong weight
+# layout, scale or mask is off by tens of percent.
+BLOCK_TOL, BLOCK_MEAN_TOL = 5e-2, 5e-3
+
+
+def standard_fan_in(params, cfg) -> None:
+    """Rescale the 3-D attention weights of a freshly drawn model to std
+    1/sqrt(width of their contraction), in place.  The reference's fan-in
+    rule (kept by ``init_model``) takes the head count as the fan-in of wq
+    (32) and wk/wv (8), and the head width (128) as that of wo; at full width
+    that makes every attention row nearly one-hot, so a random model is
+    chaotic: one int8 rounding flips the attended key and two greedy chains
+    part at their first token (agreement 0.000 measured on an H100).  After
+    this the attention is smooth and the agreement measures
+    the int8 path, not the chaos."""
+    a = params["blocks"]["attn"]
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for name, now, want in (("wq", h, d), ("wk", kv, d), ("wv", kv, d), ("wo", hd, h * hd)):
+        a[name].mul_((now / want) ** 0.5)
+
+
+def check_init_on_card(dev) -> dict:
+    """The engine's own init on the card: weights drawn layer by layer from a
+    CUDA generator and quantized as they are drawn.  Its peak memory must
+    stay under what a full f32 copy of the projection stack alone would
+    take."""
+    cfg_q, _ = serve_configs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = engine_mod.InferenceEngine(cfg_q, sc=engine_mod.ServeConfig(max_batch=4, max_len=128),
+                                     seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    proj = sum(t.q.numel() for t in _quant_leaves(eng.params))
+    f32_stack = 4 * proj
+    if peak >= f32_stack:
+        fail(f"init_on_card: peak {peak} bytes, not under an f32 copy of the stack ({f32_stack})")
+    del eng
+    torch.cuda.empty_cache()
+    return {"seconds": r6(seconds), "peak_bytes": peak, "int8_projection_bytes": proj,
+            "f32_projection_stack_bytes": f32_stack}
+
+
+class CallLog:
+    """Wraps the engine's ``prefill`` and ``decode_step``: each call is
+    synchronised and timed, its int8_matmul launches counted, its logits
+    checked finite."""
+
+    def __init__(self):
+        self.calls: list[dict] = []
+
+    def wrap(self, kind, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            before = runtime.launch_counts().get("int8_matmul", 0)
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.calls.append({
+                "kind": kind, "ms": (time.perf_counter() - t0) * 1e3,
+                "int8_matmul": runtime.launch_counts().get("int8_matmul", 0) - before,
+                "finite": bool(torch.isfinite(logits).all()), "rows": int(logits.shape[0])})
+            return logits, cache
+        return call
+
+
+def serve_configs():
+    cfg = dataclasses.replace(get_config(GRANITE), num_layers=SERVE_LAYERS)
+    return dataclasses.replace(cfg, quant="int8"), cfg
+
+
+def drive_serve_dense(dev) -> dict:
+    """generate and the slot path through the int8 engine; the full-precision
+    engine on the same weights for greedy-chain agreement."""
+    cfg_q, cfg_f = serve_configs()
+    sc = engine_mod.ServeConfig(max_batch=4, max_len=128)
+    params = init_model(cfg_f, torch.Generator(device=dev).manual_seed(0), dev)
+    standard_fan_in(params, cfg_f)
+    t0 = time.perf_counter()
+    eng = engine_mod.InferenceEngine(cfg_q, params=params, sc=sc)  # quantizes at init
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.q.numel() for t in _quant_leaves(eng.params))
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg_q.vocab_size, (GEN_PROMPTS, GEN_LEN)).astype(np.int32)
+
+    log = CallLog()
+    real = engine_mod.prefill, engine_mod.decode_step
+    engine_mod.prefill = log.wrap("prefill", real[0])
+    engine_mod.decode_step = log.wrap("decode", real[1])
+    try:
+        t0 = time.perf_counter()
+        tokens_q = eng.generate(prompts, GEN_NEW)
+        generate_s = time.perf_counter() - t0
+        n_generate = len(log.calls)
+        pool = eng.make_pool()
+        slot_tokens = {s: [] for s in range(len(SLOT_PROMPTS))}
+        slot_finite = True
+        for tick in range(SLOT_TICKS):
+            if tick == 0:
+                for s, n in enumerate(SLOT_PROMPTS[:-1]):
+                    p = rng.integers(0, cfg_q.vocab_size, n).astype(np.int32)
+                    slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s,
+                                                                budget=SLOT_BUDGET))
+            if tick == 2:
+                s = len(SLOT_PROMPTS) - 1
+                p = rng.integers(0, cfg_q.vocab_size, SLOT_PROMPTS[s]).astype(np.int32)
+                slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s,
+                                                            budget=SLOT_BUDGET))
+            live = pool.decode_mask().copy()
+            nxt, fin = eng.masked_decode_step(pool)
+            slot_finite = slot_finite and bool(fin[live].all())
+            for s in map(int, np.flatnonzero(live)):
+                pool.advance(s, 1, int(nxt[s]))
+                slot_tokens[s].append(int(nxt[s]))
+                if pool.slots[s].emitted >= pool.slots[s].budget:
+                    pool.retire(s)
+    finally:
+        engine_mod.prefill, engine_mod.decode_step = real
+    per_call = 7 * cfg_q.num_layers
+    for c in log.calls:
+        if c["int8_matmul"] != per_call:
+            fail(f"serve_dense: a {c['kind']} call launched int8_matmul {c['int8_matmul']} "
+                 f"times, {per_call} expected (7 projections x {cfg_q.num_layers} layers)")
+        if not c["finite"]:
+            fail(f"serve_dense: non-finite logits in a {c['kind']} call")
+    if not slot_finite:
+        fail("serve_dense: masked_decode_step flagged a live slot non-finite")
+    if tokens_q.shape != (GEN_PROMPTS, GEN_NEW):
+        fail(f"serve_dense: generate returned {tokens_q.shape}")
+
+    # the same engine without quantization, on the same weights
+    full = engine_mod.InferenceEngine(cfg_f, params=params, sc=sc)
+    tokens_f = full.generate(prompts, GEN_NEW)
+    agreement = float((tokens_q == tokens_f).mean())
+    if agreement < AGREEMENT_FLOOR:
+        fail(f"serve_dense: greedy-chain agreement {agreement:.3f} with the full-precision "
+             f"engine, under the floor {AGREEMENT_FLOOR}")
+    del full
+    gen_calls = log.calls[:n_generate]
+    decode_ms = [c["ms"] for c in gen_calls if c["kind"] == "decode"]
+    tick_ms = [c["ms"] for c in log.calls[n_generate:] if c["kind"] == "decode"]
+    slot_prefill_ms = [c["ms"] for c in log.calls[n_generate:] if c["kind"] == "prefill"]
+    report = {
+        "arch": GRANITE, "layers": cfg_q.num_layers, "of_layers": get_config(GRANITE).num_layers,
+        "dtype": "bfloat16", "quant": "int8", "int8_weight_bytes": weight_bytes,
+        "quantize_at_init_s": r6(init_s), "generate": {
+            "prompts": GEN_PROMPTS, "prompt_len": GEN_LEN, "new_tokens": GEN_NEW,
+            "seconds": r6(generate_s), "prefill_ms": r6(gen_calls[0]["ms"]),
+            "decode_ms_median": r6(statistics.median(decode_ms)),
+            "decode_ms": [r6(t) for t in decode_ms]},
+        "slots": {"max_batch": 4, "max_len": 128, "prompts": list(SLOT_PROMPTS),
+                  "prefill_ms": [r6(t) for t in slot_prefill_ms],
+                  "tick_ms_median": r6(statistics.median(tick_ms)),
+                  "tick_ms": [r6(t) for t in tick_ms], "tokens": slot_tokens},
+        "calls": len(log.calls), "int8_matmul_per_call": per_call,
+        "greedy_agreement_vs_full_precision": r6(agreement),
+        "agreement_floor": AGREEMENT_FLOOR,
+    }
+    return {"expect": {"int8_matmul": per_call * len(log.calls)}, "report": report,
+            "engine": eng}
+
+
+def profile_serve(eng, dev) -> dict:
+    """Where a call's time goes: one prefill of the generate workload
+    (``generate(prompts, 1)``: prefill + one decode) and one decode tick of
+    4 live slots, each under ``torch.profiler``: wall time, device-busy time
+    (the kernels' own device time; the operators that launched them are not
+    counted again), and the device time of int8_matmul and the largest
+    other kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(11)
+    prompts = rng.integers(0, eng.cfg.vocab_size, (GEN_PROMPTS, GEN_LEN)).astype(np.int32)
+    pool = eng.make_pool()
+    for s, n in enumerate(SLOT_PROMPTS):
+        p = rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32)
+        eng.prefill_into_slot(pool, s, p, rid=s, budget=SLOT_BUDGET)
+    calls = {"generate_1": lambda: eng.generate(prompts, 1),
+             "decode_tick_4_slots": lambda: eng.masked_decode_step(pool)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                           key=lambda t: -t[1])
+        busy = sum(t for _, t, _ in by_kernel)
+        k5 = sum(t for k, t, _ in by_kernel if "int8_matmul_kernel" in k)
+        out[name] = {"wall_ms": r6(wall_ms), "device_busy_ms": r6(busy),
+                     "idle_share": r6(1.0 - busy / wall_ms) if wall_ms else None,
+                     "int8_matmul_device_ms": r6(k5),
+                     "device_launches": sum(c for _, _, c in by_kernel),
+                     "top_kernels_ms": [[k[:60], r6(t), c] for k, t, c in by_kernel[:6]]}
+    return out
+
+
+def _quant_leaves(tree):
+    out = []
+    tree_map(lambda t: out.append(t) if isinstance(t, QuantTensor) else None, tree)
+    return out
+
+
+def check_block_card_vs_cpu(eng, dev) -> dict:
+    """Layer 0 of the int8 engine, one full-width decoder block, on the card
+    and on the CPU from the same weights and a 16-token prompt."""
+    cfg = eng.cfg
+    p_card = tree_map(lambda t: layer_of(t, 0), eng.params["blocks"])
+    p_cpu = tree_map(lambda t: QuantTensor(t.q.cpu(), t.scale.cpu())
+                     if isinstance(t, QuantTensor) else t.cpu(), p_card)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 16)))
+    x = eng.params["embed"]["tokens"][toks.to(dev)]
+    with torch.inference_mode():
+        y_card, (k_card, _) = transformer.dense_block_prefill(p_card, x, cfg)
+        y_cpu, (k_cpu, _) = transformer.dense_block_prefill(p_cpu, x.cpu(), cfg)
+    worst = {}
+    for name, got, want in (("out", y_card, y_cpu), ("k", k_card, k_cpu)):
+        got, want = got.float().cpu(), want.float()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"block card vs cpu: non-finite {name}")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        mean = float((got - want).abs().mean())
+        if err > BLOCK_TOL * scale or mean > BLOCK_MEAN_TOL * scale:
+            fail(f"block card vs cpu: {name} max err {err:.3e}, mean {mean:.3e}, over "
+                 f"{BLOCK_TOL} / {BLOCK_MEAN_TOL} x {scale:.3e}")
+        worst[name] = {"max_abs_err": r6(err), "max_abs": r6(scale), "mean_abs_err": r6(mean)}
+    return {"tokens": 16,
+            "tolerance": f"max {BLOCK_TOL}, mean {BLOCK_MEAN_TOL} x max|cpu|", **worst}
+
+
+# ---------------------------------------------------------------------------
 # The main path
 # ---------------------------------------------------------------------------
 SINGLE_MODES = (False, True, "pallas_step", "pallas_seq", "pallas_seq_q8")
@@ -501,28 +913,64 @@ def main(argv=None) -> int:
                                  "library": "build/repro_torch", "sources": sorted(
                                      p.name for p in runtime.CSRC_DIR.glob("*.cu"))}), flush=True)
 
-    kernels = [check_activation(dev), check_cell(dev), check_seq(dev, False),
-               check_seq(dev, True), check_stack(dev, False), check_stack(dev, True)]
+    phases: dict[str, float] = {}
 
-    runtime.reset_launch_counts()
-    driven = drive_main_path(dev)
-    counts = runtime.launch_counts()
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phases[name] = r6(time.perf_counter() - t0)
+        print("phase " + json.dumps({"name": name, "seconds": phases[name]}), flush=True)
+        return out
+
+    kernels = [phase("activation", check_activation, dev), phase("lstm_cell", check_cell, dev),
+               phase("lstm_seq_f32", check_seq, dev, False),
+               phase("lstm_seq_q8", check_seq, dev, True),
+               phase("lstm_stack_f32", check_stack, dev, False),
+               phase("lstm_stack_q8", check_stack, dev, True),
+               phase("int8_matmul", check_int8_matmul, dev),
+               phase("flash_attention", check_flash, dev)]
+    quantize_on_card = phase("quantize_on_card", check_quantize_on_card, dev)
+    init_on_card = phase("init_on_card", check_init_on_card, dev)
+
+    # Each path runs with the counters set to 0 just before it and read just
+    # after; a kernel's "launches" are those of the path it belongs to.
+    paths = {"lstm": drive_main_path, "serve_dense": drive_serve_dense,
+             "flash_attention": drive_flash_path}
+    driven, counts_by_path = {}, {}
+    for name, drive in paths.items():
+        runtime.reset_launch_counts()
+        driven[name] = phase(f"path:{name}", drive, dev)
+        counts_by_path[name] = runtime.launch_counts()
     for k in kernels:
+        path = next(p for p in paths if k["name"] in driven[p]["expect"])
+        counts = counts_by_path[path]
         k["launches"] = counts.get(k["name"], 0)
         if k["launches"] < 1:
-            fail(f"the main path never launched {k['name']}")
-        if k["launches"] != driven["expect"][k["name"]]:
-            fail(f"{k['name']}: {k['launches']} launches on the main path, "
-                 f"{driven['expect'][k['name']]} expected")
+            fail(f"the {path} path never launched {k['name']}")
+        if k["launches"] != driven[path]["expect"][k["name"]]:
+            fail(f"{k['name']}: {k['launches']} launches on the {path} path, "
+                 f"{driven[path]['expect'][k['name']]} expected")
+        k["path"] = path
+    counts = counts_by_path["lstm"]
+    serve = driven["serve_dense"]["report"]
+    serve["launches"] = counts_by_path["serve_dense"]
+    serve["quantize_on_card"] = quantize_on_card
+    serve["init_on_card"] = init_on_card
+    serve_engine = driven["serve_dense"].pop("engine")
+    serve["block_card_vs_cpu"] = phase("block_card_vs_cpu", check_block_card_vs_cpu,
+                                       serve_engine, dev)
+    serve["profile"] = phase("serve_profile", profile_serve, serve_engine, dev)
+    del serve_engine
+    driven = driven["lstm"]
 
     lw = paper_workload()
-    medians_us = {
+    medians_us = phase("lstm_bench", lambda: {
         "paths_paper": bench.compare_lstm_paths(PAPER_BATCH, lw.seq, lw.d_in, lw.hidden, device=dev),
         "paths_scaled": bench.compare_lstm_paths(*SCALED_SHAPE, device=dev),
         "quant": bench.compare_lstm_quant(*QUANT_SHAPE, device=dev),
         "stack_f32": bench.compare_lstm_stack(*STACK_SHAPE, device=dev),
         "stack_q8": bench.compare_lstm_stack(*STACK_SHAPE, quantized=True, device=dev),
-    }
+    })
     main_path = {
         "requests": REQUESTS, "shape": list(QUANT_SHAPE), "stack_shape": list(STACK_SHAPE),
         "plan_paper_lstm": {k: (r6(v) if isinstance(v, float) else v)
@@ -534,9 +982,9 @@ def main(argv=None) -> int:
             "paths_*": "[sequence kernel, per-step kernel loop]",
             "quant": "[f32 sequence kernel, int8 sequence kernel]",
             "stack_*": "[layer-fused stack, L sequential sequence kernels]"},
-        "seconds": r6(time.perf_counter() - t_start),
+        "phase_seconds": phases, "seconds": r6(time.perf_counter() - t_start),
     }
-    report = {"env": env, "kernels": kernels, "main_path": main_path,
+    report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
               "lut_seen": {k: {n: r6(v) for n, v in d.items()} for k, d in LUT_SEEN.items()},
               "nvcc_log": runtime.compile_log()}
     if args.out:
@@ -544,8 +992,10 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(report, indent=1))
 
+    print("serve_dense " + json.dumps(serve), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("main_path " + json.dumps(main_path), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

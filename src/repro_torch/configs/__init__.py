@@ -1,0 +1,23 @@
+"""Architecture registry of the port.  Importing this package registers the
+dense configurations whose features the port's serving path covers; the
+other families of the JAX package are registered when their modules are
+ported (ROADMAP Queue A item 8)."""
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
+    ArchConfig,
+    MLAConfig,
+    MoEConfig,
+    SSMConfig,
+    get_config,
+    get_reduced_config,
+    list_archs,
+    register,
+)
+
+# One module per architecture, as in the JAX package.
+from repro_torch.configs import (  # noqa: F401
+    granite_3_8b,
+    granite_34b,
+    qwen15_110b,
+    starcoder2_15b,
+)

@@ -6,11 +6,15 @@ PyTorch versions.  There is no switch that changes this.
 
 Batch tiles default to ``"auto"``: a fixed rule
 (``repro_torch.kernels.runtime.pick_block_b``) until the block-size tuner is
-ported.  The attention and int8-matmul wrappers arrive with their kernels.
+ported.  The attention and int8-matmul kernels have fixed tiles for the same
+reason: their ``block_*`` arguments take ``"auto"`` only, and anything else
+raises ``NotImplementedError`` (ROADMAP Queue A item 7, the tuner).
 """
 from __future__ import annotations
 
 from repro_torch.kernels.activations import activation as _activation
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.int8_matmul import int8_matmul as _int8_matmul
 from repro_torch.kernels.lstm_cell import lstm_cell_fused as _lstm_cell
 from repro_torch.kernels.lstm_seq import (
     lstm_seq_fused as _lstm_seq,
@@ -18,11 +22,25 @@ from repro_torch.kernels.lstm_seq import (
     lstm_seq_fused_quantized as _lstm_seq_quantized,
     lstm_stack_fused as _lstm_stack,
 )
-from repro_torch.kernels.ref import quantize_colwise, quantize_rowwise  # noqa: F401
+from repro_torch.kernels.ref import quantize_colwise, quantize_rowwise
 
 
 def activation(x, *, fn: str = "sigmoid", impl: str = "exact"):
     return _activation(x, fn=fn, impl=impl)
+
+
+def _auto_blocks(kernel: str, **blocks) -> None:
+    fixed = {k: v for k, v in blocks.items() if v != "auto"}
+    if fixed:
+        raise NotImplementedError(
+            f"{kernel}: block sizes {fixed} cannot be chosen yet; the kernel's tiles are "
+            "fixed until the block-size tuner is ported (ROADMAP Queue A item 7)")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q="auto", block_k="auto"):
+    """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) → (B, H, Sq, D)."""
+    _auto_blocks("flash_attention", block_q=block_q, block_k=block_k)
+    return _flash(q, k, v, causal=causal)
 
 
 def lstm_cell(x, h, c, w, u, b, *, impl: str = "exact", block_b="auto"):
@@ -54,3 +72,16 @@ def lstm_stack(x, layers, *, impl: str = "exact", block_b="auto",
     layer's hs (B, S, H); inter-layer h stays in shared memory."""
     return _lstm_stack(x, layers, impl=impl, block_b=block_b, quantized=quantized,
                        return_state=return_state)
+
+
+def int8_matmul(x_q, w_q, x_scale, w_scale, *, block_m="auto", block_n="auto", block_k="auto"):
+    """x_q: (M, K) int8; w_q: (K, N) int8; x_scale: (M, 1); w_scale: (N,) → (M, N) f32."""
+    _auto_blocks("int8_matmul", block_m=block_m, block_n=block_n, block_k=block_k)
+    return _int8_matmul(x_q, w_q, x_scale, w_scale)
+
+
+def quantized_matmul(x, w, **kw):
+    """Quantize-on-the-fly f32/bf16 matmul through the int8 kernel."""
+    xq, sx = quantize_rowwise(x)
+    wq, sw = quantize_colwise(w)
+    return int8_matmul(xq, wq, sx, sw, **kw).to(x.dtype)

@@ -1,0 +1,301 @@
+"""Core transformer layers of the dense family: norms, RoPE, GQA attention,
+MLP, embedding.
+
+Pure functions over parameter dictionaries, as in the JAX package: each
+module exposes ``*_defs(cfg) -> ParamDef tree`` and ``*_apply(params, ...)``.
+Attention has three execution paths:
+
+  naive   — full (S×S) score matrix; fine for short sequences
+  chunked — a loop over KV blocks with online softmax (the "flash" dataflow
+            in tensor ops), bounded memory for long prefill
+  decode  — one query per sequence against a KV cache
+
+All three are plain tensor ops here, as they are plain jnp in the JAX
+package: the flash-attention kernel (``kernels/flash_attention``) is a
+public op of its own and no path of the model calls it.
+
+Differences from the JAX package, all of them without effect on the numbers:
+
+* ``constrain`` (sharding annotations) has no meaning on one device and is
+  dropped.
+* Decode takes one position per sequence, ``pos`` of shape (B,), where the
+  JAX package takes a scalar and maps the whole step over the slots of a
+  pool; RoPE, the cache write and the validity mask read each row's own
+  position.
+* The cache write is in place (``cache_update`` "dus" and "onehot" are the
+  same write on one device), where JAX returns a new cache.
+
+MLA attention and the chunked-prefill/verify bodies come with their
+families (ROADMAP Queue A item 8).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.params import ParamDef
+from repro_torch.models.quant import qeinsum
+
+NEG_INF = -1e30
+
+
+def _where_valid(mask: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
+
+
+def _sqrt(d: int) -> float:
+    """``jnp.sqrt`` of an int: the f32 square root."""
+    return float(torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm_defs(dim: int) -> dict:
+    return {"scale": ParamDef((dim,), (None,), init="ones", dtype=torch.float32)}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"]).to(x.dtype)
+
+
+def layernorm_defs(dim: int) -> dict:
+    return {
+        "scale": ParamDef((dim,), (None,), init="ones", dtype=torch.float32),
+        "bias": ParamDef((dim,), (None,), init="zeros", dtype=torch.float32),
+    }
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_frequencies(dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) rotate-half RoPE; positions: (..., S) integers."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)  # (d/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., S, d/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention core: naive / chunked online-softmax / decode
+# ---------------------------------------------------------------------------
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, D) → (B, S, KV·groups, D) for GQA score einsums."""
+    if groups == 1:
+        return k
+    b, s, kv, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, groups, d).reshape(b, s, kv * groups, d)
+
+
+def attention_naive(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """q: (B,Sq,H,D), k/v: (B,Sk,KV,D). Full score matrix."""
+    _, sq, h, d = q.shape
+    kv = k.shape[2]
+    k = _repeat_kv(k, h // kv)
+    v = _repeat_kv(v, h // kv)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) / _sqrt(d)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)
+        scores = _where_valid((qpos[:, None] >= kpos[None, :])[None, None], scores)
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024) -> torch.Tensor:
+    """Online softmax over KV chunks: the flash-attention dataflow in tensor
+    ops.  Memory O(Sq·chunk) instead of O(Sq·Sk)."""
+    b, sq, h, d = q.shape
+    dv = v.shape[-1]
+    sk, kvh = k.shape[1], k.shape[2]
+    if sk % chunk != 0:
+        return attention_naive(q, k, v, causal=causal)
+    g = h // kvh
+    qf = q.to(torch.float32)
+    scale = 1.0 / _sqrt(d)
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for idx in range(sk // chunk):
+        kb = _repeat_kv(k[:, idx * chunk:(idx + 1) * chunk], g)
+        vb = _repeat_kv(v[:, idx * chunk:(idx + 1) * chunk], g)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.to(torch.float32)) * scale
+        if causal:
+            kpos = idx * chunk + torch.arange(chunk, device=q.device)
+            s = _where_valid((qpos[:, None] >= kpos[None, :])[None, None], s)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-37)
+    return out.transpose(1, 2).to(q.dtype)  # (B,Sq,H,D)
+
+
+def attention_decode(q, k_cache, v_cache, pos) -> torch.Tensor:
+    """q: (B,1,H,D); caches: (B,Smax,KV,D); pos: (B,) index of each row's
+    new token.  Row b attends over cache[b, 0..pos[b]] inclusive (the cache
+    is already written at pos)."""
+    _, _, h, d = q.shape
+    g = h // k_cache.shape[2]
+    qf = q.to(torch.float32)
+    k = _repeat_kv(k_cache, g)
+    v = _repeat_kv(v_cache, g)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.to(torch.float32)) / _sqrt(d)
+    valid = torch.arange(k_cache.shape[1], device=q.device)[None, :] <= pos[:, None]
+    s = _where_valid(valid[:, None, None, :], s)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def run_attention(cfg: ArchConfig, q, k, v, *, causal: bool) -> torch.Tensor:
+    impl = cfg.attention_impl
+    if impl == "auto":
+        impl = "chunked" if q.shape[1] > 2 * cfg.attn_chunk else "naive"
+    if impl == "chunked":
+        return attention_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    if impl != "naive":
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    return attention_naive(q, k, v, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+def gqa_defs(cfg: ArchConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    defs = {
+        "wq": ParamDef((d, h, hd), ("embed", "heads", None)),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": ParamDef((h, hd, d), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((h, hd), ("heads", None), init="zeros")
+        defs["bk"] = ParamDef((kv, hd), ("kv_heads", None), init="zeros")
+        defs["bv"] = ParamDef((kv, hd), ("kv_heads", None), init="zeros")
+    return defs
+
+
+def gqa_project_qkv(params, x, cfg: ArchConfig, positions, *, rope: bool = True):
+    q = qeinsum("bsd,dhe->bshe", x, params["wq"])
+    k = qeinsum("bsd,dhe->bshe", x, params["wk"])
+    v = qeinsum("bsd,dhe->bshe", x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_apply(params, x, cfg: ArchConfig, *, causal: bool = True, rope: bool = True):
+    """Full-sequence GQA attention (train / prefill path)."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = gqa_project_qkv(params, x, cfg, positions, rope=rope)
+    out = run_attention(cfg, q, k, v, causal=causal)
+    return qeinsum("bshe,hed->bsd", out, params["wo"])
+
+
+def write_cache(cache, new, pos, cfg: ArchConfig):
+    """Write one row per sequence, ``new[b, 0]`` at ``cache[b, pos[b]]``
+    (the sequence axis is 1), in place, and return the cache."""
+    if cfg.cache_update not in ("dus", "onehot"):
+        raise ValueError(f"unknown cache_update {cfg.cache_update!r}")
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, pos] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def gqa_decode_apply(params, x, cache_k, cache_v, pos, cfg: ArchConfig, *, rope: bool = True):
+    """One-token decode.  x: (B,1,D); pos: (B,).  Returns (out, k_cache,
+    v_cache), the caches written in place."""
+    positions = pos[:, None]
+    q, k_new, v_new = gqa_project_qkv(params, x, cfg, positions, rope=rope)
+    k_cache = write_cache(cache_k, k_new, pos, cfg)
+    v_cache = write_cache(cache_v, v_new, pos, cfg)
+    out = attention_decode(q, k_cache, v_cache, pos)
+    out = qeinsum("bshe,hed->bsd", out, params["wo"])
+    return out, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU) with activation-variant axis
+# ---------------------------------------------------------------------------
+def mlp_defs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.activation == "gelu":  # classic 2-matrix MLP
+        return {
+            "wi": ParamDef((d, f), ("embed", "mlp")),
+            "bi": ParamDef((f,), ("mlp",), init="zeros"),
+            "wo": ParamDef((f, d), ("mlp", "embed")),
+            "bo": ParamDef((d,), (None,), init="zeros"),
+        }
+    return {  # SwiGLU
+        "wg": ParamDef((d, f), ("embed", "mlp")),
+        "wu": ParamDef((d, f), ("embed", "mlp")),
+        "wd": ParamDef((f, d), ("mlp", "embed")),
+    }
+
+
+def mlp_apply(params, x, cfg: ArchConfig):
+    from repro_torch.models.activations import get_activation
+
+    act = get_activation(cfg.activation, cfg.activation_impl)
+    if "wi" in params:
+        h = qeinsum("bsd,df->bsf", x, params["wi"]) + params["bi"].to(x.dtype)
+        return qeinsum("bsf,fd->bsd", act(h), params["wo"]) + params["bo"].to(x.dtype)
+    g = qeinsum("bsd,df->bsf", x, params["wg"])
+    u = qeinsum("bsd,df->bsf", x, params["wu"])
+    return qeinsum("bsf,fd->bsd", act(g) * u, params["wd"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def embed_defs(cfg: ArchConfig) -> dict:
+    v = cfg.padded_vocab
+    defs = {"tokens": ParamDef((v, cfg.d_model), ("vocab", "embed"), init="normal")}
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((cfg.d_model, v), ("embed", "vocab"))
+    return defs
+
+
+def embed_apply(params, tokens, cfg: ArchConfig):
+    return params["tokens"][tokens]
+
+
+def unembed_apply(params, x, cfg: ArchConfig):
+    """Not quantized, as in the JAX package: a plain product."""
+    w = params.get("unembed")
+    if w is None:
+        w = params["tokens"].T
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum("bsd,dv->bsv", x.to(dt), w.to(dt))

@@ -5,7 +5,9 @@ Every model module declares its parameters once as a tree of ``ParamDef``
 ``ParamDef`` leaves.  From that declaration come real initialization
 (:func:`init_params`, from an explicit ``torch.Generator``) and parameter
 counts.  :func:`params_from_numpy` carries a tree of numpy arrays, such as
-the JAX package's parameters, into tensors on a device.
+the JAX package's parameters, into tensors on a device: bfloat16 arrays bit
+for bit, and quantized weights (a pair with fields ``q`` and ``scale``) as
+the port's ``models.quant.QuantTensor``.
 
 The sharding-side derivations of the reference (abstract parameter trees,
 partition specs) are not ported yet.
@@ -58,14 +60,14 @@ def tree_leaves(tree: Pytree) -> list:
     return out
 
 
-def _initialize(gen: torch.Generator, d: ParamDef) -> torch.Tensor:
+def _initialize(gen: torch.Generator, d: ParamDef, device: torch.device) -> torch.Tensor:
     def normal():
         return torch.randn(d.shape, generator=gen, dtype=torch.float32, device=gen.device)
 
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=d.dtype)
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=d.dtype)
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
     if d.init == "scalar_log":  # e.g. Mamba A_log, init in [1, 16)
         u = torch.rand(d.shape, generator=gen, dtype=torch.float32, device=gen.device)
         return torch.log(1.0 + 15.0 * u).to(d.dtype)
@@ -87,16 +89,33 @@ def init_params(defs: Pytree, generator: torch.Generator, device=None) -> Pytree
     a seed fixes them; they are NOT the JAX package's numbers for the same
     seed (carry those over with :func:`params_from_numpy`)."""
     dev = resolve_device(device)
-    return tree_map(lambda d: _initialize(generator, d).to(dev), defs)
+    return tree_map(lambda d: _initialize(generator, d, dev).to(dev), defs)
+
+
+def _tensor_from_numpy(a, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: torch cannot read it
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
 def params_from_numpy(tree: Pytree, device=None) -> Pytree:
     """Carry a tree of numpy arrays (the JAX package's parameters, handed
     over with ``np.asarray``) into the port: same structure and types,
     tensors on ``device`` (``None`` means the card).  The arrays are copied,
-    so the two sides never share memory."""
+    so the two sides never share memory.  bfloat16 arrays arrive bit for
+    bit; a leaf with fields ``q`` and ``scale`` (the JAX package's
+    ``QuantTensor``) becomes the port's ``QuantTensor`` of both."""
+    from repro_torch.models.quant import QuantTensor
+
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
+
+    def leaf(a):
+        if getattr(a, "_fields", None) == ("q", "scale"):
+            return QuantTensor(_tensor_from_numpy(a.q, dev), _tensor_from_numpy(a.scale, dev))
+        return _tensor_from_numpy(a, dev)
+
+    return tree_map(leaf, tree)
 
 
 def count_params(defs: Pytree) -> int:

@@ -24,6 +24,10 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"runtime.py", "lstm_seq.py", "lstm.py", "chip_smoke.py"} <= names
+    # the int8-weight serving slice
+    assert {"int8_matmul.py", "flash_attention.py", "quant.py", "base.py", "granite_3_8b.py",
+            "granite_34b.py", "starcoder2_15b.py", "qwen15_110b.py", "layers.py",
+            "transformer.py", "model.py", "kv_cache.py", "slots.py", "engine.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -36,12 +40,13 @@ def test_no_jax_and_no_reference_imports(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_library_kernels_in_the_port(path):
     """The port's kernels are its own: no cuDNN LSTM, no library int8
-    product, no compiler-made kernels.  ``chip_smoke.py`` alone may time
-    ``torch.nn.LSTM`` as a yardstick."""
+    product or attention, no compiler-made kernels.  ``chip_smoke.py`` alone
+    may time ``torch.nn.LSTM``, ``torch._int_mm`` and
+    ``scaled_dot_product_attention`` as yardsticks."""
     text = path.read_text()
-    banned = ["torch.compile", "_int_mm", "cpp_extension", "import triton"]
+    banned = ["torch.compile", "cpp_extension", "import triton"]
     if path.name != "chip_smoke.py":
-        banned += ["nn.LSTM", "LSTMCell"]
+        banned += ["nn.LSTM", "LSTMCell", "_int_mm", "scaled_dot_product_attention"]
     assert not [b for b in banned if b in text]
 
 
@@ -76,7 +81,8 @@ def test_device_none_means_the_card():
 
 @pytest.mark.parametrize("entry", ["plan_paper_lstm", "init_params", "params_from_numpy",
                                    "compare_lstm_paths", "compare_lstm_quant",
-                                   "compare_lstm_stack"])
+                                   "compare_lstm_stack", "InferenceEngine", "init_model",
+                                   "SlotPool"])
 def test_entry_points_raise_without_a_card(entry):
     """Asked for the card (explicitly or by default) on a machine without
     one, an entry point raises; it does not fall back to the CPU."""
@@ -85,9 +91,14 @@ def test_entry_points_raise_without_a_card(entry):
     from repro_torch.kernels import bench
     from repro_torch.launch.train import plan_paper_lstm
     from repro_torch.models.lstm import lstm_defs
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models.model import init_model
     from repro_torch.models.params import init_params, params_from_numpy
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.slots import SlotPool
 
     _needs_no_card()
+    cfg = get_reduced_config("granite-3-8b")
     calls = {
         "plan_paper_lstm": lambda dev: plan_paper_lstm(4, 6, device=dev),
         "init_params": lambda dev: init_params(lstm_defs(6, 20), torch.Generator(), device=dev),
@@ -95,6 +106,9 @@ def test_entry_points_raise_without_a_card(entry):
         "compare_lstm_paths": lambda dev: bench.compare_lstm_paths(4, 6, 6, 20, n=1, device=dev),
         "compare_lstm_quant": lambda dev: bench.compare_lstm_quant(4, 6, 6, 20, n=1, device=dev),
         "compare_lstm_stack": lambda dev: bench.compare_lstm_stack(4, 6, 6, 20, 2, n=1, device=dev),
+        "InferenceEngine": lambda dev: InferenceEngine(cfg, device=dev),
+        "init_model": lambda dev: init_model(cfg, torch.Generator(), dev),
+        "SlotPool": lambda dev: SlotPool(cfg, max_batch=2, max_len=8, device=dev),
     }
     for dev in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):

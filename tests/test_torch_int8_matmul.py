@@ -1,0 +1,232 @@
+"""K5 ``int8_matmul`` in the port: its plain version, the ops wrappers and
+``models/quant.py`` against the JAX package, bit for bit.
+
+The int32 sum is exact and the epilogue runs in one order, ``(acc·sx)·sw``,
+so every comparison here is bit-identical (``assert_array_equal`` on the
+f32 bits), not a tolerance."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced_config as jax_config
+from repro.kernels import ref as jref
+from repro.kernels.int8_matmul import int8_matmul as jax_int8_matmul
+from repro.models import quant as jquant
+from repro.models.model import init_model as jax_init_model
+from repro_torch.configs import get_reduced_config as torch_config
+from repro_torch.kernels import ops, runtime
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+from repro_torch.models import quant as tquant
+from repro_torch.models.params import params_from_numpy
+
+torch.set_num_threads(1)
+
+DENSE = ("granite-3-8b", "granite-34b", "starcoder2-15b", "qwen1.5-110b")
+
+
+def _same_bits(got: torch.Tensor, want) -> None:
+    got, want = got.numpy(), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == np.float32:
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def _operands(seed: int, m: int, k: int, n: int):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    xq, sx = jref.quantize_rowwise(jnp.asarray(x))
+    wq, sw = jref.quantize_colwise(jnp.asarray(w))
+    return [np.array(a) for a in (xq, wq, sx, sw)]
+
+
+# the reference's kernel-test shapes, a ragged one, and a long ragged K
+@pytest.mark.parametrize("m,k,n", [(64, 128, 64), (128, 256, 128), (32, 64, 96), (5, 37, 19),
+                                   (3, 4100, 7)])
+def test_plain_version_is_bit_identical_to_jax(m, k, n):
+    xq, wq, sx, sw = _operands(m * 7 + n, m, k, n)
+    want_ref = jref.int8_matmul_ref(*map(jnp.asarray, (xq, wq, sx, sw)))
+    targs = [torch.from_numpy(a) for a in (xq, wq, sx, sw)]
+    got = int8_matmul_plain(*targs)
+    _same_bits(got, want_ref)
+    _same_bits(tref.int8_matmul_ref(*targs), want_ref)
+    if m % 32 == 0 and n % 32 == 0 and k % 32 == 0:  # the Pallas kernel does not pad
+        want_kernel = jax_int8_matmul(*map(jnp.asarray, (xq, wq, sx, sw)), block_m=32,
+                                      block_n=32, block_k=32, interpret=True)
+        _same_bits(got, want_kernel)
+
+
+def test_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
+    xq, wq, sx, sw = (torch.from_numpy(a) for a in _operands(1, 6, 40, 10))
+    runtime.reset_launch_counts()
+    got = int8_matmul(xq, wq, sx, sw)
+    assert runtime.launch_counts() == {}
+    _same_bits(got, int8_matmul_plain(xq, wq, sx, sw).numpy())
+    _same_bits(ops.int8_matmul(xq, wq, sx, sw), got.numpy())
+
+
+@pytest.mark.parametrize("bad", ["dtype", "scale_shape", "inner", "rank"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    xq, wq, sx, sw = (torch.from_numpy(a) for a in _operands(2, 4, 8, 4))
+    if bad == "dtype":
+        with pytest.raises(TypeError):
+            int8_matmul(xq.to(torch.int32), wq, sx, sw)
+    elif bad == "scale_shape":
+        with pytest.raises(ValueError):
+            int8_matmul(xq, wq, sx[:, 0], sw)
+    elif bad == "inner":
+        with pytest.raises(ValueError):
+            int8_matmul(xq, wq[:4], sx, sw)
+    else:
+        with pytest.raises(ValueError):
+            int8_matmul(xq[None], wq, sx, sw)
+
+
+def test_block_sizes_other_than_auto_are_refused():
+    xq, wq, sx, sw = (torch.from_numpy(a) for a in _operands(3, 4, 8, 4))
+    with pytest.raises(NotImplementedError, match="tuner"):
+        ops.int8_matmul(xq, wq, sx, sw, block_m=32)
+
+
+def test_quantized_matmul_matches_jax_and_bounds_error():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((64, 256)).astype(np.float32)
+    w = rng.standard_normal((256, 64)).astype(np.float32)
+    got = ops.quantized_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    xq, sx = jref.quantize_rowwise(jnp.asarray(x))
+    wq, sw = jref.quantize_colwise(jnp.asarray(w))
+    _same_bits(got, jref.int8_matmul_ref(xq, wq, sx, sw))
+    rel = float(np.linalg.norm(got.numpy() - x @ w) / np.linalg.norm(x @ w))
+    assert rel < 0.02, rel
+
+
+# ---------------------------------------------------------------------------
+# qeinsum: passthrough, fast path (with and without a batch label), fallback
+# ---------------------------------------------------------------------------
+def _qt_pair(w: np.ndarray, lead: int, n_contract: int):
+    jq = jquant._quantize_weight(jnp.asarray(w), lead=lead, n_contract=n_contract)
+    tq = tquant.quantize_weight(torch.from_numpy(w), lead=lead, n_contract=n_contract)
+    _same_bits(tq.q, jq.q)
+    _same_bits(tq.scale, jq.scale)
+    return jq, tq
+
+
+@pytest.mark.parametrize("spec,xshape,wshape,lead,nc", [
+    ("bsd,dhe->bshe", (2, 5, 16), (16, 4, 8), 0, 1),     # q/k/v projection
+    ("bshe,hed->bsd", (2, 5, 4, 8), (4, 8, 16), 0, 2),   # attention output, two contract axes
+    ("bsf,fd->bsd", (3, 1, 24), (24, 16), 0, 1),         # MLP down, decode shape
+    ("ecd,edf->ecf", (3, 6, 16), (3, 16, 8), 1, 1),      # batch label (the MoE expert axis)
+])
+def test_qeinsum_fast_path_bit_identical(spec, xshape, wshape, lead, nc):
+    rng = np.random.default_rng(len(spec) + sum(xshape))
+    x = rng.standard_normal(xshape).astype(np.float32)
+    w = rng.standard_normal(wshape).astype(np.float32)
+    jq, tq = _qt_pair(w, lead, nc)
+    want = jquant.qeinsum(spec, jnp.asarray(x), jq)
+    _same_bits(tquant.qeinsum(spec, torch.from_numpy(x), tq), want)
+
+
+def test_qeinsum_passthrough_is_einsum():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    w = rng.standard_normal((16, 4, 8)).astype(np.float32)
+    got = tquant.qeinsum("bsd,dhe->bshe", torch.from_numpy(x), torch.from_numpy(w))
+    want = jquant.qeinsum("bsd,dhe->bshe", jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, torch.einsum("bsd,dhe->bshe", torch.from_numpy(x),
+                                         torch.from_numpy(w)))
+
+
+def test_qeinsum_fallback_uses_dequantized_weights():
+    """A spec that does not collapse to a column-scaled product (MLA's
+    absorbed decode) computes with exactly ``dequantize(w)``."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 1, 3, 8)).astype(np.float32)
+    w = rng.standard_normal((6, 3, 8)).astype(np.float32)
+    jq, tq = _qt_pair(w, 0, 1)
+    _same_bits(tquant.dequantize(tq), jquant.dequantize(jq))
+    got = tquant.qeinsum("bqhe,rhe->bqhr", torch.from_numpy(x), tq)
+    want = jquant.qeinsum("bqhe,rhe->bqhr", jnp.asarray(x), jq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, torch.einsum("bqhe,rhe->bqhr", torch.from_numpy(x),
+                                         tquant.dequantize(tq)))
+
+
+def test_qeinsum_runs_the_int8_matmul_once_per_call_on_the_cpu_version(monkeypatch):
+    """Every fast-path call goes through ``int8_matmul`` whatever the shape
+    (no multiple-of-128 rule); on CPU tensors that is the plain version."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((1, 3, 10)).astype(np.float32))
+    w = rng.standard_normal((10, 6)).astype(np.float32)
+    _, tq = _qt_pair(w, 0, 1)
+    calls = []
+    real = tquant.int8_matmul
+    monkeypatch.setattr(tquant, "int8_matmul", lambda *a: calls.append(a[0].shape) or real(*a))
+    tquant.qeinsum("bsd,df->bsf", x, tq)
+    assert calls == [torch.Size([3, 10])]
+
+
+# ---------------------------------------------------------------------------
+# quantize_params: byte for byte, per dense config; idempotent
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", DENSE)
+def test_quantize_params_byte_identical(arch):
+    jcfg = dataclasses.replace(jax_config(arch), dtype=jnp.float32)
+    tcfg = dataclasses.replace(torch_config(arch), dtype=torch.float32)
+    jp = jax_init_model(jcfg, jax.random.PRNGKey(0))
+    want = jquant.quantize_params(jp, jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    got = tquant.quantize_params(tp, tcfg)
+    is_q = lambda l: isinstance(l, jquant.QuantTensor)  # noqa: E731
+    want_leaves = jax.tree.leaves(want, is_leaf=is_q)
+    got_leaves = []
+
+    def collect(t):
+        if isinstance(t, dict):
+            for key in sorted(t):  # jax flattens dicts in sorted key order
+                collect(t[key])
+        else:
+            got_leaves.append(t)
+
+    collect(got)
+    assert len(got_leaves) == len(want_leaves)
+    n_quant = 0
+    for g, w in zip(got_leaves, want_leaves):
+        assert isinstance(g, tquant.QuantTensor) == is_q(w)
+        if is_q(w):
+            n_quant += 1
+            _same_bits(g.q, w.q)
+            _same_bits(g.scale, w.scale)
+    assert n_quant == (6 if tcfg.activation == "gelu" else 7)
+    again = tquant.quantize_params(got, tcfg)
+    assert again["blocks"]["attn"]["wq"] is got["blocks"]["attn"]["wq"]
+
+
+# ---------------------------------------------------------------------------
+# params_from_numpy: bf16 bit for bit, QuantTensor leaves
+# ---------------------------------------------------------------------------
+def test_params_from_numpy_carries_bf16_bit_for_bit():
+    a = jnp.asarray(np.random.default_rng(7).standard_normal((5, 3)), jnp.bfloat16)
+    tree = {"w": np.asarray(a), "ones": np.asarray(jnp.ones((2, 3), jnp.bfloat16))}
+    got = params_from_numpy(tree, "cpu")
+    assert got["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["w"].view(torch.int16).numpy(),
+                                  np.asarray(a).view(np.int16))
+    assert torch.equal(got["ones"], torch.ones((2, 3), dtype=torch.bfloat16))
+
+
+def test_params_from_numpy_carries_quant_tensors():
+    w = np.random.default_rng(8).standard_normal((2, 16, 4, 8)).astype(np.float32)
+    jq = jquant._quantize_weight(jnp.asarray(w), lead=1, n_contract=1)
+    got = params_from_numpy({"blocks": {"wq": jax.tree.map(np.asarray, jq)}}, "cpu")
+    tq = got["blocks"]["wq"]
+    assert isinstance(tq, tquant.QuantTensor)
+    _same_bits(tq.q, jq.q)
+    _same_bits(tq.scale, jq.scale)
