@@ -18,8 +18,14 @@ counters set to 0 just before it and read just after:
 * ``flash_attention`` — its public op ``kernels.ops.flash_attention`` at a
   granite-shaped causal case (K6; no model path calls it).
 
-Lines printed, in order: ``env``, ``phase`` lines (seconds per phase),
-``build``, ``serve_dense``, one JSON object ``{"kernels": [...]}``,
+K5 is held to its plain version bit for bit at every shape, on two calls in
+a row (its split-K counters and workspace must come back to zero); K6 within
+2e-5 in f32 and 3e-2 in bf16.  The SASS of the tensor-core kernels must hold
+HMMA (K6 bf16) and IMMA (K5) where the toolkit has ``cuobjdump``.
+
+Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
+``phase`` lines (seconds per phase), ``serve_dense``, one JSON object
+``{"kernels": [...]}``,
 ``main_path``, the card as ``nvidia-smi`` names it, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
 not 0 and the last line is not printed.  ``--out FILE`` also writes the whole
@@ -31,6 +37,7 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -46,9 +53,10 @@ from repro_torch.core.fpga import paper_workload  # noqa: E402
 from repro_torch.kernels import bench, ops, runtime  # noqa: E402
 from repro_torch.kernels.activations import activation, activation_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain,
+    HEAD_DIMS, flash_attention, flash_attention_plain, flash_smem_bytes,
 )
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain  # noqa: E402
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain, plan  # noqa: E402
+from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.lstm_cell import lstm_cell_fused, lstm_cell_plain  # noqa: E402
 from repro_torch.kernels.lstm_quant import quantize_lstm_stack, quantize_lstm_weights  # noqa: E402
 from repro_torch.kernels.lstm_seq import (  # noqa: E402
@@ -218,6 +226,65 @@ def entry(name, source, replaces, shapes):
 
 def r6(v):
     return None if v is None else float(f"{v:.6g}")
+
+
+# The tensor-core kernels and the SASS opcode each of their instantiations
+# must hold: bf16 mma.sync is HMMA, s8 mma.sync is IMMA.
+TENSOR_CORE_KERNELS = {"flash_attention_bf16_kernel": "HMMA", "int8_matmul_kernel": "IMMA"}
+
+
+def ptxas_usage(log: str) -> list[dict]:
+    """Registers, static shared memory, stack and spills of every
+    instantiation of the tensor-core kernels, from ``nvcc -Xptxas -v``."""
+    out, cur = [], None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = found.group(1)
+            cur = {"kernel": name} if any(k in name for k in TENSOR_CORE_KERNELS) else None
+            if cur:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        for key, pattern in (("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                             ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("static_smem_bytes", r"(\d+) bytes smem")):
+            found = re.search(pattern, line)
+            if found:
+                cur[key] = int(found.group(1))
+    return out
+
+
+def sass_tensor_ops() -> dict | None:
+    """Per instantiation of the tensor-core kernels, how many HMMA / IMMA
+    instructions ``cuobjdump -sass`` finds in the built library; fails when
+    one has none.  ``None`` where the toolkit has no ``cuobjdump``."""
+    tool = pathlib.Path(runtime._find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    lib = runtime.BUILD_DIR / f"libkernels-{runtime._sources_hash()}.so"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            family = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
+            cur = name if family else None
+            if cur:
+                counts[cur] = {"family": family, "op": TENSOR_CORE_KERNELS[family], "count": 0}
+        elif cur and re.search(rf"\b{counts[cur]['op']}\b", line):
+            counts[cur]["count"] += 1
+    for family in TENSOR_CORE_KERNELS:
+        if not any(c["family"] == family for c in counts.values()):
+            fail(f"SASS: no instantiation of {family} in {lib.name}")
+    for name, c in counts.items():
+        if c["count"] == 0:
+            fail(f"SASS: {name} holds no {c['op']} instruction")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -437,20 +504,29 @@ SERVE_LAYERS = 8                    # the only cut of granite-3-8b: 40 → 8 lay
 INT8_TEST_SHAPES = [(64, 128, 64), (128, 256, 128), (32, 64, 96)]
 INT8_PROJ_KN = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
 INT8_MAIN = (4, 4096, 12800)        # the entry's own numbers: wg/wu at decode
+# a ragged shape, and a split-K stress shape (ragged K and N, 17 chunks of K)
 INT8_SHAPES = ([INT8_MAIN] + [(m, k, n) for m in (4, 64, 256) for k, n in INT8_PROJ_KN
                               if (m, k, n) != INT8_MAIN]
-               + INT8_TEST_SHAPES + [(33, 4100, 1030)])
-# (B, H, KV, Sq, Sk, D, causal, dtype): the reference's kernel tests, its bf16
-# case, then granite-shaped causal attention over 2048 tokens
+               + INT8_TEST_SHAPES + [(33, 4100, 1030), (4, 12803, 1030)])
+# (B, H, KV, Sq, Sk, D, causal, dtype): granite-shaped causal attention over
+# 2048 tokens, the reference's kernel tests in f32 and their bf16 twins (every
+# head width, MQA non-causal, ragged 45 x 77), the reference's bf16 case, and
+# a ragged non-causal case at the granite head width
+_FLASH_TESTS = [(1, 4, 4, 128, 128, 32, True), (2, 8, 2, 128, 128, 64, True),
+                (1, 4, 1, 64, 256, 32, False), (2, 2, 2, 256, 256, 16, True),
+                (1, 6, 3, 45, 77, 16, True)]
 FLASH_MAIN = (1, 32, 8, 2048, 2048, 128, True, torch.bfloat16)
-FLASH_SHAPES = [FLASH_MAIN, (1, 32, 8, 2048, 2048, 128, True, torch.float32),
-                (1, 4, 4, 128, 128, 32, True, torch.float32),
-                (2, 8, 2, 128, 128, 64, True, torch.float32),
-                (1, 4, 1, 64, 256, 32, False, torch.float32),
-                (2, 2, 2, 256, 256, 16, True, torch.float32),
-                (1, 4, 2, 128, 128, 32, True, torch.bfloat16),
-                (1, 6, 3, 45, 77, 16, True, torch.float32)]
-TOL_BF16 = 3e-2                     # the reference's bf16 flash tolerance
+FLASH_SHAPES = ([FLASH_MAIN, (1, 32, 8, 2048, 2048, 128, True, torch.float32)]
+                + [(*c, torch.float32) for c in _FLASH_TESTS]
+                + [(*c, torch.bfloat16) for c in _FLASH_TESTS]
+                + [(1, 4, 2, 128, 128, 32, True, torch.bfloat16),
+                   (1, 6, 3, 45, 77, 128, False, torch.bfloat16)])
+# bf16 kernel against its plain version: the reference's bf16 flash
+# tolerance, 3e-2.  Both round p to bf16 before p @ v and the output to bf16;
+# they differ in the order of the f32 sums and in exp (exp2f(x log2 e) on the
+# card), which can move p or an output across a bf16 rounding edge: one unit
+# of 2^-8 relative, 3.9e-3 at |out| ~ 1 (seen on an H100).
+TOL_BF16 = 3e-2
 
 
 def int8_operands(m, k, n, dev, seed):
@@ -460,6 +536,23 @@ def int8_operands(m, k, n, dev, seed):
     xq, sx = ops.quantize_rowwise(x)
     wq, sw = ops.quantize_colwise(w)
     return xq, wq, sx, sw
+
+
+COLD_BYTES = 128 << 20  # weight copies cycled by cold_device_ms: over twice the 50 MB L2
+
+
+def cold_device_ms(fn, wq):
+    """Device time of one ``fn(w)`` over a ring of copies of ``wq`` whose
+    bytes exceed the L2 cache, so that every call reads its weight from
+    device memory, as the serving path does (its 1.6 GB of projections never
+    fit L2).  ``device_ms`` of one weight in a loop finds it in L2 when it is
+    smaller than 50 MB.  Device time, not CUDA-event time: back-to-back
+    wrapper calls at decode are bound by the host."""
+    copies = [wq] + [wq.clone() for _ in range(-(-COLD_BYTES // wq.numel()) - 1)]
+    turn = iter(range(10**9))
+    t = device_ms(lambda: fn(copies[next(turn) % len(copies)]), reps=len(copies))
+    del copies
+    return t
 
 
 def int8_library_ok(m, k, n) -> bool:
@@ -473,18 +566,23 @@ def check_int8_matmul(dev):
     for i, (m, k, n) in enumerate(INT8_SHAPES):
         xq, wq, sx, sw = int8_operands(m, k, n, dev, 100 + i)
         got = int8_matmul(xq, wq, sx, sw)
+        again = int8_matmul(xq, wq, sx, sw)  # split-K counters and workspace were reset
         want = int8_matmul_plain(xq, wq, sx, sw)
         torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            fail(f"int8_matmul {(m, k, n)}: not bit-identical to its plain version, "
-                 f"max err {float((got - want).abs().max()):.3e}")
+        for name, out in (("first call", got), ("second call", again)):
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                fail(f"int8_matmul {(m, k, n)} {name}: not bit-identical to its plain version, "
+                     f"max err {float((out - want).abs().max()):.3e}")
         library = lambda: (torch._int_mm(xq, wq).float() * sx) * sw[None, :]  # noqa: E731
         library_ms = time_ms(library) if int8_library_ok(m, k, n) else None
         bound_ms, bound_by = bound(nbytes(xq, wq, sx, sw) + 4 * m * n, 2.0 * m * k * n,
                                    PEAK_INT8_OPS)
         shapes.append({
-            "shape": [m, k, n], "max_abs_err": 0.0, "tolerance": 0.0,
+            "shape": [m, k, n], "plan": list(plan(m, k, n)), "max_abs_err": 0.0,
+            "tolerance": 0.0,
             "ms": r6(time_ms(lambda: int8_matmul(xq, wq, sx, sw))),
+            "cold_device_ms": r6(cold_device_ms(lambda w: int8_matmul(xq, w, sx, sw), wq)
+                                 if (k, n) in INT8_PROJ_KN else None),
             "device_ms": r6(device_ms(lambda: int8_matmul(xq, wq, sx, sw))),
             "plain_ms": r6(time_ms(lambda: int8_matmul_plain(xq, wq, sx, sw), reps=5, rounds=3)),
             "library_ms": r6(library_ms), "bound_ms": r6(bound_ms), "bound_by": bound_by,
@@ -529,6 +627,11 @@ def check_flash(dev):
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=True)
         lib_err = float((sdpa().float() - want.float()).abs().max())
+        # the whole-row oracle keeps p in f32: in bf16 this is the error of
+        # the kernel's bf16 p (a deliberate difference), held to the
+        # reference's own bf16 tolerance against its oracle
+        ref_err = compare(got, flash_attention_ref(q, k, v, causal=causal), "exact", tol,
+                          f"flash_attention {(b, h, kv, sq, sk, d)} vs oracle")
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
         bound_ms, bound_by = bound(nbytes(q, k, v) + nbytes(q),
                                    flash_flops(b, h, sq, sk, d, causal), peak)
@@ -540,7 +643,7 @@ def check_flash(dev):
             "plain_ms": r6(time_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
                                    reps=3, rounds=3)),
             "library_ms": r6(time_ms(sdpa, reps=10)), "library_max_abs_diff": r6(lib_err),
-            "bound_ms": r6(bound_ms), "bound_by": bound_by,
+            "oracle_max_abs_diff": r6(ref_err), "bound_ms": r6(bound_ms), "bound_by": bound_by,
         })
     return entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:95", shapes)
@@ -909,9 +1012,15 @@ def main(argv=None) -> int:
     print(smi, flush=True)
 
     runtime.load_kernels()
+    sass = sass_tensor_ops()
+    sass_summary = None if sass is None else {
+        family: {"op": op, "instantiations": sum(c["family"] == family for c in sass.values()),
+                 "fewest": min(c["count"] for c in sass.values() if c["family"] == family)}
+        for family, op in TENSOR_CORE_KERNELS.items()}
     print("build " + json.dumps({"seconds": r6(runtime.build_seconds()),
                                  "library": "build/repro_torch", "sources": sorted(
-                                     p.name for p in runtime.CSRC_DIR.glob("*.cu"))}), flush=True)
+                                     p.name for p in runtime.CSRC_DIR.glob("*.cu")),
+                                 "sass_tensor_ops": sass_summary}), flush=True)
 
     phases: dict[str, float] = {}
 
@@ -986,6 +1095,10 @@ def main(argv=None) -> int:
     }
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
               "lut_seen": {k: {n: r6(v) for n, v in d.items()} for k, d in LUT_SEEN.items()},
+              "tensor_core_kernels": {"ptxas": ptxas_usage(runtime.compile_log()),
+                                      "sass": sass,
+                                      "flash_bf16_dynamic_smem_bytes": {
+                                          d: flash_smem_bytes(d) for d in HEAD_DIMS}},
               "nvcc_log": runtime.compile_log()}
     if args.out:
         out = pathlib.Path(args.out)

@@ -1,16 +1,20 @@
 """Blocked online-softmax ("flash") attention with GQA.
 
 Layouts as in the JAX package: q (B, H, Sq, D); k/v (B, KV, Sk, D); query
-head h reads KV head h // (H / KV).  f32 or bf16 inputs, upcast to f32 for
-both products; the output has q's type.  The causal mask is top-left
+head h reads KV head h // (H / KV).  f32 or bf16 inputs, both products
+summed in f32; the output has q's type.  The causal mask is top-left
 aligned (query i sees keys 0..i), masked scores are ``-1e30`` (not -inf),
 and the result is ``acc / max(l, 1e-37)``, so a row whose scores are all
 masked averages its values uniformly, as the reference's does.
 
-The kernel (``csrc/flash_attention.cu``) walks the keys in tiles of
-``TILE_K`` rows; :func:`flash_attention_plain` repeats its arithmetic tile by
-tile in PyTorch.  Unlike the TPU kernel, neither asks the tiles to divide
-Sq or Sk: ragged edges are masked.
+Two kernels in ``csrc/flash_attention.cu``: f32 inputs run on scalar FMAs
+in key tiles of ``TILE_K`` rows; bf16 inputs run on the tensor cores
+(``mma.sync`` m16n8k16) in key tiles of ``TILE_K_BF16`` rows, and round the
+probabilities p to bf16 before ``p @ v`` (the reference keeps them in f32;
+the row sum l is taken before the rounding).  :func:`flash_attention_plain`
+repeats each kernel's arithmetic tile by tile in PyTorch, that rounding
+included.  Unlike the TPU kernel, neither asks the tiles to divide Sq or
+Sk: ragged edges are masked.
 
 The serving path does not call this kernel (``models/layers.py`` runs its
 attention in plain tensor ops, as the JAX package does); it is reached
@@ -25,14 +29,27 @@ import torch
 from repro_torch.kernels import runtime
 
 NEG_INF = -1e30
-TILE_K = 32               # key rows per tile; `kTileK` in csrc/flash_attention.cu
-HEAD_DIMS = (16, 32, 64, 128)  # head widths the kernel is built for
+TILE_K = 32               # key rows per tile of the f32 kernel; `kTileK` in the .cu file
+TILE_K_BF16 = 64          # key rows per tile of the bf16 kernel; `kMmaTileK`
+STAGES_BF16 = 2           # key/value tiles in flight; `kMmaStages`
+ROW_PAD_BF16 = 8          # bf16 elements of padding per shared row; `kRowPad`
+HEAD_DIMS = (16, 32, 64, 128)  # head widths the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def flash_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one bf16 block: ``STAGES_BF16`` key and
+    value tiles, rows of ``d + ROW_PAD_BF16`` bf16 (the padding puts the 8
+    rows one ldmatrix reads in 8 bank groups); the q tile passes through
+    stage 1's key tile before the loop starts.  The C entry point recomputes
+    it and refuses a launch (-1) on disagreement."""
+    return 2 * STAGES_BF16 * TILE_K_BF16 * (d + ROW_PAD_BF16) * 2
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True):
-    """Plain PyTorch version of the kernel: the same tiles, the same
-    online-softmax updates, over all query rows at once."""
+    """Plain PyTorch version of the kernels: the same tiles, the same
+    online-softmax updates, over all query rows at once; for bf16 inputs
+    p is rounded to bf16 before ``p @ v``, as the bf16 kernel does."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     g = h // kvh
@@ -42,9 +59,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
-    for k0 in range(0, sk, TILE_K):
-        kt = k[:, :, k0:k0 + TILE_K].to(torch.float32).repeat_interleave(g, dim=1)
-        vt = v[:, :, k0:k0 + TILE_K].to(torch.float32).repeat_interleave(g, dim=1)
+    bf16 = q.dtype == torch.bfloat16
+    tile = TILE_K_BF16 if bf16 else TILE_K
+    for k0 in range(0, sk, tile):
+        kt = k[:, :, k0:k0 + tile].to(torch.float32).repeat_interleave(g, dim=1)
+        vt = v[:, :, k0:k0 + tile].to(torch.float32).repeat_interleave(g, dim=1)
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * scale
         if causal:
             kpos = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
@@ -53,6 +72,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1, keepdim=True)
+        if bf16:
+            p = p.to(torch.bfloat16).to(torch.float32)
         acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vt)
         m = m_new
     return (acc / torch.clamp_min(l, 1e-37)).to(q.dtype)
@@ -74,8 +95,8 @@ def _check(q, k, v) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) → (B, H, Sq, D) of q's type.
-    CUDA tensors launch the kernel (head widths in ``HEAD_DIMS``), CPU
-    tensors take the plain version."""
+    CUDA tensors launch a kernel (head widths in ``HEAD_DIMS``, base
+    pointers 16-byte aligned), CPU tensors take the plain version."""
     _check(q, k, v)
     dev = runtime.require_same_device(q, k, v)
     if dev.type == "cpu":
@@ -87,12 +108,15 @@ def flash_attention(q, k, v, *, causal: bool = True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention takes contiguous tensors; {name} is not")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} does not start on a 16-byte boundary")
     lib = runtime.load_kernels()
     out = torch.empty_like(q)
+    smem = flash_smem_bytes(d) if q.dtype == torch.bfloat16 else 0
     with runtime.device_guard(dev):
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, k.shape[1], sq,
-            k.shape[2], d, int(causal), _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+            k.shape[2], d, int(causal), _DTYPES[q.dtype], smem, 1.0 / math.sqrt(d),
             runtime.current_stream())
     runtime.check_launch(rc, "flash_attention")
     runtime.count_launch("flash_attention")

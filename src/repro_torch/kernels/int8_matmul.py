@@ -7,6 +7,12 @@ row, weights per output column (``kernels.ref.quantize_rowwise`` /
 kernel (``csrc/int8_matmul.cu``) and :func:`int8_matmul_plain` give the
 same bits: the integer sum is exact and the epilogue runs in one order.
 
+The kernel's geometry is chosen here, by :func:`plan`: the output tile, and
+how K is cut into chunks that separate blocks sum (split-K) so that a small
+M still spreads over the card's SMs.  The partial sums of a split meet in
+an int32 workspace that this module allocates once per device and stream
+(:func:`_workspace`) and that the kernel leaves zeroed.
+
 Every quantized projection of ``models/quant.qeinsum`` goes through
 :func:`int8_matmul`.  The JAX package launches its kernel only when M, K and
 N are multiples of 128 (a TPU tiling rule); the port launches it for every
@@ -14,11 +20,56 @@ shape, since the kernel masks ragged edges.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import runtime
 
-SMALL_M = 16  # up to this many rows a tile is 16 x 64, else 64 x 64
+SMALL_M = 16        # up to this many rows (decode) a tile is 16 rows high
+BLOCK_K = 64        # bytes of k per pipeline stage; `kBK` in csrc/int8_matmul.cu
+# Largest K whose int32 sums cannot overflow: |x w| <= 128^2 for any int8
+# pair (the quantizers give -127..127, but the kernel takes any int8).
+MAX_K = (2**31 - 1) // (128 * 128)
+
+
+class Plan(NamedTuple):
+    block_m: int    # output rows of a block: 16, 64 or 128
+    block_n: int    # output columns of a block: 64 or 128
+    split_k: int    # chunks of K, one block each per output tile
+    k_chunk: int    # bytes of K per chunk, a multiple of BLOCK_K
+
+    def blocks(self, m: int, n: int) -> int:
+        return self.tiles(m, n) * self.split_k
+
+    def tiles(self, m: int, n: int) -> int:
+        return -(-m // self.block_m) * -(-n // self.block_n)
+
+
+def plan(m: int, k: int, n: int) -> Plan:
+    """The kernel's geometry for an (m, k) x (k, n) product.
+
+    Decode (m <= 16) is bound by the weight's bytes, so it wants many blocks
+    in flight: 16-row tiles and K split until the grid holds at least
+    2 x 132 blocks (two per SM).  Tiles are 128 columns wide (a block reads
+    128 contiguous bytes of each weight row) where N is 4096 or more, else
+    64, which keeps narrow weights (wk/wv, N = 1024) from splitting K into
+    single stages.  Larger m is bound by the tensor cores:
+    64 x 128 or 128 x 128 tiles, K split only while the tiles alone leave
+    SMs idle (fewer than 132 blocks), and never below 8 stages (512 bytes)
+    a chunk, so that the atomics of a split stay small beside its loads."""
+    if m <= SMALL_M:
+        block_m, target, min_steps = 16, 2 * runtime.SM_COUNT, 1
+        block_n = 128 if n >= 4096 else 64
+    elif m <= 64:
+        block_m, block_n, target, min_steps = 64, 128, runtime.SM_COUNT, 8
+    else:
+        block_m, block_n, target, min_steps = 128, 128, runtime.SM_COUNT, 8
+    steps = -(-k // BLOCK_K)
+    tiles = -(-m // block_m) * -(-n // block_n)
+    need = -(-target // tiles)
+    per = max(steps // need, min(min_steps, steps), 1)
+    return Plan(block_m, block_n, -(-steps // per), per * BLOCK_K)
 
 
 def int8_matmul_plain(x_q, w_q, x_scale, w_scale):
@@ -49,11 +100,32 @@ def _check(x_q, w_q, x_scale, w_scale) -> tuple[int, int, int]:
     return m, k, n
 
 
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(dev: torch.device, stream: int, ints: int, tiles: int):
+    """Zeroed int32 partial sums (``ints``) and arrival counters (``tiles``)
+    for split-K launches on ``stream``, kept per device and stream and grown
+    when a call needs more.  The kernel returns them to zero, so they are
+    allocated (``torch.zeros``) only when they grow."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), stream)
+    ws, cnt = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < ints or cnt.numel() < tiles:
+        ints = max(ints, 0 if ws is None else ws.numel())
+        tiles = max(tiles, 0 if cnt is None else cnt.numel())
+        ws = torch.zeros(ints, dtype=torch.int32, device=dev)
+        cnt = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        _workspaces[key] = (ws, cnt)
+    return ws, cnt
+
+
 def int8_matmul(x_q, w_q, x_scale, w_scale):
     """x_q: (M, K) int8; w_q: (K, N) int8; x_scale: (M, 1) f32; w_scale: (N,)
     f32 → (M, N) f32.  CUDA tensors launch the kernel, CPU tensors take the
-    plain version."""
+    plain version.  K is at most ``MAX_K`` on either."""
     m, k, n = _check(x_q, w_q, x_scale, w_scale)
+    if k > MAX_K:
+        raise ValueError(f"int8_matmul: K = {k} could overflow the int32 sums (at most {MAX_K})")
     dev = runtime.require_same_device(x_q, w_q, x_scale, w_scale)
     if dev.type == "cpu":
         return int8_matmul_plain(x_q, w_q, x_scale, w_scale)
@@ -62,13 +134,20 @@ def int8_matmul(x_q, w_q, x_scale, w_scale):
             raise ValueError(f"int8_matmul takes contiguous tensors; {name} is not")
     lib = runtime.load_kernels()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    vec_x = int(k % 4 == 0 and x_q.data_ptr() % 4 == 0)
-    vec_w = int(n % 4 == 0 and w_q.data_ptr() % 4 == 0)
-    block_m = SMALL_M if m <= SMALL_M else 64
+    vec = int(k % 16 == 0 and n % 16 == 0 and x_q.data_ptr() % 16 == 0
+              and w_q.data_ptr() % 16 == 0)
+    p = plan(m, k, n)
+    stream = runtime.current_stream()
+    ws = cnt = None
+    if p.split_k > 1:
+        tiles = p.tiles(m, n)
+        ws, cnt = _workspace(dev, stream, tiles * p.block_m * p.block_n, tiles)
     with runtime.device_guard(dev):
         rc = lib.repro_int8_matmul(
             x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-            out.data_ptr(), m, n, k, vec_x, vec_w, block_m, runtime.current_stream())
+            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), m, n, k, vec, p.block_m, p.block_n,
+            p.split_k, p.k_chunk, stream)
     runtime.check_launch(rc, "int8_matmul")
     runtime.count_launch("int8_matmul")
     return out

@@ -6,7 +6,8 @@ PyTorch versions.  There is no switch that changes this.
 
 Batch tiles default to ``"auto"``: a fixed rule
 (``repro_torch.kernels.runtime.pick_block_b``) until the block-size tuner is
-ported.  The attention and int8-matmul kernels have fixed tiles for the same
+ported.  The attention kernel has fixed tiles and the int8-matmul kernel
+takes its geometry from a fixed rule (``int8_matmul.plan``) for the same
 reason: their ``block_*`` arguments take ``"auto"`` only, and anything else
 raises ``NotImplementedError`` (ROADMAP Queue A item 7, the tuner).
 """

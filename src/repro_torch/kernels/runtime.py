@@ -41,8 +41,8 @@ _SIGNATURES = {
     "repro_lstm_cell": [_VP] * 9 + [_INT] * 6 + [_VP],
     "repro_lstm_seq": [_VP] * 10 + [_INT] * 10 + [_VP],
     "repro_lstm_stack": [_VP] * 11 + [_INT] * 11 + [_VP],
-    "repro_int8_matmul": [_VP] * 5 + [_INT] * 6 + [_VP],
-    "repro_flash_attention": [_VP] * 4 + [_INT] * 8 + [ctypes.c_float, _VP],
+    "repro_int8_matmul": [_VP] * 7 + [_INT] * 8 + [_VP],
+    "repro_flash_attention": [_VP] * 4 + [_INT] * 9 + [ctypes.c_float, _VP],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -11,7 +11,9 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import ops, runtime
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS, flash_attention, flash_attention_plain, flash_smem_bytes,
+)
 
 torch.set_num_threads(1)
 
@@ -45,16 +47,52 @@ def test_plain_version_matches_jax(b, h, kv, sq, sk, d, causal):
                                atol=2e-5, rtol=2e-5)
 
 
-def test_plain_version_bf16():
-    q, k, v = _qkv(9, 1, 4, 2, 128, 128, 32)
+# bf16: the reference's four shapes, the first bf16 case (GQA 2:1), and the
+# granite head width (D = 128, GQA 4:1, causal, Sq < Sk).  The plain version
+# rounds p to bf16 before p @ v, as the bf16 kernel does; the JAX kernel keeps
+# p in f32.  Both outputs are rounded to bf16, hence the reference's 3e-2.
+BF16_SHAPES = SHAPES + [(1, 4, 2, 128, 128, 32, True), (1, 8, 2, 64, 128, 128, True)]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", BF16_SHAPES)
+def test_plain_version_bf16(b, h, kv, sq, sk, d, causal):
+    q, k, v = _qkv(9 + d, b, h, kv, sq, sk, d)
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
-    want = np.asarray(jax_flash(jq, jk, jv, causal=True, block_q=64, block_k=64,
+    want = np.asarray(jax_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64,
                                 interpret=True), np.float32)
     tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
                   for a in (jq, jk, jv))
-    got = flash_attention_plain(tq, tk, tv, causal=True)
+    got = flash_attention_plain(tq, tk, tv, causal=causal)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2, rtol=3e-2)
+
+
+def test_plain_version_bf16_rounds_p_like_the_kernel():
+    """For bf16 inputs the plain version sums p @ v over p rounded to bf16
+    (the kernel's A operand), with l summed over p before the rounding; on
+    one tile of keys that is this computation, and it differs from the one
+    that keeps p in f32."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(21, 1, 1, 1, 8, 40, 16))
+    s_ = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * 0.25
+    p = torch.exp(s_ - s_.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+
+    def out(pv):
+        return (torch.einsum("bhqk,bhkd->bhqd", pv, v.float()) / l).to(torch.bfloat16)
+
+    got = flash_attention_plain(q, k, v, causal=False)
+    assert torch.equal(got, out(p.to(torch.bfloat16).float()))
+    assert not torch.equal(got, out(p))
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_bf16_shared_memory_fits_one_block(d):
+    """The bf16 kernel's two stages of key and value tiles fit the 227 KB one
+    block may use (three blocks an SM at every head width), and the padded
+    rows keep ldmatrix's 16-byte alignment."""
+    assert flash_smem_bytes(d) <= runtime.MAX_SHARED_BYTES
+    assert 3 * flash_smem_bytes(d) <= runtime.MAX_SHARED_BYTES
+    assert ((d + 8) * 2) % 16 == 0
 
 
 def test_ragged_lengths_are_masked_not_refused():

@@ -20,7 +20,9 @@ from repro.models.model import init_model as jax_init_model
 from repro_torch.configs import get_reduced_config as torch_config
 from repro_torch.kernels import ops, runtime
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+from repro_torch.kernels.int8_matmul import (
+    BLOCK_K, MAX_K, int8_matmul, int8_matmul_plain, plan,
+)
 from repro_torch.models import quant as tquant
 from repro_torch.models.params import params_from_numpy
 
@@ -72,10 +74,15 @@ def test_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
     _same_bits(ops.int8_matmul(xq, wq, sx, sw), got.numpy())
 
 
-@pytest.mark.parametrize("bad", ["dtype", "scale_shape", "inner", "rank"])
+@pytest.mark.parametrize("bad", ["dtype", "scale_shape", "inner", "rank", "k_too_long"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     xq, wq, sx, sw = (torch.from_numpy(a) for a in _operands(2, 4, 8, 4))
-    if bad == "dtype":
+    if bad == "k_too_long":  # the int32 sums could overflow
+        with pytest.raises(ValueError, match="overflow"):
+            int8_matmul(torch.ones((1, MAX_K + 1), dtype=torch.int8),
+                        torch.ones((MAX_K + 1, 1), dtype=torch.int8),
+                        torch.ones((1, 1)), torch.ones(1))
+    elif bad == "dtype":
         with pytest.raises(TypeError):
             int8_matmul(xq.to(torch.int32), wq, sx, sw)
     elif bad == "scale_shape":
@@ -87,6 +94,65 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     else:
         with pytest.raises(ValueError):
             int8_matmul(xq[None], wq, sx, sw)
+
+
+# Every projection of granite-3-8b's serving path (wq/wo, wk/wv, wg/wu, wd) at
+# decode (M = 4 slots), a 64-token slot prefill and a 4 x 64-token prefill,
+# then ragged shapes.
+PROJ_KN = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
+PATH_SHAPES = [(m, k, n) for m in (4, 64, 256) for k, n in PROJ_KN]
+RAGGED_SHAPES = [(4, 12803, 1030), (33, 4100, 1030), (5, 37, 19), (3, 4100, 7), (1, 1, 1),
+                 (17, 65, 129), (16, 64 * 300 + 1, 64), (300, 4096, 100)]
+
+
+@pytest.mark.parametrize("m,k,n", PATH_SHAPES + RAGGED_SHAPES)
+def test_plan_covers_k_and_fills_the_card(m, k, n):
+    p = plan(m, k, n)
+    assert (p.block_m, p.block_n) in ((16, 64), (16, 128), (64, 128), (128, 128))
+    assert p.block_m >= min(m, 16) and (m <= 16) == (p.block_m == 16)
+    # the chunks cover K exactly: none empty, none past the end, multiples of 32
+    assert p.k_chunk % BLOCK_K == 0 and p.k_chunk % 32 == 0 and p.k_chunk > 0
+    assert (p.split_k - 1) * p.k_chunk < k <= p.split_k * p.k_chunk
+    assert 1 <= p.split_k <= 65535
+    # no int32 sum of a chunk or of the whole row can overflow
+    assert k <= MAX_K and 128 * 128 * k <= 2**31 - 1
+    if (m, k, n) in PATH_SHAPES and m <= 16:
+        assert p.blocks(m, n) >= 2 * runtime.SM_COUNT  # decode: two blocks an SM at least
+    if (m, k, n) in PATH_SHAPES and m > 16:
+        assert p.split_k == 1 or p.tiles(m, n) < runtime.SM_COUNT
+        assert p.split_k == 1 or p.k_chunk >= 8 * BLOCK_K
+
+
+def _split_k_emulation(xq, wq, sx, sw, order):
+    """What the kernel does with ``plan``'s chunks: int32 partial sums per
+    chunk, added in ``order``, then the epilogue (acc·sx)·sw in f32."""
+    m, k = xq.shape
+    p = plan(m, k, wq.shape[1])
+    parts = [torch.matmul(xq[:, c * p.k_chunk:(c + 1) * p.k_chunk].to(torch.int64),
+                          wq[c * p.k_chunk:(c + 1) * p.k_chunk].to(torch.int64))
+             for c in range(p.split_k)]
+    acc = torch.zeros_like(parts[0])
+    for c in order(p.split_k):
+        assert int(parts[c].abs().max()) < 2**31
+        acc += parts[c]
+        assert int(acc.abs().max()) < 2**31  # every prefix fits the int32 workspace
+    return p, acc.to(torch.int32).to(torch.float32) * sx * sw[None, :]
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 1024), (4, 12803, 1030), (33, 4100, 1030),
+                                   (64, 4096, 1024), (256, 4096, 1024), (4, 12800, 256)])
+def test_split_k_emulation_is_bit_identical_to_plain_and_jax(m, k, n):
+    xq, wq, sx, sw = _operands(m + k + n, m, k, n)
+    targs = [torch.from_numpy(a) for a in (xq, wq, sx, sw)]
+    want = jref.int8_matmul_ref(*map(jnp.asarray, (xq, wq, sx, sw)))
+    rng = np.random.default_rng(k)
+    orders = (lambda s: range(s), lambda s: reversed(range(s)),
+              lambda s: rng.permutation(s).tolist())
+    for order in orders:
+        p, got = _split_k_emulation(*targs, order)
+        _same_bits(got, want)
+        _same_bits(got, int8_matmul_plain(*targs).numpy())
+    assert p.split_k > 1  # every case here is split
 
 
 def test_block_sizes_other_than_auto_are_refused():
