@@ -21,11 +21,16 @@ counters set to 0 just before it and read just after:
 K5 is held to its plain version bit for bit at every shape, on two calls in
 a row (its split-K counters and workspace must come back to zero); K6 within
 2e-5 in f32 and 3e-2 in bf16.  The SASS of the tensor-core kernels must hold
-HMMA (K6 bf16) and IMMA (K5) where the toolkit has ``cuobjdump``.
+HMMA (K6 bf16) and IMMA (K5) where the toolkit has ``cuobjdump``.  K3 runs
+its cluster path at D = H = 256 (its plan and the card's cluster occupancy
+are in its entry) and is held to its plain version there too, with a
+forced batch tile that leaves a ragged last cluster, and at a batch of 200
+whose input projection no longer fits at once (it runs in chunks of steps).
 
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
-``phase`` lines (seconds per phase), ``serve_dense``, one JSON object
-``{"kernels": [...]}``,
+``phase`` lines (seconds per phase), ``serve_dense``, ``host_path`` (each
+kernel wrapper's host time, and K1's host path piece by piece), one JSON
+object ``{"kernels": [...]}``,
 ``main_path``, the card as ``nvidia-smi`` names it, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
 not 0 and the last line is not printed.  ``--out FILE`` also writes the whole
@@ -60,8 +65,8 @@ from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.lstm_cell import lstm_cell_fused, lstm_cell_plain  # noqa: E402
 from repro_torch.kernels.lstm_quant import quantize_lstm_stack, quantize_lstm_weights  # noqa: E402
 from repro_torch.kernels.lstm_seq import (  # noqa: E402
-    lstm_seq_fused, lstm_seq_fused_quantized, lstm_seq_plain, lstm_stack_fused, lstm_stack_plain,
-    plan_launch,
+    cluster_slots, lstm_seq_fused, lstm_seq_fused_quantized, lstm_seq_plain, lstm_stack_fused,
+    lstm_stack_plain, plan_launch,
 )
 from repro_torch.launch.train import plan_paper_lstm  # noqa: E402
 from repro_torch.models.lstm import lstm_apply, lstm_stack_apply  # noqa: E402
@@ -85,6 +90,8 @@ SCALED_SHAPE = (32, 64, 16, 32)            # (B, S, D, H)
 QUANT_SHAPE = (40, 28, 256, 256)
 STACK_SHAPE = (40, 28, 256, 256, 3)        # (B, S, D, H, L)
 RAGGED_BATCH = 33
+RAGGED_TILE = 7                            # K3 rows a cluster at QUANT_SHAPE: 5 x 7 + 5
+CHUNK_SHAPE = (200, 28, 256, 256)          # K3's projection in chunks: 1 step (f32), 15 (int8)
 REQUESTS = 8
 
 # Kernel against plain version, on the card.  f32: the two sum the products
@@ -153,6 +160,28 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(stop) / reps)
     return statistics.median(samples)
+
+
+def time_pair(fn, library, reps: int = 20, rounds: int = 7) -> tuple[float, float]:
+    """``time_ms`` of ``fn`` and of ``library`` in alternating rounds, so
+    that a drift of the card's clock or of the host's load reaches both."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(time_ms(fn, reps=reps, rounds=1))
+        b.append(time_ms(library, reps=reps, rounds=1))
+    return statistics.median(a), statistics.median(b)
+
+
+def warm_card(dev, seconds: float = 1.0) -> None:
+    """Bring the card's clocks up from idle before anything is timed:
+    back-to-back products for about ``seconds``."""
+    a = torch.randn((4096, 4096), device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a = a @ a
+            a = a / a.abs().amax()
+        torch.cuda.synchronize()
 
 
 def device_ms(fn, reps: int = 10):
@@ -312,15 +341,16 @@ def check_activation(dev):
                                                same_inputs=True)
         torch.cuda.synchronize()
         bound_ms, bound_by = bound(2 * nbytes(x), x.numel() * ACT_OPS)
+        ms, library_ms = time_pair(lambda: activation(x, fn="sigmoid", impl="exact"),
+                                   lambda: torch.sigmoid(x))
         shapes.append({
             "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": max(errs.values()), "err_by_impl": {
                 impl: r6(max(v for k, v in errs.items() if k.endswith(impl))) for impl in IMPLS},
-            "tolerance": tol,
-            "ms": r6(time_ms(lambda: activation(x, fn="sigmoid", impl="exact"))),
+            "tolerance": tol, "ms": r6(ms),
             "device_ms": r6(device_ms(lambda: activation(x, fn="sigmoid", impl="exact"))),
             "plain_ms": r6(time_ms(lambda: activation_plain(x, fn="sigmoid", impl="exact"))),
-            "library_ms": r6(time_ms(lambda: torch.sigmoid(x))),
+            "library_ms": r6(library_ms), "ms_over_library": r6(ms / library_ms),
             "ms_by_fn_exact": {fn: r6(time_ms(lambda: activation(x, fn=fn, impl="exact"), reps=10,
                                               rounds=3)) for fn in library},
             "library_ms_by_fn": {fn: r6(time_ms(lambda: call(x), reps=10, rounds=3))
@@ -402,6 +432,22 @@ def check_seq(dev, quantized: bool):
         hs5 = kernel(block_b=5)  # a tile that does not divide the batch
         compare(hs5, lstm_seq_plain(x, *operands, packed=quantized)[0], "exact", tol,
                 f"{name} block_b=5")
+        slots = cluster_slots(dev)
+        forced = chunked = None
+        if (batch, seq, d_in, hidden) == QUANT_SHAPE:  # 7 rows a cluster: 5 x 7 + 5
+            forced = plan_launch(RAGGED_TILE, batch, seq, d_in, hidden, quantized=quantized,
+                                 slots=slots)
+            if forced.path != "cluster" or forced.block_b != RAGGED_TILE:
+                fail(f"{name}: block_b={RAGGED_TILE} planned {forced}, not {RAGGED_TILE} rows "
+                     "a cluster")
+            for impl in IMPLS:
+                hs, (hn, cn) = kernel(impl, block_b=RAGGED_TILE, return_state=True)
+                want = lstm_seq_plain(x, *operands, impl=impl, packed=quantized)
+                errs[f"{impl}/block_b={RAGGED_TILE}"] = max(
+                    compare(g, w, impl, tol, f"{name} block_b={RAGGED_TILE}")
+                    for g, w in zip((hs, hn, cn), want))
+            chunked, chunk_errs = check_seq_chunked(dev, quantized, tol)
+            errs.update(chunk_errs)
         torch.cuda.synchronize()
         library_ms = lib_err = None
         if not quantized:
@@ -411,17 +457,20 @@ def check_seq(dev, quantized: bool):
                 lstm.bias_ih_l0.copy_(p["b"]); lstm.bias_hh_l0.zero_()
                 lib_err = float((lstm(x)[0] - kernel()).abs().max())
                 library_ms = time_ms(lambda: lstm(x))
-        plan = plan_launch("auto", batch, seq, d_in, hidden, quantized=quantized)
+        plan = plan_launch("auto", batch, seq, d_in, hidden, quantized=quantized, slots=slots)
         weights = [t for t in operands if t is not None]
         out_bytes = 4 * (batch * seq * hidden + 2 * batch * hidden)
         bound_ms, bound_by = bound(nbytes(x, *weights) + out_bytes,
                                    lstm_flops(batch, seq, d_in, hidden))
+        dev_ms = device_ms(kernel)
         shapes.append({
-            "shape": [batch, seq, d_in, hidden], "block_b": plan.block_b,
-            "weights": "shared memory" if plan.resident else "re-read from L2 each step",
-            "smem_bytes": plan.smem_bytes, "max_abs_err": max(errs.values()),
+            "shape": [batch, seq, d_in, hidden], **seq_plan(plan, quantized),
+            "forced_ragged_plan": None if forced is None else seq_plan(forced, quantized),
+            "chunked_plan": chunked,
+            "max_abs_err": max(errs.values()),
             "err_by_impl": {k: r6(v) for k, v in errs.items()}, "tolerance": tol,
-            "ms": r6(time_ms(kernel)), "device_ms": r6(device_ms(kernel)),
+            "ms": r6(time_ms(kernel)), "device_ms": r6(dev_ms),
+            "device_ms_per_step": r6(None if dev_ms is None else dev_ms / seq),
             "ms_by_impl": {impl: r6(time_ms(lambda: kernel(impl), reps=10, rounds=3))
                            for impl in IMPLS},
             "plain_ms": r6(time_ms(lambda: lstm_seq_plain(x, *operands, packed=quantized),
@@ -429,8 +478,58 @@ def check_seq(dev, quantized: bool):
             "library_ms": r6(library_ms), "library_max_abs_diff": r6(lib_err),
             "bound_ms": r6(bound_ms), "bound_by": bound_by,
         })
-    return entry(name, "src/repro_torch/csrc/lstm_seq.cu",
-                 "src/repro/kernels/lstm_seq.py:245", shapes)
+    out = entry(name, "src/repro_torch/csrc/lstm_seq.cu",
+                "src/repro/kernels/lstm_seq.py:245", shapes)
+    out["plan"] = {k: shapes[0][k] for k in ("path", "block_b", "cluster", "clusters", "chunk",
+                                             "smem_bytes", "resident", "cluster_occupancy")}
+    return out
+
+
+def check_seq_chunked(dev, quantized: bool, tol: float):
+    """K3 at ``CHUNK_SHAPE``, where the auto plan's input projection runs in
+    chunks of steps (a chunk shorter than S, re-projected at every chunk's
+    first step), held to its plain version at every impl."""
+    batch, seq, d_in, hidden = CHUNK_SHAPE
+    name = "lstm_seq_q8" if quantized else "lstm_seq_f32"
+    plan = plan_launch("auto", batch, seq, d_in, hidden, quantized=quantized,
+                       slots=cluster_slots(dev))
+    if plan.path != "cluster" or plan.chunk >= seq:
+        fail(f"{name} {CHUNK_SHAPE}: planned {plan}, not a cluster plan in chunks")
+    x, params = make_lstm(29, batch, seq, d_in, hidden, 1, dev)
+    p = params[0]
+    if quantized:
+        qw = quantize_lstm_weights(p["w"], p["u"], p["b"], hidden)
+        operands = (qw.w_q, qw.u_q, qw.b, qw.w_scale, qw.u_scale)
+        kernel = lambda impl: lstm_seq_fused_quantized(x, qw, impl=impl, return_state=True)
+    else:
+        operands = (p["w"], p["u"], p["b"], None, None)
+        kernel = lambda impl: lstm_seq_fused(x, p["w"], p["u"], p["b"], impl=impl,
+                                             return_state=True)
+    errs = {}
+    for impl in IMPLS:
+        hs, (hn, cn) = kernel(impl)
+        want = lstm_seq_plain(x, *operands, impl=impl, packed=quantized)
+        errs[f"{impl}/{CHUNK_SHAPE}"] = max(
+            compare(g, w, impl, tol, f"{name} {CHUNK_SHAPE} chunk={plan.chunk}")
+            for g, w in zip((hs, hn, cn), want))
+    return {"shape": list(CHUNK_SHAPE), **seq_plan(plan, quantized)}, errs
+
+
+def seq_plan(plan, quantized: bool) -> dict:
+    """A K3 launch plan as the kernels line reports it, with the number of
+    its clusters the card holds at once (cudaOccupancyMaxActiveClusters)
+    where it is a cluster plan."""
+    occupancy = None
+    if plan.path == "cluster":
+        occupancy = runtime.query("repro_lstm_seq_cluster_occupancy", int(quantized),
+                                  plan.block_b, plan.smem_bytes)
+        if occupancy < 0:
+            fail(f"cudaOccupancyMaxActiveClusters failed (CUDA error {-occupancy}) for {plan}")
+    return {"path": plan.path, "block_b": plan.block_b, "cluster": plan.cluster,
+            "clusters": plan.clusters, "chunk": plan.chunk, "smem_bytes": plan.smem_bytes,
+            "resident": plan.resident, "cluster_occupancy": occupancy,
+            "weights": {"block": "shared memory", "l2": "re-read from L2 each step",
+                        "cluster": "u's slices in the cluster's shared memory"}[plan.path]}
 
 
 def check_stack(dev, quantized: bool):
@@ -474,7 +573,8 @@ def check_stack(dev, quantized: bool):
                     getattr(lstm, f"bias_hh_l{l}").zero_()
                 lib_err = float((lstm(x)[0] - kernel()).abs().max())
                 library_ms = time_ms(lambda: lstm(x))
-        plan = plan_launch("auto", batch, seq, d_in, hidden, layers=layers, quantized=quantized)
+        plan = plan_launch("auto", batch, seq, d_in, hidden, layers=layers, quantized=quantized,
+                           slots=cluster_slots(dev))
         weights = [t for t in operands if t is not None]
         out_bytes = 4 * (batch * seq * hidden + 2 * layers * batch * hidden)
         bound_ms, bound_by = bound(nbytes(x, *weights) + out_bytes,
@@ -492,6 +592,110 @@ def check_stack(dev, quantized: bool):
         })
     return entry(name, "src/repro_torch/csrc/lstm_seq.cu",
                  "src/repro/kernels/lstm_seq.py:368", shapes)
+
+
+# ---------------------------------------------------------------------------
+# The host path every wrapper shares
+# ---------------------------------------------------------------------------
+HOST_CALLS = 10_000   # calls per host-clock sample of the K1 split
+
+
+def host_ns(fn, calls: int = HOST_CALLS) -> float:
+    """Host nanoseconds per call of ``fn`` over ``calls`` calls in a loop
+    (perf_counter_ns), after a warm-up; the card is synchronised around the
+    loop, not inside it."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls
+
+
+def host_path(dev) -> dict:
+    """Host time of each kernel wrapper at its smallest shape of this script:
+    ``ms`` (CUDA events over a loop of calls: at these shapes the host's
+    issue rate sets it) minus ``device_ms``; K2 also at its main-path shape.
+    Then K1's host path at 40x28x256 f32 piece by piece, each piece timed
+    alone by the host clock, beside ``torch.sigmoid`` on the same tensor."""
+    lw = paper_workload()
+    _, paper = make_lstm(60, 1, 1, lw.d_in, lw.hidden, 1, dev)
+    p = paper[0]
+    xs, _ = make_lstm(61, RAGGED_BATCH, lw.seq, lw.d_in, lw.hidden, 1, dev)
+    xc = xs[:, 0].contiguous()
+    hc = torch.zeros((RAGGED_BATCH, lw.hidden), device=dev)
+    xk, stack = make_lstm(62, PAPER_BATCH, lw.seq, lw.d_in, lw.hidden, 3, dev)
+    b, s, _, h = QUANT_SHAPE
+    x2, big = make_lstm(63, b, 1, h, h, 1, dev)
+    x2 = x2[:, 0].contiguous()
+    h2 = torch.zeros((b, h), device=dev)
+    xq, wq, sx, sw = int8_operands(*INT8_TEST_SHAPES[2], dev, 64)
+    fb, fh, fkv, fsq, fsk, fd = 1, 6, 3, 45, 77, 16
+    gen = torch.Generator(device=dev).manual_seed(65)
+    q = torch.randn((fb, fh, fsq, fd), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((fb, fkv, fsk, fd), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((fb, fkv, fsk, fd), generator=gen, device=dev).to(torch.bfloat16)
+    xa = torch.randn((3, 33, 130), generator=gen, device=dev)
+    wrappers = {
+        "activation (3, 33, 130) f32": lambda: activation(xa),
+        f"lstm_cell ({RAGGED_BATCH}, {lw.d_in}, {lw.hidden})":
+            lambda: lstm_cell_fused(xc, hc, hc, p["w"], p["u"], p["b"]),
+        f"lstm_cell {QUANT_SHAPE[0], QUANT_SHAPE[2], QUANT_SHAPE[3]} (main path)":
+            lambda: lstm_cell_fused(x2, h2, h2, big[0]["w"], big[0]["u"], big[0]["b"]),
+        f"lstm_seq ({RAGGED_BATCH}, {lw.seq}, {lw.d_in}, {lw.hidden}) f32":
+            lambda: lstm_seq_fused(xs, p["w"], p["u"], p["b"]),
+        f"lstm_stack ({PAPER_BATCH}, {lw.seq}, {lw.d_in}, {lw.hidden}, 3) f32":
+            lambda: lstm_stack_fused(xk, stack),
+        f"int8_matmul {INT8_TEST_SHAPES[2]}": lambda: int8_matmul(xq, wq, sx, sw),
+        f"flash_attention {(fb, fh, fkv, fsq, fsk, fd)} bf16":
+            lambda: flash_attention(q, k, v, causal=True),
+    }
+    per_wrapper = {}
+    for name, fn in wrappers.items():
+        ms, dms = time_ms(fn, reps=50), device_ms(fn)
+        per_wrapper[name] = {"ms": r6(ms), "device_ms": r6(dms),
+                             "host_us": r6(None if dms is None else (ms - dms) * 1e3),
+                             "host_call_us": r6(host_ns(fn, 2000) / 1e3)}
+    out = {"wrappers": per_wrapper}
+    x = torch.randn(QUANT_SHAPE[:2] + QUANT_SHAPE[3:], device=dev)
+    y = torch.empty_like(x)
+    runtime.load_kernels()
+    fn, pack, count = runtime._entries["repro_activation"]
+    xp, yp, n = x.data_ptr(), y.data_ptr(), x.numel()
+    raw, get_device = runtime._raw_stream, runtime._get_device
+    pieces = {
+        "wrapper": lambda: activation(x),
+        "torch.sigmoid": lambda: torch.sigmoid(x),
+        "torch.empty_like": lambda: torch.empty_like(x),
+        "runtime.launch": lambda: runtime.launch("host_path", "repro_activation", 0, xp, yp, n,
+                                                 0, 0, 0, 0),
+        "pack + ctypes + C entry, no launch": lambda: fn(pack(xp, yp, 0, 0, 0, 0, 0, 0), count),
+        "pack + ctypes + C entry + cudaLaunchKernel":
+            lambda: fn(pack(xp, yp, n, 0, 0, 0, 0, raw(0)), count),
+        "raw stream handle": lambda: raw(0),
+        "current device": lambda: get_device(),
+        "x.data_ptr()": lambda: x.data_ptr(),
+        "x.is_contiguous()": lambda: x.is_contiguous(),
+        "torch.cuda.current_stream().cuda_stream (the previous launch path)":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "torch.cuda.current_device() (the previous launch path)": lambda: torch.cuda.current_device(),
+    }
+    split = {}
+    for _ in range(2):  # the better of two samples of each piece
+        for name, piece in pieces.items():
+            t = host_ns(piece)
+            split[name] = t if name not in split else min(split[name], t)
+    split = {name: r6(t / 1e3) for name, t in split.items()}
+    split["the wrapper's own Python (wrapper - empty_like - launch)"] = r6(
+        split["wrapper"] - split["torch.empty_like"] - split["runtime.launch"])
+    out["k1_split_us"] = split
+    k1_ms, k1_library_ms = time_pair(lambda: activation(x), lambda: torch.sigmoid(x), reps=50)
+    out.update(k1_ms=r6(k1_ms), k1_library_ms=r6(k1_library_ms),
+               k1_over_library=r6(k1_ms / k1_library_ms))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1010,7 +1214,6 @@ def main(argv=None) -> int:
            "cudnn_allow_tf32": False}
     print("env " + json.dumps(env), flush=True)
     print(smi, flush=True)
-
     runtime.load_kernels()
     sass = sass_tensor_ops()
     sass_summary = None if sass is None else {
@@ -1022,6 +1225,7 @@ def main(argv=None) -> int:
                                      p.name for p in runtime.CSRC_DIR.glob("*.cu")),
                                  "sass_tensor_ops": sass_summary}), flush=True)
 
+    warm_card(dev)  # after the build, which leaves the card idle
     phases: dict[str, float] = {}
 
     def phase(name, fn, *a):
@@ -1038,6 +1242,7 @@ def main(argv=None) -> int:
                phase("lstm_stack_q8", check_stack, dev, True),
                phase("int8_matmul", check_int8_matmul, dev),
                phase("flash_attention", check_flash, dev)]
+    host = phase("host_path", host_path, dev)
     quantize_on_card = phase("quantize_on_card", check_quantize_on_card, dev)
     init_on_card = phase("init_on_card", check_init_on_card, dev)
 
@@ -1094,6 +1299,7 @@ def main(argv=None) -> int:
         "phase_seconds": phases, "seconds": r6(time.perf_counter() - t_start),
     }
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
+              "host_path": host,
               "lut_seen": {k: {n: r6(v) for n, v in d.items()} for k, d in LUT_SEEN.items()},
               "tensor_core_kernels": {"ptxas": ptxas_usage(runtime.compile_log()),
                                       "sass": sass,
@@ -1106,6 +1312,7 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(report, indent=1))
 
     print("serve_dense " + json.dumps(serve), flush=True)
+    print("host_path " + json.dumps(host), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("main_path " + json.dumps(main_path), flush=True)
     print(smi, flush=True)

@@ -19,6 +19,7 @@
 #include <stdint.h>
 
 #include "activations.cuh"
+#include "launch.cuh"
 
 namespace repro {
 namespace {
@@ -80,10 +81,19 @@ __global__ void activation_kernel(const T* __restrict__ x, T* __restrict__ y,
 }  // namespace
 }  // namespace repro
 
-// x, y: n contiguous elements, f32 (is_bf16 == 0) or bf16 (is_bf16 == 1).
-// Returns cudaGetLastError() after the launch.
-extern "C" int repro_activation(const void* x, void* y, long long n, int fn, int impl,
-                                int is_bf16, const void* table, void* stream) {
+// a = {x, y, n, fn, impl, is_bf16, table, stream}: x, y hold n contiguous
+// elements, f32 (is_bf16 == 0) or bf16 (is_bf16 == 1); table is read only
+// for impl == lut.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_activation(const long long* a, int count) {
+  using namespace repro;
+  if (count != 8) return kBadArgCount;
+  const void* x = arg_ptr<const void>(a[0]);
+  void* y = arg_ptr<void>(a[1]);
+  const long long n = a[2];
+  const int fn = static_cast<int>(a[3]), impl = static_cast<int>(a[4]);
+  const int is_bf16 = static_cast<int>(a[5]);
+  const float* t = arg_ptr<const float>(a[6]);
+  cudaStream_t s = arg_stream(a[7]);
   if (n <= 0) return 0;
   const int threads = 256;
   const int elems_per_thread = is_bf16 ? 8 : 4;
@@ -93,14 +103,12 @@ extern "C" int repro_activation(const void* x, void* y, long long n, int fn, int
   const int blocks = static_cast<int>(want < 1 ? 1 : (want > cap ? cap : want));
   const int vectorised =
       (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (reinterpret_cast<uintptr_t>(y) % 16 == 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* t = static_cast<const float*>(table);
   if (is_bf16) {
-    repro::activation_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+    activation_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), n, fn, impl,
         vectorised, t);
   } else {
-    repro::activation_kernel<float><<<blocks, threads, 0, s>>>(
+    activation_kernel<float><<<blocks, threads, 0, s>>>(
         static_cast<const float*>(x), static_cast<float*>(y), n, fn, impl, vectorised, t);
   }
   return static_cast<int>(cudaGetLastError());

@@ -65,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 #include "mma_common.cuh"
 
 namespace repro {
@@ -400,9 +402,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int batch
 template <int D>
 int launch_bf16_dim(const void* q, const void* k, const void* v, void* out, int batch, int heads,
                     int kv_heads, int sq, int sk, int causal, float scale, cudaStream_t s) {
-  static int smem_set[32] = {};
+  static int smem_set[kMaxDevices] = {};
   constexpr int smem = mma_smem_bytes(D);
-  const int rc = mma::allow_smem(flash_attention_bf16_kernel<D>, smem, smem_set);
+  const int rc = allow_smem(flash_attention_bf16_kernel<D>, smem, smem_set);
   if (rc != 0) return rc;
   const long long bh = static_cast<long long>(batch) * heads;
   const long long blocks = bh * ((sq + kMmaRowsQ - 1) / kMmaRowsQ);
@@ -434,20 +436,31 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int batc
 }  // namespace
 }  // namespace repro
 
-// q: (B, H, Sq, D); k, v: (B, KV, Sk, D); out: (B, H, Sq, D); contiguous,
-// all of one type: dtype 0 = f32, 1 = bf16 (16-byte aligned base pointers).
-// D in {16, 32, 64, 128}; KV divides H.  scale is 1/sqrt(D).  smem_bytes is
-// the wrapper's count of the bf16 kernel's dynamic shared memory
-// (`flash_smem_bytes`), 0 for f32.  Returns -1 if that count disagrees with
-// the kernel's, -2 for arguments it does not take, else the CUDA error of
-// the launch.
-extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int batch, int heads, int kv_heads, int sq, int sk, int d,
-                                     int causal, int dtype, int smem_bytes, float scale,
-                                     void* stream) {
+// a = {q, k, v, out, batch, heads, kv_heads, sq, sk, d, causal, dtype,
+// smem_bytes, stream}.  q: (B, H, Sq, D); k, v: (B, KV, Sk, D); out:
+// (B, H, Sq, D); contiguous, all of one type: dtype 0 = f32, 1 = bf16
+// (16-byte aligned base pointers).  D in {16, 32, 64, 128}; KV divides H.
+// The scores are scaled by 1/sqrt(D), rounded once from double to float.
+// smem_bytes is the wrapper's count of the bf16 kernel's dynamic shared
+// memory (`flash_smem_bytes`), 0 for f32.  Returns -1 if that count
+// disagrees with the kernel's, -2 for arguments it does not take, else the
+// CUDA error of the launch.
+extern "C" int repro_flash_attention(const long long* a, int count) {
   using namespace repro;
-  if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads || sq < 1 || sk < 1) return -2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (count != 14) return kBadArgCount;
+  const void* q = arg_ptr<const void>(a[0]);
+  const void* k = arg_ptr<const void>(a[1]);
+  const void* v = arg_ptr<const void>(a[2]);
+  void* out = arg_ptr<void>(a[3]);
+  const int batch = static_cast<int>(a[4]), heads = static_cast<int>(a[5]);
+  const int kv_heads = static_cast<int>(a[6]), sq = static_cast<int>(a[7]);
+  const int sk = static_cast<int>(a[8]), d = static_cast<int>(a[9]);
+  const int causal = static_cast<int>(a[10]), dtype = static_cast<int>(a[11]);
+  const int smem_bytes = static_cast<int>(a[12]);
+  cudaStream_t s = arg_stream(a[13]);
+  if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads || sq < 1 || sk < 1 || d < 1)
+    return -2;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   if (dtype == 0) {
     if (smem_bytes != 0) return -1;
     return launch_f32(q, k, v, out, batch, heads, kv_heads, sq, sk, d, causal, scale, s);

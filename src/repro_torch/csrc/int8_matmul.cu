@@ -293,18 +293,18 @@ int launch(const int8_t* xq, const int8_t* wq, const float* sx, const float* sw,
            int32_t* ws, int32_t* counters, int M, int N, int K, int vec, int split_k,
            int k_chunk, cudaStream_t s) {
   constexpr int smem = smem_bytes<BM, BN>();
-  static int smem_set[2][32] = {};
+  static int smem_set[2][kMaxDevices] = {};
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split_k);
   if (grid.y > 65535) return -2;
   if (vec) {
     auto kernel = int8_matmul_kernel<BM, BN, WARPS_M, WARPS_N, true>;
-    const int rc = mma::allow_smem(kernel, smem, smem_set[1]);
+    const int rc = allow_smem(kernel, smem, smem_set[1]);
     if (rc != 0) return rc;
     kernel<<<grid, 32 * WARPS_M * WARPS_N, smem, s>>>(xq, wq, sx, sw, out, ws, counters, M, N, K,
                                                        k_chunk, split_k);
   } else {
     auto kernel = int8_matmul_kernel<BM, BN, WARPS_M, WARPS_N, false>;
-    const int rc = mma::allow_smem(kernel, smem, smem_set[0]);
+    const int rc = allow_smem(kernel, smem, smem_set[0]);
     if (rc != 0) return rc;
     kernel<<<grid, 32 * WARPS_M * WARPS_N, smem, s>>>(xq, wq, sx, sw, out, ws, counters, M, N, K,
                                                        k_chunk, split_k);
@@ -315,6 +315,8 @@ int launch(const int8_t* xq, const int8_t* wq, const float* sx, const float* sw,
 }  // namespace
 }  // namespace repro
 
+// a = {x_q, w_q, x_scale, w_scale, out, workspace, counters, M, N, K, vec,
+// block_m, block_n, split_k, k_chunk, stream}.
 // x_q: (M, K) int8; w_q: (K, N) int8; x_scale: (M) f32; w_scale: (N) f32;
 // out: (M, N) f32; all contiguous.  vec: 1 if K and N are multiples of 16
 // and x_q and w_q start on 16-byte boundaries.  The plan, from
@@ -326,18 +328,27 @@ int launch(const int8_t* xq, const int8_t* wq, const float* sx, const float* sw,
 // them zero.  K <= 131071, so that no int32 sum of int8 products overflows.
 // Returns -2 for a plan or arguments it does not take, else the CUDA error
 // of the launch.
-extern "C" int repro_int8_matmul(const void* x_q, const void* w_q, const void* x_scale,
-                                 const void* w_scale, void* out, void* workspace, void* counters,
-                                 int M, int N, int K, int vec, int block_m, int block_n,
-                                 int split_k, int k_chunk, void* stream) {
+extern "C" int repro_int8_matmul(const long long* a, int count) {
   using namespace repro;
+  if (count != 16) return kBadArgCount;
+  const void* x_q = arg_ptr<const void>(a[0]);
+  const void* w_q = arg_ptr<const void>(a[1]);
+  const void* x_scale = arg_ptr<const void>(a[2]);
+  const void* w_scale = arg_ptr<const void>(a[3]);
+  void* out = arg_ptr<void>(a[4]);
+  void* workspace = arg_ptr<void>(a[5]);
+  void* counters = arg_ptr<void>(a[6]);
+  const int M = static_cast<int>(a[7]), N = static_cast<int>(a[8]), K = static_cast<int>(a[9]);
+  const int vec = static_cast<int>(a[10]), block_m = static_cast<int>(a[11]);
+  const int block_n = static_cast<int>(a[12]), split_k = static_cast<int>(a[13]);
+  const int k_chunk = static_cast<int>(a[14]);
+  cudaStream_t s = arg_stream(a[15]);
   if (M < 1 || N < 1 || K < 1 || K > 131071) return -2;
   if (k_chunk < kBK || k_chunk % kBK || split_k < 1 || split_k > 65535) return -2;
   if (static_cast<long long>(split_k) * k_chunk < K ||
       static_cast<long long>(split_k - 1) * k_chunk >= K)
     return -2;
   if (split_k > 1 && (workspace == nullptr || counters == nullptr)) return -2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xq = static_cast<const int8_t*>(x_q);
   const auto* wq = static_cast<const int8_t*>(w_q);
   const auto* sx = static_cast<const float*>(x_scale);

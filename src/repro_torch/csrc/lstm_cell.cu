@@ -69,11 +69,9 @@ template <int R>
 int launch_cell(const float* x, const float* h, const float* c, const float* w, const float* u,
                 const float* b, const float* table, float* h_out, float* c_out, int batch,
                 int d_in, int hidden, int impl, int block_b, int smem, cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(lstm_cell_kernel<R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  static int smem_set[kMaxDevices] = {};
+  const int rc = allow_smem(lstm_cell_kernel<R>, smem, smem_set);
+  if (rc != 0) return rc;
   const int blocks = (batch + block_b - 1) / block_b;
   lstm_cell_kernel<R><<<blocks, lstm_block_threads(hidden), smem, s>>>(
       x, h, c, w, u, b, table, h_out, c_out, batch, d_in, hidden, impl, block_b);
@@ -83,22 +81,26 @@ int launch_cell(const float* x, const float* h, const float* c, const float* w, 
 }  // namespace
 }  // namespace repro
 
-// x: (B, D); h, c: (B, H); w: (D, 4H); u: (H, 4H); b: (4H); all f32 and
-// contiguous.  smem_bytes is the caller's figure for one block's shared
-// memory; -1 is returned if it is not this file's.  Otherwise returns
-// cudaGetLastError() after the launch.
-extern "C" int repro_lstm_cell(const void* x, const void* h, const void* c, const void* w,
-                               const void* u, const void* b, const void* table, void* h_out,
-                               void* c_out, int batch, int d_in, int hidden, int impl,
-                               int block_b, int smem_bytes, void* stream) {
+// a = {x, h, c, w, u, b, table, h_out, c_out, batch, d_in, hidden, impl,
+// block_b, smem_bytes, stream}.  x: (B, D); h, c: (B, H); w: (D, 4H);
+// u: (H, 4H); b: (4H); all f32 and contiguous.  smem_bytes is the caller's
+// figure for one block's shared memory; -1 is returned if it is not this
+// file's.  Otherwise returns cudaGetLastError() after the launch.
+extern "C" int repro_lstm_cell(const long long* a, int count) {
   using namespace repro;
+  if (count != 16) return kBadArgCount;
+  const int batch = static_cast<int>(a[9]), d_in = static_cast<int>(a[10]);
+  const int hidden = static_cast<int>(a[11]), impl = static_cast<int>(a[12]);
+  const int block_b = static_cast<int>(a[13]), smem_bytes = static_cast<int>(a[14]);
   const int smem = cell_smem_floats(block_b, d_in, hidden) * (int)sizeof(float);
   if (smem != smem_bytes || smem > kMaxSharedBytes) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_CELL(R)                                                                         \
-  return launch_cell<R>((const float*)x, (const float*)h, (const float*)c, (const float*)w,   \
-                        (const float*)u, (const float*)b, (const float*)table, (float*)h_out, \
-                        (float*)c_out, batch, d_in, hidden, impl, block_b, smem, s)
+  cudaStream_t s = arg_stream(a[15]);
+#define REPRO_CELL(R)                                                                    \
+  return launch_cell<R>(arg_ptr<const float>(a[0]), arg_ptr<const float>(a[1]),          \
+                        arg_ptr<const float>(a[2]), arg_ptr<const float>(a[3]),          \
+                        arg_ptr<const float>(a[4]), arg_ptr<const float>(a[5]),          \
+                        arg_ptr<const float>(a[6]), arg_ptr<float>(a[7]),                \
+                        arg_ptr<float>(a[8]), batch, d_in, hidden, impl, block_b, smem, s)
   switch (rows_in_registers(block_b)) {
     case 1: REPRO_CELL(1);
     case 2: REPRO_CELL(2);

@@ -37,6 +37,7 @@
 #include <stdint.h>
 
 #include "activations.cuh"
+#include "launch.cuh"
 
 namespace repro {
 

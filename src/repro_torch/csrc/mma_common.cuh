@@ -8,6 +8,8 @@
 
 #include <cstdint>
 
+#include "launch.cuh"
+
 namespace repro {
 namespace mma {
 
@@ -69,21 +71,6 @@ __device__ __forceinline__ void mma_s8_16832(int32_t (&d)[4], const uint32_t (&a
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Sets a kernel's dynamic shared-memory limit once per device.  Returns the
-// CUDA error of the call, or 0.
-template <typename Kernel>
-inline int allow_smem(Kernel kernel, int bytes, int (&done)[32]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= 32) return static_cast<int>(cudaErrorInvalidDevice);
-  if (done[dev] >= bytes) return 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  done[dev] = bytes;
-  return 0;
 }
 
 }  // namespace mma

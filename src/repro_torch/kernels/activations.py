@@ -100,6 +100,18 @@ def activation_plain(x: torch.Tensor, *, fn: str = "sigmoid", impl: str = "exact
     return y.to(x.dtype)
 
 
+# (fn, impl) -> the kernel's two codes; unknown names are refused by name.
+_CODES = {(fn, impl): (f, i) for fn, f in FN_CODES.items() for impl, i in IMPL_CODES.items()}
+_IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+_LUT = IMPL_CODES["lut"]
+
+
+def table_pointer(dev: torch.device, code: int) -> int:
+    """Address of the sigmoid table on ``dev`` for the ``lut`` variant, 0
+    for the others (their kernels never read it)."""
+    return _sigmoid_table(dev).data_ptr() if code == _LUT else 0
+
+
 def activation(x: torch.Tensor, *, fn: str = "sigmoid", impl: str = "exact") -> torch.Tensor:
     """Elementwise activation variant.  x: any shape, f32 or bf16, contiguous;
     returns the same shape and type (arithmetic in f32).
@@ -107,24 +119,22 @@ def activation(x: torch.Tensor, *, fn: str = "sigmoid", impl: str = "exact") -> 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor through
     :func:`activation_plain`.
     """
-    if fn not in FN_CODES:
-        raise ValueError(f"unknown activation fn {fn!r}; expected one of {sorted(FN_CODES)}")
-    code = impl_code(impl)
-    dev = runtime.require_same_device(x)
-    if dev.type == "cpu":
+    codes = _CODES.get((fn, impl))
+    if codes is None:
+        if fn not in FN_CODES:
+            raise ValueError(f"unknown activation fn {fn!r}; expected one of {sorted(FN_CODES)}")
+        impl_code(impl)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
         return activation_plain(x, fn=fn, impl=impl)
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    is_bf16 = _IS_BF16.get(x.dtype)
+    if is_bf16 is None:
         raise TypeError(f"activation kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("activation kernel takes a contiguous tensor")
-    lib = runtime.load_kernels()
     y = torch.empty_like(x)
-    table = _sigmoid_table(dev)
-    with runtime.device_guard(dev):
-        rc = lib.repro_activation(
-            x.data_ptr(), y.data_ptr(), x.numel(), FN_CODES[fn], code,
-            int(x.dtype == torch.bfloat16), table.data_ptr(), runtime.current_stream(),
-        )
-    runtime.check_launch(rc, "activation")
-    runtime.count_launch("activation")
+    f, i = codes
+    runtime.launch("activation", "repro_activation", x.get_device(), x.data_ptr(), y.data_ptr(),
+                   x.numel(), f, i, is_bf16, table_pointer(x.device, i) if i == _LUT else 0)
     return y

@@ -105,19 +105,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: the kernel is built for head widths {HEAD_DIMS}, "
                          f"not {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention takes contiguous tensors; {name} is not")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} does not start on a 16-byte boundary")
-    lib = runtime.load_kernels()
+    ptrs = runtime.aligned_pointers("flash_attention", ("q", "k", "v"), q, k, v)
     out = torch.empty_like(q)
     smem = flash_smem_bytes(d) if q.dtype == torch.bfloat16 else 0
-    with runtime.device_guard(dev):
-        rc = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, k.shape[1], sq,
-            k.shape[2], d, int(causal), _DTYPES[q.dtype], smem, 1.0 / math.sqrt(d),
-            runtime.current_stream())
-    runtime.check_launch(rc, "flash_attention")
-    runtime.count_launch("flash_attention")
+    runtime.launch("flash_attention", "repro_flash_attention", dev.index, *ptrs, out.data_ptr(),
+                   b, h, k.shape[1], sq, k.shape[2], d, int(causal), _DTYPES[q.dtype], smem)
     return out

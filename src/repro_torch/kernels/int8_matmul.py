@@ -103,12 +103,13 @@ def _check(x_q, w_q, x_scale, w_scale) -> tuple[int, int, int]:
 _workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _workspace(dev: torch.device, stream: int, ints: int, tiles: int):
+def _workspace(dev: torch.device, ints: int, tiles: int):
     """Zeroed int32 partial sums (``ints``) and arrival counters (``tiles``)
-    for split-K launches on ``stream``, kept per device and stream and grown
-    when a call needs more.  The kernel returns them to zero, so they are
-    allocated (``torch.zeros``) only when they grow."""
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(), stream)
+    for split-K launches on the current stream of ``dev``, kept per device
+    and stream (two streams sharing one would mix their partial sums) and
+    grown when a call needs more.  The kernel returns them to zero, so they
+    are allocated (``torch.zeros``) only when they grow."""
+    key = (dev.index, runtime.stream_handle(dev))
     ws, cnt = _workspaces.get(key, (None, None))
     if ws is None or ws.numel() < ints or cnt.numel() < tiles:
         ints = max(ints, 0 if ws is None else ws.numel())
@@ -132,22 +133,15 @@ def int8_matmul(x_q, w_q, x_scale, w_scale):
     for name, t in (("x_q", x_q), ("w_q", w_q), ("x_scale", x_scale), ("w_scale", w_scale)):
         if not t.is_contiguous():
             raise ValueError(f"int8_matmul takes contiguous tensors; {name} is not")
-    lib = runtime.load_kernels()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    vec = int(k % 16 == 0 and n % 16 == 0 and x_q.data_ptr() % 16 == 0
-              and w_q.data_ptr() % 16 == 0)
+    xp, wp = x_q.data_ptr(), w_q.data_ptr()
+    vec = int(k % 16 == 0 and n % 16 == 0 and xp % 16 == 0 and wp % 16 == 0)
     p = plan(m, k, n)
-    stream = runtime.current_stream()
-    ws = cnt = None
+    ws = cnt = 0
     if p.split_k > 1:
         tiles = p.tiles(m, n)
-        ws, cnt = _workspace(dev, stream, tiles * p.block_m * p.block_n, tiles)
-    with runtime.device_guard(dev):
-        rc = lib.repro_int8_matmul(
-            x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(),
-            None if cnt is None else cnt.data_ptr(), m, n, k, vec, p.block_m, p.block_n,
-            p.split_k, p.k_chunk, stream)
-    runtime.check_launch(rc, "int8_matmul")
-    runtime.count_launch("int8_matmul")
+        ws, cnt = (t.data_ptr() for t in _workspace(dev, tiles * p.block_m * p.block_n, tiles))
+    runtime.launch("int8_matmul", "repro_int8_matmul", dev.index, xp, wp, x_scale.data_ptr(),
+                   w_scale.data_ptr(), out.data_ptr(), ws, cnt, m, n, k, vec, p.block_m,
+                   p.block_n, p.split_k, p.k_chunk)
     return out

@@ -17,11 +17,13 @@ tensors.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.activations import apply_variant_plain, impl_code
-from repro_torch.models.activations import LUT_SIZE, _sigmoid_table
+from repro_torch.kernels.activations import apply_variant_plain, impl_code, table_pointer
+from repro_torch.models.activations import LUT_SIZE
 
 
 K_SLICES = 4  # k-slices of the gates' partial sums; `kSlices` in csrc/lstm_common.cuh
@@ -48,19 +50,7 @@ def lstm_cell_plain(x, h, c, w, u, b, *, impl: str = "exact"):
     return h_new, c_new
 
 
-def _check_f32(kernel: str, **tensors: torch.Tensor) -> None:
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel} takes float32 tensors, got {name} of {t.dtype}")
-
-
-def _contiguous(kernel: str, **tensors: torch.Tensor) -> None:
-    """What the kernels' 16-byte loads need of the tensors they are handed."""
-    for name, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel} takes contiguous tensors; {name} is not")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{kernel} takes 16-byte aligned tensors; {name} is not")
+_OPERANDS = ("x", "h", "c", "w", "u", "b")
 
 
 def lstm_cell_fused(x, h, c, w, u, b, *, impl: str = "exact", block_b: int | str = "auto"):
@@ -71,7 +61,7 @@ def lstm_cell_fused(x, h, c, w, u, b, *, impl: str = "exact", block_b: int | str
     the fixed rule of :func:`runtime.pick_block_b`.
     """
     code = impl_code(impl)
-    _check_f32("lstm_cell", x=x, h=h, c=c, w=w, u=u, b=b)
+    runtime.require_dtype("lstm_cell", torch.float32, _OPERANDS, x, h, c, w, u, b)
     bsz, d_in = x.shape
     hidden = h.shape[1]
     if (h.shape != (bsz, hidden) or c.shape != (bsz, hidden) or w.shape != (d_in, 4 * hidden)
@@ -81,21 +71,20 @@ def lstm_cell_fused(x, h, c, w, u, b, *, impl: str = "exact", block_b: int | str
             f"c {tuple(c.shape)} w {tuple(w.shape)} u {tuple(u.shape)} b {tuple(b.shape)}"
         )
     dev = runtime.require_same_device(x, h, c, w, u, b)
-    bb = runtime.pick_block_b(block_b, bsz, lambda n: cell_smem_bytes(n, d_in, hidden),
-                              "lstm_cell")
+    bb, smem = _cell_plan(block_b, bsz, d_in, hidden)
     if dev.type == "cpu":
         return lstm_cell_plain(x, h, c, w, u, b, impl=impl)
-    _contiguous("lstm_cell", x=x, h=h, c=c, w=w, u=u, b=b)
-    lib = runtime.load_kernels()
+    ptrs = runtime.aligned_pointers("lstm_cell", _OPERANDS, x, h, c, w, u, b)
     h_new = torch.empty_like(h)
     c_new = torch.empty_like(c)
-    table = _sigmoid_table(dev)
-    with runtime.device_guard(dev):
-        rc = lib.repro_lstm_cell(
-            x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(),
-            table.data_ptr(), h_new.data_ptr(), c_new.data_ptr(), bsz, d_in, hidden, code, bb,
-            cell_smem_bytes(bb, d_in, hidden), runtime.current_stream(),
-        )
-    runtime.check_launch(rc, "lstm_cell")
-    runtime.count_launch("lstm_cell")
+    runtime.launch("lstm_cell", "repro_lstm_cell", dev.index, *ptrs, table_pointer(dev, code),
+                   h_new.data_ptr(), c_new.data_ptr(), bsz, d_in, hidden, code, bb, smem)
     return h_new, c_new
+
+
+@functools.lru_cache(maxsize=1024)
+def _cell_plan(block_b, bsz: int, d_in: int, hidden: int) -> tuple[int, int]:
+    """Batch tile and shared memory of one block."""
+    bb = runtime.pick_block_b(block_b, bsz, lambda n: cell_smem_bytes(n, d_in, hidden),
+                              "lstm_cell")
+    return bb, cell_smem_bytes(bb, d_in, hidden)

@@ -19,12 +19,20 @@ the *residency*:
     the wrapper makes no time-major copy and pads nothing, the ragged last
     tile simply has fewer rows.
 
-Where the weights live.  If one layer's ``w`` and ``u`` fit in a thread
-block's shared memory beside the tile's state, the block copies them in
-once and every step reads them there (the paper's shape, the small bench
-widths).  If not (D = H = 256, f32 or int8), every step re-reads them from
-device memory through the L2 cache; int8 cuts that traffic to a quarter.
-:func:`plan_launch` makes the choice and reports it.
+Where the weights live (:func:`plan_launch` chooses and reports it):
+
+  * **one block per batch tile, weights resident**: if one layer's ``w``
+    and ``u`` fit in a thread block's shared memory beside the tile's
+    state, the block copies them in once and every step reads them there
+    (the paper's shape, the small bench widths);
+  * **a thread-block cluster per batch tile** (single layer): where they do
+    not (D = H = 256, f32 or int8), a cluster of ``CLUSTER`` = 8 blocks
+    splits the H hidden units, each block keeping its (H, 4H/8) slice of
+    ``u`` in shared memory; the input projection ``x·w + b`` is computed ahead of the
+    recurrence (as the JAX kernel's ``_input_projection`` does), and each
+    step's h is exchanged through distributed shared memory;
+  * **weights re-read from L2 each step**: where no cluster's slice fits
+    either, and for stacks.
 
 **int8 weights** (``lstm_seq_fused_q8`` / ``lstm_seq_fused_quantized``):
 ``w``/``u`` as int8 with per-gate-column f32 scales (``kernels.lstm_quant``),
@@ -40,8 +48,9 @@ that buffer cannot fit even for one batch row the wrapper raises a
 Each kernel has its plain PyTorch version here (:func:`lstm_seq_plain`,
 :func:`lstm_stack_plain`), taken only for CPU tensors.
 
-``block_b`` is the batch tile of one thread block: an int is honoured,
-``"auto"`` follows the fixed rule of :func:`runtime.pick_block_b`.
+``block_b`` is the batch tile of one thread block, or of one cluster on the
+cluster path: an int is honoured or refused with a ``ValueError`` that
+states the bound; ``"auto"`` follows the fixed rules of :func:`plan_launch`.
 """
 from __future__ import annotations
 
@@ -51,9 +60,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import runtime
-from repro_torch.kernels.activations import apply_variant_plain, impl_code
-from repro_torch.kernels.lstm_cell import K_SLICES, _check_f32, _contiguous
-from repro_torch.models.activations import LUT_SIZE, _sigmoid_table
+from repro_torch.kernels.activations import apply_variant_plain, impl_code, table_pointer
+from repro_torch.kernels.lstm_cell import K_SLICES
+from repro_torch.models.activations import LUT_SIZE
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,32 +101,125 @@ def seq_smem_bytes(bb: int, seq: int, d_in: int, hidden: int, layers: int,
     return nbytes
 
 
+# The cluster path; the names in brackets are csrc/lstm_seq.cu's.
+CLUSTER = 8                    # blocks a cluster [kCluster]: the most sm_90 allows portably,
+                               # and the size measured fastest at D = H = 256 (PERF.md)
+CLUSTER_THREADS = 256          # threads of a cluster block [kClusterThreads]
+PROJ_ROWS, PROJ_K = 12, 16     # the input projection's row and k tiles [kProjRows, kProjK]
+BARRIER_BYTES = 16             # a cluster block's two mbarriers [kBarrierBytes]
+
+
+def cluster_shape_ok(hidden: int) -> bool:
+    """A cluster can split ``hidden`` units: whole quads of units per
+    block, and no more column quads than threads."""
+    return hidden % (4 * CLUSTER) == 0 and hidden // CLUSTER <= CLUSTER_THREADS
+
+
+def cluster_smem_bytes(bb: int, chunk: int, hidden: int, wbytes: int) -> int:
+    """One cluster block's shared memory (``cluster_smem_bytes`` in
+    ``csrc/lstm_seq.cu``): two mbarriers, then f32 table | h, two (bb, H)
+    buffers | c (bb, H/C) | scratch (a step's partial sums, or the
+    projection's two stage buffers of x rows and w rows) | zx (chunk, bb,
+    4H/C), then the (H, 4H/C) slice of ``u`` at ``wbytes`` per element."""
+    r4 = lambda n: runtime.round_up(n, 4)
+    hc = hidden // CLUSTER
+    lanes = CLUSTER_THREADS // hc
+    stage = lanes * PROJ_ROWS * PROJ_K + PROJ_K * 4 * hc * wbytes // 4
+    scratch = max(lanes * bb * 4 * hc, 2 * stage)
+    floats = LUT_SIZE + 2 * r4(bb * hidden) + r4(bb * hc) + scratch + chunk * bb * 4 * hc
+    return BARRIER_BYTES + 4 * floats + runtime.round_up(hidden * 4 * hc * wbytes, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_slots(device: torch.device) -> int | None:
+    """Clusters the card ``device`` runs at once at one block an SM
+    (``cudaOccupancyMaxActiveClusters`` for the cluster kernel at a block's
+    whole shared memory; 15 on an H100 SXM), asked once per device; None
+    for the CPU."""
+    if device.type != "cuda":
+        return None
+    with torch.cuda.device(device):
+        slots = runtime.query("repro_lstm_seq_cluster_occupancy", 0, 1,
+                              runtime.MAX_SHARED_BYTES)
+    if slots < 1:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed on {device} (code {slots})")
+    return slots
+
+
 class LaunchPlan(NamedTuple):
-    block_b: int      # batch rows per thread block
-    resident: bool    # weights copied into shared memory (else re-read each step)
+    block_b: int      # batch rows per thread block, or per cluster when cluster > 1
+    resident: bool    # weights (u's slices on the cluster path) kept in shared memory
     smem_bytes: int   # dynamic shared memory of one block
+    cluster: int = 1  # blocks per cluster; 1: no cluster
+    clusters: int = 1  # batch tiles: clusters, or blocks when cluster == 1
+    chunk: int = 0    # steps of input projection held at once (cluster path)
+
+    @property
+    def path(self) -> str:
+        """"block" (weights resident in one block), "cluster" or "l2"."""
+        if self.cluster > 1:
+            return "cluster"
+        return "block" if self.resident else "l2"
+
+
+def _cluster_plan(block_b, batch: int, seq: int, hidden: int, wbytes: int, slots: int):
+    """The cluster path, or None where a cluster block cannot hold its rows.
+
+    Rows per cluster: an int ``block_b`` (clipped to the batch), or for
+    "auto" the batch spread over ``slots`` clusters.  The projection holds
+    as many steps as fit, all S if they do."""
+    bb = min(block_b, batch) if block_b != "auto" else -(-batch // slots)
+    need = cluster_smem_bytes(bb, 1, hidden, wbytes)
+    if need > runtime.MAX_SHARED_BYTES:
+        return None
+    per_step = cluster_smem_bytes(bb, 2, hidden, wbytes) - need
+    chunk = min(seq, 1 + (runtime.MAX_SHARED_BYTES - need) // per_step)
+    smem = cluster_smem_bytes(bb, chunk, hidden, wbytes)
+    return LaunchPlan(bb, True, smem, CLUSTER, -(-batch // bb), chunk)
 
 
 @functools.lru_cache(maxsize=1024)
 def plan_launch(block_b, batch: int, seq: int, d_in: int, hidden: int, *,
-                layers: int = 1, quantized: bool = False) -> LaunchPlan:
-    """Batch tile, weight placement and shared memory for one launch.
+                layers: int = 1, quantized: bool = False, slots: int | None = None) -> LaunchPlan:
+    """Path, batch tile and shared memory of one launch.
 
-    The tile comes from :func:`runtime.pick_block_b` over the memory the
-    kernel needs WITHOUT resident weights; the weights are then made
-    resident if they fit beside that tile.  Raises ``ValueError`` when even
-    one batch row does not fit (for a stack: S·H·4 bytes of inter-layer
-    sequence per row)."""
+    One block per tile with the weights resident if they fit (the tile
+    from :func:`runtime.pick_block_b` over the memory needed WITHOUT
+    resident weights); else, for one layer whose H splits over ``CLUSTER``
+    blocks, a cluster per tile, if its blocks can hold their rows beside
+    their slice of ``u``; else the weights are re-read from L2 each step.
+    ``"auto"`` spreads the cluster path's batch over ``slots`` clusters, the
+    card's :func:`cluster_slots` (the wrappers pass it; None, for plans made
+    on the CPU, means ``SM_COUNT // CLUSTER``), so that they run in one
+    wave.  An int ``block_b`` is honoured by the path chosen, or refused
+    with a ``ValueError`` that states the bound.  A stack also raises when
+    even one batch row does not fit (S·H·4 bytes of inter-layer sequence
+    per row)."""
     wbytes = 1 if quantized else 4
     kernel = "lstm_stack" if layers > 1 else "lstm_seq"
-    bb = runtime.pick_block_b(
-        block_b, batch,
-        lambda n: seq_smem_bytes(n, seq, d_in, hidden, layers, wbytes, False), kernel,
-    )
-    with_weights = seq_smem_bytes(bb, seq, d_in, hidden, layers, wbytes, True)
-    if with_weights <= runtime.MAX_SHARED_BYTES:
-        return LaunchPlan(bb, True, with_weights)
-    return LaunchPlan(bb, False, seq_smem_bytes(bb, seq, d_in, hidden, layers, wbytes, False))
+    if block_b != "auto" and (isinstance(block_b, bool) or not isinstance(block_b, int)
+                              or block_b < 1):
+        raise ValueError(f"{kernel}: block_b must be a positive int or 'auto', got {block_b!r}")
+    try:
+        bb = runtime.pick_block_b(
+            block_b, batch,
+            lambda n: seq_smem_bytes(n, seq, d_in, hidden, layers, wbytes, False), kernel,
+        )
+    except ValueError as err:
+        refused, bb = err, None
+    if bb is not None:
+        with_weights = seq_smem_bytes(bb, seq, d_in, hidden, layers, wbytes, True)
+        if with_weights <= runtime.MAX_SHARED_BYTES:
+            return LaunchPlan(bb, True, with_weights, 1, -(-batch // bb))
+    if layers == 1 and cluster_shape_ok(hidden):
+        plan = _cluster_plan(block_b, batch, seq, hidden, wbytes,
+                             slots or runtime.SM_COUNT // CLUSTER)
+        if plan is not None:
+            return plan
+    if bb is None:
+        raise refused
+    return LaunchPlan(bb, False, seq_smem_bytes(bb, seq, d_in, hidden, layers, wbytes, False),
+                      1, -(-batch // bb))
 
 
 # ---------------------------------------------------------------------------
@@ -171,11 +273,8 @@ def lstm_stack_plain(x, w0, wr, us, bs, sws=None, sus=None, *, impl: str = "exac
 # ---------------------------------------------------------------------------
 # Launchers
 # ---------------------------------------------------------------------------
-def _check_weights(kernel: str, quantized: bool, **tensors: torch.Tensor) -> None:
-    want = torch.int8 if quantized else torch.float32
-    for name, t in tensors.items():
-        if t.dtype != want:
-            raise TypeError(f"{kernel} takes {want} weights here, got {name} of {t.dtype}")
+_SEQ_F32 = ("w", "u", "b")
+_SEQ_Q8 = ("w", "u", "b", "w_scale", "u_scale")
 
 
 def _lstm_seq_call(x, w, u, b, sw, su, *, impl: str, block_b, return_state: bool,
@@ -186,8 +285,12 @@ def _lstm_seq_call(x, w, u, b, sw, su, *, impl: str, block_b, return_state: bool
     code = impl_code(impl)
     quantized = sw is not None
     kernel = "lstm_seq_q8" if quantized else "lstm_seq_f32"
-    _check_f32(kernel, x=x, b=b, **({"w_scale": sw, "u_scale": su} if quantized else {}))
-    _check_weights(kernel, quantized, w=w, u=u)
+    f32 = torch.float32
+    if quantized:
+        runtime.require_dtype(kernel, f32, ("x", "b", "w_scale", "u_scale"), x, b, sw, su)
+        runtime.require_dtype(kernel, torch.int8, ("w", "u"), w, u)
+    else:
+        runtime.require_dtype(kernel, f32, ("x", "w", "u", "b"), x, w, u, b)
     if x.dim() != 3:
         raise ValueError(f"{kernel}: x must be (B, S, D), got {tuple(x.shape)}")
     bsz, seq, d_in = x.shape
@@ -199,29 +302,29 @@ def _lstm_seq_call(x, w, u, b, sw, su, *, impl: str, block_b, return_state: bool
         )
     if seq < 1:
         raise ValueError(f"{kernel}: empty sequence")
-    dev = runtime.require_same_device(x, w, u, b, *((sw, su) if quantized else ()))
-    plan = plan_launch(block_b, bsz, seq, d_in, hidden, quantized=quantized)
+    weights = (w, u, b, sw, su) if quantized else (w, u, b)
+    dev = runtime.require_same_device(x, *weights)
 
     if dev.type == "cpu":
+        # refuses an int block_b as the card would
+        plan_launch(block_b, bsz, seq, d_in, hidden, quantized=quantized)
         hs, hn, cn = lstm_seq_plain(x, w, u, b, sw, su, impl=impl, packed=packed)
     else:
         x = x.contiguous()  # a slice of a longer sequence is copied, inside the call
-        _contiguous(kernel, w=w, u=u, b=b, **({"w_scale": sw, "u_scale": su} if quantized else {}))
-        lib = runtime.load_kernels()
-        hs = torch.empty((bsz, seq, hidden), dtype=torch.float32, device=dev)
-        hn = torch.empty((bsz, hidden), dtype=torch.float32, device=dev)
-        cn = torch.empty((bsz, hidden), dtype=torch.float32, device=dev)
-        table = _sigmoid_table(dev)
-        with runtime.device_guard(dev):
-            rc = lib.repro_lstm_seq(
-                x.data_ptr(), w.data_ptr(), u.data_ptr(), b.data_ptr(),
-                sw.data_ptr() if quantized else None, su.data_ptr() if quantized else None,
-                table.data_ptr(), hs.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-                bsz, seq, d_in, hidden, code, int(quantized), int(packed), plan.block_b,
-                int(plan.resident), plan.smem_bytes, runtime.current_stream(),
-            )
-        runtime.check_launch(rc, kernel)
-        runtime.count_launch(kernel)
+        ptrs = runtime.aligned_pointers(kernel, _SEQ_Q8 if quantized else _SEQ_F32, *weights)
+        if not quantized:
+            ptrs += (0, 0)
+        plan = plan_launch(block_b, bsz, seq, d_in, hidden, quantized=quantized,
+                           slots=cluster_slots(dev))
+        hs = torch.empty((bsz, seq, hidden), dtype=f32, device=dev)
+        hn = torch.empty((bsz, hidden), dtype=f32, device=dev)
+        cn = torch.empty((bsz, hidden), dtype=f32, device=dev)
+        runtime.launch(
+            kernel, "repro_lstm_seq", dev.index, x.data_ptr(), *ptrs, table_pointer(dev, code),
+            hs.data_ptr(), hn.data_ptr(), cn.data_ptr(), bsz, seq, d_in, hidden, code,
+            int(quantized), int(packed), plan.block_b, int(plan.resident), plan.cluster,
+            plan.chunk, plan.smem_bytes,
+        )
     if return_state:
         return hs, (hn, cn)
     return hs
@@ -275,8 +378,12 @@ def _lstm_stack_call(x, w0, wr, us, bs, sws, sus, *, impl: str, block_b, return_
     code = impl_code(impl)
     quantized = sws is not None
     kernel = "lstm_stack_q8" if quantized else "lstm_stack_f32"
-    _check_f32(kernel, x=x, bs=bs, **({"w_scales": sws, "u_scales": sus} if quantized else {}))
-    _check_weights(kernel, quantized, w0=w0, wr=wr, us=us)
+    f32 = torch.float32
+    if quantized:
+        runtime.require_dtype(kernel, f32, ("x", "bs", "w_scales", "u_scales"), x, bs, sws, sus)
+        runtime.require_dtype(kernel, torch.int8, ("w0", "wr", "us"), w0, wr, us)
+    else:
+        runtime.require_dtype(kernel, f32, ("x", "w0", "wr", "us", "bs"), x, w0, wr, us, bs)
     if x.dim() != 3:
         raise ValueError(f"{kernel}: x must be (B, S, D), got {tuple(x.shape)}")
     bsz, seq, d_in = x.shape
@@ -290,33 +397,32 @@ def _lstm_stack_call(x, w0, wr, us, bs, sws, sus, *, impl: str, block_b, return_
         )
     if seq < 1:
         raise ValueError(f"{kernel}: empty sequence")
-    dev = runtime.require_same_device(x, w0, wr, us, bs, *((sws, sus) if quantized else ()))
+    weights = (w0, wr, us, bs, sws, sus) if quantized else (w0, wr, us, bs)
+    dev = runtime.require_same_device(x, *weights)
     plan = plan_launch(block_b, bsz, seq, d_in, hidden, layers=layers, quantized=quantized)
 
     if dev.type == "cpu":
         hs, hn, cn = lstm_stack_plain(x, w0, wr, us, bs, sws, sus, impl=impl, packed=packed)
     else:
         x = x.contiguous()
-        _contiguous(kernel, w0=w0, wr=wr, us=us, bs=bs,
-                    **({"w_scales": sws, "u_scales": sus} if quantized else {}))
-        lib = runtime.load_kernels()
-        hs = torch.empty((bsz, seq, hidden), dtype=torch.float32, device=dev)
-        hn = torch.empty((layers, bsz, hidden), dtype=torch.float32, device=dev)
-        cn = torch.empty((layers, bsz, hidden), dtype=torch.float32, device=dev)
-        table = _sigmoid_table(dev)
-        with runtime.device_guard(dev):
-            rc = lib.repro_lstm_stack(
-                x.data_ptr(), w0.data_ptr(), wr.data_ptr(), us.data_ptr(), bs.data_ptr(),
-                sws.data_ptr() if quantized else None, sus.data_ptr() if quantized else None,
-                table.data_ptr(), hs.data_ptr(), hn.data_ptr(), cn.data_ptr(),
-                bsz, seq, d_in, hidden, layers, code, int(quantized), int(packed), plan.block_b,
-                int(plan.resident), plan.smem_bytes, runtime.current_stream(),
-            )
-        runtime.check_launch(rc, kernel)
-        runtime.count_launch(kernel)
+        ptrs = runtime.aligned_pointers(kernel, _STACK_Q8 if quantized else _STACK_F32, *weights)
+        if not quantized:
+            ptrs += (0, 0)
+        hs = torch.empty((bsz, seq, hidden), dtype=f32, device=dev)
+        hn = torch.empty((layers, bsz, hidden), dtype=f32, device=dev)
+        cn = torch.empty((layers, bsz, hidden), dtype=f32, device=dev)
+        runtime.launch(
+            kernel, "repro_lstm_stack", dev.index, x.data_ptr(), *ptrs, table_pointer(dev, code),
+            hs.data_ptr(), hn.data_ptr(), cn.data_ptr(), bsz, seq, d_in, hidden, layers, code,
+            int(quantized), int(packed), plan.block_b, int(plan.resident), plan.smem_bytes,
+        )
     if return_state:
         return hs, (hn, cn)
     return hs
+
+
+_STACK_F32 = ("w0", "wr", "us", "bs")
+_STACK_Q8 = ("w0", "wr", "us", "bs", "w_scales", "u_scales")
 
 
 def lstm_stack_fused(x, layers, *, impl: str = "exact", block_b: int | str = "auto",

@@ -9,14 +9,21 @@ keyed on a hash of the sources, so an unchanged tree builds once.
 There is no switch that sends a CUDA tensor to a kernel's plain PyTorch
 version: a wrapper given a CUDA tensor launches its kernel or raises.  The
 plain versions run only for tensors that lie on the CPU.
+
+Every wrapper launches through :func:`launch`, the one host path they share.
+It passes a call's arguments to the C entry point as one array of 64-bit
+integers (pointers, sizes and flags, the stream last), packed by
+``struct``: ctypes then converts two arguments per call instead of up to
+twenty-three.  The stream is the raw handle of PyTorch's current stream,
+read without building a ``torch.cuda.Stream``.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
@@ -35,19 +42,30 @@ NVCC_FLAGS = (
 MAX_SHARED_BYTES = 232448
 SM_COUNT = 132
 
-_VP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "repro_activation": [_VP, _VP, _LL, _INT, _INT, _INT, _VP, _VP],
-    "repro_lstm_cell": [_VP] * 9 + [_INT] * 6 + [_VP],
-    "repro_lstm_seq": [_VP] * 10 + [_INT] * 10 + [_VP],
-    "repro_lstm_stack": [_VP] * 11 + [_INT] * 11 + [_VP],
-    "repro_int8_matmul": [_VP] * 7 + [_INT] * 8 + [_VP],
-    "repro_flash_attention": [_VP] * 4 + [_INT] * 9 + [ctypes.c_float, _VP],
+# C entry point -> how many 64-bit arguments it reads (for those that launch,
+# the stream is the last).  Each takes (const long long* args, int count) and
+# returns -3 when count is not its own (csrc/launch.cuh).
+ENTRY_ARGS = {
+    "repro_activation": 8,
+    "repro_lstm_cell": 16,
+    "repro_lstm_seq": 23,
+    "repro_lstm_seq_cluster_occupancy": 3,
+    "repro_lstm_stack": 23,
+    "repro_int8_matmul": 16,
+    "repro_flash_attention": 14,
 }
 
 _lib: ctypes.CDLL | None = None
 _build_seconds: float | None = None
 _launches: dict[str, int] = {}
+# entry name -> (C function, packer of its argument array, argument count)
+_entries: dict[str, tuple] = {}
+# torch._C._cuda_getDevice and _cuda_getCurrentRawStream, bound at load time
+# (a CPU build of PyTorch has neither), and whether the machine has one card
+# (then a tensor's device is the current one, and launch need not ask)
+_get_device = None
+_raw_stream = None
+_one_device = False
 
 
 # ---------------------------------------------------------------------------
@@ -76,19 +94,47 @@ def backend_key(device=None) -> str:
 def require_same_device(*tensors: torch.Tensor) -> torch.device:
     """All tensors on one device, CPU or CUDA; returns it."""
     dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type == "cuda":
+        index = dev.index
+        for t in tensors[1:]:
+            if not t.is_cuda or t.get_device() != index:
+                raise ValueError(f"tensors on different devices: {dev} and {t.device}")
+    elif dev.type == "cpu":
+        for t in tensors[1:]:
+            if t.device != dev:
+                raise ValueError(f"tensors on different devices: {dev} and {t.device}")
+    else:
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def require_dtype(kernel: str, dtype: torch.dtype, names: tuple[str, ...], *tensors) -> None:
+    """Every tensor of ``dtype`` (``names`` name them in the error)."""
+    for name, t in zip(names, tensors):
+        if t.dtype is not dtype:
+            raise TypeError(f"{kernel} takes {dtype} for {name}, got {t.dtype}")
+
+
+def aligned_pointers(kernel: str, names: tuple[str, ...], *tensors) -> list[int]:
+    """``data_ptr()`` of each tensor, after checking what the kernels' 16-byte
+    loads need of it: contiguous, and starting on a 16-byte boundary."""
+    ptrs = []
+    for name, t in zip(names, tensors):
+        ptr = t.data_ptr()
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} takes contiguous tensors; {name} is not")
+        if ptr & 15:
+            raise ValueError(f"{kernel} takes 16-byte aligned tensors; {name} is not")
+        ptrs.append(ptr)
+    return ptrs
 
 
 # ---------------------------------------------------------------------------
 # Launch counters
 # ---------------------------------------------------------------------------
 def count_launch(kernel: str) -> None:
-    """Called by a wrapper exactly where it launches ``kernel``."""
+    """One launch of ``kernel``; :func:`launch` calls it after each launch
+    that succeeds, and nothing else does."""
     _launches[kernel] = _launches.get(kernel, 0) + 1
 
 
@@ -167,7 +213,7 @@ def load_kernels() -> ctypes.CDLL:
     """The shared library of the port's kernels, built if the sources changed.
 
     Raises ``RuntimeError`` with the compiler's output if the build fails."""
-    global _lib, _build_seconds
+    global _lib, _build_seconds, _get_device, _raw_stream, _one_device
     if _lib is not None:
         return _lib
     sources = sorted(CSRC_DIR.glob("*.cu"))
@@ -176,11 +222,17 @@ def load_kernels() -> ctypes.CDLL:
     if not lib_path.exists():
         _build(sources, lib_path)
     _build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _SIGNATURES.items():
+    # PyDLL: the entry points only enqueue work and return, so they keep the
+    # GIL rather than pay for releasing and taking it back on every launch
+    lib = ctypes.PyDLL(str(lib_path))
+    for name, count in ENTRY_ARGS.items():
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int]
         fn.restype = ctypes.c_int
+        _entries[name] = (fn, struct.Struct(f"{count}q").pack, count)
+    _get_device = torch._C._cuda_getDevice
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _one_device = torch.cuda.device_count() == 1
     _lib = lib
     return lib
 
@@ -198,23 +250,52 @@ def compile_log() -> str:
     return path.read_text() if path.exists() else ""
 
 
-def current_stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def launch(kernel: str, entry: str, index: int, *args: int) -> None:
+    """Launch C entry point ``entry`` on CUDA device ``index`` with ``args``
+    (ints; 0 for an absent pointer) and the raw handle of the device's
+    current stream; raise if it reports anything but success, else count
+    one launch of ``kernel``.
 
-
-def device_guard(dev: torch.device):
-    """Context in which ``dev`` is the current CUDA device.  Switching costs
-    several microseconds per call, so nothing is switched when ``dev`` is
+    The device is made current only for the call, and only when it is not
     current already (the usual case)."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
+    try:
+        fn, pack, count = _entries[entry]
+    except KeyError:
+        load_kernels()
+        fn, pack, count = _entries[entry]
+    if _one_device or index == _get_device():
+        rc = fn(pack(*args, _raw_stream(index)), count)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(pack(*args, _raw_stream(index)), count)
+    if rc:
+        check_launch(rc, kernel)
+    count_launch(kernel)
+
+
+def stream_handle(dev: torch.device) -> int:
+    """Raw handle of the current stream of CUDA device ``dev``: the one
+    :func:`launch` passes to the kernels."""
+    if _raw_stream is None:
+        load_kernels()
+    return _raw_stream(dev.index)
+
+
+def query(entry: str, *args: int) -> int:
+    """Call a C entry point that launches nothing (a query) on the current
+    device and return what it returns."""
+    load_kernels()
+    fn, pack, count = _entries[entry]
+    return fn(pack(*args), count)
 
 
 def check_launch(rc: int, kernel: str) -> None:
     """Raise if the C entry point reported anything but success."""
     if rc == 0:
         return
+    if rc == -3:
+        raise RuntimeError(f"{kernel}: the entry point read another number of arguments "
+                           "than the wrapper packed")
     if rc == -1:
         raise RuntimeError(
             f"{kernel}: the wrapper's shared-memory layout disagrees with the kernel's, "

@@ -2,7 +2,9 @@
 
 Only the ``--paper-lstm`` mode of the reference's launcher is ported: it
 plans the paper's own LSTM workload on the CUDA kernel mapping.  It reports
-the launch geometry of the sequence kernel (``repro_torch.kernels.lstm_seq``),
+the launch geometry of the sequence kernel (``repro_torch.kernels.lstm_seq``:
+its path, batch tile, cluster size and count, projection chunk and shared
+memory),
 checks the kernel against the plain PyTorch per-step path, and, on the card,
 times it against the per-step cell kernel.  Despite the module's name this
 mode runs inference only.
@@ -29,7 +31,7 @@ def plan_paper_lstm(batch: int, seq: int = 0, device=None) -> dict:
     the kernels' plain versions stand in and nothing is timed.  Returns what
     it printed, as a dict."""
     from repro_torch.core.fpga import paper_workload
-    from repro_torch.kernels.lstm_seq import plan_launch
+    from repro_torch.kernels.lstm_seq import cluster_slots, plan_launch
     from repro_torch.kernels.runtime import backend_key, resolve_device
     from repro_torch.models.lstm import lstm_apply, lstm_defs
     from repro_torch.models.params import init_params, tree_map
@@ -37,11 +39,15 @@ def plan_paper_lstm(batch: int, seq: int = 0, device=None) -> dict:
     dev = resolve_device(device)
     lw = paper_workload()
     seq = seq or lw.seq
-    plan = plan_launch("auto", batch, seq, lw.d_in, lw.hidden)
+    plan = plan_launch("auto", batch, seq, lw.d_in, lw.hidden, slots=cluster_slots(dev))
     print(f"paper LSTM workload: batch={batch} seq={seq} d_in={lw.d_in} "
           f"hidden={lw.hidden} backend={backend_key(dev)}")
-    print(f"launch plan: block_b={plan.block_b} blocks={-(-batch // plan.block_b)} "
-          f"weights {'resident in shared memory' if plan.resident else 're-read each step'} "
+    weights = {"block": "resident in one block's shared memory",
+               "cluster": "u's slices resident across each cluster's blocks",
+               "l2": "re-read from L2 each step"}[plan.path]
+    print(f"launch plan: path={plan.path} block_b={plan.block_b} cluster={plan.cluster} "
+          f"clusters={plan.clusters} chunk={plan.chunk} blocks={plan.clusters * plan.cluster} "
+          f"resident={plan.resident}: weights {weights} "
           f"({plan.smem_bytes} bytes of shared memory per block)")
 
     gen = torch.Generator().manual_seed(0)
@@ -54,8 +60,10 @@ def plan_paper_lstm(batch: int, seq: int = 0, device=None) -> dict:
     print(f"sequence kernel vs plain PyTorch reference: max |Δ| = {err:.2e}")
     if not (math.isfinite(err) and err < 1e-4):
         raise RuntimeError(f"sequence kernel disagrees with the reference: max |Δ| = {err}")
-    result = {"batch": batch, "seq": seq, "backend": backend_key(dev),
-              "block_b": plan.block_b, "resident": plan.resident, "max_abs_err": err}
+    result = {"batch": batch, "seq": seq, "backend": backend_key(dev), "path": plan.path,
+              "block_b": plan.block_b, "resident": plan.resident, "cluster": plan.cluster,
+              "clusters": plan.clusters, "chunk": plan.chunk, "smem_bytes": plan.smem_bytes,
+              "max_abs_err": err}
 
     if dev.type == "cuda":
         from repro_torch.kernels.bench import compare_lstm_paths

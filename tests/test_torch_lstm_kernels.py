@@ -9,6 +9,9 @@ can land in the neighbouring table bin (one table step, up to ~8e-3 on a
 sigmoid) and feed the next time step.  Its rule has two parts: at most 0.1%
 of the elements above the tolerance, none above 2e-2.
 """
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +29,8 @@ from repro_torch.kernels.lstm_cell import cell_smem_bytes
 from repro_torch.kernels.lstm_cell import lstm_cell_fused as t_lstm_cell
 
 torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 IMPLS = ["exact", "pwl", "lut", "hard"]
 
@@ -234,19 +239,178 @@ def test_block_b_is_honoured_or_refused():
 
 
 def test_launch_plan_residency():
-    """Where the weights live: in shared memory at the paper's shape and the
-    small bench widths, re-read each step at D = H = 256 (f32 and int8)."""
+    """Where the weights live: in one block's shared memory at the paper's
+    shape and the small bench widths; at D = H = 256 (f32 and int8) u's
+    slices stay in the shared memory of a cluster's blocks; a stack at
+    D = H = 256 re-reads them each step."""
     paper = tseq.plan_launch("auto", 64, 28, 6, 20)
-    assert paper.resident and paper.block_b == 1
-    assert tseq.plan_launch("auto", 32, 64, 16, 32).resident
+    assert paper.resident and paper.block_b == 1 and paper.path == "block"
+    assert paper.cluster == 1 and paper.clusters == 64
+    scaled = tseq.plan_launch("auto", 32, 64, 16, 32)
+    assert scaled.resident and scaled.path == "block"
     for quantized in (False, True):
         big = tseq.plan_launch("auto", 40, 28, 256, 256, quantized=quantized)
-        assert not big.resident and big.smem_bytes <= runtime.MAX_SHARED_BYTES
+        assert big.resident and big.path == "cluster" and big.cluster > 1
+        assert big.smem_bytes <= runtime.MAX_SHARED_BYTES
         stack = tseq.plan_launch("auto", 40, 28, 256, 256, layers=3, quantized=quantized)
-        assert not stack.resident and stack.smem_bytes <= runtime.MAX_SHARED_BYTES
+        assert not stack.resident and stack.path == "l2" and stack.cluster == 1
+        assert stack.smem_bytes <= runtime.MAX_SHARED_BYTES
     # the plan's bytes are the layout's bytes
     assert paper.smem_bytes == tseq.seq_smem_bytes(1, 28, 6, 20, 1, 4, True)
     assert cell_smem_bytes(2, 6, 20) == 4 * (256 + 12 + 40 + 4 * 160)
+
+
+# ---------------------------------------------------------------------------
+# K3's cluster path: the plan (CPU) and its arithmetic against JAX
+# ---------------------------------------------------------------------------
+def _cu_constant(name):
+    text = (ROOT / "src" / "repro_torch" / "csrc" / "lstm_seq.cu").read_text()
+    found = re.search(rf"constexpr int {name} = (\d+);", text)
+    assert found, name
+    return int(found.group(1))
+
+
+def test_cluster_constants_are_the_kernels():
+    assert tseq.CLUSTER == _cu_constant("kCluster")
+    assert tseq.CLUSTER_THREADS == _cu_constant("kClusterThreads")
+    assert tseq.PROJ_ROWS == _cu_constant("kProjRows")
+    assert tseq.PROJ_K == _cu_constant("kProjK")
+    assert tseq.BARRIER_BYTES == _cu_constant("kBarrierBytes")
+
+
+H100_SLOTS = 15  # clusters of 8 an H100 SXM holds at once, one block an SM (chip_smoke.py)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cluster_plan_at_the_bench_width(quantized):
+    """D = H = 256, 40 rows: a cluster path whose shared memory fits a block,
+    holds the whole input projection, and counts as the C side does:
+    table | two h buffers | c | scratch | zx | u slice."""
+    plan = tseq.plan_launch("auto", 40, 28, 256, 256, quantized=quantized, slots=H100_SLOTS)
+    assert plan.path == "cluster" and plan.chunk == 28 and plan.cluster == tseq.CLUSTER == 8
+    assert plan.block_b == 3 and plan.clusters == 14 <= H100_SLOTS
+    bb, hc, lanes = plan.block_b, 256 // 8, 8  # 256 threads over H / C column quads
+    wbytes = 1 if quantized else 4
+    stage = lanes * 12 * 16 + 16 * 4 * hc * wbytes // 4  # x rows, then w rows
+    floats = (256 + 2 * bb * 256 + bb * hc + max(lanes * bb * 4 * hc, 2 * stage)
+              + 28 * bb * 4 * hc)
+    assert plan.smem_bytes == 16 + 4 * floats + 256 * 4 * hc * wbytes
+    assert plan.smem_bytes <= runtime.MAX_SHARED_BYTES
+    assert tseq.cluster_smem_bytes(5, 28, 256, wbytes) == (
+        16 + 4 * (256 + 2 * 5 * 256 + 5 * hc + max(lanes * 5 * 4 * hc, 2 * stage)
+                  + 28 * 5 * 4 * hc)
+        + 256 * 4 * hc * wbytes)
+
+
+@pytest.mark.parametrize("slots,want_bb", [(15, 3), (30, 2), (None, 3), (1, 40)])
+def test_cluster_plan_spreads_the_batch_over_the_slots(slots, want_bb):
+    """"auto" gives each of the card's cluster slots a share of the batch,
+    so that all clusters run in one wave (None: the SM count's bound); 40
+    rows in one cluster do not fit, and the plan falls back to L2."""
+    plan = tseq.plan_launch("auto", 40, 28, 256, 256, slots=slots)
+    if want_bb == 40:
+        assert plan.path == "l2"
+        return
+    assert plan.path == "cluster" and plan.block_b == want_bb
+    assert plan.clusters == -(-40 // want_bb) <= (slots or runtime.SM_COUNT // tseq.CLUSTER)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("block_b", [5, 6, 7])
+def test_cluster_plan_honours_block_b(quantized, block_b):
+    """An int block_b is the rows of one cluster; 6 and 7 leave a ragged
+    last cluster."""
+    plan = tseq.plan_launch(block_b, 40, 28, 256, 256, quantized=quantized)
+    assert plan.path == "cluster" and plan.block_b == block_b
+    assert plan.clusters == -(-40 // block_b) and plan.cluster == tseq.CLUSTER
+    assert plan.smem_bytes <= runtime.MAX_SHARED_BYTES
+
+
+def test_cluster_plan_refusals():
+    # 40 rows in one cluster: its h buffers and partial sums alone are over a
+    # block's shared memory, and so are 40 rows of the L2 path
+    with pytest.raises(ValueError, match="shared memory"):
+        tseq.plan_launch(40, 40, 28, 256, 256)
+    for bad in (0, -2, 2.5, True, "8"):
+        with pytest.raises(ValueError, match="block_b"):
+            tseq.plan_launch(bad, 8, 28, 256, 256)
+
+
+def test_cluster_plan_chunks_a_long_sequence():
+    """When zx for the whole sequence does not fit beside u's slice, the
+    projection runs a chunk of steps at a time."""
+    plan = tseq.plan_launch("auto", 40, 1000, 256, 256)
+    assert plan.path == "cluster" and 1 <= plan.chunk < 1000
+    assert plan.smem_bytes <= runtime.MAX_SHARED_BYTES
+    assert tseq.cluster_smem_bytes(plan.block_b, plan.chunk + 1, 256, 4) > \
+        runtime.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("quantized,want_chunk", [(False, 1), (True, 15)])
+def test_cluster_plan_chunks_a_large_batch(quantized, want_chunk):
+    """The chunked case chip_smoke.py runs on the card: 200 rows over 15
+    clusters, 14 rows a cluster, leave room for 1 step of zx in f32 and 15
+    in int8 (two chunks, the second of 13 steps)."""
+    plan = tseq.plan_launch("auto", 200, 28, 256, 256, quantized=quantized, slots=H100_SLOTS)
+    assert plan.path == "cluster" and plan.block_b == 14 and plan.clusters == 15
+    assert plan.chunk == want_chunk
+    wbytes = 1 if quantized else 4
+    assert plan.smem_bytes == tseq.cluster_smem_bytes(14, want_chunk, 256, wbytes)
+    assert tseq.cluster_smem_bytes(14, want_chunk + 1, 256, wbytes) > runtime.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_l2_path_beyond_the_cluster(quantized):
+    """H = 1024: even a cluster's slice of u (2 MB f32, 512 KB int8) does
+    not fit a block, so the weights are re-read from L2 each step."""
+    plan = tseq.plan_launch("auto", 40, 28, 256, 1024, quantized=quantized)
+    assert plan.path == "l2" and not plan.resident and plan.cluster == 1
+    assert plan.smem_bytes <= runtime.MAX_SHARED_BYTES
+
+
+def test_l2_path_where_the_units_do_not_split():
+    """H = 200 neither fits a block nor splits into whole quads over 8
+    blocks; a stack never takes the cluster path."""
+    assert not tseq.cluster_shape_ok(200) and tseq.cluster_shape_ok(256)
+    assert tseq.plan_launch("auto", 40, 28, 200, 200).path == "l2"
+    assert tseq.plan_launch("auto", 40, 28, 256, 256, layers=2).path == "l2"
+    assert tseq.plan_launch("auto", 64, 28, 6, 20).path == "block"
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("b,s,d,block_b", [
+    (5, 9, 12, 2),     # ragged last cluster
+    (4, 6, 20, "auto"),
+])
+def test_lstm_seq_cluster_shape_matches_jax(impl, b, s, d, block_b):
+    """At H = 256 the plan sends f32 and int8 weights to the cluster path
+    (the weights do not fit one block); on the CPU the wrappers run the
+    plain version, so this holds the plan's choice and the plain version's
+    arithmetic at that shape to the JAX kernel in interpret mode.  The
+    cluster kernel itself runs only on the card (chip_smoke.py)."""
+    hidden = 256
+    for quantized in (False, True):
+        plan = tseq.plan_launch(block_b, b, s, d, hidden, quantized=quantized)
+        assert plan.path == "cluster" and plan.cluster == tseq.CLUSTER
+    w, u, bias = _weights(10, d, hidden)
+    x = _x(11, b, s, d)
+    jb = b if block_b == "auto" else block_b
+    want_hs, (want_hn, want_cn) = jseq.lstm_seq_fused(
+        *_j((x, w, u, bias)), impl=impl, block_b=jb, interpret=True, return_state=True)
+    got_hs, (got_hn, got_cn) = tseq.lstm_seq_fused(
+        *_t((x, w, u, bias)), impl=impl, block_b=block_b, return_state=True)
+    assert_parity(got_hs, want_hs, impl, 2e-5, "hs")
+    assert_parity(got_hn, want_hn, impl, 2e-5, "hn")
+    assert_parity(got_cn, want_cn, impl, 2e-5, "cn")
+
+    jqw = jq.quantize_lstm_weights(*_j((w, u, bias)), hidden)
+    tqw = tq.quantize_lstm_weights(*_t((w, u, bias)), hidden)
+    want_q, (_, want_qc) = jseq.lstm_seq_fused_quantized(
+        jnp.asarray(x), jqw, impl=impl, block_b=jb, interpret=True, return_state=True)
+    got_q, (_, got_qc) = tseq.lstm_seq_fused_quantized(
+        torch.from_numpy(x), tqw, impl=impl, block_b=block_b, return_state=True)
+    assert_parity(got_q, want_q, impl, 1e-4, "hs int8")
+    assert_parity(got_qc, want_qc, impl, 1e-4, "cn int8")
 
 
 def test_stack_raises_when_one_row_does_not_fit():

@@ -153,6 +153,9 @@ def test_plan_paper_lstm_runs_on_cpu(capsys):
     assert "backend=cpu" in out and "max |Δ|" in out
     assert result["backend"] == "cpu" and result["max_abs_err"] < 1e-4
     assert "seq_us" not in result  # nothing is timed off the card
+    # the paper's shape keeps its weights in one block; the plan says so
+    assert result["path"] == "block" and result["resident"] and result["cluster"] == 1
+    assert "path=block" in out and "cluster=1" in out and "resident=True" in out
 
 
 def test_train_main_modes(capsys):
