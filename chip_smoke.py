@@ -21,11 +21,14 @@ counters set to 0 just before it and read just after:
 K5 is held to its plain version bit for bit at every shape, on two calls in
 a row (its split-K counters and workspace must come back to zero); K6 within
 2e-5 in f32 and 3e-2 in bf16.  The SASS of the tensor-core kernels must hold
-HMMA (K6 bf16) and IMMA (K5) where the toolkit has ``cuobjdump``.  K3 runs
-its cluster path at D = H = 256 (its plan and the card's cluster occupancy
-are in its entry) and is held to its plain version there too, with a
-forced batch tile that leaves a ragged last cluster, and at a batch of 200
-whose input projection no longer fits at once (it runs in chunks of steps).
+HMMA (K6 bf16) and IMMA (K5) where the toolkit has ``cuobjdump``.  K3 and
+K4 run their cluster path at D = H = 256 (the plan and the card's cluster
+occupancy are in their entries) and are held to their plain versions there
+too, with a forced batch tile that leaves a ragged last cluster, and at a
+batch of 200 whose input projection no longer fits at once (it runs in
+chunks of steps); K4 also at four layers.  K2's entry gives its geometry
+(units and rows a block, grid); with ``--parent DIR``, a checkout of the
+parent commit, the parent's K2 is built from DIR and timed beside it.
 
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``host_path`` (each
@@ -39,11 +42,14 @@ report as JSON.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
+import importlib.util
 import json
 import pathlib
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -56,17 +62,20 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.fpga import paper_workload  # noqa: E402
 from repro_torch.kernels import bench, ops, runtime  # noqa: E402
-from repro_torch.kernels.activations import activation, activation_plain  # noqa: E402
+from repro_torch.kernels.activations import (  # noqa: E402
+    activation, activation_plain, impl_code, table_pointer,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS, flash_attention, flash_attention_plain, flash_smem_bytes,
 )
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain, plan  # noqa: E402
 from repro_torch.kernels.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.lstm_cell import lstm_cell_fused, lstm_cell_plain  # noqa: E402
+from repro_torch.kernels.lstm_cell import plan as cell_plan  # noqa: E402
 from repro_torch.kernels.lstm_quant import quantize_lstm_stack, quantize_lstm_weights  # noqa: E402
 from repro_torch.kernels.lstm_seq import (  # noqa: E402
-    cluster_slots, lstm_seq_fused, lstm_seq_fused_quantized, lstm_seq_plain, lstm_stack_fused,
-    lstm_stack_plain, plan_launch,
+    _lstm_stack_call, cluster_slots, lstm_seq_fused, lstm_seq_fused_quantized, lstm_seq_plain,
+    lstm_stack_fused, lstm_stack_plain, plan_launch,
 )
 from repro_torch.launch.train import plan_paper_lstm  # noqa: E402
 from repro_torch.models.lstm import lstm_apply, lstm_stack_apply  # noqa: E402
@@ -361,10 +370,48 @@ def check_activation(dev):
                  "src/repro/kernels/activations.py:118", shapes)
 
 
-def check_cell(dev):
+def load_parent_cell(parent: pathlib.Path | None, dev):
+    """K2 of another checkout (``--parent DIR``: the parent commit, unpacked
+    with ``git archive`` under the git-ignored ``build/``), built alone from
+    its ``csrc/lstm_cell.cu`` into its own library and planned by its own
+    ``kernels/lstm_cell.py``, so that both versions of the kernel are timed
+    in one run on one card.  Returns ``call(x, h, c, w, u, b) -> (h', c')``
+    at impl="exact" and ``block_b="auto"``, or None without ``--parent``."""
+    if parent is None:
+        return None
+    lib_path = runtime.BUILD_DIR / "parent" / "liblstm_cell.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([runtime._find_nvcc(), *runtime.NVCC_FLAGS, "-shared", "-o", str(lib_path),
+                    str(parent / "src" / "repro_torch" / "csrc" / "lstm_cell.cu")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).repro_lstm_cell
+    fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_int], ctypes.c_int
+    spec = importlib.util.spec_from_file_location(
+        "parent_lstm_cell", parent / "src" / "repro_torch" / "kernels" / "lstm_cell.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    pack = struct.Struct("16q").pack
+
+    def call(x, h, c, w, u, b):
+        batch, d_in = x.shape
+        rows, smem = module._cell_plan("auto", batch, d_in, h.shape[1])
+        h_new, c_new = torch.empty_like(h), torch.empty_like(c)
+        rc = fn(pack(x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(), u.data_ptr(),
+                     b.data_ptr(), table_pointer(dev, impl_code("exact")), h_new.data_ptr(),
+                     c_new.data_ptr(), batch, d_in, h.shape[1], impl_code("exact"), rows, smem,
+                     runtime.stream_handle(dev)), 16)
+        if rc:
+            fail(f"the parent's lstm_cell refused its launch (code {rc})")
+        return h_new, c_new
+
+    return call
+
+
+def check_cell(dev, parent: pathlib.Path | None = None):
     lw = paper_workload()
     cases = [QUANT_SHAPE, (PAPER_BATCH, lw.seq, lw.d_in, lw.hidden), SCALED_SHAPE,
              (RAGGED_BATCH, lw.seq, lw.d_in, lw.hidden)]
+    parent_cell = load_parent_cell(parent, dev)
     shapes = []
     for batch, _, d_in, hidden in cases:
         x3, params = make_lstm(10 + len(shapes), batch, 2, d_in, hidden, 1, dev)
@@ -382,6 +429,11 @@ def check_cell(dev):
         # a tile that does not divide the batch
         got = lstm_cell_fused(*args, block_b=5)
         compare(got[0], lstm_cell_plain(*args)[0], "exact", TOL_F32, "lstm_cell block_b=5")
+        parent_ms = parent_err = None
+        if parent_cell is not None:
+            parent_err = max(compare(g, w, "exact", TOL_F32, f"parent lstm_cell {batch, d_in, hidden}")
+                             for g, w in zip(parent_cell(*args), lstm_cell_plain(*args)))
+            parent_ms = device_ms(lambda: parent_cell(*args))
         torch.cuda.synchronize()
         cell = torch.nn.LSTMCell(d_in, hidden, device=dev)
         with torch.no_grad():
@@ -392,11 +444,17 @@ def check_cell(dev):
         out_bytes = 2 * nbytes(h)
         bound_ms, bound_by = bound(nbytes(*args) + out_bytes,
                                    lstm_flops(batch, 1, d_in, hidden))
+        geometry = cell_plan("auto", batch, d_in, hidden)
+        dev_ms = device_ms(lambda: lstm_cell_fused(*args))
         shapes.append({
-            "shape": [batch, d_in, hidden], "max_abs_err": max(errs.values()),
+            "shape": [batch, d_in, hidden], "units": geometry.units, "rows": geometry.rows,
+            "grid": list(geometry.grid), "smem_bytes": geometry.smem_bytes,
+            "max_abs_err": max(errs.values()),
             "err_by_impl": {k: r6(v) for k, v in errs.items()}, "tolerance": TOL_F32,
-            "ms": r6(time_ms(lambda: lstm_cell_fused(*args))),
-            "device_ms": r6(device_ms(lambda: lstm_cell_fused(*args))),
+            "ms": r6(time_ms(lambda: lstm_cell_fused(*args))), "device_ms": r6(dev_ms),
+            "parent_device_ms": r6(parent_ms), "parent_max_abs_err": r6(parent_err),
+            "device_ms_over_parent": r6(None if parent_ms is None or dev_ms is None
+                                        else dev_ms / parent_ms),
             "plain_ms": r6(time_ms(lambda: lstm_cell_plain(*args))),
             "library_ms": r6(library_ms), "library_max_abs_diff": r6(lib_err),
             "bound_ms": r6(bound_ms), "bound_by": bound_by,
@@ -516,7 +574,7 @@ def check_seq_chunked(dev, quantized: bool, tol: float):
 
 
 def seq_plan(plan, quantized: bool) -> dict:
-    """A K3 launch plan as the kernels line reports it, with the number of
+    """A K3 or K4 launch plan as the kernels line reports it, with the number of
     its clusters the card holds at once (cudaOccupancyMaxActiveClusters)
     where it is a cluster plan."""
     occupancy = None
@@ -527,9 +585,62 @@ def seq_plan(plan, quantized: bool) -> dict:
             fail(f"cudaOccupancyMaxActiveClusters failed (CUDA error {-occupancy}) for {plan}")
     return {"path": plan.path, "block_b": plan.block_b, "cluster": plan.cluster,
             "clusters": plan.clusters, "chunk": plan.chunk, "smem_bytes": plan.smem_bytes,
-            "resident": plan.resident, "cluster_occupancy": occupancy,
-            "weights": {"block": "shared memory", "l2": "re-read from L2 each step",
-                        "cluster": "u's slices in the cluster's shared memory"}[plan.path]}
+            "resident": plan.resident, "cluster_occupancy": occupancy}
+
+
+def stack_operands(params, quantized: bool):
+    """The stack kernel's operands, a ``(w, u, b, sw, su)`` tuple a layer, as
+    ``lstm_stack_fused`` builds them."""
+    if quantized:
+        return [(q.w_q, q.u_q, q.b, q.w_scale, q.u_scale) for q in quantize_lstm_stack(params)]
+    return [(p["w"], p["u"], p["b"], None, None) for p in params]
+
+
+def stack_kernel(x, operands, quantized: bool, block_b="auto"):
+    """K4's wrapper on the kernel's own operands, impl="exact": int8 weights
+    quantized once, as a deployment holds them (``lstm_stack_fused`` with
+    ``quantized=True`` quantizes them again on every call)."""
+    return _lstm_stack_call(x, operands, impl="exact", block_b=block_b, return_state=False,
+                            packed=quantized)
+
+
+def check_stack_case(dev, quantized: bool, shape, seed: int, block_b="auto", want_path=None,
+                     chunked: bool = False) -> dict:
+    """K4 at one (B, S, D, H, L) and ``block_b``, held to its plain version at
+    every impl; its plan (and the card's occupancy for a cluster plan) and
+    device time.  Fails if the plan is not ``want_path`` or, for
+    ``chunked``, holds the whole projection at once."""
+    batch, seq, d_in, hidden, layers = shape
+    tol = TOL_Q8 if quantized else TOL_F32
+    name = "lstm_stack_q8" if quantized else "lstm_stack_f32"
+    plan = plan_launch(block_b, batch, seq, d_in, hidden, layers=layers, quantized=quantized,
+                       slots=cluster_slots(dev))
+    if (want_path and plan.path != want_path) or (chunked and plan.chunk >= seq):
+        fail(f"{name} {shape} block_b={block_b}: planned {plan}")
+    x, params = make_lstm(seed, batch, seq, d_in, hidden, layers, dev)
+    operands = stack_operands(params, quantized)
+    errs = {}
+    for impl in IMPLS:
+        hs, (hn, cn) = lstm_stack_fused(x, params, impl=impl, quantized=quantized,
+                                        block_b=block_b, return_state=True)
+        want = lstm_stack_plain(x, operands, impl=impl, packed=quantized)
+        errs[impl] = max(compare(g, w, impl, tol, f"{name} {shape} block_b={block_b}")
+                         for g, w in zip((hs, hn, cn), want))
+    dev_ms = device_ms(lambda: stack_kernel(x, operands, quantized, block_b))
+    return {"shape": list(shape), "requested_block_b": block_b, **seq_plan(plan, quantized),
+            "max_abs_err": max(errs.values()), "err_by_impl": {k: r6(v) for k, v in errs.items()},
+            "device_ms": r6(dev_ms),
+            "device_ms_per_layer_step": r6(None if dev_ms is None else dev_ms / (seq * layers))}
+
+
+# K4's cases on the cluster path beside its main shape: a forced tile that
+# leaves a ragged last cluster (40 = 13 x 3 + 1), a batch whose projection
+# runs in chunks of steps, and four layers at an odd S (the inter-layer
+# buffers are reused two layers apart, and each mbarrier's phase count per
+# layer is uneven)
+STACK_RAGGED_TILE = 3
+STACK_CHUNK_SHAPE = (200, 28, 256, 256, 3)
+STACK_DEEP_SHAPE = (6, 11, 256, 256, 4)
 
 
 def check_stack(dev, quantized: bool):
@@ -541,26 +652,27 @@ def check_stack(dev, quantized: bool):
     shapes = []
     for batch, seq, d_in, hidden, layers in cases:
         x, params = make_lstm(30 + len(shapes), batch, seq, d_in, hidden, layers, dev)
-        if quantized:
-            qs = quantize_lstm_stack(params)
-            operands = (qs[0].w_q, torch.stack([q.w_q for q in qs[1:]]),
-                        torch.stack([q.u_q for q in qs]), torch.stack([q.b for q in qs]),
-                        torch.stack([q.w_scale for q in qs]), torch.stack([q.u_scale for q in qs]))
-        else:
-            operands = (params[0]["w"], torch.stack([p["w"] for p in params[1:]]),
-                        torch.stack([p["u"] for p in params]),
-                        torch.stack([p["b"] for p in params]), None, None)
+        operands = stack_operands(params, quantized)
         kernel = lambda impl="exact", **kw: lstm_stack_fused(x, params, impl=impl,
                                                               quantized=quantized, **kw)
         errs = {}
         for impl in IMPLS:
             hs, (hn, cn) = kernel(impl, return_state=True)
-            want = lstm_stack_plain(x, *operands, impl=impl, packed=quantized)
+            want = lstm_stack_plain(x, operands, impl=impl, packed=quantized)
             errs[impl] = max(compare(g, w, impl, tol, f"{name} {batch, seq, d_in, hidden, layers}")
                              for g, w in zip((hs, hn, cn), want))
         hs3 = kernel(block_b=3)  # a tile that does not divide the batch
-        compare(hs3, lstm_stack_plain(x, *operands, packed=quantized)[0], "exact", tol,
+        compare(hs3, lstm_stack_plain(x, operands, packed=quantized)[0], "exact", tol,
                 f"{name} block_b=3")
+        more = []
+        if (batch, seq, d_in, hidden, layers) == STACK_SHAPE:
+            more = [check_stack_case(dev, quantized, STACK_SHAPE, 36, STACK_RAGGED_TILE,
+                                     "cluster"),
+                    check_stack_case(dev, quantized, STACK_CHUNK_SHAPE, 37, want_path="cluster",
+                                     chunked=True),
+                    check_stack_case(dev, quantized, STACK_DEEP_SHAPE, 38, want_path="cluster")]
+            for case in more:
+                errs[f"{case['requested_block_b']}/{tuple(case['shape'])}"] = case["max_abs_err"]
         torch.cuda.synchronize()
         library_ms = lib_err = None
         if not quantized:
@@ -575,23 +687,31 @@ def check_stack(dev, quantized: bool):
                 library_ms = time_ms(lambda: lstm(x))
         plan = plan_launch("auto", batch, seq, d_in, hidden, layers=layers, quantized=quantized,
                            slots=cluster_slots(dev))
-        weights = [t for t in operands if t is not None]
+        weights = [t for op in operands for t in op if t is not None]
         out_bytes = 4 * (batch * seq * hidden + 2 * layers * batch * hidden)
         bound_ms, bound_by = bound(nbytes(x, *weights) + out_bytes,
                                    lstm_flops(batch, seq, d_in, hidden, layers))
+        timed = lambda: stack_kernel(x, operands, quantized)  # noqa: E731
+        compare(timed(), lstm_stack_plain(x, operands, packed=quantized)[0], "exact", tol,
+                f"{name} {batch, seq, d_in, hidden, layers} on its own operands")
+        dev_ms = device_ms(timed)
         shapes.append({
-            "shape": [batch, seq, d_in, hidden, layers], "block_b": plan.block_b,
-            "weights": "shared memory" if plan.resident else "re-read from L2 each step",
-            "smem_bytes": plan.smem_bytes, "max_abs_err": max(errs.values()),
+            "shape": [batch, seq, d_in, hidden, layers], **seq_plan(plan, quantized),
+            "more_cases": more or None, "max_abs_err": max(errs.values()),
             "err_by_impl": {k: r6(v) for k, v in errs.items()}, "tolerance": tol,
-            "ms": r6(time_ms(kernel)), "device_ms": r6(device_ms(kernel)),
-            "plain_ms": r6(time_ms(lambda: lstm_stack_plain(x, *operands, packed=quantized),
+            "ms": r6(time_ms(timed)), "device_ms": r6(dev_ms),
+            "device_ms_quantizing_per_call": r6(device_ms(kernel)) if quantized else None,
+            "device_ms_per_layer_step": r6(None if dev_ms is None else dev_ms / (seq * layers)),
+            "plain_ms": r6(time_ms(lambda: lstm_stack_plain(x, operands, packed=quantized),
                                    reps=2, rounds=3)),
             "library_ms": r6(library_ms), "library_max_abs_diff": r6(lib_err),
             "bound_ms": r6(bound_ms), "bound_by": bound_by,
         })
-    return entry(name, "src/repro_torch/csrc/lstm_seq.cu",
-                 "src/repro/kernels/lstm_seq.py:368", shapes)
+    out = entry(name, "src/repro_torch/csrc/lstm_seq.cu",
+                "src/repro/kernels/lstm_seq.py:368", shapes)
+    out["plan"] = {k: shapes[0][k] for k in ("path", "block_b", "cluster", "clusters", "chunk",
+                                             "smem_bytes", "resident", "cluster_occupancy")}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1192,6 +1312,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="also write the report to this JSON file")
+    ap.add_argument("--parent", default=None, type=pathlib.Path,
+                    help="a checkout of the parent commit (git archive): its lstm_cell kernel "
+                         "is built and timed beside this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1235,7 +1358,8 @@ def main(argv=None) -> int:
         print("phase " + json.dumps({"name": name, "seconds": phases[name]}), flush=True)
         return out
 
-    kernels = [phase("activation", check_activation, dev), phase("lstm_cell", check_cell, dev),
+    kernels = [phase("activation", check_activation, dev),
+               phase("lstm_cell", check_cell, dev, args.parent),
                phase("lstm_seq_f32", check_seq, dev, False),
                phase("lstm_seq_q8", check_seq, dev, True),
                phase("lstm_stack_f32", check_stack, dev, False),

@@ -5,7 +5,7 @@
 // array of 64-bit integers holding the call's pointers, sizes and flags in a
 // fixed order, the stream last, packed by kernels/runtime.py with `struct`.
 // One array costs ctypes two conversions per call instead of one per
-// argument (up to 23).  An entry point returns kBadArgCount if `count` is not
+// argument (up to 26).  An entry point returns kBadArgCount if `count` is not
 // the number it reads.
 //
 // Attributes.  A kernel that uses more than 48 KB of dynamic shared memory

@@ -1,4 +1,6 @@
-// Building blocks shared by the LSTM kernels (lstm_cell.cu, lstm_seq.cu).
+// Building blocks of the LSTM kernels: the block paths of lstm_seq.cu run
+// the three phases below; lstm_cell.cu takes the constants, and the cluster
+// path of lstm_seq.cu also dot_quads and the int8 widening.
 //
 // One LSTM step for a tile of `bb` batch rows is three phases with a block
 // barrier after each:
@@ -207,9 +209,9 @@ __device__ __forceinline__ void gate_finish(float* part, const float* b, int bb,
 
 // Phase 3, one (row, unit) of the cell update.  g points at the row's 4H
 // activated gates; the input and forget gates sit at 0 and H, the cell
-// candidate at off_g and the output gate at off_o (the per-step kernel keeps
-// the public order i,f,g,o, as do the sequence kernels for f32 weights;
-// quantized weights are stored packed i,f,o,g).
+// candidate at off_g and the output gate at off_o (the sequence kernels keep
+// the public order i,f,g,o for f32 weights; quantized weights are stored
+// packed i,f,o,g).
 __device__ __forceinline__ void cell_element(const float* g, int hidden, int j, int off_g,
                                              int off_o, float c_prev, int impl,
                                              const float* table, float* h_new, float* c_new) {

@@ -17,19 +17,21 @@
 // of S (or L).  x is read from the batch-major (B, S, D) input and h[t]
 // written straight to the batch-major (B, S, H) output: no time-major copy.
 // Where the weights live sets the design; kernels/lstm_seq.py:plan_launch
-// picks one of three paths and the wrapper passes its geometry here.
+// picks one of three paths, for one layer and for a stack alike, and the
+// wrapper passes its geometry here.
 //
 // 1. One block per batch tile, weights resident (`lstm_seq_kernel`,
-//    resident = 1).  If one layer's w and u, at their stored width, fit in a
-//    block's shared memory beside the tile's state, the block copies them in
-//    once and every step reads them there: the paper's shape (8.3 KB in
-//    f32) and the small bench widths.  x[t] is copied one step ahead
-//    (cp.async) and x[t]·w computed per step beside h·u.
+//    `lstm_stack_kernel`, resident = 1).  If one layer's w and u, at their
+//    stored width, fit in a block's shared memory beside the tile's state,
+//    the block copies them in once (a stack: once per layer) and every step
+//    reads them there: the paper's shape (8.3 KB in f32) and the small bench
+//    widths.  x[t] is copied one step ahead (cp.async) and x[t]·w computed
+//    per step beside h·u.
 //
 // 2. A thread-block cluster per batch tile, u resident across it
-//    (`lstm_seq_cluster_kernel`, single layer).  At D = H = 256 u alone is
-//    1 MB in f32 (256 KB in int8), over the 227 KB a block may use.  A
-//    cluster of C = 8 blocks (kCluster: the most sm_90 allows without
+//    (`lstm_cluster_kernel`; one layer is a stack of L = 1).  At D = H = 256
+//    u alone is 1 MB in f32 (256 KB in int8), over the 227 KB a block may
+//    use.  A cluster of C = 8 blocks (kCluster: the most sm_90 allows without
 //    opting in, and the fastest size measured at D = H = 256) splits the H
 //    hidden units: block `rank` owns units [rank H/C, (rank+1) H/C) and
 //    their 4H/C gate columns, and keeps its (H, 4H/C) slice of u in shared
@@ -48,19 +50,25 @@
 //    runs inside the loop.  h is double-buffered, and a block can store into
 //    a buffer only after every block has sent the h it needs to fill the
 //    other one, so no store overtakes a read.  Clusters walk the batch,
-//    `block_b` rows each.  Bound: the FMAs of the projection and of h·u at
-//    a few rows a block, and each step's latency chain (partial sums, five
-//    activations, the store to the other blocks).
+//    `block_b` rows each.  A stack runs its layers one after another in the
+//    same cluster: each layer loads its u slice, and projects the h sequence
+//    of the layer before, which goes through a (B, S, H) buffer in device
+//    memory (it stays in L2; a block could not hold all S steps of its rows
+//    beside u's slice), with one cluster barrier between layers.  Bound: the
+//    FMAs of the projection and of h·u at a few rows a block, and each step's
+//    latency chain (partial sums, five activations, the store to the other
+//    blocks).
 //
 // 3. One block per batch tile, weights re-read from L2 each step
-//    (resident = 0): where neither fits (a slice too wide for a block,
-//    H/C not a multiple of 4, or a stack).  One SM draws ~90 GB/s from L2,
-//    so a step costs ~23 us at D = H = 256.
+//    (`lstm_seq_kernel`, `lstm_stack_kernel`, resident = 0): where neither
+//    fits (H/C not a multiple of 4, or a slice of u too wide for a block).
+//    One SM draws ~90 GB/s from L2: a step took ~23 us at D = H = 256
+//    before that width had the cluster path.
 //
-// The stack keeps the inter-layer h sequence in a (S, bb, H) f32 buffer in
-// shared memory.  Layer l+1 at step t reads row t as its input in phase 1
-// and, two barriers later, overwrites row t with its own h[t] in phase 3:
-// every read of a row is fenced from the write that replaces it.
+// On paths 1 and 3 a stack keeps the inter-layer h sequence in a (S, bb, H)
+// f32 buffer in shared memory.  Layer l+1 at step t reads row t as its input
+// in phase 1 and, two barriers later, overwrites row t with its own h[t] in
+// phase 3: every read of a row is fenced from the write that replaces it.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -119,6 +127,31 @@ __device__ inline Tile carve(unsigned char* smem, int block_b, int seq, int d_in
     t.u = wp + round_up16(w_rows * 4 * hidden * wbytes);
   }
   return t;
+}
+
+// One layer's operands: w (rows, 4H), u (H, 4H), b (4H) and, for int8
+// weights, the per-column scales sw and su (4H; null for f32 weights).
+template <typename WT>
+struct LayerOperands {
+  const WT* w;
+  const WT* u;
+  const float* b;
+  const float* sw;
+  const float* su;
+};
+
+// Layer l's operands.  Layer 0's arrive by value; those of layers 1 .. L-1
+// as a table in device memory of five addresses a layer (w, u, b, sw, su;
+// 0 for an absent scale), so that a stack's weights need not be stacked
+// into one tensor on every call.
+template <typename WT>
+__device__ __forceinline__ LayerOperands<WT> layer_operands(const LayerOperands<WT>& first,
+                                                            const long long* rest, int l) {
+  if (l == 0) return first;
+  const long long* p = rest + 5 * (l - 1);
+  return {reinterpret_cast<const WT*>(p[0]), reinterpret_cast<const WT*>(p[1]),
+          reinterpret_cast<const float*>(p[2]), reinterpret_cast<const float*>(p[3]),
+          reinterpret_cast<const float*>(p[4])};
 }
 
 // One layer's recurrence for the tile of rows [b0, b0 + bb).
@@ -216,14 +249,12 @@ lstm_seq_kernel(const float* __restrict__ x, const WT* __restrict__ w, const WT*
                    packed);
 }
 
-// L >= 2 layers.  w0: (D, 4H); wr: (L-1, H, 4H); us: (L, H, 4H); bs, sws,
-// sus: (L, 4H); hn, cn: (L, B, H).  Gate columns i,f,g,o, or i,f,o,g if `packed`.
+// L >= 2 layers (layer_operands: layer 0's w is (D, 4H), the others' (H,
+// 4H)); hn, cn: (L, B, H).  Gate columns i,f,g,o, or i,f,o,g if `packed`.
 template <typename WT, int R>
 __global__ void __launch_bounds__(kMaxThreads)
-lstm_stack_kernel(const float* __restrict__ x, const WT* __restrict__ w0,
-                  const WT* __restrict__ wr, const WT* __restrict__ us,
-                  const float* __restrict__ bs, const float* __restrict__ sws,
-                  const float* __restrict__ sus, const float* __restrict__ table_g,
+lstm_stack_kernel(const float* __restrict__ x, const LayerOperands<WT> first,
+                  const long long* __restrict__ rest, const float* __restrict__ table_g,
                   float* __restrict__ hs, float* __restrict__ hn, float* __restrict__ cn,
                   int batch, int seq, int d_in, int hidden, int layers, int impl, int packed,
                   int block_b, int resident) {
@@ -231,16 +262,13 @@ lstm_stack_kernel(const float* __restrict__ x, const WT* __restrict__ w0,
   const Tile tile = carve(smem_raw, block_b, seq, d_in, hidden, layers, sizeof(WT), resident);
   const int b0 = blockIdx.x * block_b;
   const int bb = min(block_b, batch - b0);
-  const int gates = 4 * hidden;
   if (impl == kLut) load_table(tile.table, table_g);
   for (int l = 0; l < layers; ++l) {
     const bool last = (l == layers - 1);
-    const WT* w = l == 0 ? w0 : wr + (long long)(l - 1) * hidden * gates;
-    run_layer<WT, R>(tile, l == 0 ? x : nullptr, d_in, last ? hs : nullptr, !last, w,
-                     us + (long long)l * hidden * gates, bs + l * gates,
-                     sws ? sws + l * gates : nullptr, sus ? sus + l * gates : nullptr,
-                     hn + (long long)l * batch * hidden, cn + (long long)l * batch * hidden, b0,
-                     bb, seq, hidden, impl, packed);
+    const LayerOperands<WT> op = layer_operands(first, rest, l);
+    run_layer<WT, R>(tile, l == 0 ? x : nullptr, d_in, last ? hs : nullptr, !last, op.w, op.u,
+                     op.b, op.sw, op.su, hn + (long long)l * batch * hidden,
+                     cn + (long long)l * batch * hidden, b0, bb, seq, hidden, impl, packed);
     // run_layer ends on a barrier: the next layer may overwrite the
     // resident weights and reset h and c.
   }
@@ -340,6 +368,15 @@ __device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
   }
 }
 
+// 16 bytes from device memory into shared memory through L2 alone
+// (cp.async.cg).  A stack's inter-layer sequence is written by the other SMs
+// of the cluster, and L1 is not coherent across SMs: no copy of it may come
+// from a line an SM's L1 kept from an earlier layer.
+__device__ __forceinline__ void copy16_l2(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
 // Copies k-chunk [k0, k0 + kx) of the projection's operands into a stage
 // buffer, asynchronously (cp.async), and commits them as one group: rows
 // [m0, m0 + rows) of x (row m = tt * bb + r is batch row b0 + r at step
@@ -354,8 +391,7 @@ __device__ void stage_projection(const float* x, const WT* w, float* xs, WT* ws,
       const int g = e / kQuads, kq = 4 * (e - g * kQuads);
       if (kq < kx) {
         const int m = m0 + g, tt = m / bb, r = m - tt * bb;
-        __pipeline_memcpy_async(xs + g * kProjK + kq,
-                                x + ((long long)(b0 + r) * seq + t0 + tt) * d_in + k0 + kq, 16);
+        copy16_l2(xs + g * kProjK + kq, x + ((long long)(b0 + r) * seq + t0 + tt) * d_in + k0 + kq);
       }
     }
   } else {
@@ -470,21 +506,35 @@ __device__ void project_inputs(const float* x, const WT* w, const float* b, cons
   }
 }
 
-// One layer, one cluster per tile of `block_b` batch rows; cluster dims
-// (C, 1, 1), so blockIdx.x / C is the tile.  w: (D, 4H), u: (H, 4H); gate
-// columns i,f,g,o, or i,f,o,g if `packed`.  Block `rank` owns hidden units
-// [rank hc, rank hc + hc), hc = H / C.  In shared memory (u's slice, the
-// partial sums, zx) its 4 hc gate columns are interleaved: local column
-// 4 jj + gi is gate block gi of unit jj, global column gi H + rank hc + jj,
-// so that the four gates of a unit are one 16-byte load.
+// L >= 1 layers, one cluster per tile of `block_b` batch rows; cluster dims
+// (C, 1, 1), so blockIdx.x / C is the tile.  K3 is this kernel at L = 1.
+// layer_operands: layer 0's w is (D, 4H), the others' (H, 4H); hn, cn:
+// (L, B, H); gate columns i,f,g,o, or i,f,o,g if `packed`.  Block
+// `rank` owns hidden units [rank hc, rank hc + hc), hc = H / C.  In shared
+// memory (u's slice, the partial sums, zx) its 4 hc gate columns are
+// interleaved: local column 4 jj + gi is gate block gi of unit jj, global
+// column gi H + rank hc + jj, so that the four gates of a unit are one
+// 16-byte load.
+//
+// The inter-layer sequence: layer l writes its h sequence, (B, S, H)
+// batch-major, to `hs` or to the workspace `seq_ws`, alternating so that
+// the last layer writes `hs`, and layer l + 1 projects it as its input.  A
+// cluster reads and writes only its own batch rows, so one cluster barrier
+// (release, then acquire) at the start of each layer orders everything a
+// layer needs: every block's stores of layer l - 1's sequence are visible,
+// no block still reads an h buffer of layer l - 1's last step when another
+// pushes layer l's first h into it, and no block still reads the buffer
+// that layer l overwrites (two layers back).  The sequence is copied in
+// with cp.async.cg (L2 only, copy16_l2).  Each mbarrier's phase parity is
+// carried across layers (`parity`): how many phases a buffer completes in a
+// layer depends on S.
 template <typename WT, int R>
 __global__ void __launch_bounds__(kClusterThreads, 1)
-lstm_seq_cluster_kernel(const float* __restrict__ x, const WT* __restrict__ w,
-                        const WT* __restrict__ u, const float* __restrict__ b,
-                        const float* __restrict__ sw, const float* __restrict__ su,
-                        const float* __restrict__ table_g, float* __restrict__ hs,
-                        float* __restrict__ hn, float* __restrict__ cn, int batch, int seq,
-                        int d_in, int hidden, int impl, int packed, int block_b, int chunk) {
+lstm_cluster_kernel(const float* __restrict__ x, const LayerOperands<WT> first,
+                    const long long* __restrict__ rest, const float* __restrict__ table_g, float* hs,
+                    float* seq_ws, float* __restrict__ hn, float* __restrict__ cn, int batch,
+                    int seq, int d_in, int hidden, int layers, int impl, int packed, int block_b,
+                    int chunk) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
@@ -496,7 +546,6 @@ lstm_seq_cluster_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   const int unit = tid - lane * hc;          // a step's columns: the 4 gates of this unit
   const int c4 = 4 * unit;                   // the projection's: 4 units of one gate block,
   const int col = (c4 / hc) * hidden + rank * hc + c4 % hc;  // global columns col .. col + 3
-  const bool x_vec = d_in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // full[b]: the other blocks' parts of the h in buffer b have arrived
@@ -513,132 +562,154 @@ lstm_seq_cluster_kernel(const float* __restrict__ x, const WT* __restrict__ w,
   const int bb = min(block_b, batch - b0);
 
   if (impl == kLut) load_table(table_s, table_g);
-  // u's slice, interleaved: row k, unit jj gathers u[k][gi H + rank hc + jj]
-  if constexpr (sizeof(WT) == 4) {
-    for (int e = tid; e < hidden * g4; e += blockDim.x) {
-      const int k = e / g4, c = e - k * g4;
-      const WT* from = u + (long long)k * gates + (c & 3) * hidden + rank * hc + c / 4;
-      __pipeline_memcpy_async(u_s + e, from, 4);
-    }
-  } else {  // bytes: gathered into registers eight units at a time, then stored four gates a word
-    constexpr int kBatch = 8;
-    for (int e0 = tid; e0 < hidden * hc; e0 += kBatch * blockDim.x) {
-      uint32_t quad[kBatch];
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        const int e = e0 + i * blockDim.x;
-        quad[i] = 0;
-        if (e < hidden * hc) {
-          const int k = e / hc;
-          const uint8_t* src = reinterpret_cast<const uint8_t*>(u) + (long long)k * gates +
-                               rank * hc + (e - k * hc);
-          quad[i] = src[0] | (uint32_t(src[hidden]) << 8) | (uint32_t(src[2 * hidden]) << 16) |
-                    (uint32_t(src[3 * hidden]) << 24);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        const int e = e0 + i * blockDim.x;
-        if (e < hidden * hc) reinterpret_cast<uint32_t*>(u_s)[e] = quad[i];
-      }
-    }
-  }
-  __pipeline_commit();
-  for (int e = tid; e < bb * hidden; e += blockDim.x) h0[e] = 0.0f;
-  for (int e = tid; e < bb * hc; e += blockDim.x) c_s[e] = 0.0f;
-  if (tid == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(full0) : "memory");
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(full1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __pipeline_wait_prior(0);
-  // Every block of the cluster is running, with its mbarriers set up and its
-  // step-0 h zeroed, before any block stores into another's shared memory.
-  cluster.sync();
   // What a block receives of each step's h: the other blocks' units, all rows.
   const uint32_t bytes_in = static_cast<uint32_t>((csize - 1) * bb * hc * sizeof(float));
-
   const int ks = round_up4((hidden + lanes - 1) / lanes);  // k of h·u per slice
   const int k0 = min(lane * ks, hidden), k1 = min(k0 + ks, hidden);
   const int gate_g = packed ? 3 : 2;  // gate block of the cell candidate g; o is the other of 2, 3
-  for (int t = 0; t < seq; ++t) {
-    const int tt = t % chunk;
-    if (tt == 0) {  // the input projection of the next `chunk` steps
-      project_inputs<WT>(x, w, b, sw, zx, scratch, b0, bb, t, min(chunk, seq - t), seq, d_in,
-                         hidden, hc, g4, rank, lane, lanes, c4, col, x_vec);
+  uint32_t parity = 0;                // bit b: parity of the next phase of full[b] to wait for
+
+  for (int l = 0; l < layers; ++l) {
+    const LayerOperands<WT> op = layer_operands(first, rest, l);
+    const WT* w = op.w;
+    const WT* u = op.u;
+    const float* b = op.b;
+    const float* sw = op.sw;
+    const float* su = op.su;
+    float* out = (layers - 1 - l) % 2 == 0 ? hs : seq_ws;
+    const float* in = l == 0 ? x : (out == hs ? seq_ws : hs);
+    const int d = l == 0 ? d_in : hidden;
+    const bool x_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0;
+    float* hn_l = hn + (long long)l * batch * hidden;
+    float* cn_l = cn + (long long)l * batch * hidden;
+
+    // u's slice, interleaved: row k, unit jj gathers u[k][gi H + rank hc + jj]
+    if constexpr (sizeof(WT) == 4) {
+      for (int e = tid; e < hidden * g4; e += blockDim.x) {
+        const int k = e / g4, c = e - k * g4;
+        const WT* from = u + (long long)k * gates + (c & 3) * hidden + rank * hc + c / 4;
+        __pipeline_memcpy_async(u_s + e, from, 4);
+      }
+    } else {  // bytes: gathered into registers eight units at a time, then stored four gates a word
+      constexpr int kBatch = 8;
+      for (int e0 = tid; e0 < hidden * hc; e0 += kBatch * blockDim.x) {
+        uint32_t quad[kBatch];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int e = e0 + i * blockDim.x;
+          quad[i] = 0;
+          if (e < hidden * hc) {
+            const int k = e / hc;
+            const uint8_t* src = reinterpret_cast<const uint8_t*>(u) + (long long)k * gates +
+                                 rank * hc + (e - k * hc);
+            quad[i] = src[0] | (uint32_t(src[hidden]) << 8) | (uint32_t(src[2 * hidden]) << 16) |
+                      (uint32_t(src[3 * hidden]) << 24);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int e = e0 + i * blockDim.x;
+          if (e < hidden * hc) reinterpret_cast<uint32_t*>(u_s)[e] = quad[i];
+        }
+      }
     }
-    // h[t-1], stored into buffer t % 2 at step t - 1 (that buffer's
-    // (t - 1) / 2-th use), is complete.
-    if (t > 0) wait_phase((t & 1) ? full1 : full0, ((t - 1) >> 1) & 1);
-    // Phase 1: partial sums of h[t-1]·u over the thread's k-slice.
-    const float* h_cur = (t & 1) ? h1 : h0;
-    float* h_next = (t & 1) ? h0 : h1;
-    const uint32_t full_next = (t & 1) ? full0 : full1;
-    if (tid == 0 && t + 1 < seq) expect_bytes(full_next, bytes_in);
-    if (lane < lanes) {
-      for (int r0 = 0; r0 < bb; r0 += R) {
-        float4 acc[R];
+    __pipeline_commit();
+    for (int e = tid; e < bb * hidden; e += blockDim.x) h0[e] = 0.0f;
+    for (int e = tid; e < bb * hc; e += blockDim.x) c_s[e] = 0.0f;
+    if (l == 0 && tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(full0) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(full1) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __pipeline_wait_prior(0);
+    // Every block of the cluster is running (layer 0: with its mbarriers set
+    // up) and has its step-0 h zeroed, and has finished layer l - 1, before
+    // any block stores into another's shared memory or reads `in`.
+    cluster.sync();
+
+    for (int t = 0; t < seq; ++t) {
+      const int tt = t % chunk;
+      if (tt == 0) {  // the input projection of the next `chunk` steps
+        project_inputs<WT>(in, w, b, sw, zx, scratch, b0, bb, t, min(chunk, seq - t), seq, d,
+                           hidden, hc, g4, rank, lane, lanes, c4, col, x_vec);
+      }
+      // h[t-1], stored into buffer t % 2 at step t - 1, is complete.
+      if (t > 0) {
+        const int buf = t & 1;
+        wait_phase(buf ? full1 : full0, (parity >> buf) & 1);
+        parity ^= 1u << buf;
+      }
+      // Phase 1: partial sums of h[t-1]·u over the thread's k-slice.
+      const float* h_cur = (t & 1) ? h1 : h0;
+      float* h_next = (t & 1) ? h0 : h1;
+      const uint32_t full_next = (t & 1) ? full0 : full1;
+      if (tid == 0 && t + 1 < seq) expect_bytes(full_next, bytes_in);
+      if (lane < lanes) {
+        for (int r0 = 0; r0 < bb; r0 += R) {
+          float4 acc[R];
 #pragma unroll
-        for (int i = 0; i < R; ++i) acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        dot_quads<WT, R>(h_cur, hidden, r0, bb, u_s + c4, g4, k0, k1, acc);
+          for (int i = 0; i < R; ++i) acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          dot_quads<WT, R>(h_cur, hidden, r0, bb, u_s + c4, g4, k0, k1, acc);
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          if (r0 + i < bb) {
-            *reinterpret_cast<float4*>(scratch + (long long)(lane * bb + r0 + i) * g4 + c4) =
-                acc[i];
+          for (int i = 0; i < R; ++i) {
+            if (r0 + i < bb) {
+              *reinterpret_cast<float4*>(scratch + (long long)(lane * bb + r0 + i) * g4 + c4) =
+                  acc[i];
+            }
           }
         }
       }
-    }
-    __syncthreads();  // partial sums (and, at a chunk's first step, zx) complete
-    // Phase 2, one thread per (row, unit) of the block: its four gates
-    // z = (x·w + b) + h·u (int8: each product times its scale) and their
-    // activations, then c and h; h goes to every block's next h buffer.
-    const bool last = t + 1 == seq;
-    for (int e = tid; e < bb * hc; e += blockDim.x) {
-      const int r = e / hc, jj = e - r * hc, j = rank * hc + jj;
-      const float4* part = reinterpret_cast<const float4*>(scratch + r * g4 + 4 * jj);
-      const int stride = bb * hc;  // float4s between two slices' partial sums
-      float4 zu = make_float4(0.0f, 0.0f, 0.0f, 0.0f), zv = zu;
-      int s = 0;
-      for (; s + 2 <= lanes; s += 2) {  // two chains, so that loads overlap
-        const float4 a = part[s * stride], b2 = part[(s + 1) * stride];
-        zu = make_float4(zu.x + a.x, zu.y + a.y, zu.z + a.z, zu.w + a.w);
-        zv = make_float4(zv.x + b2.x, zv.y + b2.y, zv.z + b2.z, zv.w + b2.w);
-      }
-      if (s < lanes) {
-        const float4 a = part[s * stride];
-        zu = make_float4(zu.x + a.x, zu.y + a.y, zu.z + a.z, zu.w + a.w);
-      }
-      zu = make_float4(zu.x + zv.x, zu.y + zv.y, zu.z + zv.z, zu.w + zv.w);
-      if constexpr (sizeof(WT) == 1) {
-        zu = make_float4(__fmul_rn(zu.x, su[j]), __fmul_rn(zu.y, su[hidden + j]),
-                         __fmul_rn(zu.z, su[2 * hidden + j]), __fmul_rn(zu.w, su[3 * hidden + j]));
-      }
-      const float4 zxv = *reinterpret_cast<const float4*>(zx + (tt * bb + r) * g4 + 4 * jj);
-      const float act[4] = {
-          apply_variant(__fadd_rn(zxv.x, zu.x), impl, kSigmoid, table_s),
-          apply_variant(__fadd_rn(zxv.y, zu.y), impl, kSigmoid, table_s),
-          apply_variant(__fadd_rn(zxv.z, zu.z), impl, gate_g == 2 ? kTanh : kSigmoid, table_s),
-          apply_variant(__fadd_rn(zxv.w, zu.w), impl, gate_g == 3 ? kTanh : kSigmoid, table_s)};
-      const float g = packed ? act[3] : act[2], o = packed ? act[2] : act[3];
-      const float c = act[1] * c_s[e] + act[0] * g;
-      const float h = o * apply_variant(c, impl, kTanh, table_s);
-      c_s[e] = c;
-      h_next[r * hidden + j] = h;
-      if (!last) {
-        const uint32_t at = smem_addr(h_next + r * hidden + j);
-        for (int p = 0; p < csize; ++p) {
-          if (p != rank) push_value(cluster_addr(at, p), h, cluster_addr(full_next, p));
+      __syncthreads();  // partial sums (and, at a chunk's first step, zx) complete
+      // Phase 2, one thread per (row, unit) of the block: its four gates
+      // z = (x·w + b) + h·u (int8: each product times its scale) and their
+      // activations, then c and h; h goes to every block's next h buffer.
+      const bool last = t + 1 == seq;
+      for (int e = tid; e < bb * hc; e += blockDim.x) {
+        const int r = e / hc, jj = e - r * hc, j = rank * hc + jj;
+        const float4* part = reinterpret_cast<const float4*>(scratch + r * g4 + 4 * jj);
+        const int stride = bb * hc;  // float4s between two slices' partial sums
+        float4 zu = make_float4(0.0f, 0.0f, 0.0f, 0.0f), zv = zu;
+        int s = 0;
+        for (; s + 2 <= lanes; s += 2) {  // two chains, so that loads overlap
+          const float4 a = part[s * stride], b2 = part[(s + 1) * stride];
+          zu = make_float4(zu.x + a.x, zu.y + a.y, zu.z + a.z, zu.w + a.w);
+          zv = make_float4(zv.x + b2.x, zv.y + b2.y, zv.z + b2.z, zv.w + b2.w);
+        }
+        if (s < lanes) {
+          const float4 a = part[s * stride];
+          zu = make_float4(zu.x + a.x, zu.y + a.y, zu.z + a.z, zu.w + a.w);
+        }
+        zu = make_float4(zu.x + zv.x, zu.y + zv.y, zu.z + zv.z, zu.w + zv.w);
+        if constexpr (sizeof(WT) == 1) {
+          zu = make_float4(__fmul_rn(zu.x, su[j]), __fmul_rn(zu.y, su[hidden + j]),
+                           __fmul_rn(zu.z, su[2 * hidden + j]),
+                           __fmul_rn(zu.w, su[3 * hidden + j]));
+        }
+        const float4 zxv = *reinterpret_cast<const float4*>(zx + (tt * bb + r) * g4 + 4 * jj);
+        const float act[4] = {
+            apply_variant(__fadd_rn(zxv.x, zu.x), impl, kSigmoid, table_s),
+            apply_variant(__fadd_rn(zxv.y, zu.y), impl, kSigmoid, table_s),
+            apply_variant(__fadd_rn(zxv.z, zu.z), impl, gate_g == 2 ? kTanh : kSigmoid, table_s),
+            apply_variant(__fadd_rn(zxv.w, zu.w), impl, gate_g == 3 ? kTanh : kSigmoid, table_s)};
+        const float g = packed ? act[3] : act[2], o = packed ? act[2] : act[3];
+        const float c = act[1] * c_s[e] + act[0] * g;
+        const float h = o * apply_variant(c, impl, kTanh, table_s);
+        c_s[e] = c;
+        h_next[r * hidden + j] = h;
+        if (!last) {
+          const uint32_t at = smem_addr(h_next + r * hidden + j);
+          for (int p = 0; p < csize; ++p) {
+            if (p != rank) push_value(cluster_addr(at, p), h, cluster_addr(full_next, p));
+          }
+        }
+        out[((long long)(b0 + r) * seq + t) * hidden + j] = h;
+        if (last) {
+          hn_l[(long long)(b0 + r) * hidden + j] = h;
+          cn_l[(long long)(b0 + r) * hidden + j] = c;
         }
       }
-      hs[((long long)(b0 + r) * seq + t) * hidden + j] = h;
-      if (last) {
-        hn[(long long)(b0 + r) * hidden + j] = h;
-        cn[(long long)(b0 + r) * hidden + j] = c;
-      }
+      __syncthreads();  // the block's own h[t] is visible, and the partial sums consumed
     }
-    __syncthreads();  // the block's own h[t] is visible, and the partial sums consumed
   }
 }
 
@@ -661,12 +732,12 @@ int launch_seq(const void* x, const void* w, const void* u, const void* b, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// The shared-memory attribute of a cluster kernel, once per instantiation,
+// The shared-memory attribute of the cluster kernel, once per instantiation,
 // device and size.
 template <typename WT, int R>
 int prepare_cluster(int smem) {
   static int smem_set[kMaxDevices] = {};
-  return allow_smem(lstm_seq_cluster_kernel<WT, R>, smem, smem_set);
+  return allow_smem(lstm_cluster_kernel<WT, R>, smem, smem_set);
 }
 
 struct ClusterConfig {
@@ -688,18 +759,29 @@ struct ClusterConfig {
   }
 };
 
+// Layer 0's operands as the kernels take them.
+template <typename WT>
+LayerOperands<WT> first_layer(const void* w, const void* u, const void* b, const void* sw,
+                              const void* su) {
+  return {static_cast<const WT*>(w), static_cast<const WT*>(u), static_cast<const float*>(b),
+          static_cast<const float*>(sw), static_cast<const float*>(su)};
+}
+
+// The cluster path for `layers` >= 1 layers (rest and seq_ws unused at 1).
 template <typename WT, int R>
-int launch_seq_cluster(const void* x, const void* w, const void* u, const void* b,
-                       const void* sw, const void* su, const void* table, void* hs, void* hn,
-                       void* cn, int batch, int seq, int d_in, int hidden, int impl, int packed,
-                       int block_b, int chunk, int smem, cudaStream_t s) {
+int launch_cluster(const void* x, const void* w0, const void* u0, const void* b0,
+                   const void* sw0, const void* su0, const void* rest, const void* table,
+                   void* hs, void* seq_ws,
+                   void* hn, void* cn, int batch, int seq, int d_in, int hidden, int layers,
+                   int impl, int packed, int block_b, int chunk, int smem, cudaStream_t s) {
   const int rc = prepare_cluster<WT, R>(smem);
   if (rc != 0) return rc;
   ClusterConfig launch((batch + block_b - 1) / block_b, smem, s);
   const cudaError_t e = cudaLaunchKernelEx(
-      &launch.cfg, lstm_seq_cluster_kernel<WT, R>, (const float*)x, (const WT*)w, (const WT*)u,
-      (const float*)b, (const float*)sw, (const float*)su, (const float*)table, (float*)hs,
-      (float*)hn, (float*)cn, batch, seq, d_in, hidden, impl, packed, block_b, chunk);
+      &launch.cfg, lstm_cluster_kernel<WT, R>, (const float*)x,
+      first_layer<WT>(w0, u0, b0, sw0, su0), (const long long*)rest, (const float*)table,
+      (float*)hs, (float*)seq_ws, (float*)hn, (float*)cn, batch, seq, d_in, hidden, layers, impl,
+      packed, block_b, chunk);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -713,13 +795,14 @@ int cluster_occupancy(int smem) {
   ClusterConfig query(1, smem, nullptr);
   int clusters = 0;
   const cudaError_t e = cudaOccupancyMaxActiveClusters(
-      &clusters, reinterpret_cast<const void*>(lstm_seq_cluster_kernel<WT, R>), &query.cfg);
+      &clusters, reinterpret_cast<const void*>(lstm_cluster_kernel<WT, R>), &query.cfg);
   return e == cudaSuccess ? clusters : -static_cast<int>(e);
 }
 
 template <typename WT, int R>
-int launch_stack(const void* x, const void* w0, const void* wr, const void* us, const void* bs,
-                 const void* sws, const void* sus, const void* table, void* hs, void* hn,
+int launch_stack(const void* x, const void* w0, const void* u0, const void* b0,
+                 const void* sw0, const void* su0, const void* rest, const void* table, void* hs,
+                 void* hn,
                  void* cn, int batch, int seq, int d_in, int hidden, int layers, int impl,
                  int packed, int block_b, int resident, int smem, cudaStream_t s) {
   static int smem_set[kMaxDevices] = {};
@@ -727,10 +810,20 @@ int launch_stack(const void* x, const void* w0, const void* wr, const void* us, 
   if (rc != 0) return rc;
   const int blocks = (batch + block_b - 1) / block_b;
   lstm_stack_kernel<WT, R><<<blocks, lstm_block_threads(hidden), smem, s>>>(
-      (const float*)x, (const WT*)w0, (const WT*)wr, (const WT*)us, (const float*)bs,
-      (const float*)sws, (const float*)sus, (const float*)table, (float*)hs, (float*)hn,
+      (const float*)x, first_layer<WT>(w0, u0, b0, sw0, su0), (const long long*)rest,
+      (const float*)table, (float*)hs, (float*)hn,
       (float*)cn, batch, seq, d_in, hidden, layers, impl, packed, block_b, resident);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster path's checks, shared by both entry points: 0 if the geometry
+// is one the cluster kernel takes, else -2 (geometry) or -1 (shared memory).
+inline int cluster_args_ok(int hidden, int block_b, int chunk, int seq, int quantized,
+                           int smem_bytes) {
+  if (!cluster_shape_ok(hidden) || chunk < 1 || chunk > seq) return -2;
+  const int smem = cluster_smem_bytes(block_b, chunk, hidden, kCluster, quantized ? 1 : 4);
+  if (smem != smem_bytes || smem > kMaxSharedBytes) return -1;
+  return 0;
 }
 
 }  // namespace
@@ -742,6 +835,10 @@ int launch_stack(const void* x, const void* w0, const void* wr, const void* us, 
     case 2: return CALL(WT, 2);                   \
     default: return CALL(WT, 4);                  \
   }
+
+#define REPRO_CLUSTER(WT, R)                                                                     \
+  launch_cluster<WT, R>(x, w0, u0, b0, sw0, su0, rest, table, hs, seq_ws, hn, cn, batch, seq,   \
+                        d_in, hidden, layers, impl, packed, block_b, chunk, smem_bytes, s)
 
 // a = {x, w, u, b, sw, su, table, hs, hn, cn, batch, seq, d_in, hidden, impl,
 // quantized, packed, block_b, resident, cluster, chunk, smem_bytes, stream}.
@@ -758,9 +855,9 @@ int launch_stack(const void* x, const void* w0, const void* wr, const void* us, 
 extern "C" int repro_lstm_seq(const long long* a, int count) {
   using namespace repro;
   if (count != 23) return kBadArgCount;
-  const void *x = arg_ptr<const void>(a[0]), *w = arg_ptr<const void>(a[1]);
-  const void *u = arg_ptr<const void>(a[2]), *b = arg_ptr<const void>(a[3]);
-  const void *sw = arg_ptr<const void>(a[4]), *su = arg_ptr<const void>(a[5]);
+  const void *x = arg_ptr<const void>(a[0]), *w0 = arg_ptr<const void>(a[1]);
+  const void *u0 = arg_ptr<const void>(a[2]), *b0 = arg_ptr<const void>(a[3]);
+  const void *sw0 = arg_ptr<const void>(a[4]), *su0 = arg_ptr<const void>(a[5]);
   const void* table = arg_ptr<const void>(a[6]);
   void *hs = arg_ptr<void>(a[7]), *hn = arg_ptr<void>(a[8]), *cn = arg_ptr<void>(a[9]);
   const int batch = static_cast<int>(a[10]), seq = static_cast<int>(a[11]);
@@ -772,29 +869,27 @@ extern "C" int repro_lstm_seq(const long long* a, int count) {
   cudaStream_t s = arg_stream(a[22]);
   if (batch < 1 || seq < 1 || block_b < 1) return -2;
   if (!quantized) {
-    sw = nullptr;
-    su = nullptr;
+    sw0 = nullptr;
+    su0 = nullptr;
   }
   if (cluster == kCluster) {
-    if (!cluster_shape_ok(hidden) || chunk < 1 || chunk > seq) return -2;
-    const int smem = cluster_smem_bytes(block_b, chunk, hidden, kCluster, quantized ? 1 : 4);
-    if (smem != smem_bytes || smem > kMaxSharedBytes) return -1;
-#define REPRO_SEQ_CLUSTER(WT, R)                                                            \
-  launch_seq_cluster<WT, R>(x, w, u, b, sw, su, table, hs, hn, cn, batch, seq, d_in, hidden, \
-                            impl, packed, block_b, chunk, smem, s)
+    const int rc = cluster_args_ok(hidden, block_b, chunk, seq, quantized, smem_bytes);
+    if (rc != 0) return rc;
+    const void* rest = nullptr;
+    void* seq_ws = nullptr;
+    const int layers = 1;
     if (quantized) {
-      REPRO_BY_ROWS(REPRO_SEQ_CLUSTER, int8_t)
+      REPRO_BY_ROWS(REPRO_CLUSTER, int8_t)
     } else {
-      REPRO_BY_ROWS(REPRO_SEQ_CLUSTER, float)
+      REPRO_BY_ROWS(REPRO_CLUSTER, float)
     }
-#undef REPRO_SEQ_CLUSTER
   }
   if (cluster != 1) return -2;
   const int smem = seq_smem_bytes(block_b, seq, d_in, hidden, 1, quantized ? 1 : 4, resident);
   if (smem != smem_bytes || smem > kMaxSharedBytes) return -1;
 #define REPRO_SEQ(WT, R)                                                                       \
-  launch_seq<WT, R>(x, w, u, b, sw, su, table, hs, hn, cn, batch, seq, d_in, hidden, impl,    \
-                    packed, block_b, resident, smem, s)
+  launch_seq<WT, R>(x, w0, u0, b0, sw0, su0, table, hs, hn, cn, batch, seq, d_in, hidden,     \
+                    impl, packed, block_b, resident, smem, s)
   if (quantized) {
     REPRO_BY_ROWS(REPRO_SEQ, int8_t)
   } else {
@@ -804,9 +899,9 @@ extern "C" int repro_lstm_seq(const long long* a, int count) {
 }
 
 // a = {quantized, block_b, smem_bytes}: how many clusters of the cluster
-// kernel, as repro_lstm_seq would launch it with these arguments, the current
-// device holds at once (cudaOccupancyMaxActiveClusters); a negative CUDA
-// error if the query fails.
+// kernel, as repro_lstm_seq or repro_lstm_stack would launch it with these
+// arguments, the current device holds at once
+// (cudaOccupancyMaxActiveClusters); a negative CUDA error if the query fails.
 extern "C" int repro_lstm_seq_cluster_occupancy(const long long* a, int count) {
   using namespace repro;
   if (count != 3) return kBadArgCount;
@@ -822,36 +917,54 @@ extern "C" int repro_lstm_seq_cluster_occupancy(const long long* a, int count) {
 #undef REPRO_OCCUPANCY
 }
 
-// a = {x, w0, wr, us, bs, sws, sus, table, hs, hn, cn, batch, seq, d_in,
-// hidden, layers, impl, quantized, packed, block_b, resident, smem_bytes,
-// stream}: as repro_lstm_seq (paths 1 and 3) for `layers` >= 2 layers:
-// w0: (D, 4H); wr: (L-1, H, 4H); us: (L, H, 4H); bs, sws, sus: (L, 4H);
-// hn, cn: (L, B, H).
+// a = {x, w0, u0, b0, sw0, su0, rest, table, hs, seq_ws, hn, cn, batch, seq,
+// d_in, hidden, layers, impl, quantized, packed, block_b, resident, cluster,
+// chunk, smem_bytes, stream}: as repro_lstm_seq for `layers` >= 2 layers.
+// w0, u0, b0, sw0, su0: layer 0's operands, w0 (D, 4H); rest: a device
+// int64 table (L-1, 5) of the addresses of the other layers' w (H, 4H), u,
+// b, sw, su (0 for absent scales); hn, cn: (L, B, H).  seq_ws: a (B, S, H) f32 workspace for the cluster
+// path's inter-layer sequence, 16-byte aligned as hs (cluster = kCluster;
+// unused by paths 1 and 3).
 extern "C" int repro_lstm_stack(const long long* a, int count) {
   using namespace repro;
-  if (count != 23) return kBadArgCount;
+  if (count != 26) return kBadArgCount;
   const void *x = arg_ptr<const void>(a[0]), *w0 = arg_ptr<const void>(a[1]);
-  const void *wr = arg_ptr<const void>(a[2]), *us = arg_ptr<const void>(a[3]);
-  const void *bs = arg_ptr<const void>(a[4]), *sws = arg_ptr<const void>(a[5]);
-  const void *sus = arg_ptr<const void>(a[6]), *table = arg_ptr<const void>(a[7]);
-  void *hs = arg_ptr<void>(a[8]), *hn = arg_ptr<void>(a[9]), *cn = arg_ptr<void>(a[10]);
-  const int batch = static_cast<int>(a[11]), seq = static_cast<int>(a[12]);
-  const int d_in = static_cast<int>(a[13]), hidden = static_cast<int>(a[14]);
-  const int layers = static_cast<int>(a[15]), impl = static_cast<int>(a[16]);
-  const int quantized = static_cast<int>(a[17]), packed = static_cast<int>(a[18]);
-  const int block_b = static_cast<int>(a[19]), resident = static_cast<int>(a[20]);
-  const int smem_bytes = static_cast<int>(a[21]);
-  cudaStream_t s = arg_stream(a[22]);
-  if (layers < 2 || batch < 1 || seq < 1 || block_b < 1) return -2;
+  const void *u0 = arg_ptr<const void>(a[2]), *b0 = arg_ptr<const void>(a[3]);
+  const void *sw0 = arg_ptr<const void>(a[4]), *su0 = arg_ptr<const void>(a[5]);
+  const void *rest = arg_ptr<const void>(a[6]), *table = arg_ptr<const void>(a[7]);
+  void *hs = arg_ptr<void>(a[8]), *seq_ws = arg_ptr<void>(a[9]);
+  void *hn = arg_ptr<void>(a[10]), *cn = arg_ptr<void>(a[11]);
+  const int batch = static_cast<int>(a[12]), seq = static_cast<int>(a[13]);
+  const int d_in = static_cast<int>(a[14]), hidden = static_cast<int>(a[15]);
+  const int layers = static_cast<int>(a[16]), impl = static_cast<int>(a[17]);
+  const int quantized = static_cast<int>(a[18]), packed = static_cast<int>(a[19]);
+  const int block_b = static_cast<int>(a[20]), resident = static_cast<int>(a[21]);
+  const int cluster = static_cast<int>(a[22]), chunk = static_cast<int>(a[23]);
+  const int smem_bytes = static_cast<int>(a[24]);
+  cudaStream_t s = arg_stream(a[25]);
+  if (layers < 2 || batch < 1 || seq < 1 || block_b < 1 || rest == nullptr) return -2;
+  if (!quantized) {
+    sw0 = nullptr;
+    su0 = nullptr;
+  }
+  if (cluster == kCluster) {
+    const int rc = cluster_args_ok(hidden, block_b, chunk, seq, quantized, smem_bytes);
+    if (rc != 0) return rc;
+    // layers after the first read hs or seq_ws in 16-byte cp.async.cg copies
+    if (seq_ws == nullptr || (reinterpret_cast<uintptr_t>(hs) | reinterpret_cast<uintptr_t>(seq_ws)) % 16)
+      return -2;
+    if (quantized) {
+      REPRO_BY_ROWS(REPRO_CLUSTER, int8_t)
+    } else {
+      REPRO_BY_ROWS(REPRO_CLUSTER, float)
+    }
+  }
+  if (cluster != 1) return -2;
   const int smem =
       seq_smem_bytes(block_b, seq, d_in, hidden, layers, quantized ? 1 : 4, resident);
   if (smem != smem_bytes || smem > kMaxSharedBytes) return -1;
-  if (!quantized) {
-    sws = nullptr;
-    sus = nullptr;
-  }
 #define REPRO_STACK(WT, R)                                                                     \
-  launch_stack<WT, R>(x, w0, wr, us, bs, sws, sus, table, hs, hn, cn, batch, seq, d_in,        \
+  launch_stack<WT, R>(x, w0, u0, b0, sw0, su0, rest, table, hs, hn, cn, batch, seq, d_in,      \
                       hidden, layers, impl, packed, block_b, resident, smem, s)
   if (quantized) {
     REPRO_BY_ROWS(REPRO_STACK, int8_t)

@@ -3,10 +3,12 @@
 All four gate pre-activations come from one pass over the (D, 4H) and
 (H, 4H) weights inside the kernel (``csrc/lstm_cell.cu``), with the gate
 nonlinearities in the same kernel's epilogue, so nothing travels through
-device memory between the products and the activations.
+device memory between the products and the activations.  The grid splits
+the hidden units (``UNITS`` a block, the four gate columns of each) as well
+as the batch, so each weight is read once per tile of rows (:func:`plan`).
 
 This is the SINGLE-STEP kernel: driving it from a Python loop launches once
-per timestep and re-reads the weights every launch.
+per timestep and reads the weights again every launch.
 ``repro_torch.kernels.lstm_seq`` runs the whole recurrence in one launch;
 this cell remains the decode-style primitive and the per-step baseline the
 benchmarks compare against.
@@ -18,6 +20,7 @@ tensors.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,15 +29,55 @@ from repro_torch.kernels.activations import apply_variant_plain, impl_code, tabl
 from repro_torch.models.activations import LUT_SIZE
 
 
-K_SLICES = 4  # k-slices of the gates' partial sums; `kSlices` in csrc/lstm_common.cuh
+# The kernel's geometry; the names in brackets are csrc/lstm_cell.cu's.
+UNITS = 8                    # hidden units a block [kCellUnits]
+ROW_STRIDE = 4 * UNITS + 4   # floats a row of a block's weight slice, padded [kCellStride]
 
 
-def cell_smem_bytes(bb: int, d_in: int, hidden: int) -> int:
-    """One block's shared memory: table | x tile | h tile | the gates' partial
-    sums, one (bb, 4H) slice per k-slice; f32 (``cell_smem_floats`` in
-    ``csrc/lstm_cell.cu``)."""
-    r4 = lambda n: runtime.round_up(n, 4)
-    return 4 * (LUT_SIZE + r4(bb * d_in) + r4(bb * hidden) + K_SLICES * bb * 4 * hidden)
+def cell_smem_bytes(rows: int, d_in: int, hidden: int) -> int:
+    """One block's shared memory (``cell_smem_floats`` in
+    ``csrc/lstm_cell.cu``): f32 table | [x | h] tile (rows, D + H) | the
+    block's (D + H, 4 x UNITS) slice of [w; u], rows padded to ROW_STRIDE |
+    pre-activations (rows, 4 x UNITS)."""
+    k = d_in + hidden
+    return 4 * (LUT_SIZE + runtime.round_up(rows * k, 4) + k * ROW_STRIDE + rows * 4 * UNITS)
+
+
+class CellPlan(NamedTuple):
+    units: int                # hidden units a block: j0 .. j0 + units - 1, four gate columns each
+    rows: int                 # batch rows a block (``block_b``)
+    grid: tuple[int, int]     # (row tiles, unit groups)
+    smem_bytes: int           # dynamic shared memory of one block
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(block_b, batch: int, d_in: int, hidden: int) -> CellPlan:
+    """Geometry of one launch.  A block owns ``UNITS`` hidden units and their
+    four gate columns for a tile of rows, so a weight is read once per row
+    tile.  ``"auto"``: as many row tiles as leave the grid within one wave
+    of the card's SMs (at least one), the rows split evenly over them, fewer
+    rows while a block's shared memory does not hold them.  An int
+    ``block_b`` is the rows a block, clipped to the batch, honoured or
+    refused with a ``ValueError`` that states the bound."""
+    if batch < 1:
+        raise ValueError("lstm_cell: empty batch")
+    if block_b != "auto" and (isinstance(block_b, bool) or not isinstance(block_b, int)
+                              or block_b < 1):
+        raise ValueError(f"lstm_cell: block_b must be a positive int or 'auto', got {block_b!r}")
+    groups = -(-hidden // UNITS)
+    if block_b == "auto":
+        rows = -(-batch // max(1, runtime.SM_COUNT // groups))
+        while rows > 1 and cell_smem_bytes(rows, d_in, hidden) > runtime.MAX_SHARED_BYTES:
+            rows -= 1
+    else:
+        rows = min(block_b, batch)
+    need = cell_smem_bytes(rows, d_in, hidden)
+    if need > runtime.MAX_SHARED_BYTES:
+        raise ValueError(
+            f"lstm_cell: a tile of {rows} rows needs {need} bytes of shared memory, over the "
+            f"{runtime.MAX_SHARED_BYTES} one block may use; pass a smaller block_b"
+        )
+    return CellPlan(UNITS, rows, (-(-batch // rows), groups), need)
 
 
 def lstm_cell_plain(x, h, c, w, u, b, *, impl: str = "exact"):
@@ -57,8 +100,8 @@ def lstm_cell_fused(x, h, c, w, u, b, *, impl: str = "exact", block_b: int | str
     """x: (B, D); h/c: (B, H); w: (D, 4H); u: (H, 4H); b: (4H,); all f32
     (anything else raises).  Returns (h', c').
 
-    ``block_b`` is the batch tile of one thread block; ``"auto"`` follows
-    the fixed rule of :func:`runtime.pick_block_b`.
+    ``block_b`` is the rows of one thread block; ``"auto"`` follows the
+    fixed rule of :func:`plan`.
     """
     code = impl_code(impl)
     runtime.require_dtype("lstm_cell", torch.float32, _OPERANDS, x, h, c, w, u, b)
@@ -71,20 +114,13 @@ def lstm_cell_fused(x, h, c, w, u, b, *, impl: str = "exact", block_b: int | str
             f"c {tuple(c.shape)} w {tuple(w.shape)} u {tuple(u.shape)} b {tuple(b.shape)}"
         )
     dev = runtime.require_same_device(x, h, c, w, u, b)
-    bb, smem = _cell_plan(block_b, bsz, d_in, hidden)
+    geometry = plan(block_b, bsz, d_in, hidden)
     if dev.type == "cpu":
         return lstm_cell_plain(x, h, c, w, u, b, impl=impl)
     ptrs = runtime.aligned_pointers("lstm_cell", _OPERANDS, x, h, c, w, u, b)
     h_new = torch.empty_like(h)
     c_new = torch.empty_like(c)
     runtime.launch("lstm_cell", "repro_lstm_cell", dev.index, *ptrs, table_pointer(dev, code),
-                   h_new.data_ptr(), c_new.data_ptr(), bsz, d_in, hidden, code, bb, smem)
+                   h_new.data_ptr(), c_new.data_ptr(), bsz, d_in, hidden, code, geometry.rows,
+                   geometry.smem_bytes)
     return h_new, c_new
-
-
-@functools.lru_cache(maxsize=1024)
-def _cell_plan(block_b, bsz: int, d_in: int, hidden: int) -> tuple[int, int]:
-    """Batch tile and shared memory of one block."""
-    bb = runtime.pick_block_b(block_b, bsz, lambda n: cell_smem_bytes(n, d_in, hidden),
-                              "lstm_cell")
-    return bb, cell_smem_bytes(bb, d_in, hidden)

@@ -19,31 +19,38 @@ the *residency*:
     the wrapper makes no time-major copy and pads nothing, the ragged last
     tile simply has fewer rows.
 
-Where the weights live (:func:`plan_launch` chooses and reports it):
+Where the weights live (:func:`plan_launch` chooses and reports it; one
+layer and a stack take the same three paths):
 
   * **one block per batch tile, weights resident**: if one layer's ``w``
     and ``u`` fit in a thread block's shared memory beside the tile's
-    state, the block copies them in once and every step reads them there
-    (the paper's shape, the small bench widths);
-  * **a thread-block cluster per batch tile** (single layer): where they do
-    not (D = H = 256, f32 or int8), a cluster of ``CLUSTER`` = 8 blocks
-    splits the H hidden units, each block keeping its (H, 4H/8) slice of
-    ``u`` in shared memory; the input projection ``x·w + b`` is computed ahead of the
+    state, the block copies them in once (a stack: once per layer) and
+    every step reads them there (the paper's shape, the small bench
+    widths);
+  * **a thread-block cluster per batch tile**: where they do not (D = H =
+    256, f32 or int8), a cluster of ``CLUSTER`` = 8 blocks splits the H
+    hidden units, each block keeping its (H, 4H/8) slice of ``u`` in shared
+    memory; the input projection ``x·w + b`` is computed ahead of the
     recurrence (as the JAX kernel's ``_input_projection`` does), and each
-    step's h is exchanged through distributed shared memory;
+    step's h is exchanged through distributed shared memory.  A stack runs
+    its layers one after another in the same clusters, each layer loading
+    its slice of ``u`` and projecting the previous layer's h sequence;
   * **weights re-read from L2 each step**: where no cluster's slice fits
-    either, and for stacks.
+    either, or H does not split over 8 blocks.
 
 **int8 weights** (``lstm_seq_fused_q8`` / ``lstm_seq_fused_quantized``):
 ``w``/``u`` as int8 with per-gate-column f32 scales (``kernels.lstm_quant``),
 converted at the load; the scale multiplies the finished sum.
 
-**layer-fused stacks** (``lstm_stack_fused``): L layers in one launch.  The
-inter-layer h sequence lives in a (S, bb, H) f32 shared-memory buffer,
-written by layer l and read, row by row, by layer l+1, and never travels
-through device memory, unlike L sequential ``lstm_seq_fused`` calls.  When
-that buffer cannot fit even for one batch row the wrapper raises a
-``ValueError`` stating the bound.
+**layer-fused stacks** (``lstm_stack_fused``): L layers in one launch.  On
+the block and L2 paths the inter-layer h sequence lives in a (S, bb, H) f32
+shared-memory buffer, written by layer l and read, row by row, by layer
+l+1; when that buffer cannot fit even for one batch row the wrapper raises
+a ``ValueError`` stating the bound.  On the cluster path it goes through a
+(B, S, H) f32 workspace in device memory that the wrapper allocates (it
+stays in L2), since a block cannot hold all S steps of its rows beside its
+slice of ``u``; layers alternate between it and ``hs`` so that the last
+writes ``hs``.
 
 Each kernel has its plain PyTorch version here (:func:`lstm_seq_plain`,
 :func:`lstm_stack_plain`), taken only for CPU tensors.
@@ -61,7 +68,6 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.activations import apply_variant_plain, impl_code, table_pointer
-from repro_torch.kernels.lstm_cell import K_SLICES
 from repro_torch.models.activations import LUT_SIZE
 
 
@@ -82,6 +88,9 @@ def _pack_ifog(w, u, b, hidden: int):
 # ---------------------------------------------------------------------------
 # Launch geometry
 # ---------------------------------------------------------------------------
+K_SLICES = 4  # k-slices of the block paths' partial sums; `kSlices` in csrc/lstm_common.cuh
+
+
 def seq_smem_bytes(bb: int, seq: int, d_in: int, hidden: int, layers: int,
                    wbytes: int, resident: bool) -> int:
     """One block's shared memory (``seq_smem_bytes`` in ``csrc/lstm_seq.cu``):
@@ -185,16 +194,16 @@ def plan_launch(block_b, batch: int, seq: int, d_in: int, hidden: int, *,
 
     One block per tile with the weights resident if they fit (the tile
     from :func:`runtime.pick_block_b` over the memory needed WITHOUT
-    resident weights); else, for one layer whose H splits over ``CLUSTER``
-    blocks, a cluster per tile, if its blocks can hold their rows beside
-    their slice of ``u``; else the weights are re-read from L2 each step.
-    ``"auto"`` spreads the cluster path's batch over ``slots`` clusters, the
-    card's :func:`cluster_slots` (the wrappers pass it; None, for plans made
-    on the CPU, means ``SM_COUNT // CLUSTER``), so that they run in one
-    wave.  An int ``block_b`` is honoured by the path chosen, or refused
-    with a ``ValueError`` that states the bound.  A stack also raises when
-    even one batch row does not fit (S·H·4 bytes of inter-layer sequence
-    per row)."""
+    resident weights); else, where H splits over ``CLUSTER`` blocks, a
+    cluster per tile, if its blocks can hold their rows beside their slice
+    of ``u`` (one layer or a stack alike); else the weights are re-read from
+    L2 each step.  ``"auto"`` spreads the cluster path's batch over
+    ``slots`` clusters, the card's :func:`cluster_slots` (the wrappers pass
+    it; None, for plans made on the CPU, means ``SM_COUNT // CLUSTER``), so
+    that they run in one wave.  An int ``block_b`` is honoured by the path
+    chosen, or refused with a ``ValueError`` that states the bound.  A stack
+    off the cluster path also raises when even one batch row does not fit
+    (S·H·4 bytes of inter-layer sequence per row)."""
     wbytes = 1 if quantized else 4
     kernel = "lstm_stack" if layers > 1 else "lstm_seq"
     if block_b != "auto" and (isinstance(block_b, bool) or not isinstance(block_b, int)
@@ -211,7 +220,7 @@ def plan_launch(block_b, batch: int, seq: int, d_in: int, hidden: int, *,
         with_weights = seq_smem_bytes(bb, seq, d_in, hidden, layers, wbytes, True)
         if with_weights <= runtime.MAX_SHARED_BYTES:
             return LaunchPlan(bb, True, with_weights, 1, -(-batch // bb))
-    if layers == 1 and cluster_shape_ok(hidden):
+    if cluster_shape_ok(hidden):
         plan = _cluster_plan(block_b, batch, seq, hidden, wbytes,
                              slots or runtime.SM_COUNT // CLUSTER)
         if plan is not None:
@@ -253,18 +262,14 @@ def lstm_seq_plain(x, w, u, b, sw=None, su=None, *, impl: str = "exact", packed:
     return torch.stack(hs, dim=1), h, c
 
 
-def lstm_stack_plain(x, w0, wr, us, bs, sws=None, sus=None, *, impl: str = "exact",
-                     packed: bool = True):
-    """L >= 2 layers over stacked weights (the kernel's operands).  Returns
-    the last layer's hs (B, S, H) and hn, cn (L, B, H)."""
+def lstm_stack_plain(x, layers, *, impl: str = "exact", packed: bool = True):
+    """L >= 2 layers, each ``(w, u, b, sw, su)`` as the kernel takes them
+    (``sw``, ``su`` None for f32 weights).  Returns the last layer's hs
+    (B, S, H) and hn, cn (L, B, H)."""
     h = x
     hns, cns = [], []
-    for l in range(us.shape[0]):
-        h, hn, cn = lstm_seq_plain(
-            h, w0 if l == 0 else wr[l - 1], us[l], bs[l],
-            None if sws is None else sws[l], None if sus is None else sus[l], impl=impl,
-            packed=packed,
-        )
+    for w, u, b, sw, su in layers:
+        h, hn, cn = lstm_seq_plain(h, w, u, b, sw, su, impl=impl, packed=packed)
         hns.append(hn)
         cns.append(cn)
     return h, torch.stack(hns), torch.stack(cns)
@@ -367,62 +372,84 @@ def lstm_seq_fused_q8(x, w, u, b, *, impl: str = "exact", block_b: int | str = "
     )
 
 
-def _lstm_stack_call(x, w0, wr, us, bs, sws, sus, *, impl: str, block_b, return_state: bool,
-                     packed: bool):
-    """Layer-fused stack launcher; layers ≥ 2.  Gate columns [i, f, o, g] if
-    ``packed`` (quantized weights) else the public [i, f, g, o].
+@functools.lru_cache(maxsize=256)
+def _layer_table(device: torch.device, addresses: tuple[int, ...]) -> torch.Tensor:
+    """The addresses of a stack's layers 1..L-1 (w, u, b, sw, su each, 0
+    for an absent scale) as an int64 tensor on ``device``: the kernel reads
+    them there.  Keyed by the addresses alone, which is safe: the kernel
+    reads whatever tensors lie at those addresses when it runs, and the
+    caller passed the tensors that lie there now."""
+    return torch.tensor(addresses, dtype=torch.int64, device=device)
 
-    w0: (D, 4H); wr: (L-1, H, 4H); us: (L, H, 4H); bs: (L, 4H);
-    sws/sus: (L, 4H) scales or None (f32 path).
-    """
+
+_STACK_F32 = ("w", "u", "b")
+_STACK_Q8 = ("w", "u", "b", "w_scale", "u_scale")
+
+
+def _lstm_stack_call(x, layers, *, impl: str, block_b, return_state: bool, packed: bool):
+    """Layer-fused stack launcher; ``layers``: L >= 2 tuples ``(w, u, b, sw,
+    su)``, layer 0's w (D, 4H) and the others' (H, 4H), u (H, 4H), b (4H);
+    ``sw``/``su`` the (4H) scales of int8 weights, or None (f32).  Gate
+    columns [i, f, o, g] if ``packed`` (quantized weights) else the public
+    [i, f, g, o].  Each layer's tensors are passed as they are: nothing is
+    stacked per call."""
     code = impl_code(impl)
-    quantized = sws is not None
+    quantized = layers[0][3] is not None
     kernel = "lstm_stack_q8" if quantized else "lstm_stack_f32"
+    names = _STACK_Q8 if quantized else _STACK_F32
     f32 = torch.float32
-    if quantized:
-        runtime.require_dtype(kernel, f32, ("x", "bs", "w_scales", "u_scales"), x, bs, sws, sus)
-        runtime.require_dtype(kernel, torch.int8, ("w0", "wr", "us"), w0, wr, us)
-    else:
-        runtime.require_dtype(kernel, f32, ("x", "w0", "wr", "us", "bs"), x, w0, wr, us, bs)
+    runtime.require_dtype(kernel, f32, ("x",), x)
     if x.dim() != 3:
         raise ValueError(f"{kernel}: x must be (B, S, D), got {tuple(x.shape)}")
     bsz, seq, d_in = x.shape
-    layers, hidden = us.shape[0], us.shape[1]
+    hidden = layers[0][1].shape[0]
     gates = 4 * hidden
-    if (layers < 2 or w0.shape != (d_in, gates) or wr.shape != (layers - 1, hidden, gates)
-            or us.shape != (layers, hidden, gates) or bs.shape != (layers, gates)):
-        raise ValueError(
-            f"{kernel}: inconsistent shapes x {tuple(x.shape)} w0 {tuple(w0.shape)} "
-            f"wr {tuple(wr.shape)} us {tuple(us.shape)} bs {tuple(bs.shape)}"
-        )
+    if len(layers) < 2:
+        raise ValueError(f"{kernel}: a stack has at least 2 layers, got {len(layers)}")
+    operands = [op[:len(names)] for op in layers]
+    for l, (w, u, *rest) in enumerate(operands):
+        if quantized:
+            runtime.require_dtype(kernel, torch.int8, names[:2], w, u)
+            runtime.require_dtype(kernel, f32, names[2:], *rest)
+        else:
+            runtime.require_dtype(kernel, f32, names, w, u, *rest)
+        if (w.shape != (d_in if l == 0 else hidden, gates) or u.shape != (hidden, gates)
+                or any(t.shape != (gates,) for t in rest)):
+            raise ValueError(
+                f"{kernel}: layer {l}: inconsistent shapes x {tuple(x.shape)} w {tuple(w.shape)} "
+                f"u {tuple(u.shape)} " + " ".join(f"{n} {tuple(t.shape)}"
+                                                 for n, t in zip(names[2:], rest))
+            )
     if seq < 1:
         raise ValueError(f"{kernel}: empty sequence")
-    weights = (w0, wr, us, bs, sws, sus) if quantized else (w0, wr, us, bs)
-    dev = runtime.require_same_device(x, *weights)
-    plan = plan_launch(block_b, bsz, seq, d_in, hidden, layers=layers, quantized=quantized)
+    dev = runtime.require_same_device(x, *(t for op in operands for t in op))
 
     if dev.type == "cpu":
-        hs, hn, cn = lstm_stack_plain(x, w0, wr, us, bs, sws, sus, impl=impl, packed=packed)
+        # refuses what the card would
+        plan_launch(block_b, bsz, seq, d_in, hidden, layers=len(layers), quantized=quantized)
+        hs, hn, cn = lstm_stack_plain(x, layers, impl=impl, packed=packed)
     else:
         x = x.contiguous()
-        ptrs = runtime.aligned_pointers(kernel, _STACK_Q8 if quantized else _STACK_F32, *weights)
-        if not quantized:
-            ptrs += (0, 0)
+        pad = [] if quantized else [0, 0]
+        ptrs = [runtime.aligned_pointers(kernel, names, *op) + pad for op in operands]
+        rest = _layer_table(dev, tuple(p for op in ptrs[1:] for p in op))
+        plan = plan_launch(block_b, bsz, seq, d_in, hidden, layers=len(layers),
+                           quantized=quantized, slots=cluster_slots(dev))
         hs = torch.empty((bsz, seq, hidden), dtype=f32, device=dev)
-        hn = torch.empty((layers, bsz, hidden), dtype=f32, device=dev)
-        cn = torch.empty((layers, bsz, hidden), dtype=f32, device=dev)
+        # the cluster path's inter-layer sequence, beside hs
+        seq_ws = torch.empty_like(hs) if plan.path == "cluster" else None
+        hn = torch.empty((len(layers), bsz, hidden), dtype=f32, device=dev)
+        cn = torch.empty((len(layers), bsz, hidden), dtype=f32, device=dev)
         runtime.launch(
-            kernel, "repro_lstm_stack", dev.index, x.data_ptr(), *ptrs, table_pointer(dev, code),
-            hs.data_ptr(), hn.data_ptr(), cn.data_ptr(), bsz, seq, d_in, hidden, layers, code,
-            int(quantized), int(packed), plan.block_b, int(plan.resident), plan.smem_bytes,
+            kernel, "repro_lstm_stack", dev.index, x.data_ptr(), *ptrs[0], rest.data_ptr(),
+            table_pointer(dev, code), hs.data_ptr(), 0 if seq_ws is None else seq_ws.data_ptr(),
+            hn.data_ptr(), cn.data_ptr(), bsz, seq, d_in, hidden, len(layers), code,
+            int(quantized), int(packed), plan.block_b, int(plan.resident), plan.cluster,
+            plan.chunk, plan.smem_bytes,
         )
     if return_state:
         return hs, (hn, cn)
     return hs
-
-
-_STACK_F32 = ("w0", "wr", "us", "bs")
-_STACK_Q8 = ("w0", "wr", "us", "bs", "w_scales", "u_scales")
 
 
 def lstm_stack_fused(x, layers, *, impl: str = "exact", block_b: int | str = "auto",
@@ -432,8 +459,8 @@ def lstm_stack_fused(x, layers, *, impl: str = "exact", block_b: int | str = "au
     x: (B, S, D); ``layers`` is a list of (w, u, b) triples (or param
     dicts): layer 0 takes w (D, 4H); layers 1..L-1 take w (H, 4H); every
     layer's u is (H, 4H).  The inter-layer h sequence stays in shared
-    memory — it never round-trips through device memory the way L
-    sequential ``lstm_seq_fused`` calls do.  ``quantized=True`` holds every
+    memory (block and L2 paths) or in a workspace that stays in L2 (cluster
+    path), inside the one launch.  ``quantized=True`` holds every
     layer's w/u as int8 with per-gate-column scales (``kernels.lstm_quant``).
 
     Returns hs (B, S, H) of the LAST layer, plus per-layer final states
@@ -464,18 +491,8 @@ def lstm_stack_fused(x, layers, *, impl: str = "exact", block_b: int | str = "au
     if quantized:
         from repro_torch.kernels.lstm_quant import quantize_lstm_stack
 
-        qs = quantize_lstm_stack(triples)
-        w0 = qs[0].w_q
-        wr = torch.stack([q.w_q for q in qs[1:]])
-        us = torch.stack([q.u_q for q in qs])
-        bs = torch.stack([q.b for q in qs])
-        sws = torch.stack([q.w_scale for q in qs])
-        sus = torch.stack([q.u_scale for q in qs])
+        operands = [(q.w_q, q.u_q, q.b, q.w_scale, q.u_scale) for q in quantize_lstm_stack(triples)]
     else:
-        w0 = triples[0][0]
-        wr = torch.stack([w for w, _, _ in triples[1:]])
-        us = torch.stack([u for _, u, _ in triples])
-        bs = torch.stack([b for _, _, b in triples])
-        sws = sus = None
-    return _lstm_stack_call(x, w0, wr, us, bs, sws, sus, impl=impl, block_b=block_b,
-                            return_state=return_state, packed=quantized)
+        operands = [(w, u, b, None, None) for w, u, b in triples]
+    return _lstm_stack_call(x, operands, impl=impl, block_b=block_b, return_state=return_state,
+                            packed=quantized)

@@ -4,9 +4,8 @@ Where a call runs follows from where its tensors lie: CUDA tensors go
 through the CUDA kernels (or raise), CPU tensors through the kernels' plain
 PyTorch versions.  There is no switch that changes this.
 
-Batch tiles default to ``"auto"``: a fixed rule
-(``repro_torch.kernels.runtime.pick_block_b``) until the block-size tuner is
-ported.  The attention kernel has fixed tiles and the int8-matmul kernel
+Batch tiles default to ``"auto"``: fixed rules (``lstm_cell.plan``,
+``lstm_seq.plan_launch``) until the block-size tuner is ported.  The attention kernel has fixed tiles and the int8-matmul kernel
 takes its geometry from a fixed rule (``int8_matmul.plan``) for the same
 reason: their ``block_*`` arguments take ``"auto"`` only, and anything else
 raises ``NotImplementedError`` (ROADMAP Queue A item 7, the tuner).

@@ -14,7 +14,7 @@ Every wrapper launches through :func:`launch`, the one host path they share.
 It passes a call's arguments to the C entry point as one array of 64-bit
 integers (pointers, sizes and flags, the stream last), packed by
 ``struct``: ctypes then converts two arguments per call instead of up to
-twenty-three.  The stream is the raw handle of PyTorch's current stream,
+twenty-six.  The stream is the raw handle of PyTorch's current stream,
 read without building a ``torch.cuda.Stream``.
 """
 from __future__ import annotations
@@ -50,7 +50,7 @@ ENTRY_ARGS = {
     "repro_lstm_cell": 16,
     "repro_lstm_seq": 23,
     "repro_lstm_seq_cluster_occupancy": 3,
-    "repro_lstm_stack": 23,
+    "repro_lstm_stack": 26,
     "repro_int8_matmul": 16,
     "repro_flash_attention": 14,
 }

@@ -25,7 +25,8 @@ hand-written CUDA kernels** of ``repro_torch.kernels``:
 
 Multi-layer stacks go through :func:`lstm_stack_apply`, whose
 ``fused="pallas_stack"``/``"pallas_stack_q8"`` modes chain all L layers in
-one launch with the inter-layer h sequence kept in shared memory —
+one launch with the inter-layer h sequence kept inside it (in shared memory,
+or on the cluster path in a workspace that stays in L2) —
 replacing the Python-level per-layer loop (still available as the baseline:
 any single-layer ``fused`` mode loops layer by layer).
 
@@ -144,7 +145,7 @@ def lstm_stack_apply(params, x, *, impl: str = "exact",
     ``params`` is the list from :func:`lstm_stack_defs`.  ``fused``:
 
       "pallas_stack"     ONE launch chains all L layers; the inter-layer h
-                         sequence lives in shared memory (preferred)
+                         sequence stays inside the launch (preferred)
       "pallas_stack_q8"  the same with every layer's weights int8
       anything accepted by :func:`lstm_apply` — the Python-level per-layer
                          loop baseline (L separate calls)

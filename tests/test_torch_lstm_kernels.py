@@ -24,6 +24,7 @@ from repro.kernels.lstm_cell import lstm_cell_fused as j_lstm_cell
 from repro_torch.kernels import lstm_quant as tq
 from repro_torch.kernels import lstm_seq as tseq
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import lstm_cell as cell_mod
 from repro_torch.kernels import runtime
 from repro_torch.kernels.lstm_cell import cell_smem_bytes
 from repro_torch.kernels.lstm_cell import lstm_cell_fused as t_lstm_cell
@@ -241,8 +242,8 @@ def test_block_b_is_honoured_or_refused():
 def test_launch_plan_residency():
     """Where the weights live: in one block's shared memory at the paper's
     shape and the small bench widths; at D = H = 256 (f32 and int8) u's
-    slices stay in the shared memory of a cluster's blocks; a stack at
-    D = H = 256 re-reads them each step."""
+    slices stay in the shared memory of a cluster's blocks, for one layer
+    and for a stack alike (the same plan)."""
     paper = tseq.plan_launch("auto", 64, 28, 6, 20)
     assert paper.resident and paper.block_b == 1 and paper.path == "block"
     assert paper.cluster == 1 and paper.clusters == 64
@@ -253,11 +254,11 @@ def test_launch_plan_residency():
         assert big.resident and big.path == "cluster" and big.cluster > 1
         assert big.smem_bytes <= runtime.MAX_SHARED_BYTES
         stack = tseq.plan_launch("auto", 40, 28, 256, 256, layers=3, quantized=quantized)
-        assert not stack.resident and stack.path == "l2" and stack.cluster == 1
-        assert stack.smem_bytes <= runtime.MAX_SHARED_BYTES
+        assert stack.resident and stack.path == "cluster" and stack.cluster == tseq.CLUSTER
+        assert stack == big and stack.smem_bytes <= runtime.MAX_SHARED_BYTES
     # the plan's bytes are the layout's bytes
     assert paper.smem_bytes == tseq.seq_smem_bytes(1, 28, 6, 20, 1, 4, True)
-    assert cell_smem_bytes(2, 6, 20) == 4 * (256 + 12 + 40 + 4 * 160)
+    assert cell_smem_bytes(2, 6, 20) == 4 * (256 + 52 + 26 * 36 + 2 * 32)
 
 
 # ---------------------------------------------------------------------------
@@ -370,10 +371,12 @@ def test_l2_path_beyond_the_cluster(quantized):
 
 def test_l2_path_where_the_units_do_not_split():
     """H = 200 neither fits a block nor splits into whole quads over 8
-    blocks; a stack never takes the cluster path."""
+    blocks, for one layer or a stack; at H = 256 a stack takes the cluster
+    path as one layer does."""
     assert not tseq.cluster_shape_ok(200) and tseq.cluster_shape_ok(256)
     assert tseq.plan_launch("auto", 40, 28, 200, 200).path == "l2"
-    assert tseq.plan_launch("auto", 40, 28, 256, 256, layers=2).path == "l2"
+    assert tseq.plan_launch("auto", 40, 28, 200, 200, layers=2).path == "l2"
+    assert tseq.plan_launch("auto", 40, 28, 256, 256, layers=2).path == "cluster"
     assert tseq.plan_launch("auto", 64, 28, 6, 20).path == "block"
 
 
@@ -413,9 +416,181 @@ def test_lstm_seq_cluster_shape_matches_jax(impl, b, s, d, block_b):
     assert_parity(got_qc, want_qc, impl, 1e-4, "cn int8")
 
 
-def test_stack_raises_when_one_row_does_not_fit():
-    """S·H·4 bytes of inter-layer sequence per batch row must fit a block."""
+def test_stack_takes_the_cluster_path_where_one_row_does_not_fit_a_block():
+    """S·H·4 bytes of inter-layer sequence for one row (300 x 256 x 4 =
+    307,200) are over a block's shared memory, which the block and L2 paths
+    need; the cluster path keeps that sequence in device memory and
+    projects it `chunk` < S steps at a time."""
+    plan = tseq.plan_launch("auto", 1, 300, 4, 256, layers=2)
+    assert plan.path == "cluster" and plan.block_b == 1 and 1 <= plan.chunk < 300
+    assert plan.smem_bytes == tseq.cluster_smem_bytes(1, plan.chunk, 256, 4)
+    assert tseq.cluster_smem_bytes(1, plan.chunk + 1, 256, 4) > runtime.MAX_SHARED_BYTES
     ws = _weights(9, 4, 256, layers=2)
-    x = torch.zeros(1, 300, 4)  # 300 * 256 * 4 = 307,200 bytes > 232,448
+    x = torch.from_numpy(_x(12, 1, 300, 4))
+    got = tseq.lstm_stack_fused(x, [_t(l) for l in ws])
+    h = x
+    for l in ws:
+        h = tseq.lstm_seq_fused(h, *_t(l))
+    np.testing.assert_allclose(got.numpy(), h.numpy(), atol=2e-5, rtol=2e-5)
+
+
+def test_stack_raises_where_it_cannot_run():
+    """H = 200 does not split over a cluster, and one row's inter-layer
+    sequence (300 x 200 x 4 = 240,000 bytes) is over a block's shared
+    memory: the stack is refused, with the bound."""
+    ws = _weights(9, 4, 200, layers=2)
+    x = torch.zeros(1, 300, 4)
     with pytest.raises(ValueError, match="shared memory"):
         tseq.lstm_stack_fused(x, [_t(l) for l in ws])
+
+
+# ---------------------------------------------------------------------------
+# K4 on the cluster path: the plan (CPU) and its arithmetic against JAX
+# ---------------------------------------------------------------------------
+STACK_SHAPE = (40, 28, 256, 256, 3)  # chip_smoke.py's stack
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_stack_cluster_plan_at_the_bench_width(quantized):
+    """"auto" at the stack's bench shape gives K3's plan: 3 rows a cluster,
+    14 clusters, the whole projection of each layer at once."""
+    b, s, d, hidden, layers = STACK_SHAPE
+    plan = tseq.plan_launch("auto", b, s, d, hidden, layers=layers, quantized=quantized,
+                            slots=H100_SLOTS)
+    assert plan == tseq.plan_launch("auto", b, s, d, hidden, quantized=quantized,
+                                    slots=H100_SLOTS)
+    assert plan.path == "cluster" and plan.block_b == 3 and plan.clusters == 14
+    assert plan.chunk == s and plan.cluster == tseq.CLUSTER
+    assert plan.smem_bytes == tseq.cluster_smem_bytes(3, s, hidden, 1 if quantized else 4)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("block_b,clusters,last", [(3, 14, 1), (5, 8, 5), (7, 6, 5)])
+def test_stack_cluster_plan_honours_block_b(quantized, block_b, clusters, last):
+    """An int block_b is the rows of one cluster, for every layer; 3 and 7
+    leave a ragged last cluster."""
+    b, s, d, hidden, layers = STACK_SHAPE
+    plan = tseq.plan_launch(block_b, b, s, d, hidden, layers=layers, quantized=quantized)
+    assert plan.path == "cluster" and plan.block_b == block_b and plan.clusters == clusters
+    assert b - (clusters - 1) * block_b == last
+    assert plan.smem_bytes <= runtime.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("quantized,want_chunk", [(False, 1), (True, 15)])
+def test_stack_cluster_plan_chunks_a_large_batch(quantized, want_chunk):
+    """The chunked stack chip_smoke.py runs: (200, 28, 256, 256, 3) plans 14
+    rows x 15 clusters, each layer's projection 1 step (f32) or 15 (int8)
+    at a time."""
+    plan = tseq.plan_launch("auto", 200, 28, 256, 256, layers=3, quantized=quantized,
+                            slots=H100_SLOTS)
+    assert plan.path == "cluster" and plan.block_b == 14 and plan.clusters == 15
+    assert plan.chunk == want_chunk < 28
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("layers", [2, 3])
+def test_lstm_stack_cluster_shape_matches_jax(impl, layers):
+    """At H = 256 the plan sends a stack, f32 and int8, to the cluster path;
+    on the CPU the wrapper runs the plain version, so this holds the plan's
+    choice and the plain version's arithmetic at that shape to the JAX stack
+    kernel in interpret mode.  The cluster kernel itself runs only on the
+    card (chip_smoke.py)."""
+    b, s, d, hidden = 3, 5, 12, 256
+    # weights at std 1/sqrt(fan-in), as models are initialised: at
+    # _weights' fixed 0.3 the pre-activations at this width have std ~5, the
+    # gates saturate, and three layers carry the two sides' f32 summation
+    # orders to ~2.3e-5 in a cell state (impl="hard")
+    ws = [tuple((a * (1.0 / (0.3 * np.sqrt(a.shape[0]))) if a.ndim == 2 else a).astype(np.float32)
+                for a in l) for l in _weights(13, d, hidden, layers=layers)]
+    x = _x(14, b, s, d)
+    for quantized in (False, True):
+        plan = tseq.plan_launch("auto", b, s, d, hidden, layers=layers, quantized=quantized)
+        assert plan.path == "cluster" and plan.cluster == tseq.CLUSTER
+        want_hs, (want_hn, want_cn) = jseq.lstm_stack_fused(
+            jnp.asarray(x), [_j(l) for l in ws], impl=impl, block_b=b, quantized=quantized,
+            interpret=True, return_state=True)
+        got_hs, (got_hn, got_cn) = tseq.lstm_stack_fused(
+            torch.from_numpy(x), [_t(l) for l in ws], impl=impl, quantized=quantized,
+            return_state=True)
+        tol = 1e-4 if quantized else 2e-5
+        assert got_hn.shape == (layers, b, hidden)
+        assert_parity(got_hs, want_hs, impl, tol, f"hs q={quantized}")
+        assert_parity(got_hn, want_hn, impl, tol, f"hn q={quantized}")
+        assert_parity(got_cn, want_cn, impl, tol, f"cn q={quantized}")
+
+
+# ---------------------------------------------------------------------------
+# K2's geometry (CPU)
+# ---------------------------------------------------------------------------
+def _cu_text(name):
+    return (ROOT / "src" / "repro_torch" / "csrc" / name).read_text()
+
+
+def test_cell_constants_are_the_kernels():
+    text = _cu_text("lstm_cell.cu")
+    assert re.search(rf"constexpr int kCellUnits = {cell_mod.UNITS};", text)
+    assert re.search(r"constexpr int kCellStride = 4 \* kCellUnits \+ 4;", text)
+    assert cell_mod.ROW_STRIDE == 4 * cell_mod.UNITS + 4
+
+
+@pytest.mark.parametrize("batch,d,hidden,rows,grid", [
+    (40, 256, 256, 10, (4, 32)),   # K2's main path: one wave of 128 blocks
+    (64, 6, 20, 2, (32, 3)),       # the paper's shape: 20 units in 3 groups, the last of 4
+    (33, 6, 20, 1, (33, 3)),
+    (32, 16, 32, 1, (32, 4)),
+    (1, 64, 1024, 1, (1, 128)),
+    (300, 48, 48, 14, (22, 6)),
+])
+def test_cell_plan_auto(batch, d, hidden, rows, grid):
+    plan = cell_mod.plan("auto", batch, d, hidden)
+    assert (plan.units, plan.rows, plan.grid) == (cell_mod.UNITS, rows, grid)
+    assert plan.grid[0] * plan.grid[1] <= max(runtime.SM_COUNT, plan.grid[1])
+    assert plan.smem_bytes == cell_smem_bytes(rows, d, hidden) <= runtime.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("block_b", ["auto", 1, 5, 7, 40, 64])
+@pytest.mark.parametrize("batch,d,hidden", [(40, 256, 256), (64, 6, 20), (33, 6, 20),
+                                            (9, 12, 13)])
+def test_cell_plan_covers_every_output_once(block_b, batch, d, hidden):
+    """Every (row, gate column) of the (B, 4H) pre-activations belongs to
+    exactly one block: row tile rt holds rows [rt rows, (rt + 1) rows), unit
+    group ug the units [8 ug, 8 ug + 8) and their columns j, H+j, 2H+j, 3H+j."""
+    plan = cell_mod.plan(block_b, batch, d, hidden)
+    seen = np.zeros((batch, 4 * hidden), dtype=np.int64)
+    for rt in range(plan.grid[0]):
+        for ug in range(plan.grid[1]):
+            rows = slice(rt * plan.rows, min((rt + 1) * plan.rows, batch))
+            for j in range(ug * plan.units, min((ug + 1) * plan.units, hidden)):
+                for gate in range(4):
+                    seen[rows, gate * hidden + j] += 1
+    assert (seen == 1).all()
+    if block_b != "auto":
+        assert plan.rows == min(block_b, batch)
+
+
+def test_cell_plan_refusals():
+    # 200 rows of [x | h] at D = H = 256: 400 KB, over a block's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        cell_mod.plan(200, 300, 256, 256)
+    for bad in (0, -1, 2.5, True, "4"):
+        with pytest.raises(ValueError, match="block_b"):
+            cell_mod.plan(bad, 8, 6, 20)
+    with pytest.raises(ValueError, match="shared memory"):  # the wrapper refuses as the plan
+        t_lstm_cell(*_t((_x(0, 300, 256), _x(1, 300, 256), _x(2, 300, 256),
+                         *_weights(0, 256, 256))), block_b=200)
+    # "auto" takes fewer rows a block where its share of the batch does not fit
+    plan = cell_mod.plan("auto", 4000, 256, 256)
+    assert plan.smem_bytes <= runtime.MAX_SHARED_BYTES < cell_smem_bytes(plan.rows + 1, 256, 256)
+
+
+# ---------------------------------------------------------------------------
+# The C entry points read as many arguments as runtime.ENTRY_ARGS says
+# ---------------------------------------------------------------------------
+def test_entry_args_are_the_entry_points():
+    found = {}
+    for path in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"):
+        for name, count in re.findall(
+                r'extern "C" int (\w+)\(const long long\* a, int count\) \{\s*'
+                r'using namespace repro;\s*if \(count != (\d+)\)', path.read_text()):
+            found[name] = int(count)
+    assert found == runtime.ENTRY_ARGS
