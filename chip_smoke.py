@@ -6,7 +6,7 @@
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
 against its plain PyTorch version on the card at the shapes its path uses,
 times kernel, plain version and (where one PyTorch call computes the same
-function) the library, then drives three paths, each with the launch
+function) the library, then drives four paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * the paper-LSTM path — the plan and request batches through ``lstm_apply``
@@ -14,9 +14,24 @@ counters set to 0 just before it and read just after:
 * ``serve_dense`` — int8-weight serving of granite-3-8b at full width (8 of
   its 40 layers, bf16, ``quant="int8"``) through ``InferenceEngine.generate``
   and the slot path ``make_pool`` → ``prefill_into_slot`` →
-  ``masked_decode_step``, every projection through ``int8_matmul`` (K5);
+  ``masked_decode_step`` (a replayed CUDA graph), every projection through
+  ``int8_matmul`` (K5);
+* ``serve_engine`` — the same weights with ``spec_slack=4``: chunked prefill
+  of 2 x 64 tokens in chunks of 16 while two slots decode, speculative
+  verify (K = 4) teacher-forced from the plain decode chain (per-position
+  agreement >= 0.95, accept-0 on always-wrong drafts), poison → quarantine
+  → ``resume_into_slot``, the replayed decode and verify ticks held bit for
+  bit to the same steps run eagerly, and the reduced granite config in f32
+  with int8 weights: chunked == blocking and speculative == plain, token
+  for token.  K5 launches 7 x layers times a chunk, verify and replayed
+  tick;
 * ``flash_attention`` — its public op ``kernels.ops.flash_attention`` at a
   granite-shaped causal case (K6; no model path calls it).
+
+Every profiled sample must hold one kernel event of the port's kernels for
+each launch the counters saw (a replayed graph counts the launches it
+captured); a sample that loses events is taken again and, failing three
+times, reported as null (``main_path.trace_check``).
 
 K5 is held to its plain version bit for bit at every shape, on two calls in
 a row (its split-K counters and workspace must come back to zero); K6 within
@@ -31,7 +46,8 @@ chunks of steps); K4 also at four layers.  K2's entry gives its geometry
 parent commit, the parent's K2 is built from DIR and timed beside it.
 
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
-``phase`` lines (seconds per phase), ``serve_dense``, ``host_path`` (each
+``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
+the replayed and eager tick times), ``host_path`` (each
 kernel wrapper's host time, and K1's host path piece by piece), one JSON
 object ``{"kernels": [...]}``,
 ``main_path``, the card as ``nvidia-smi`` names it, and last
@@ -59,7 +75,8 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
+from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core.fpga import paper_workload  # noqa: E402
 from repro_torch.kernels import bench, ops, runtime  # noqa: E402
 from repro_torch.kernels.activations import (  # noqa: E402
@@ -79,6 +96,8 @@ from repro_torch.kernels.lstm_seq import (  # noqa: E402
 )
 from repro_torch.launch.train import plan_paper_lstm  # noqa: E402
 from repro_torch.models.lstm import lstm_apply, lstm_stack_apply  # noqa: E402
+from repro_torch.kernels import int8_matmul as int8_mod  # noqa: E402
+from repro_torch.models import quant as quant_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import init_model  # noqa: E402
 from repro_torch.models.params import params_from_numpy, tree_map  # noqa: E402
@@ -193,25 +212,64 @@ def warm_card(dev, seconds: float = 1.0) -> None:
         torch.cuda.synchronize()
 
 
-def device_ms(fn, reps: int = 10):
-    """GPU-busy time of one call in ms: the device time of every kernel the
-    call launches, from the profiler's trace, without the host's share.
-    ``None`` if the trace shows no device time."""
+# Profiled samples whose trace lost kernel events: taken again, and never
+# reported when every try lost some (``device_ms`` returns None then).
+TRACE_CHECK = {"samples": 0, "retaken": 0, "dropped": 0}
+
+
+def port_kernel_events(prof) -> int:
+    """Kernel events of the port's own kernels in a trace: every kernel of
+    ``csrc/`` lives in namespace ``repro``."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "repro::" in e.key)
+
+
+def profiled(fn, reps: int = 1, uncounted: int = 0, activities=None):
+    """``reps`` calls of ``fn`` under ``torch.profiler``, taken again (up to
+    three tries) until the trace holds one kernel event for every launch the
+    port's counters saw in the window (a replayed graph counts the launches
+    it captured) plus ``uncounted`` a call (a kernel launched past the
+    counters).  Returns (profile, wall ms of the window), or None when every
+    try lost events or showed no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back empty; ask again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    TRACE_CHECK["samples"] += 1
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        before = sum(runtime.launch_counts().values())
+        with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / reps / 1e3
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = sum(runtime.launch_counts().values()) - before + uncounted * reps
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        if busy > 0 and port_kernel_events(prof) == launched:
+            TRACE_CHECK["retaken"] += attempt
+            return prof, wall_ms
+    TRACE_CHECK["retaken"] += 2
+    TRACE_CHECK["dropped"] += 1
     return None
+
+
+def device_ms(fn, reps: int = 10, uncounted: int = 0):
+    """GPU-busy time of one call in ms: the device time of every kernel the
+    call launches, from the profiler's trace, without the host's share.
+    ``None`` if no trace held every launched kernel (``profiled``)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    sample = profiled(fn, reps=reps, uncounted=uncounted)
+    if sample is None:
+        return None
+    total_us = sum(e.self_device_time_total for e in sample[0].key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / reps / 1e3
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
@@ -433,7 +491,7 @@ def check_cell(dev, parent: pathlib.Path | None = None):
         if parent_cell is not None:
             parent_err = max(compare(g, w, "exact", TOL_F32, f"parent lstm_cell {batch, d_in, hidden}")
                              for g, w in zip(parent_cell(*args), lstm_cell_plain(*args)))
-            parent_ms = device_ms(lambda: parent_cell(*args))
+            parent_ms = device_ms(lambda: parent_cell(*args), uncounted=1)
         torch.cuda.synchronize()
         cell = torch.nn.LSTMCell(d_in, hidden, device=dev)
         with torch.no_grad():
@@ -1048,26 +1106,51 @@ def check_init_on_card(dev) -> dict:
 
 
 class CallLog:
-    """Wraps the engine's ``prefill`` and ``decode_step``: each call is
-    synchronised and timed, its int8_matmul launches counted, its logits
-    checked finite."""
+    """Wraps model functions the engine calls (``prefill``, ``decode_step``,
+    ``prefill_chunk``, ``decode_verify``): each call is synchronised and
+    timed, its int8_matmul launches counted against 7 x the layers of its
+    config, its logits kept and checked finite.  A call made while a CUDA
+    graph is being captured runs nothing and passes through unlogged."""
 
     def __init__(self):
         self.calls: list[dict] = []
 
     def wrap(self, kind, fn):
         def call(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kw)
             torch.cuda.synchronize()
             before = runtime.launch_counts().get("int8_matmul", 0)
             t0 = time.perf_counter()
             logits, cache = fn(*args, **kw)
             torch.cuda.synchronize()
+            cfg = next(a for a in (*args, *kw.values()) if isinstance(a, ArchConfig))
             self.calls.append({
                 "kind": kind, "ms": (time.perf_counter() - t0) * 1e3,
                 "int8_matmul": runtime.launch_counts().get("int8_matmul", 0) - before,
-                "finite": bool(torch.isfinite(logits).all()), "rows": int(logits.shape[0])})
+                "per_call": 7 * cfg.num_layers, "finite": bool(torch.isfinite(logits).all()),
+                "rows": int(logits.shape[0]), "logits": logits})
             return logits, cache
         return call
+
+    def check(self, what: str) -> None:
+        for c in self.calls:
+            if c["int8_matmul"] != c["per_call"]:
+                fail(f"{what}: a {c['kind']} call launched int8_matmul {c['int8_matmul']} "
+                     f"times, {c['per_call']} expected (7 projections x layers)")
+            if not c["finite"]:
+                fail(f"{what}: non-finite logits in a {c['kind']} call")
+
+    def __enter__(self):
+        self.real = {name: getattr(engine_mod, name) for name in
+                     ("prefill", "decode_step", "prefill_chunk", "decode_verify")}
+        for name, fn in self.real.items():
+            setattr(engine_mod, name, self.wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(engine_mod, name, fn)
 
 
 def serve_configs():
@@ -1090,18 +1173,14 @@ def drive_serve_dense(dev) -> dict:
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg_q.vocab_size, (GEN_PROMPTS, GEN_LEN)).astype(np.int32)
 
-    log = CallLog()
-    real = engine_mod.prefill, engine_mod.decode_step
-    engine_mod.prefill = log.wrap("prefill", real[0])
-    engine_mod.decode_step = log.wrap("decode", real[1])
-    try:
+    with CallLog() as log:
         t0 = time.perf_counter()
         tokens_q = eng.generate(prompts, GEN_NEW)
         generate_s = time.perf_counter() - t0
         n_generate = len(log.calls)
         pool = eng.make_pool()
         slot_tokens = {s: [] for s in range(len(SLOT_PROMPTS))}
-        slot_finite = True
+        slot_finite, tick_ms = True, []
         for tick in range(SLOT_TICKS):
             if tick == 0:
                 for s, n in enumerate(SLOT_PROMPTS[:-1]):
@@ -1114,22 +1193,22 @@ def drive_serve_dense(dev) -> dict:
                 slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s,
                                                             budget=SLOT_BUDGET))
             live = pool.decode_mask().copy()
-            nxt, fin = eng.masked_decode_step(pool)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, fin = eng.masked_decode_step(pool)  # the first tick captures the graph
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
             slot_finite = slot_finite and bool(fin[live].all())
             for s in map(int, np.flatnonzero(live)):
                 pool.advance(s, 1, int(nxt[s]))
                 slot_tokens[s].append(int(nxt[s]))
                 if pool.slots[s].emitted >= pool.slots[s].budget:
                     pool.retire(s)
-    finally:
-        engine_mod.prefill, engine_mod.decode_step = real
+    log.check("serve_dense")
     per_call = 7 * cfg_q.num_layers
-    for c in log.calls:
-        if c["int8_matmul"] != per_call:
-            fail(f"serve_dense: a {c['kind']} call launched int8_matmul {c['int8_matmul']} "
-                 f"times, {per_call} expected (7 projections x {cfg_q.num_layers} layers)")
-        if not c["finite"]:
-            fail(f"serve_dense: non-finite logits in a {c['kind']} call")
+    graph = eng.step_graphs(pool)[("decode", 0)]
+    if graph.launches.get("int8_matmul") != per_call or graph.replays != SLOT_TICKS:
+        fail(f"serve_dense: the decode graph holds {graph.launches} launches and was "
+             f"replayed {graph.replays} times ({per_call} int8_matmul, {SLOT_TICKS} expected)")
     if not slot_finite:
         fail("serve_dense: masked_decode_step flagged a live slot non-finite")
     if tokens_q.shape != (GEN_PROMPTS, GEN_NEW):
@@ -1144,8 +1223,7 @@ def drive_serve_dense(dev) -> dict:
              f"engine, under the floor {AGREEMENT_FLOOR}")
     del full
     gen_calls = log.calls[:n_generate]
-    decode_ms = [c["ms"] for c in gen_calls if c["kind"] == "decode"]
-    tick_ms = [c["ms"] for c in log.calls[n_generate:] if c["kind"] == "decode"]
+    decode_ms = [c["ms"] for c in gen_calls if c["kind"] == "decode_step"]
     slot_prefill_ms = [c["ms"] for c in log.calls[n_generate:] if c["kind"] == "prefill"]
     report = {
         "arch": GRANITE, "layers": cfg_q.num_layers, "of_layers": get_config(GRANITE).num_layers,
@@ -1157,54 +1235,379 @@ def drive_serve_dense(dev) -> dict:
             "decode_ms": [r6(t) for t in decode_ms]},
         "slots": {"max_batch": 4, "max_len": 128, "prompts": list(SLOT_PROMPTS),
                   "prefill_ms": [r6(t) for t in slot_prefill_ms],
-                  "tick_ms_median": r6(statistics.median(tick_ms)),
+                  "tick_ms_median": r6(statistics.median(tick_ms[1:])),
                   "tick_ms": [r6(t) for t in tick_ms], "tokens": slot_tokens},
-        "calls": len(log.calls), "int8_matmul_per_call": per_call,
+        "calls": len(log.calls), "graph_replays": graph.replays,
+        "int8_matmul_per_call": per_call,
         "greedy_agreement_vs_full_precision": r6(agreement),
         "agreement_floor": AGREEMENT_FLOOR,
     }
-    return {"expect": {"int8_matmul": per_call * len(log.calls)}, "report": report,
-            "engine": eng}
+    # the first tick's warm-up is a logged call; replays run the captured launches
+    return {"expect": {"int8_matmul": per_call * (len(log.calls) + graph.replays)},
+            "report": report, "engine": eng}
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA, a trace
+    holding every launched kernel, ``profiled``): wall time, device-busy time
+    (the kernels' own device time; the operators that launched them are not
+    counted again), the idle share, and the device time of int8_matmul and of
+    the largest other kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    sample = profiled(fn, activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    if sample is None:
+        fail("profile: no trace held every kernel the call launched")
+    prof, wall_ms = sample
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                       key=lambda t: -t[1])
+    busy = sum(t for _, t, _ in by_kernel)
+    k5 = [(t, c) for k, t, c in by_kernel if "int8_matmul_kernel" in k]
+    # first kernel start to last kernel end: span - busy is the device's idle
+    # time between the call's kernels, wall - span the host's share around them
+    kernels = [e.time_range for e in prof.events() if e.device_type == DeviceType.CUDA]
+    span = (max(r.end for r in kernels) - min(r.start for r in kernels)) / 1e3
+    return {"wall_ms": r6(wall_ms), "device_busy_ms": r6(busy), "device_span_ms": r6(span),
+            "idle_share": r6(1.0 - busy / wall_ms) if wall_ms else None,
+            "int8_matmul_device_ms": r6(sum(t for t, _ in k5)),
+            "int8_matmul_events": sum(c for _, c in k5),
+            "port_kernel_events": port_kernel_events(prof),
+            "device_launches": sum(c for _, _, c in by_kernel),
+            "top_kernels_ms": [[k[:60], r6(t), c] for k, t, c in by_kernel[:6]]}
 
 
 def profile_serve(eng, dev) -> dict:
     """Where a call's time goes: one prefill of the generate workload
     (``generate(prompts, 1)``: prefill + one decode) and one decode tick of
-    4 live slots, each under ``torch.profiler``: wall time, device-busy time
-    (the kernels' own device time; the operators that launched them are not
-    counted again), and the device time of int8_matmul and the largest
-    other kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    4 live slots (a replayed graph), each under ``torch.profiler``."""
     rng = np.random.default_rng(11)
     prompts = rng.integers(0, eng.cfg.vocab_size, (GEN_PROMPTS, GEN_LEN)).astype(np.int32)
     pool = eng.make_pool()
     for s, n in enumerate(SLOT_PROMPTS):
         p = rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32)
         eng.prefill_into_slot(pool, s, p, rid=s, budget=SLOT_BUDGET)
-    calls = {"generate_1": lambda: eng.generate(prompts, 1),
-             "decode_tick_4_slots": lambda: eng.masked_decode_step(pool)}
-    out = {}
-    for name, fn in calls.items():
+    return {"generate_1": profile_call(lambda: eng.generate(prompts, 1)),
+            "decode_tick_4_slots": profile_call(lambda: eng.masked_decode_step(pool))}
+
+
+# ---------------------------------------------------------------------------
+# serve_engine: the rest of the contiguous engine at full width, the decode
+# and verify ticks replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+ENGINE_SC = {"max_batch": 4, "max_len": 128, "spec_slack": 4}
+GROUP_LEN, CHUNK_TOKENS = 64, 16    # a group of 2 prompts of 64 tokens, in chunks of 16
+DECODING_PROMPTS = (24, 40)         # slots 2 and 3 decode while the group prefills
+SPEC_K = 4
+SPEC_PROMPTS = (16, 33, 40, 25)
+CHAIN_TICKS = 16                    # the plain chain the verify windows are taken from
+FORCED_TICKS = 3                    # teacher-forced verify ticks: 3 x 4 slots x 5 positions
+VERIFY_AGREEMENT = 0.95             # per-position argmax agreement, verify vs plain decode
+TIMED_TICKS = 15                    # unprofiled ticks a kind, replayed and eager in turns
+ENGINE_BUDGET = 40
+
+
+def decode_chain(eng, pool, chains: dict, ticks: int, what: str) -> None:
+    """``ticks`` masked-decode ticks; every decoding slot's token is committed
+    and appended to its chain."""
+    for _ in range(ticks):
+        live = pool.decode_mask().copy()
+        nxt, fin = eng.masked_decode_step(pool)
+        if not fin[live].all():
+            fail(f"{what}: a decoding slot read non-finite")
+        for s in map(int, np.flatnonzero(live)):
+            pool.advance(s, 1, int(nxt[s]))
+            chains[s].append(int(nxt[s]))
+
+
+def host_accepted(drafts, tokens) -> np.ndarray:
+    """Greedy prefix acceptance recomputed on the host."""
+    return np.cumprod(drafts == tokens[:, :-1], axis=1).sum(axis=1)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def graph_vs_eager(g, what: str, **inputs) -> dict:
+    """One replay of graph ``g`` and the same step run eagerly on a copy of
+    its cache, from the same inputs: every output and the caches after must
+    be the same bits, and K5's split-K workspace of the capture stream must
+    be back at zero."""
+    g.load(**inputs)
+    copy = {k: v.clone() for k, v in g.cache.items()}
+    replayed = {k: v.clone() for k, v in g.replay().items()}
+    eager = g.eager(copy)
+    torch.cuda.synchronize()
+    for name, out in replayed.items():
+        if not same_bits(out, eager[name]):
+            fail(f"{what}: the replayed tick's {name} differs from the eager tick's")
+    for key, t in copy.items():
+        if not same_bits(t, g.cache[key]):
+            fail(f"{what}: the replayed tick's cache {key!r} differs from the eager tick's")
+    ws, cnt = int8_mod._workspaces[(g.device.index, g.stream.cuda_stream)]
+    if ws.any() or cnt.any():
+        fail(f"{what}: K5's split-K workspace is not back at zero after a replay")
+    return {"outputs_bitwise_equal": sorted(replayed), "cache_bitwise_equal": True,
+            "workspace_zero": True, "launches_a_replay": g.launches}
+
+
+def strict_identity(dev) -> tuple[dict, list]:
+    """The reduced granite config of the CPU tests, in f32 with int8 weights,
+    on the card: chunked prefill against blocking prefill, and speculative
+    verify (oracle drafts in one slot, always-wrong in the other) against
+    plain decode.  Tokens must be identical."""
+    cfg = dataclasses.replace(get_reduced_config(GRANITE), dtype=torch.float32, quant="int8")
+    # f32 weights, as the CPU tests carry them (init_model draws bf16 leaves)
+    params = tree_map(lambda t: t.float(), init_model(cfg, torch.Generator(dev).manual_seed(0),
+                                                      dev))
+    eng = engine_mod.InferenceEngine(
+        cfg, params=params, sc=engine_mod.ServeConfig(max_batch=3, max_len=48, spec_slack=SPEC_K))
+    prompts = np.random.default_rng(41).integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    pools = [eng.make_pool() for _ in range(3)]
+    block = {j: [eng.prefill_into_slot(pools[0], j, prompts[j], rid=j, budget=10)]
+             for j in range(2)}
+    decode_chain(eng, pools[0], block, 6, "strict identity")
+    st = eng.begin_chunked_prefill(pools[1], [0, 1], prompts, rids=[0, 1], budgets=[10, 10])
+    while not st.done:
+        eng.chunked_prefill_step(st, 4)
+    chunked = {j: [int(t)] for j, t in enumerate(eng.finish_chunked_prefill(pools[1], st))}
+    decode_chain(eng, pools[1], chunked, 6, "strict identity")
+    if chunked != block:
+        fail(f"strict identity: chunked prefill {chunked} != blocking {block}")
+    ref, pool = block[0], pools[2]
+    good = [eng.prefill_into_slot(pool, 0, prompts[0], rid=0, budget=len(ref))]
+    bad = [eng.prefill_into_slot(pool, 1, prompts[0], rid=1, budget=len(ref))]
+    ticks = 0
+    while len(bad) < len(ref):
+        drafts = np.zeros((3, SPEC_K), np.int32)
+        drafts[0] = (ref[len(good):len(good) + SPEC_K] + [0] * SPEC_K)[:SPEC_K]
+        drafts[1] = [(t + 1) % cfg.vocab_size for t in
+                     (ref[len(bad):len(bad) + SPEC_K] + [0] * SPEC_K)[:SPEC_K]]
+        out, acc, fin = eng.masked_speculative_step(pool, drafts)
+        ticks += 1
+        if not fin[:2].all() or acc[1] != 0:
+            fail(f"strict identity: verify tick {ticks}: finite {fin}, accepted {acc}")
+        if len(good) < len(ref):
+            n = min(int(acc[0]) + 1, len(ref) - len(good))
+            good.extend(out[0, :n].tolist())
+            pool.advance(0, n, int(out[0, n - 1]))
+        bad.append(int(out[1, 0]))
+        pool.advance(1, 1, int(out[1, 0]))
+    if good != ref or bad != ref:
+        fail(f"strict identity: speculative {good} / {bad} != plain decode {ref}")
+    graphs = [g for p in pools for g in eng.step_graphs(p).values()]
+    return {"config": cfg.name, "dtype": "float32", "quant": "int8",
+            "layers": cfg.num_layers, "tokens": ref, "verify_ticks": ticks,
+            "chunked_equals_blocking": True, "speculative_equals_plain": True}, graphs
+
+
+def drive_serve_engine(dev, base) -> dict:
+    """Chunked prefill, speculative verify and poison/resume through the int8
+    engine of ``serve_dense`` (same weights, ``spec_slack`` = 4), the replayed
+    ticks held bit for bit to the eager ones, and the reduced config's strict
+    token identity."""
+    cfg = base.cfg
+    eng = engine_mod.InferenceEngine(cfg, params=base.params,
+                                     sc=engine_mod.ServeConfig(**ENGINE_SC))
+    vocab, per_call = cfg.vocab_size, 7 * cfg.num_layers
+    rng = np.random.default_rng(40)
+    report, k5_rows = {}, []
+    real_k5 = quant_mod.int8_matmul
+
+    def k5_logged(*a):
+        k5_rows.append(int(a[0].shape[0]))
+        return real_k5(*a)
+
+    with CallLog() as log:
+        # -- chunked prefill of a group while two slots decode --------------
+        pool = eng.make_pool()
+        chains = {2 + i: [eng.prefill_into_slot(pool, 2 + i, p, rid=2 + i, budget=ENGINE_BUDGET)]
+                  for i, p in enumerate(rng.integers(0, vocab, n).astype(np.int32)
+                                        for n in DECODING_PROMPTS)}
+        group = rng.integers(0, vocab, (2, GROUP_LEN)).astype(np.int32)
+        n0 = len(log.calls)
+        st = eng.begin_chunked_prefill(pool, [0, 1], group, rids=[0, 1],
+                                       budgets=[ENGINE_BUDGET] * 2)
+        while not st.done:
+            eng.chunked_prefill_step(st, CHUNK_TOKENS)
+            decode_chain(eng, pool, chains, 1, "serve_engine chunked prefill")
+        chunk_calls = [c for c in log.calls[n0:] if c["kind"] == "prefill_chunk"]
+        first = eng.finish_chunked_prefill(pool, st)
+        chains.update({j: [int(first[j])] for j in range(2)})
+        decode_chain(eng, pool, chains, 2, "serve_engine after the group")
+        n1 = len(log.calls)
+        blocking_first = [eng.prefill_into_slot(eng.make_pool(), 0, group[j], rid=j,
+                                                budget=ENGINE_BUDGET) for j in range(2)]
+        block_logits = torch.cat([c["logits"] for c in log.calls[n1:]])[:, :vocab]
+        chunk_logits = chunk_calls[-1]["logits"][:, :vocab]
+        if len(chunk_calls) != GROUP_LEN // CHUNK_TOKENS or chunk_logits.shape != (2, vocab):
+            fail(f"serve_engine: {len(chunk_calls)} chunk calls of {chunk_logits.shape}")
+        report["chunked_prefill"] = {
+            "group": [2, GROUP_LEN], "chunk_tokens": CHUNK_TOKENS, "chunk_calls": len(chunk_calls),
+            "chunk_ms": [r6(c["ms"]) for c in chunk_calls], "first_tokens": first.tolist(),
+            "first_tokens_blocking": blocking_first,
+            "max_abs_logit_diff_vs_blocking": r6(float((chunk_logits - block_logits).abs().max())),
+            "max_abs_logit": r6(float(block_logits.abs().max())),
+            "decoding_slots_ticked_between_chunks": [2, 3]}
+
+        # -- speculative verify, teacher-forced from the plain chain --------
+        prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in SPEC_PROMPTS]
+        plain = eng.make_pool()
+        chain = {s: [eng.prefill_into_slot(plain, s, p, rid=s, budget=ENGINE_BUDGET)]
+                 for s, p in enumerate(prompts)}
+        decode_chain(eng, plain, chain, CHAIN_TICKS, "serve_engine plain chain")
+        vpool = eng.make_pool()
+        for s, p in enumerate(prompts):
+            if eng.prefill_into_slot(vpool, s, p, rid=s, budget=ENGINE_BUDGET) != chain[s][0]:
+                fail("serve_engine: the same prefill gave another first token")
+        agree = positions = 0
+        quant_mod.int8_matmul = k5_logged  # the first verify tick: warm-up and capture
+        for tick in range(FORCED_TICKS + 1):
+            e = vpool.slots[0].emitted
+            want = np.asarray([chain[s][e:e + SPEC_K + 1] for s in range(4)])
+            drafts = want[:, :SPEC_K].astype(np.int32)
+            if tick == FORCED_TICKS:  # always wrong: the first draft is not the plain token
+                drafts = ((want[:, :1] + 1 + np.arange(SPEC_K)) % vocab).astype(np.int32)
+            toks, acc, fin = eng.masked_speculative_step(vpool, drafts)
+            quant_mod.int8_matmul = real_k5
+            if not fin.all() or not (acc == host_accepted(drafts, toks)).all():
+                fail(f"serve_engine: verify tick {tick}: finite {fin}, accepted {acc}")
+            n = min(want.shape[1], toks.shape[1])
+            agree += int((toks[:, :n] == want[:, :n]).sum())
+            positions += want[:, :n].size
+            if tick < FORCED_TICKS:
+                for s in range(4):
+                    vpool.advance(s, SPEC_K + 1, chain[s][e + SPEC_K])
+            elif acc.any():
+                fail(f"serve_engine: always-wrong drafts accepted {acc}")
+        vgraph = eng.step_graphs(vpool)[("verify", SPEC_K)]
+        if set(k5_rows) != {4 * (SPEC_K + 1)} or vgraph.launches.get("int8_matmul") != per_call:
+            fail(f"serve_engine: verify graph holds {vgraph.launches} launches at rows "
+                 f"{sorted(set(k5_rows))} ({per_call} at M = {4 * (SPEC_K + 1)} expected)")
+        agreement = agree / positions
+        if positions < 32 or agreement < VERIFY_AGREEMENT:
+            fail(f"serve_engine: verify agrees with plain decode at {agreement:.3f} of "
+                 f"{positions} positions (floor {VERIFY_AGREEMENT} over >= 32)")
+        report["speculative"] = {
+            "k": SPEC_K, "prompts": list(SPEC_PROMPTS), "positions": positions,
+            "per_position_agreement": r6(agreement), "floor": VERIFY_AGREEMENT,
+            "always_wrong_accepted": acc.tolist(), "int8_matmul_rows": 4 * (SPEC_K + 1)}
+
+        # -- poison one slot, quarantine it, resume it ------------------------
+        eng.poison_slot(plain, 1)
+        nxt, fin = eng.masked_decode_step(plain)
+        if fin[1] or not fin[[0, 2, 3]].all():
+            fail(f"serve_engine: after poisoning slot 1, finite {fin}")
+        for s in (0, 2, 3):
+            plain.advance(s, 1, int(nxt[s]))
+            chain[s].append(int(nxt[s]))
+        plain.retire(1)
+        context = np.concatenate([prompts[1], np.asarray(chain[1][:-1], np.int32)])
+        eng.resume_into_slot(plain, 1, context, rid=1, budget=ENGINE_BUDGET,
+                             emitted=len(chain[1]), next_tok=chain[1][-1])
+        resumed = {s: [] for s in range(4)}
+        decode_chain(eng, plain, resumed, 2, "serve_engine after resume")
+        report["poison_resume"] = {"finite_after_poison": fin.tolist(),
+                                   "resumed_tokens": resumed[1]}
+
+        # -- the replayed ticks against the eager ones -----------------------
+        dgraph = eng.step_graphs(plain)[("decode", 0)]
+        report["graph_vs_eager"] = {
+            "decode": graph_vs_eager(dgraph, "decode tick", tok=plain.tok,
+                                     pos=plain.positions(), active=plain.decode_mask()),
+            "verify": graph_vs_eager(vgraph, "verify tick", tok=vpool.tok, drafts=drafts,
+                                     pos=vpool.positions(), active=vpool.decode_mask())}
+
+        report["strict_identity"], strict_graphs = strict_identity(dev)
+    log.check("serve_engine")
+    graphs = [g for p in (pool, plain, vpool) for g in eng.step_graphs(p).values()]
+    for g in graphs:
+        if g.launches.get("int8_matmul") != per_call:
+            fail(f"serve_engine: a graph holds {g.launches} launches, {per_call} int8_matmul "
+                 "expected")
+    replayed = sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs + strict_graphs)
+    report.update(calls=len(log.calls), graphs=len(graphs) + len(strict_graphs),
+                  replays=sum(g.replays for g in graphs + strict_graphs),
+                  int8_matmul_per_call=per_call)
+    return {"expect": {"int8_matmul": sum(c["per_call"] for c in log.calls) + replayed},
+            "report": report, "engine": eng, "pools": (plain, vpool), "drafts": drafts}
+
+
+def time_engine_ticks(driven) -> dict:
+    """Unprofiled wall time of the replayed decode and verify ticks (the
+    engine's own calls, host input and output included) and of the same
+    steps run eagerly on a copy of the cache, in turns, then one of each
+    under the profiler."""
+    eng, (plain, vpool), drafts = driven["engine"], driven["pools"], driven["drafts"]
+    dgraph = eng.step_graphs(plain)[("decode", 0)]
+    vgraph = eng.step_graphs(vpool)[("verify", SPEC_K)]
+    dcopy = {k: v.clone() for k, v in plain.cache.items()}
+    vcopy = {k: v.clone() for k, v in vpool.cache.items()}
+
+    def eager(g, copy, outs, **inputs):
+        g.load(**inputs)
+        out = g.eager(copy)
+        return [out[k].cpu() for k in outs]
+
+    ticks = {
+        "decode_replayed": lambda: eng.masked_decode_step(plain),
+        "decode_eager": lambda: eager(dgraph, dcopy, ("next", "finite"), tok=plain.tok,
+                                      pos=plain.positions(), active=plain.decode_mask()),
+        "verify_replayed": lambda: eng.masked_speculative_step(vpool, drafts),
+        "verify_eager": lambda: eager(vgraph, vcopy, ("tokens", "accepted", "finite"),
+                                      tok=vpool.tok, drafts=drafts, pos=vpool.positions(),
+                                      active=vpool.decode_mask()),
+    }
+    samples = {name: [] for name in ticks}
+    for fn in ticks.values():
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for i in range(TIMED_TICKS):
+        order = list(ticks.items())
+        for name, fn in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                            for e in prof.key_averages()
-                            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                           key=lambda t: -t[1])
-        busy = sum(t for _, t, _ in by_kernel)
-        k5 = sum(t for k, t, _ in by_kernel if "int8_matmul_kernel" in k)
-        out[name] = {"wall_ms": r6(wall_ms), "device_busy_ms": r6(busy),
-                     "idle_share": r6(1.0 - busy / wall_ms) if wall_ms else None,
-                     "int8_matmul_device_ms": r6(k5),
-                     "device_launches": sum(c for _, _, c in by_kernel),
-                     "top_kernels_ms": [[k[:60], r6(t), c] for k, t, c in by_kernel[:6]]}
+            samples[name].append((time.perf_counter() - t0) * 1e3)
+    out = {"tick_ms_median": {k: r6(statistics.median(v)) for k, v in samples.items()},
+           "tick_ms": {k: [r6(t) for t in v] for k, v in samples.items()},
+           "profiled": {k: profile_call(fn) for k, fn in ticks.items()}}
+    med = out["tick_ms_median"]
+    out["replayed_over_eager"] = {k: r6(med[f"{k}_replayed"] / med[f"{k}_eager"])
+                                  for k in ("decode", "verify")}
+    # the profiler slows a replay's host path several-fold: the idle share
+    # against the unprofiled median is the one a served tick sees
+    out["idle_share_of_unprofiled_median"] = {
+        k: r6(1.0 - out["profiled"][k]["device_busy_ms"] / med[k]) for k in ticks}
+    # a replay alone, back to back, timed by CUDA events: the graph's kernels
+    # and the gaps between its nodes, without the tick's host copies and reads
+    dgraph.load(tok=plain.tok, pos=plain.positions(), active=plain.decode_mask())
+    vgraph.load(tok=vpool.tok, drafts=drafts, pos=vpool.positions(), active=vpool.decode_mask())
+    out["replay_only_ms"] = {"decode": r6(time_ms(dgraph.replay, reps=10)),
+                             "verify": r6(time_ms(vgraph.replay, reps=10))}
+
+    def synced_ms(fn, n: int = TIMED_TICKS) -> float:
+        samples = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return r6(statistics.median(samples))
+
+    # the replayed decode tick piece by piece, each piece alone and synchronised
+    out["decode_tick_split_ms"] = {
+        "load_inputs": synced_ms(lambda: dgraph.load(tok=plain.tok, pos=plain.positions(),
+                                                     active=plain.decode_mask())),
+        "one_replay": synced_ms(dgraph.replay),
+        "read_outputs": synced_ms(lambda: [dgraph.outputs[k].cpu() for k in ("next", "finite")]),
+        "whole_tick": synced_ms(lambda: eng.masked_decode_step(plain))}
     return out
 
 
@@ -1372,33 +1775,41 @@ def main(argv=None) -> int:
 
     # Each path runs with the counters set to 0 just before it and read just
     # after; a kernel's "launches" are those of the path it belongs to.
-    paths = {"lstm": drive_main_path, "serve_dense": drive_serve_dense,
-             "flash_attention": drive_flash_path}
     driven, counts_by_path = {}, {}
+    paths = {"lstm": drive_main_path, "serve_dense": drive_serve_dense,
+             "serve_engine": lambda d: drive_serve_engine(d, driven["serve_dense"]["engine"]),
+             "flash_attention": drive_flash_path}
     for name, drive in paths.items():
         runtime.reset_launch_counts()
         driven[name] = phase(f"path:{name}", drive, dev)
         counts_by_path[name] = runtime.launch_counts()
     for k in kernels:
-        path = next(p for p in paths if k["name"] in driven[p]["expect"])
-        counts = counts_by_path[path]
-        k["launches"] = counts.get(k["name"], 0)
-        if k["launches"] < 1:
-            fail(f"the {path} path never launched {k['name']}")
-        if k["launches"] != driven[path]["expect"][k["name"]]:
-            fail(f"{k['name']}: {k['launches']} launches on the {path} path, "
-                 f"{driven[path]['expect'][k['name']]} expected")
-        k["path"] = path
+        on = [p for p in paths if k["name"] in driven[p]["expect"]]
+        k["launches_by_path"] = {p: counts_by_path[p].get(k["name"], 0) for p in on}
+        for path in on:
+            launches, want = k["launches_by_path"][path], driven[path]["expect"][k["name"]]
+            if launches < 1:
+                fail(f"the {path} path never launched {k['name']}")
+            if launches != want:
+                fail(f"{k['name']}: {launches} launches on the {path} path, {want} expected")
+        k["path"] = on[0]
+        k["launches"] = k["launches_by_path"][on[0]]
     counts = counts_by_path["lstm"]
     serve = driven["serve_dense"]["report"]
     serve["launches"] = counts_by_path["serve_dense"]
     serve["quantize_on_card"] = quantize_on_card
     serve["init_on_card"] = init_on_card
-    serve_engine = driven["serve_dense"].pop("engine")
+    dense_engine = driven["serve_dense"].pop("engine")
     serve["block_card_vs_cpu"] = phase("block_card_vs_cpu", check_block_card_vs_cpu,
-                                       serve_engine, dev)
-    serve["profile"] = phase("serve_profile", profile_serve, serve_engine, dev)
-    del serve_engine
+                                       dense_engine, dev)
+    serve["profile"] = phase("serve_profile", profile_serve, dense_engine, dev)
+    del dense_engine
+    engine_report = driven["serve_engine"]["report"]
+    engine_report["launches"] = counts_by_path["serve_engine"]
+    engine_report["ticks"] = phase("serve_engine_ticks", time_engine_ticks,
+                                   driven["serve_engine"])
+    for key in ("engine", "pools", "drafts"):
+        driven["serve_engine"].pop(key)
     driven = driven["lstm"]
 
     lw = paper_workload()
@@ -1422,8 +1833,9 @@ def main(argv=None) -> int:
             "stack_*": "[layer-fused stack, L sequential sequence kernels]"},
         "phase_seconds": phases, "seconds": r6(time.perf_counter() - t_start),
     }
+    main_path["trace_check"] = TRACE_CHECK
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
-              "host_path": host,
+              "serve_engine": engine_report, "host_path": host,
               "lut_seen": {k: {n: r6(v) for n, v in d.items()} for k, d in LUT_SEEN.items()},
               "tensor_core_kernels": {"ptxas": ptxas_usage(runtime.compile_log()),
                                       "sass": sass,
@@ -1436,6 +1848,7 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(report, indent=1))
 
     print("serve_dense " + json.dumps(serve), flush=True)
+    print("serve_engine " + json.dumps(engine_report), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("main_path " + json.dumps(main_path), flush=True)

@@ -101,6 +101,8 @@ def _check(x_q, w_q, x_scale, w_scale) -> tuple[int, int, int]:
 
 
 _workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+# workspaces that were outgrown: a captured CUDA graph may still point at them
+_outgrown: list[tuple[torch.Tensor, torch.Tensor]] = []
 
 
 def _workspace(dev: torch.device, ints: int, tiles: int):
@@ -108,10 +110,17 @@ def _workspace(dev: torch.device, ints: int, tiles: int):
     for split-K launches on the current stream of ``dev``, kept per device
     and stream (two streams sharing one would mix their partial sums) and
     grown when a call needs more.  The kernel returns them to zero, so they
-    are allocated (``torch.zeros``) only when they grow."""
+    are allocated (``torch.zeros``) only when they grow, and never while a
+    CUDA graph is being captured: a capture runs its step once uncaptured
+    first, on the capture stream, which makes the workspace it needs."""
     key = (dev.index, runtime.stream_handle(dev))
     ws, cnt = _workspaces.get(key, (None, None))
     if ws is None or ws.numel() < ints or cnt.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("int8_matmul: the split-K workspace of the capture stream must "
+                               "exist before the capture (run the step once on that stream)")
+        if ws is not None:
+            _outgrown.append((ws, cnt))
         ints = max(ints, 0 if ws is None else ws.numel())
         tiles = max(tiles, 0 if cnt is None else cnt.numel())
         ws = torch.zeros(ints, dtype=torch.int32, device=dev)

@@ -69,7 +69,9 @@ def lstm_seq_quantized(x, qw, *, impl: str = "exact", block_b="auto",
 def lstm_stack(x, layers, *, impl: str = "exact", block_b="auto",
                quantized: bool = False, return_state: bool = False):
     """Layer-fused L-layer LSTM stack in one launch: x (B, S, D) → last
-    layer's hs (B, S, H); inter-layer h stays in shared memory."""
+    layer's hs (B, S, H); the inter-layer h sequence stays inside the launch,
+    in shared memory (block and L2 paths) or in a (B, S, H) workspace that
+    stays in L2 (cluster path)."""
     return _lstm_stack(x, layers, impl=impl, block_b=block_b, quantized=quantized,
                        return_state=return_state)
 

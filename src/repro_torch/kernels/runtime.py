@@ -19,6 +19,7 @@ read without building a ``torch.cuda.Stream``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -132,10 +133,11 @@ def aligned_pointers(kernel: str, names: tuple[str, ...], *tensors) -> list[int]
 # ---------------------------------------------------------------------------
 # Launch counters
 # ---------------------------------------------------------------------------
-def count_launch(kernel: str) -> None:
-    """One launch of ``kernel``; :func:`launch` calls it after each launch
-    that succeeds, and nothing else does."""
-    _launches[kernel] = _launches.get(kernel, 0) + 1
+def count_launch(kernel: str, n: int = 1) -> None:
+    """``n`` launches of ``kernel``.  :func:`launch` counts each launch that
+    succeeds, and a CUDA graph (``serving/graphs.py``) counts the launches it
+    captured each time it replays them; nothing else counts."""
+    _launches[kernel] = _launches.get(kernel, 0) + n
 
 
 def launch_counts() -> dict[str, int]:
@@ -145,6 +147,18 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     _launches.clear()
+
+
+@contextlib.contextmanager
+def launches_recorded():
+    """Within, :func:`launch` records its launches in the dict this yields
+    instead of counting them: a CUDA graph capture runs none of them."""
+    global _launches
+    saved, _launches = _launches, {}
+    try:
+        yield _launches
+    finally:
+        _launches = saved
 
 
 # ---------------------------------------------------------------------------

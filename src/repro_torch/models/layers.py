@@ -3,14 +3,16 @@ MLP, embedding.
 
 Pure functions over parameter dictionaries, as in the JAX package: each
 module exposes ``*_defs(cfg) -> ParamDef tree`` and ``*_apply(params, ...)``.
-Attention has three execution paths:
+Attention has four execution paths:
 
   naive   — full (S×S) score matrix; fine for short sequences
   chunked — a loop over KV blocks with online softmax (the "flash" dataflow
             in tensor ops), bounded memory for long prefill
   decode  — one query per sequence against a KV cache
+  chunk   — T queries per sequence against a KV cache (chunked prefill and
+            speculative verify)
 
-All three are plain tensor ops here, as they are plain jnp in the JAX
+All four are plain tensor ops here, as they are plain jnp in the JAX
 package: the flash-attention kernel (``kernels/flash_attention``) is a
 public op of its own and no path of the model calls it.
 
@@ -18,15 +20,14 @@ Differences from the JAX package, all of them without effect on the numbers:
 
 * ``constrain`` (sharding annotations) has no meaning on one device and is
   dropped.
-* Decode takes one position per sequence, ``pos`` of shape (B,), where the
-  JAX package takes a scalar and maps the whole step over the slots of a
-  pool; RoPE, the cache write and the validity mask read each row's own
-  position.
+* Decode and chunk take one position per sequence, ``pos`` of shape (B,),
+  where the JAX package takes a scalar and maps the whole step over the
+  slots of a pool; RoPE, the cache write and the validity mask read each
+  row's own position (query ``i`` of row ``b`` sits at ``pos[b] + i``).
 * The cache write is in place (``cache_update`` "dus" and "onehot" are the
   same write on one device), where JAX returns a new cache.
 
-MLA attention and the chunked-prefill/verify bodies come with their
-families (ROADMAP Queue A item 8).
+MLA attention comes with its family (ROADMAP Queue A item 8).
 """
 from __future__ import annotations
 
@@ -82,7 +83,10 @@ def layernorm(params, x, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 def rope_frequencies(dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    # torch.full, not torch.tensor: no host-to-device copy, so a CUDA graph
+    # can capture it
+    base = torch.full((), theta, dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -172,6 +176,29 @@ def attention_decode(q, k_cache, v_cache, pos) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+def attention_chunk(q, k_cache, v_cache, pos) -> torch.Tensor:
+    """q: (B,T,H,D) queries at positions pos[b]..pos[b]+T-1; caches:
+    (B,Smax,KV,D) already written through pos[b]+T-1; pos: (B,).
+
+    Query ``i`` of row ``b`` attends over cache[b, 0..pos[b]+i]; rows past it
+    are dead data and masked out.  The strict positional mask is also what
+    makes speculative verify rollback-free for attention caches: rows written
+    for rejected candidates sit past the committed prefix, so the next
+    window's queries never see them and its writes overwrite them."""
+    _, t, h, d = q.shape
+    g = h // k_cache.shape[2]
+    qf = q.to(torch.float32)
+    k = _repeat_kv(k_cache, g)
+    v = _repeat_kv(v_cache, g)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.to(torch.float32)) / _sqrt(d)
+    qpos = pos[:, None] + torch.arange(t, device=q.device)  # (B, T)
+    valid = torch.arange(k_cache.shape[1], device=q.device)[None, None, :] <= qpos[:, :, None]
+    s = _where_valid(valid[:, None], s)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
 def run_attention(cfg: ArchConfig, q, k, v, *, causal: bool) -> torch.Tensor:
     impl = cfg.attention_impl
     if impl == "auto":
@@ -232,6 +259,29 @@ def write_cache(cache, new, pos, cfg: ArchConfig):
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, pos] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def write_cache_span(cache, new, pos):
+    """Write ``new[b, i]`` at ``cache[b, start[b] + i]`` (the sequence axis is
+    1), in place, and return the cache.  ``start`` is ``pos`` clamped to
+    [0, Smax - T], as ``dynamic_update_slice`` clamps in the JAX package."""
+    b, t = new.shape[:2]
+    start = torch.clamp(pos, 0, cache.shape[1] - t)
+    rows = start[:, None] + torch.arange(t, device=cache.device)
+    cache[torch.arange(b, device=cache.device)[:, None], rows] = new.to(cache.dtype)
+    return cache
+
+
+def gqa_chunk_apply(params, x, cache_k, cache_v, pos, cfg: ArchConfig, *, rope: bool = True):
+    """Chunked-prefill attention: T tokens a row appended at ``pos`` (B,).
+    x: (B,T,D).  Returns (out, k_cache, v_cache), the chunk's K/V written in
+    place into the span [pos[b], pos[b]+T)."""
+    positions = pos[:, None] + torch.arange(x.shape[1], device=x.device)
+    q, k_new, v_new = gqa_project_qkv(params, x, cfg, positions, rope=rope)
+    k_cache = write_cache_span(cache_k, k_new, pos)
+    v_cache = write_cache_span(cache_v, v_new, pos)
+    out = attention_chunk(q, k_cache, v_cache, pos)
+    return qeinsum("bshe,hed->bsd", out, params["wo"]), k_cache, v_cache
 
 
 def gqa_decode_apply(params, x, cache_k, cache_v, pos, cfg: ArchConfig, *, rope: bool = True):

@@ -1,9 +1,13 @@
-"""Model API: param_defs / init_model / forward / prefill / decode_step.
+"""Model API: param_defs / init_model / forward / prefill / decode_step /
+prefill_chunk / decode_verify / commit_verify.
 
 Ported so far: the dense and vlm families.  The other families (moe,
-deepseek, ssm, hybrid, audio), the loss, chunked prefill and speculative
-verify raise ``NotImplementedError`` until they are ported (ROADMAP Queue A
-items 8 and 9).
+deepseek, ssm, hybrid, audio) and the loss raise ``NotImplementedError``
+until they are ported (ROADMAP Queue A item 8).
+
+Decode, chunked prefill and verify take one position per row (an int for
+all rows, or a (B,) tensor), where the JAX package takes a scalar and maps
+the call over a pool's slots with ``vmap``.
 
 Parameters are stacked over layers as in the JAX package (a leading
 "layers" axis on every block leaf), so the JAX package's parameter trees
@@ -167,6 +171,12 @@ def prefill(params, tokens, cfg: ArchConfig, frontend_embeds=None):
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
 
 
+def _positions(pos, batch: int, device) -> torch.Tensor:
+    """An int or a (B,) tensor → (B,) int64 on ``device``; a tensor already
+    there is not copied (a captured step passes its static buffer)."""
+    return torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1).expand(batch)
+
+
 def decode_step(params, cache, token, pos, cfg: ArchConfig):
     """token: (B, 1) integers; pos: the position each row writes, an int
     for all rows or a (B,) tensor, one per row (the JAX package takes a
@@ -174,7 +184,7 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
     place and returned."""
     _require_ported(cfg)
     b = token.shape[0]
-    pos = torch.as_tensor(pos, device=token.device).to(torch.int64).reshape(-1).expand(b)
+    pos = _positions(pos, b, token.device)
     x = embed_apply(params["embed"], token, cfg)
     x, (k, v) = run_stack_decode(params["blocks"], (cache["k"], cache["v"]), x,
                                  partial(T.dense_block_decode, cfg=cfg), pos, cfg)
@@ -182,6 +192,66 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden, cfg)[:, 0]
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill and speculative verify
+# ---------------------------------------------------------------------------
+def _chunk_forward(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=None):
+    """The chunk body shared by ``prefill_chunk`` and ``decode_verify``: T
+    tokens a row against a full-capacity decode cache at positions
+    [pos[b], pos[b]+T).  Returns (final hidden states before the norm,
+    (B, T, D); the cache, written in place)."""
+    _require_ported(cfg)
+    b, t = tokens.shape
+    pos = _positions(pos, b, tokens.device)
+    x = embed_apply(params["embed"], tokens, cfg)
+    if cfg.family == "vlm" and frontend_embeds is not None:
+        steps = torch.arange(t, device=x.device)
+        # the frontend stub is padded to cache capacity; the slice starts at
+        # pos clamped as ``dynamic_slice`` clamps, the selection does not
+        start = torch.clamp(pos, 0, frontend_embeds.shape[1] - t)
+        rows = torch.arange(b, device=x.device)[:, None]
+        fe = frontend_embeds[rows, start[:, None] + steps]
+        sel = (pos[:, None] + steps)[..., None] < cfg.frontend_seq
+        x = torch.where(sel, fe.to(x.dtype), x)
+    x, (k, v) = run_stack_decode(params["blocks"], (cache["k"], cache["v"]), x,
+                                 partial(T.dense_block_chunk, cfg=cfg), pos, cfg)
+    return x, {"k": k, "v": v}
+
+
+def prefill_chunk(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=None):
+    """One chunk of T prompt tokens a row against a full-capacity decode
+    cache (``cache_defs`` layout, zero-initialised) at positions
+    [pos, pos+T).  Successive chunks compose to ``prefill``; attention masks
+    the dead rows past the written prefix.  For vlm, ``frontend_embeds`` is
+    padded to cache capacity on the sequence axis.  Returns (last-position
+    logits (B, V) f32, cache written in place)."""
+    x, cache = _chunk_forward(params, cache, tokens, pos, cfg, frontend_embeds)
+    hidden = T.apply_norm(cfg, params["final_norm"], x)
+    logits = unembed_apply(params["embed"], hidden[:, -1:], cfg)[:, 0]
+    return _mask_pad_logits(logits, cfg).to(torch.float32), cache
+
+
+def decode_verify(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=None):
+    """Score T candidate tokens a row in one pass at positions [pos, pos+T):
+    the last committed next-input token, then T-1 drafts.  Returns logits
+    for every position, (B, T, V) f32: logits[:, j] is the next-token
+    distribution after tokens[:, :j+1].  The K/V rows of rejected
+    candidates are dead data past the committed prefix (see
+    ``layers.attention_chunk``), so attention caches need no rollback."""
+    x, cache = _chunk_forward(params, cache, tokens, pos, cfg, frontend_embeds)
+    hidden = T.apply_norm(cfg, params["final_norm"], x)
+    logits = unembed_apply(params["embed"], hidden, cfg)
+    return _mask_pad_logits(logits, cfg).to(torch.float32), cache
+
+
+def commit_verify(cache, accepted, cfg: ArchConfig):
+    """Resolve a ``decode_verify`` cache to the accepted prefix: the identity
+    for attention caches (rollback is positional).  The ssm/hybrid state
+    snapshots come with those families (ROADMAP Queue A item 8)."""
+    _require_ported(cfg)
+    return cache
 
 
 def _mask_pad_logits(logits, cfg: ArchConfig):

@@ -1,12 +1,12 @@
-"""Per-family transformer blocks (train/prefill/decode bodies).
+"""Per-family transformer blocks (train/prefill/chunk/decode bodies).
 
 Ported so far: the dense / vlm block (pre-norm GQA attention + SwiGLU or
 GELU MLP).  The MoE, MLA, SSM, hybrid and encoder-decoder blocks come with
 their families (ROADMAP Queue A item 8).
 
 Every train/prefill body returns ``(x, aux)`` or ``(x, cache slices)`` as in
-the JAX package; decode bodies consume the layer's cache slices and write
-them in place.
+the JAX package; chunk and decode bodies consume the layer's cache slices
+and write them in place.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (
+    gqa_chunk_apply,
     gqa_decode_apply,
     gqa_defs,
     gqa_project_qkv,
@@ -77,6 +78,17 @@ def dense_block_prefill(p, x, cfg: ArchConfig):
     x = x + a
     x = x + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], x), cfg)
     return x, (k, v)
+
+
+def dense_block_chunk(p, x, cache, pos, cfg: ArchConfig):
+    """Chunked-prefill and verify body: T tokens a row appended at ``pos``."""
+    k_cache, v_cache = cache
+    a, k_cache, v_cache = gqa_chunk_apply(
+        p["attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg
+    )
+    x = x + a
+    x = x + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], x), cfg)
+    return x, (k_cache, v_cache)
 
 
 def dense_block_decode(p, x, cache, pos, cfg: ArchConfig):

@@ -6,21 +6,29 @@ different prompt lengths and budgets are admitted into free slots mid-decode
 and retired independently, so the engine runs one masked decode step over
 the whole pool:
 
-  * ``active`` / per-slot ``pos`` are host-side state; the device sees the
-    full (max_batch,) vectors.
+  * ``active`` / ``admitting`` / per-slot ``pos`` are host-side state; the
+    device sees the full (max_batch,) vectors.
   * ``admit`` copies a prefilled per-request cache (grown to pool capacity
     with ``grow_cache``) into the slot's batch row, in place.
+  * chunked admission reserves slots up front (``reserve`` → ``admitting``,
+    excluded from the decode mask) and lands the prefilled cache with
+    ``activate`` once the group's last chunk is done.
   * ``retire`` flips host-side bookkeeping only: a freed slot's rows are
     dead data, overwritten by the next ``admit`` (the masked decode step
     sends inactive slots to position 0, so their writes land in dead rows).
+  * a FIFO free list gives O(1) admission and FIFO slot reuse.
+
+Every write to ``cache`` is in place and ``cache`` is never rebound: the
+engine's captured decode and verify graphs (``serving/graphs.py``) hold the
+addresses of its tensors.
 
 What only modules not yet ported use is left out until they come: virtual
-pools, the free-slot queue, SLO tiers and the scheduler's views (ROADMAP
-Queue A item 11), chunked admission (``reserve`` / ``activate``, item 9),
-the paged pool (item 10).
+pools (``cache=None``, ``admit_virtual``), SLO tiers and the scheduler's
+views (ROADMAP Queue A item 11), the paged pool (item 10).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -62,8 +70,10 @@ class SlotInfo:
 class SlotPool:
     """Fixed pool of decode slots over one shared device cache.
 
-    ``slack`` adds dead cache rows past ``max_len`` (for speculative verify
-    windows); the admission bound stays ``max_len``.
+    ``slack`` adds dead cache rows past ``max_len``: a speculative verify
+    window of K+1 tokens may start as late as position max_len-2, and its
+    tail writes need rows of their own.  The admission bound stays
+    ``max_len``; slack rows only ever hold rejected candidates.
     """
 
     def __init__(self, cfg: ArchConfig, *, max_batch: int, max_len: int, slack: int = 0,
@@ -75,45 +85,128 @@ class SlotPool:
         self.capacity = max_len + slack
         self.cache = init_params(
             cache_defs(cfg, batch=max_batch, max_len=self.capacity), torch.Generator(), device)
-        self.committed = 0  # tokens committed through ``advance``
+        # tokens committed through ``advance`` (every decode/verify tick), and
+        # how many of them were drafted (0 under plain decode)
+        self.committed = 0
+        self.drafted = 0
         self.slots = [SlotInfo() for _ in range(max_batch)]
-        self.active = np.zeros(max_batch, bool)
-        self.tok = np.zeros(max_batch, np.int32)  # next decode input per slot
+        self.active = np.zeros(max_batch, bool)     # slot occupied at all
+        self.admitting = np.zeros(max_batch, bool)  # reserved, prefill in flight
+        self.tok = np.zeros(max_batch, np.int32)    # next decode input per slot
+        self._free = collections.deque(range(max_batch))
+
+    def _write(self, slot: int, req_cache: dict) -> None:
+        for key, pool_leaf in self.cache.items():
+            pool_leaf[:, slot] = req_cache[key][:, 0].to(pool_leaf.dtype)
+
+    # -- host-side views ----------------------------------------------------
+    @property
+    def active_count(self) -> int:
+        return int(self.active.sum())
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    def next_free(self) -> int:
+        """The next free slot (FIFO over retirements), not claimed."""
+        return self._free[0]
+
+    def free_slots(self) -> list[int]:
+        return list(self._free)
+
+    def active_slots(self) -> list[int]:
+        return [i for i in range(self.max_batch) if self.active[i]]
 
     def decode_mask(self) -> np.ndarray:
-        """Slots the masked decode step should advance."""
-        return self.active.copy()
+        """Slots the masked decode step should advance: active and not still
+        admitting (their prefill is in flight; their cache rows are dead)."""
+        return self.active & ~self.admitting
+
+    @property
+    def decoding_count(self) -> int:
+        return int(self.decode_mask().sum())
+
+    def decoding_slots(self) -> list[int]:
+        m = self.decode_mask()
+        return [i for i in range(self.max_batch) if m[i]]
 
     def positions(self) -> np.ndarray:
         return np.asarray([s.pos for s in self.slots], np.int32)
 
+    # -- lifecycle ----------------------------------------------------------
+    def can_admit(self, s0: int, budget: int, *, shared_len: int = 0) -> bool:
+        """Admission probe: a contiguous pool only needs a free slot (every
+        slot owns its full cache rectangle)."""
+        return self.free_count > 0
+
+    def _claim(self, slot: int) -> None:
+        if self.active[slot]:
+            raise ValueError(f"slot {slot} already active")
+        if self._free and self._free[0] == slot:
+            self._free.popleft()  # O(1): callers claim the peeked FIFO head
+        else:
+            self._free.remove(slot)
+        self.active[slot] = True
+
     def admit(self, slot: int, req_cache: dict, *, rid: int, pos: int,
               budget: int, first_tok: int, emitted: int = 1, prompt=None) -> None:
         """Place a prefilled request (cache grown to capacity) into a free slot:
-        its rows of the pool's cache are overwritten in place."""
+        its rows of the pool's cache are overwritten in place.  ``first_tok``
+        is the slot's next decode input (the prefill's argmax, or the last
+        committed token of a resumed request, whose ``emitted`` then counts
+        the tokens emitted before the fault)."""
         if pos + (budget - emitted) + 1 > self.max_len or not 1 <= emitted <= budget:
             raise ValueError(f"request does not fit: pos {pos}, budget {budget}, "
                              f"emitted {emitted}, max_len {self.max_len}")
-        if self.active[slot]:
-            raise ValueError(f"slot {slot} already active")
-        self.active[slot] = True
-        for key, pool_leaf in self.cache.items():
-            pool_leaf[:, slot] = req_cache[key][:, 0].to(pool_leaf.dtype)
+        self._claim(slot)
+        self._write(slot, req_cache)
         self.slots[slot] = SlotInfo(rid=rid, pos=pos, budget=budget, emitted=emitted)
         self.tok[slot] = first_tok
 
+    def reserve(self, slot: int, *, rid: int, s0: int = 0, budget: int = 0,
+                shared_len: int = 0) -> None:
+        """Claim a free slot for a request whose chunked prefill is about to
+        start: occupied, but ``admitting`` and out of the decode mask until
+        ``activate``.  ``s0``, ``budget`` and ``shared_len`` are the paged
+        pool's (item 10), unused here."""
+        self._claim(slot)
+        self.admitting[slot] = True
+        self.slots[slot] = SlotInfo(rid=rid)
+
+    def activate(self, slot: int, req_cache: dict, *, rid: int, pos: int,
+                 budget: int, first_tok: int) -> None:
+        """Flip a reserved slot from admitting to decoding once its chunked
+        prefill is done; ``req_cache`` is the request's batch-1 cache."""
+        if not (self.active[slot] and self.admitting[slot]):
+            raise ValueError(f"slot {slot} not admitting")
+        if self.slots[slot].rid != rid:
+            raise ValueError(f"slot {slot} holds request {self.slots[slot].rid}, not {rid}")
+        if pos + budget > self.max_len or budget < 1:
+            raise ValueError(f"request does not fit: pos {pos}, budget {budget}, "
+                             f"max_len {self.max_len}")
+        self._write(slot, req_cache)
+        self.slots[slot] = SlotInfo(rid=rid, pos=pos, budget=budget, emitted=1)
+        self.admitting[slot] = False
+        self.tok[slot] = first_tok
+
     def advance(self, slot: int, n: int, next_tok: int) -> None:
-        """Commit ``n`` emitted tokens to a decoding slot."""
-        if n < 1 or not self.active[slot]:
+        """Commit ``n`` emitted tokens to a decoding slot in one move (a verify
+        tick's accepted drafts and bonus token; plain decode is n = 1);
+        ``next_tok`` is the slot's new next decode input."""
+        if n < 1 or not self.active[slot] or self.admitting[slot]:
             raise ValueError(f"slot {slot}: cannot advance by {n}")
         info = self.slots[slot]
         info.pos += n
         info.emitted += n
         self.tok[slot] = next_tok
         self.committed += n
+        self.drafted += n - 1
 
     def retire(self, slot: int) -> None:
         if not self.active[slot]:
             raise ValueError(f"slot {slot} not active")
         self.active[slot] = False
+        self.admitting[slot] = False
         self.slots[slot] = SlotInfo()
+        self._free.append(slot)

@@ -29,18 +29,23 @@ DENSE = ("granite-3-8b", "granite-34b", "starcoder2-15b", "qwen1.5-110b")
 TOL = 1e-4
 
 
-def engines(arch: str, quant=None, max_batch: int = 4, max_len: int = 64):
+def engines(arch: str, quant=None, max_batch: int = 4, max_len: int = 64, spec_slack: int = 0,
+            **cfg_fields):
     """A JAX and a port engine over the same f32 weights.  Zero-initialised
-    leaves (the biases) get small random values so that they count."""
-    jcfg = dataclasses.replace(jax_config(arch), dtype=jnp.float32, quant=quant)
-    tcfg = dataclasses.replace(torch_config(arch), dtype=torch.float32, quant=quant)
+    leaves (the biases) get small random values so that they count.
+    ``cfg_fields`` replace fields of both configs (e.g. the vlm family)."""
+    jcfg = dataclasses.replace(jax_config(arch), dtype=jnp.float32, quant=quant, **cfg_fields)
+    tcfg = dataclasses.replace(torch_config(arch), dtype=torch.float32, quant=quant,
+                               **cfg_fields)
     rng = np.random.default_rng(0)
     jp = jax.tree.map(lambda a: a.astype(jnp.float32), jax_init_model(jcfg, jax.random.PRNGKey(0)))
     jp = jax.tree.map(lambda a: a if bool(a.any()) else
                       a + jnp.asarray(rng.standard_normal(a.shape).astype(np.float32) * 0.1), jp)
-    je = JaxEngine(jcfg, params=jp, sc=JaxServeConfig(max_batch=max_batch, max_len=max_len))
+    je = JaxEngine(jcfg, params=jp, sc=JaxServeConfig(max_batch=max_batch, max_len=max_len,
+                                                      spec_slack=spec_slack))
     te = InferenceEngine(tcfg, params=params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
-                         sc=ServeConfig(max_batch=max_batch, max_len=max_len), device="cpu")
+                         sc=ServeConfig(max_batch=max_batch, max_len=max_len,
+                                        spec_slack=spec_slack), device="cpu")
     return je, te
 
 
@@ -121,11 +126,30 @@ def check_masked_decode(je, te, ticks: int = 4):
 def test_unported_options_raise():
     cfg = dataclasses.replace(torch_config("granite-3-8b"), dtype=torch.float32)
     for opt in ({"paged": True}, {"kv_quant": "int8"}, {"faults": object()},
-                {"energy_budget_j": 1.0}, {"spec_slack": 2}, {"share_prefix": True}):
+                {"energy_budget_j": 1.0}, {"share_prefix": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(cfg, sc=ServeConfig(**opt), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(dataclasses.replace(cfg, family="ssm"), device="cpu")
+
+
+def test_spec_slack_is_accepted_and_a_verify_tick_runs():
+    """``spec_slack`` (once refused as unported) sizes the pool's spare rows,
+    and a verify tick over them gives the JAX engine's tokens."""
+    je, te = engines("granite-3-8b", max_batch=2, max_len=32, spec_slack=2)
+    assert te.capacity == 34
+    jpool, tpool = je.make_pool(), te.make_pool()
+    assert tpool.slack == 2 and tuple(tpool.cache["k"].shape[:3]) == (2, 2, 34)
+    prompt = np.random.default_rng(4).integers(0, te.cfg.vocab_size, 5).astype(np.int32)
+    for slot in (0, 1):
+        assert te.prefill_into_slot(tpool, slot, prompt, rid=slot, budget=6) == \
+            je.prefill_into_slot(jpool, slot, prompt, rid=slot, budget=6)
+    drafts = np.asarray([[1, 2], [3, 4]], np.int32)
+    for got, want in zip(te.masked_speculative_step(tpool, drafts),
+                         je.masked_speculative_step(jpool, drafts)):
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="spec_slack"):
+        te.masked_speculative_step(tpool, np.zeros((2, 3), np.int32))
 
 
 def test_init_model_draws_the_same_weights_with_and_without_quantization():

@@ -27,7 +27,8 @@ def test_port_files_found():
     # the int8-weight serving slice
     assert {"int8_matmul.py", "flash_attention.py", "quant.py", "base.py", "granite_3_8b.py",
             "granite_34b.py", "starcoder2_15b.py", "qwen15_110b.py", "layers.py",
-            "transformer.py", "model.py", "kv_cache.py", "slots.py", "engine.py"} <= names
+            "transformer.py", "model.py", "kv_cache.py", "slots.py", "engine.py",
+            "graphs.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
