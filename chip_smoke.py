@@ -45,11 +45,22 @@ chunks of steps); K4 also at four layers.  K2's entry gives its geometry
 (units and rows a block, grid); with ``--parent DIR``, a checkout of the
 parent commit, the parent's K2 is built from DIR and timed beside it.
 
+The ``tuner`` phase holds the block-size tuner (``kernels/autotune.py``) to
+the card: at every K2-K6 shape of the paths it times the tuner's pick beside
+the fixed plan the tuner replaced (passed explicitly), the analytic top 6
+and a spread of probes, refines the top 3 by measurement
+(``bench.make_measure_fn``) in a cache directory of its own, holds every
+output to its plain version, and refits the model's constants to this run's
+timings (``tuner.fit``).  The ``chip_model`` phase checks ``H100Chip``
+against the card's properties, and ``energy`` reads ``power.draw`` idle and
+under a 2 s K3 loop beside ``H100Chip.step_power``.
+
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
 the replayed and eager tick times), ``host_path`` (each
-kernel wrapper's host time, and K1's host path piece by piece), one JSON
-object ``{"kernels": [...]}``,
+kernel wrapper's host time, ``"auto"`` against the same plan passed
+explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
+``energy``, one JSON object ``{"kernels": [...]}``,
 ``main_path``, the card as ``nvidia-smi`` names it, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is then
 not 0 and the last line is not printed.  ``--out FILE`` also writes the whole
@@ -77,6 +88,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.core.energy import DEFAULT_CHIP  # noqa: E402
 from repro_torch.core.fpga import paper_workload  # noqa: E402
 from repro_torch.kernels import bench, ops, runtime  # noqa: E402
 from repro_torch.kernels.activations import (  # noqa: E402
@@ -838,6 +850,44 @@ def host_path(dev) -> dict:
                              "host_us": r6(None if dms is None else (ms - dms) * 1e3),
                              "host_call_us": r6(host_ns(fn, 2000) / 1e3)}
     out = {"wrappers": per_wrapper}
+    # "auto" (the tuner's pick, memoized per shape) against the same plan
+    # passed explicitly: the host time the tuner adds to a call
+    k3 = plan_launch("auto", RAGGED_BATCH, lw.seq, lw.d_in, lw.hidden, slots=cluster_slots(dev),
+                     backend=runtime.CUDA_BACKEND)
+    k5 = plan(*INT8_TEST_SHAPES[2], "auto", "auto", "auto", runtime.CUDA_BACKEND)
+    pairs = {
+        f"lstm_seq ({RAGGED_BATCH}, {lw.seq}, {lw.d_in}, {lw.hidden}) f32": (
+            lambda: lstm_seq_fused(xs, p["w"], p["u"], p["b"]),
+            lambda: lstm_seq_fused(xs, p["w"], p["u"], p["b"], block_b=k3.block_b)),
+        f"int8_matmul {INT8_TEST_SHAPES[2]}": (
+            lambda: int8_matmul(xq, wq, sx, sw),
+            lambda: int8_matmul(xq, wq, sx, sw, block_m=k5.block_m, block_n=k5.block_n,
+                                block_k=k5.k_chunk)),
+    }
+    plans = {  # the plan lookup alone: what "auto" can add to a call
+        f"lstm_seq ({RAGGED_BATCH}, {lw.seq}, {lw.d_in}, {lw.hidden}) f32": (
+            lambda: plan_launch("auto", RAGGED_BATCH, lw.seq, lw.d_in, lw.hidden,
+                                slots=cluster_slots(dev), backend=runtime.CUDA_BACKEND),
+            lambda: plan_launch(k3.block_b, RAGGED_BATCH, lw.seq, lw.d_in, lw.hidden,
+                                slots=cluster_slots(dev), backend=runtime.CUDA_BACKEND)),
+        f"int8_matmul {INT8_TEST_SHAPES[2]}": (
+            lambda: plan(*INT8_TEST_SHAPES[2], "auto", "auto", "auto", runtime.CUDA_BACKEND),
+            lambda: plan(*INT8_TEST_SHAPES[2], k5.block_m, k5.block_n, k5.k_chunk,
+                         runtime.CUDA_BACKEND)),
+    }
+    auto_vs = {}
+    for name, (auto, explicit) in pairs.items():
+        t = {"auto": [], "explicit": []}
+        for _ in range(20):  # in turns; the best of twenty samples of each
+            t["auto"].append(host_ns(auto, 500) / 1e3)
+            t["explicit"].append(host_ns(explicit, 500) / 1e3)
+        auto_us, explicit_us = min(t["auto"]), min(t["explicit"])
+        lookup = {side: host_ns(fn, 20000) / 1e3 for side, fn in zip(("auto", "explicit"),
+                                                                     plans[name])}
+        auto_vs[name] = {"auto_call_us": r6(auto_us), "explicit_call_us": r6(explicit_us),
+                         "auto_minus_explicit_us": r6(auto_us - explicit_us),
+                         "plan_lookup_us": {k: r6(v) for k, v in lookup.items()}}
+    out["auto_vs_explicit"] = auto_vs
     x = torch.randn(QUANT_SHAPE[:2] + QUANT_SHAPE[3:], device=dev)
     y = torch.empty_like(x)
     runtime.load_kernels()
@@ -960,7 +1010,8 @@ def check_int8_matmul(dev):
         bound_ms, bound_by = bound(nbytes(xq, wq, sx, sw) + 4 * m * n, 2.0 * m * k * n,
                                    PEAK_INT8_OPS)
         shapes.append({
-            "shape": [m, k, n], "plan": list(plan(m, k, n)), "max_abs_err": 0.0,
+            "shape": [m, k, n], "max_abs_err": 0.0,
+            "plan": list(plan(m, k, n, "auto", "auto", "auto", runtime.CUDA_BACKEND)),
             "tolerance": 0.0,
             "ms": r6(time_ms(lambda: int8_matmul(xq, wq, sx, sw))),
             "cold_device_ms": r6(cold_device_ms(lambda w: int8_matmul(xq, w, sx, sw), wq)
@@ -1654,6 +1705,363 @@ STACK_MODES = ("pallas_stack", "pallas_stack_q8", "pallas_seq", "pallas_seq_q8",
 Q8_VS_F32 = 5e-2   # int8 weights against the f32 path, as the reference's q8 tests
 
 
+# ---------------------------------------------------------------------------
+# The chip model, the block-size tuner and the card's power, on the card
+# ---------------------------------------------------------------------------
+def check_chip_model(dev) -> dict:
+    """``H100Chip``'s data-sheet fields against what the card reports
+    (``torch.cuda.get_device_properties``, the cluster kernel's occupancy
+    query, ``nvidia-smi``'s power limit).  Fails where a property the card
+    reports differs; the memory size may differ by the card's reserve."""
+    props = torch.cuda.get_device_properties(dev)
+    card = {
+        "sms": props.multi_processor_count,
+        "smem_per_block": getattr(props, "shared_memory_per_block_optin", None),
+        "smem_per_sm": getattr(props, "shared_memory_per_multiprocessor", None),
+        "threads_per_sm": getattr(props, "max_threads_per_multi_processor", None),
+        "l2_bytes": getattr(props, "L2_cache_size", None),
+        "cluster_slots": cluster_slots(dev),
+    }
+    model = {k: getattr(DEFAULT_CHIP, k) for k in card}
+    for k, v in card.items():
+        if v is not None and v != model[k]:
+            fail(f"H100Chip.{k} = {model[k]}, the card reports {v}")
+    total = props.total_memory
+    if abs(total - DEFAULT_CHIP.hbm_bytes) > 0.1 * DEFAULT_CHIP.hbm_bytes:
+        fail(f"H100Chip.hbm_bytes = {DEFAULT_CHIP.hbm_bytes}, the card has {total}")
+    limit = float(smi_query("power.limit"))
+    return {"card": card, "model": model, "total_memory": total,
+            "hbm_bytes": DEFAULT_CHIP.hbm_bytes, "power_limit_w": limit,
+            "p_peak_w": DEFAULT_CHIP.p_peak_w, "runtime": {
+                "MAX_SHARED_BYTES": runtime.MAX_SHARED_BYTES, "SM_COUNT": runtime.SM_COUNT}}
+
+
+def smi_query(field: str) -> str:
+    """One ``nvidia-smi --query-gpu`` field of card 0, without units."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def fixed_int8_plan(m: int, k: int, n: int) -> dict:
+    """K5's geometry before the tuner (the fixed rule it replaced, passed to
+    the wrapper explicitly to compare with): 16-row tiles at decode, K split
+    until the grid holds 2 x 132 blocks; 64- or 128-row tiles above, K split
+    while the tiles leave SMs idle, chunks of at least 8 stages."""
+    if m <= 16:
+        block_m, target, min_steps = 16, 2 * runtime.SM_COUNT, 1
+        block_n = 128 if n >= 4096 else 64
+    elif m <= 64:
+        block_m, block_n, target, min_steps = 64, 128, runtime.SM_COUNT, 8
+    else:
+        block_m, block_n, target, min_steps = 128, 128, runtime.SM_COUNT, 8
+    steps = -(-k // int8_mod.BLOCK_K)
+    tiles = -(-m // block_m) * -(-n // block_n)
+    per = max(steps // -(-target // tiles), min(min_steps, steps), 1)
+    return {"block_m": block_m, "block_n": block_n, "block_k": per * int8_mod.BLOCK_K}
+
+
+def tuner_cases() -> list[tuple]:
+    """(kernel, problem, dtype, fixed plan, tolerance, main path?): every
+    K2-K6 shape of the main paths, and the chunked LSTM batch of 200 rows,
+    where the tuner leaves the fixed plan.  The fixed plans are those of
+    the rules the tuner replaced."""
+    lw = paper_workload()
+    paper = {"batch": PAPER_BATCH, "seq": lw.seq, "d_in": lw.d_in, "hidden": lw.hidden}
+    b, s, d, h = QUANT_SHAPE
+    wide = {"batch": b, "seq": s, "d_in": d, "hidden": h}
+    chunky = dict(zip(("batch", "seq", "d_in", "hidden"), CHUNK_SHAPE))
+    cases = [("lstm_cell", {"batch": b, "d_in": d, "hidden": h}, "float32", {"block_b": 10},
+              TOL_F32, True),
+             ("lstm_cell", {"batch": PAPER_BATCH, "d_in": lw.d_in, "hidden": lw.hidden},
+              "float32", {"block_b": 2}, TOL_F32, True)]
+    for dtype, tol in (("float32", TOL_F32), ("int8", TOL_Q8)):
+        cases += [("lstm_seq", wide, dtype, {"block_b": 3}, tol, True),
+                  ("lstm_seq", paper, dtype, {"block_b": 1}, tol, True),
+                  ("lstm_seq", chunky, dtype, {"block_b": 14}, tol, False),
+                  ("lstm_stack", {**wide, "layers": STACK_SHAPE[4]}, dtype, {"block_b": 3}, tol,
+                   True),
+                  ("lstm_stack", {**chunky, "layers": STACK_SHAPE[4]}, dtype, {"block_b": 14},
+                   tol, False)]
+    for m in (4, 20, 32, 64, 256):
+        for k, n in INT8_PROJ_KN:
+            cases.append(("int8_matmul", {"m": m, "k": k, "n": n}, "int8",
+                          fixed_int8_plan(m, k, n), 0.0, True))
+    fb, fh, _, fsq, fsk, fd, _, _ = FLASH_MAIN
+    flash = {"b": fb, "h": fh, "sq": fsq, "sk": fsk, "d": fd}
+    cases += [("flash_attention", flash, "bfloat16", {"block_q": 64, "block_k": 64}, TOL_BF16,
+               True)]
+    return cases
+
+
+TUNER_TOP = 6    # analytic candidates timed beside the pick and the fixed plan
+
+
+def tuner_case(dev, kernel, problem, dtype, fixed, tol, main_path) -> dict:
+    """One shape: the analytic pick and the fixed plan (device times taken
+    in turns, pick, plan, plan, pick, pick, plan, and the median of each),
+    the analytic top ``TUNER_TOP`` and the probes, the measured refinement
+    over the top 3 (``bench.make_measure_fn``), each output held to the
+    plain version, and the tuner's own host time with a cold disk cache, a
+    warm process and a warm disk.  K5 is timed with its weight read from
+    device memory (``cold_device_ms``), as the serving path reads it."""
+    from repro_torch.kernels import autotune
+
+    chip = autotune.chip_with_slots(cluster_slots(dev) if kernel.startswith("lstm_s") else None)
+    backend = runtime.CUDA_BACKEND
+    autotune.clear_cache(disk=True)
+    t0 = time.perf_counter()
+    pick = autotune.autotune(kernel, problem, dtype=dtype, backend=backend, chip=chip)
+    t1 = time.perf_counter()
+    autotune.autotune(kernel, problem, dtype=dtype, backend=backend, chip=chip)
+    t2 = time.perf_counter()
+    autotune.clear_cache()
+    autotune.autotune(kernel, problem, dtype=dtype, backend=backend, chip=chip)
+    t3 = time.perf_counter()
+    ranked = autotune.ranked_candidates(kernel, problem, dtype=dtype, chip=chip)
+    if ranked[0] != pick:
+        fail(f"tuner {kernel} {problem}: autotune gave {pick}, the ranking {ranked[0]}")
+    run, plain = bench.candidate_calls(kernel, problem, dtype, dev, seed=500)
+    timer = lambda c: device_ms(run(c), reps=5)  # noqa: E731
+    if kernel == "int8_matmul":  # from device memory, as the serving path reads its weights
+        xq, wq, sx, sw = int8_operands(problem["m"], problem["k"], problem["n"], dev, 500)
+        run = lambda c: lambda: (int8_matmul(xq, wq, sx, sw, **c),)  # noqa: E731
+        plain = lambda: (int8_matmul_plain(xq, wq, sx, sw),)  # noqa: E731
+        timer = lambda c: cold_device_ms(lambda w: int8_matmul(xq, w, sx, sw, **c), wq)  # noqa: E731
+    want = plain()
+
+    def checked(c):
+        got = run(c)()
+        err = max(compare(g, w, "exact", tol, f"tuner {kernel} {problem} {dtype} {c}")
+                  if tol else exact(g, w, f"tuner {kernel} {problem} {c}")
+                  for g, w in zip(got, want))
+        return err
+
+    timed = []
+    for c in [pick, fixed] + ranked[:TUNER_TOP] + tuner_probes(kernel, problem, ranked):
+        if c not in timed:
+            timed.append(c)
+    rows = {}
+    for c in timed:
+        rows[json.dumps(c, sort_keys=True)] = {
+            "candidate": c, "max_abs_err": r6(checked(c)),
+            "predicted_us": r6(autotune.predict_time_s(kernel, problem, c, dtype=dtype,
+                                                       chip=chip) * 1e6),
+            "device_ms": r6(timer(c))}
+    turns = {"pick": [], "fixed": []}
+    for side in ("pick", "fixed", "fixed", "pick", "pick", "fixed"):
+        t = timer(pick if side == "pick" else fixed)
+        if t is not None:
+            turns[side].append(t)
+    pick_ms = statistics.median(turns["pick"]) if turns["pick"] else None
+    fixed_ms = statistics.median(turns["fixed"]) if turns["fixed"] else None
+    measured = autotune.autotune(kernel, problem, dtype=dtype, backend=backend, chip=chip,
+                                 measure_fn=bench.make_measure_fn(kernel, problem, dtype, dev),
+                                 top_k=3)
+    measured_key = json.dumps(measured, sort_keys=True)
+    if measured_key not in rows:
+        fail(f"tuner {kernel} {problem}: measured winner {measured} not among the top 3")
+    autotune.clear_cache(disk=True)
+    return {"kernel": kernel, "problem": problem, "dtype": dtype, "main_path": main_path,
+            "tolerance": tol, "pick": pick, "fixed": fixed, "same_as_fixed": pick == fixed,
+            "pick_device_ms": r6(pick_ms), "fixed_device_ms": r6(fixed_ms),
+            "pick_over_fixed": r6(None if None in (pick_ms, fixed_ms) else pick_ms / fixed_ms),
+            "measured_winner": measured, "measured_device_ms": rows[measured_key]["device_ms"],
+            "autotune_us": {"cold": r6((t1 - t0) * 1e6), "warm": r6((t2 - t1) * 1e6),
+                            "disk": r6((t3 - t2) * 1e6)},
+            "candidates": list(rows.values())}
+
+
+def tuner_summary(tuner: dict) -> dict:
+    """The ``tuner`` line: each case without its candidate table (which
+    ``--out`` keeps)."""
+    return {**tuner, "cases": [{k: v for k, v in c.items() if k != "candidates"}
+                               for c in tuner["cases"]]}
+
+
+TUNER_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+
+
+def tuner_probes(kernel, problem, ranked) -> list[dict]:
+    """Candidates timed besides the analytic top, so that the fit in the
+    ``tuner`` line sees the whole range: K5's tiles at 1 to 32 chunks of K
+    (those the tuner takes), and every LSTM tile that fits up to 16 rows."""
+    from repro_torch.kernels import autotune
+
+    if kernel == "int8_matmul":
+        steps = -(-problem["k"] // int8_mod.BLOCK_K)
+        tiles = sorted({(c["block_m"], c["block_n"]) for c in ranked})
+        chunks = set(autotune.k_chunks(problem["k"]))
+        probes = [{"block_m": bm, "block_n": bn, "block_k": -(-steps // s) * int8_mod.BLOCK_K}
+                  for bm, bn in tiles for s in TUNER_SPLITS if s <= steps]
+        return [c for c in probes if c["block_k"] in chunks]
+    if kernel.startswith("lstm"):
+        return [c for c in ranked if c["block_b"] <= 16]
+    return []
+
+
+def nonnegative_lstsq(a: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Least squares with every coefficient >= 0: features whose coefficient
+    comes out negative are dropped and the rest refitted."""
+    keep = np.ones(a.shape[1], dtype=bool)
+    while True:
+        x = np.zeros(a.shape[1])
+        x[keep] = np.linalg.lstsq(a[:, keep], y, rcond=None)[0]
+        if (x >= 0).all():
+            return x
+        keep &= x > 0
+
+
+def tuner_fit(cases) -> dict:
+    """The tuner's linear fits (``autotune.features``) refitted to this
+    run's timings, relative error minimised, beside the committed fit."""
+    from repro_torch.kernels import autotune
+
+    groups: dict[str, list] = {}
+    for case in cases:
+        chip = autotune.chip_with_slots(
+            DEFAULT_CHIP.cluster_slots if case["kernel"].startswith("lstm_s") else None)
+        for row in case["candidates"]:
+            f = autotune.features(case["kernel"], case["problem"], row["candidate"],
+                                  dtype=case["dtype"], chip=chip)
+            if f is not None and row["device_ms"]:
+                groups.setdefault(f[0], []).append((f[1], row["device_ms"] * 1e-3))
+    out = {}
+    for name, rows in sorted(groups.items()):
+        a = np.array([r[0] for r in rows], dtype=np.float64)
+        y = np.array([r[1] for r in rows])
+        refit = nonnegative_lstsq(a / y[:, None], np.ones(len(y)))
+        committed = np.array(autotune.FITS[name])
+        rms = lambda x: float(np.sqrt(np.mean(((a @ x - y) / y) ** 2)))  # noqa: E731
+        out[name] = {"samples": len(rows), "refit": [float(f"{v:.4g}") for v in refit],
+                     "committed": [float(f"{v:.4g}") for v in committed],
+                     "rms_rel_refit": r6(rms(refit)), "rms_rel_committed": r6(rms(committed))}
+    return out
+
+
+def exact(got, want, what: str) -> float:
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"{what}: not bit-identical to the plain version")
+    return 0.0
+
+
+def check_tuner(dev) -> dict:
+    """Every case of :func:`tuner_cases` in a cache directory of its own,
+    which is removed after, so that no measured winner reaches the paths
+    driven later (their "auto" is the analytic pick)."""
+    import os
+    import tempfile
+
+    from repro_torch.kernels import autotune
+
+    saved = os.environ.get("REPRO_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = str(pathlib.Path(tmp) / "autotune.json")
+        try:
+            cases = [tuner_case(dev, *case) for case in tuner_cases()]
+        finally:
+            autotune.clear_cache()
+            if saved is None:
+                os.environ.pop("REPRO_AUTOTUNE_CACHE")
+            else:
+                os.environ["REPRO_AUTOTUNE_CACHE"] = saved
+    main = [c for c in cases if c["main_path"] and c["pick_over_fixed"] is not None]
+    return {"model": autotune.MODEL, "fit": tuner_fit(cases), "cases": cases,
+            "main_path_shapes": len(main),
+            "same_as_fixed": sum(c["same_as_fixed"] for c in main),
+            "worst_pick_over_fixed": r6(max(c["pick_over_fixed"] for c in main)),
+            "over_1_03": [[c["kernel"], c["problem"], c["dtype"], c["pick_over_fixed"]]
+                          for c in main if c["pick_over_fixed"] > 1.03]}
+
+
+ENERGY_LOOP_S = 2.0
+
+
+def sample_power(stop, out: list, period: float = 0.1) -> None:
+    while not stop.is_set():
+        out.append(float(smi_query("power.draw")))
+        stop.wait(period)
+
+
+def measure_energy(dev) -> dict:
+    """``power.draw`` of the idle card and during a 2 s loop of K3 at
+    ``QUANT_SHAPE`` (f32), beside ``H100Chip.step_power`` at that loop's
+    utilisation (its operations over the f32 peak); the L2 rate (a 16 MB
+    device copy, read + write); and the two "configuration" constants: a
+    pinned host-to-device copy of one ``serve_dense`` layer's int8
+    projections, and, in a fresh process, loading the built kernel library
+    plus a first launch."""
+    import threading
+
+    chip = DEFAULT_CHIP
+    torch.cuda.synchronize()
+    time.sleep(3.0)
+    idle = []
+    for _ in range(10):
+        idle.append(float(smi_query("power.draw")))
+        time.sleep(0.2)
+    b, s, d, h = QUANT_SHAPE
+    x, params = make_lstm(70, b, s, d, h, 1, dev)
+    p = params[0]
+    fn = lambda: lstm_seq_fused(x, p["w"], p["u"], p["b"])  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    busy, stop = [], threading.Event()
+    sampler = threading.Thread(target=sample_power, args=(stop, busy))
+    calls, t0 = 0, time.perf_counter()
+    sampler.start()
+    try:
+        while time.perf_counter() - t0 < ENERGY_LOOP_S:
+            for _ in range(50):
+                fn()
+            calls += 50
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        sampler.join()
+    loop_s = time.perf_counter() - t0
+    call_ms = loop_s / calls * 1e3
+    util = lstm_flops(b, s, d, h) / (call_ms * 1e-3) / PEAK_F32_FLOPS
+    # L2: 8 MB read and 8 MB written per copy, both within the 50 MB L2
+    src = torch.empty(8 << 20, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    l2_ms = time_ms(lambda: dst.copy_(src), reps=200)
+    # one serve_dense layer's int8 projections, pinned, to the card
+    cfg = get_config(GRANITE)
+    hd = cfg.resolved_head_dim
+    layer_bytes = cfg.d_model * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd \
+        + cfg.num_heads * hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+    host = torch.empty(layer_bytes, dtype=torch.uint8).pin_memory()
+    card = torch.empty(layer_bytes, dtype=torch.uint8, device=dev)
+    copy_ms = time_ms(lambda: card.copy_(host, non_blocking=True), reps=5, rounds=5)
+    del host, card
+    probe = ("import sys, time, torch; sys.path.insert(0, 'src');"
+             "from repro_torch.kernels import runtime;"
+             "from repro_torch.kernels.activations import activation;"
+             "x = torch.zeros(1024, device='cuda'); torch.cuda.synchronize();"
+             "t0 = time.perf_counter(); runtime.load_kernels(); activation(x);"
+             "torch.cuda.synchronize(); print(time.perf_counter() - t0)")
+    root = pathlib.Path(__file__).resolve().parent
+    fixed_s = float(subprocess.run([sys.executable, "-c", probe], cwd=root, capture_output=True,
+                                   text=True, check=True, timeout=120).stdout.strip())
+    idle_w = statistics.median(idle)
+    busy_w = statistics.median(busy) if busy else None
+    return {"gpu": smi_query("name") + ", " + smi_query("power.limit") + " W",
+            "idle_w": r6(idle_w), "idle_samples": idle,
+            "k3_loop": {"shape": list(QUANT_SHAPE), "seconds": r6(loop_s), "calls": calls,
+                        "call_ms": r6(call_ms), "utilisation_f32": r6(util),
+                        "power_draw_w": r6(busy_w), "samples": len(busy),
+                        "step_power_w": r6(chip.step_power(util)),
+                        "energy_per_call_mj": r6(None if busy_w is None else busy_w * call_ms)},
+            "l2_copy": {"bytes_moved": 2 * src.numel(), "ms": r6(l2_ms),
+                        "bytes_per_s": r6(2 * src.numel() / (l2_ms * 1e-3))},
+            "reload": {"layer_bytes": layer_bytes, "pinned_copy_ms": r6(copy_ms),
+                       "bytes_per_s": r6(layer_bytes / (copy_ms * 1e-3)),
+                       "library_load_and_first_launch_s": r6(fixed_s)},
+            "model": {"p_idle_w": chip.p_idle_w, "p_peak_w": chip.p_peak_w,
+                      "reload_bw": chip.reload_bw, "reload_fixed_s": chip.reload_fixed_s}}
+
+
 def drive_main_path(dev) -> dict:
     """The paper-LSTM plan, then request batches through every mode.  Returns
     the launch counts it expects, and what it saw."""
@@ -1770,6 +2178,9 @@ def main(argv=None) -> int:
                phase("int8_matmul", check_int8_matmul, dev),
                phase("flash_attention", check_flash, dev)]
     host = phase("host_path", host_path, dev)
+    chip_model = phase("chip_model", check_chip_model, dev)
+    tuner = phase("tuner", check_tuner, dev)
+    energy = phase("energy", measure_energy, dev)
     quantize_on_card = phase("quantize_on_card", check_quantize_on_card, dev)
     init_on_card = phase("init_on_card", check_init_on_card, dev)
 
@@ -1835,7 +2246,8 @@ def main(argv=None) -> int:
     }
     main_path["trace_check"] = TRACE_CHECK
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
-              "serve_engine": engine_report, "host_path": host,
+              "serve_engine": engine_report, "host_path": host, "chip_model": chip_model,
+              "tuner": tuner, "energy": energy,
               "lut_seen": {k: {n: r6(v) for n, v in d.items()} for k, d in LUT_SEEN.items()},
               "tensor_core_kernels": {"ptxas": ptxas_usage(runtime.compile_log()),
                                       "sass": sass,
@@ -1850,6 +2262,9 @@ def main(argv=None) -> int:
     print("serve_dense " + json.dumps(serve), flush=True)
     print("serve_engine " + json.dumps(engine_report), flush=True)
     print("host_path " + json.dumps(host), flush=True)
+    print("chip_model " + json.dumps(chip_model), flush=True)
+    print("tuner " + json.dumps(tuner_summary(tuner)), flush=True)
+    print("energy " + json.dumps(energy), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print("main_path " + json.dumps(main_path), flush=True)
     print(smi, flush=True)

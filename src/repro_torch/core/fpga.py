@@ -1,11 +1,54 @@
-"""The paper's LSTM workload at its published shape.
+"""Paper-faithful FPGA analytical backend (the RTL-template cost profiles).
 
-Only the workload description is ported so far; the FPGA resource, latency
-and energy model of the reference's ``core/fpga.py`` is not.
+Reproduces the paper's published LSTM results (§3.1 / ref [2]):
+
+  C1  latency 53.32 µs → 28.07 µs (−47.37%)   via pipelining + activation opt
+  C2  energy efficiency 5.57 → 12.98 GOPS/s/W (2.33×)
+
+Model structure (every calibrated constant marked CAL):
+
+  * Workload: the companion paper's embedded LSTM — seq=28 steps, d_in=6,
+    hidden=20 (sensor-scale; CAL: chosen so total ops and the published
+    GOPS/s/W figures are mutually consistent — see derivation below).
+  * Gate matmul: G = 4·H·(D+H+1) MACs/step over a pool of ``n_mac`` MAC
+    units (DSP48s first, LUT-fabric MACs beyond the DSP budget).
+  * Activations: 5·H evaluations/step (4 gates + tanh(c)) over ``n_act``
+    units; cycles/element per impl: exact=4, pwl=2, lut=1, hard=1.
+  * Elementwise: 3·H mult-adds over a fixed 16-lane unit.
+  * Un-pipelined template: per-step = mac + act + ew + ctrl(2).
+    Pipelined template: activations/elementwise stream in the MAC epilogue —
+    per-step = max(mac, act+ew) + drain(8) + ctrl(2).
+
+  Baseline  (paper's start): n_mac=16 (16 DSP), exact activations, no pipe
+    → 191 cyc/step × 28 steps = 5348 cyc @100 MHz = 53.48 µs  (pub 53.32, +0.3%)
+  Optimized (paper's result): hard activations free the exp logic → DSP
+    budget refilled to 20 + 4 LUT-MACs = 24 MACs, pipelined
+    → 100 cyc/step × 28 = 2800 cyc = 28.00 µs                 (pub 28.07, −0.25%)
+
+  Power: P = p_idle + LUT·p_lut + DSP·p_dsp with (p_lut, p_dsp) solved from
+  the two published GOPS/s/W values at the two templates' resource mixes
+  (CAL in core/energy.py). Reproduced EE: 5.55 / 13.01 → ratio 2.34×.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+
+from repro_torch.core.energy import DEFAULT_BOARD, FPGABoard
+from repro_torch.models.activations import VARIANT_ERROR
+
+# Cycles per activation element (CAL: iterative exp vs compare-chain vs
+# 1-cycle BRAM/clip — consistent with refs [16-20] implementations).
+ACT_CYCLES = {"exact": 4, "pwl": 2, "lut": 1, "hard": 1}
+# LUT cost per activation unit (CAL) — exact needs exp logic, lut needs
+# addressing plus a BRAM, hard is a clamp.
+ACT_LUT = {"exact": 450, "pwl": 120, "lut": 60, "hard": 30}
+ACT_BRAM_KB = {"exact": 0, "pwl": 0, "lut": 9, "hard": 0}
+LUT_PER_FABRIC_MAC = 80  # CAL: LUT-fabric MAC beyond the DSP budget
+LUT_CTRL = 1400          # CAL: FSM / AXI / buffers
+EW_LANES = 16
+PIPE_DRAIN = 8
+CTRL_CYCLES = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,5 +75,191 @@ class LSTMWorkload:
         return self.seq * (2 * self.macs_per_step + self.act_per_step + 2 * self.ew_per_step)
 
 
+@dataclasses.dataclass(frozen=True)
+class LSTMTemplate:
+    """One point on the paper's RTL-template axis."""
+
+    n_mac: int = 16
+    n_act: int = 8
+    act_impl: str = "exact"  # exact | pwl | lut | hard
+    pipelined: bool = False
+
+    # -- resources ----------------------------------------------------------
+    def resources(self, board: FPGABoard = DEFAULT_BOARD) -> dict:
+        dsp = min(self.n_mac, board.dsp)
+        fabric_macs = self.n_mac - dsp
+        lut = (
+            LUT_CTRL
+            + fabric_macs * LUT_PER_FABRIC_MAC
+            + self.n_act * ACT_LUT[self.act_impl]
+        )
+        bram_kb = self.n_act * ACT_BRAM_KB[self.act_impl]
+        return {"dsp": dsp, "lut": lut, "bram_kb": bram_kb}
+
+    def feasible(self, board: FPGABoard = DEFAULT_BOARD) -> bool:
+        r = self.resources(board)
+        return r["lut"] <= board.lut and r["bram_kb"] <= board.bram_kb
+
+    # -- timing --------------------------------------------------------------
+    def cycles_per_step(self, w: LSTMWorkload) -> int:
+        mac = math.ceil(w.macs_per_step / self.n_mac)
+        act = math.ceil(w.act_per_step * ACT_CYCLES[self.act_impl] / self.n_act)
+        ew = math.ceil(w.ew_per_step / EW_LANES)
+        if self.pipelined:
+            return max(mac, act + ew) + PIPE_DRAIN + CTRL_CYCLES
+        return mac + act + ew + CTRL_CYCLES
+
+    def latency_s(self, w: LSTMWorkload, board: FPGABoard = DEFAULT_BOARD) -> float:
+        return w.seq * self.cycles_per_step(w) / board.clock_hz
+
+    # -- power / efficiency ---------------------------------------------------
+    def power_w(self, board: FPGABoard = DEFAULT_BOARD) -> float:
+        r = self.resources(board)
+        return board.active_power(r["lut"], r["dsp"])
+
+    def energy_j(self, w: LSTMWorkload, board: FPGABoard = DEFAULT_BOARD) -> float:
+        return self.latency_s(w, board) * self.power_w(board)
+
+    def gops_per_w(self, w: LSTMWorkload, board: FPGABoard = DEFAULT_BOARD) -> float:
+        return w.total_ops / self.latency_s(w, board) / self.power_w(board) / 1e9
+
+    @property
+    def max_abs_error(self) -> float:
+        return VARIANT_ERROR[self.act_impl]
+
+
+def baseline_template() -> LSTMTemplate:
+    """The paper's starting design (sequential activations, exact impls)."""
+    return LSTMTemplate(n_mac=16, n_act=8, act_impl="exact", pipelined=False)
+
+
+def optimized_template() -> LSTMTemplate:
+    """The paper's optimized design (pipelined, hard activations, DSPs
+    freed from exp logic refilled into 24 MACs)."""
+    return LSTMTemplate(n_mac=24, n_act=8, act_impl="hard", pipelined=True)
+
+
 def paper_workload() -> LSTMWorkload:
     return LSTMWorkload()
+
+
+def template_space() -> list[LSTMTemplate]:
+    """The full RTL-template design space the Generator explores."""
+    out = []
+    for n_mac in (4, 8, 12, 16, 20, 24, 28, 32):
+        for n_act in (2, 4, 8, 16):
+            for impl in ("exact", "pwl", "lut", "hard"):
+                for pipe in (False, True):
+                    out.append(LSTMTemplate(n_mac, n_act, impl, pipe))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLP template (refs [4,10,11]) — same pool model, feed-forward workload.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MLPWorkload:
+    layer_dims: tuple[int, ...] = (16, 64, 64, 1)  # soft-sensor scale (ref [4])
+
+    @property
+    def macs(self) -> int:
+        return sum(a * b for a, b in zip(self.layer_dims, self.layer_dims[1:]))
+
+    @property
+    def act_count(self) -> int:
+        return sum(self.layer_dims[1:-1])
+
+    @property
+    def total_ops(self) -> int:
+        return 2 * self.macs + self.act_count
+
+
+# ---------------------------------------------------------------------------
+# Generator cost backend (paper-faithful FPGA side of the CostBackend protocol)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class FPGACostBackend:
+    """RTL-template design space × analytical cycle/power models → Estimate.
+
+    ``component`` selects which template family the accelerator is built
+    from (the paper's per-component RTL template library)."""
+
+    workload: LSTMWorkload | "MLPWorkload"
+    board: FPGABoard = DEFAULT_BOARD
+    component: str = "lstm"  # lstm | mlp
+
+    def space(self) -> dict[str, tuple]:
+        return {
+            "n_mac": (4, 8, 12, 16, 20, 24, 28, 32),
+            "n_act": (2, 4, 8, 16),
+            "act_impl": ("exact", "pwl", "lut", "hard"),
+            "pipelined": (False, True),
+        }
+
+    def _template(self, point):
+        cls = LSTMTemplate if self.component == "lstm" else MLPTemplate
+        return cls(
+            n_mac=point["n_mac"],
+            n_act=point["n_act"],
+            act_impl=point["act_impl"],
+            pipelined=point["pipelined"],
+        )
+
+    def evaluate(self, point):
+        from repro_torch.core.candidates import Estimate
+
+        t = self._template(point)
+        lat = t.latency_s(self.workload, self.board)
+        p_active = t.power_w(self.board)
+        return Estimate(
+            latency_s=lat,
+            power_active_w=p_active,
+            power_idle_w=self.board.p_idle_w,
+            energy_per_inf_j=lat * p_active,
+            resources=t.resources(self.board),
+            max_act_error=t.max_abs_error,
+            cfg_energy_j=self.board.e_cfg_j,
+            cfg_time_s=self.board.t_cfg_s,
+            ops=float(self.workload.total_ops),
+        )
+
+    def feasible(self, point):
+        t = self._template(point)
+        if not t.feasible(self.board):
+            r = t.resources(self.board)
+            return False, f"LUT {r['lut']} / BRAM {r['bram_kb']}kb exceed {self.board.name}"
+        return True, ""
+
+
+@dataclasses.dataclass(frozen=True)
+class MLPTemplate:
+    n_mac: int = 8
+    n_act: int = 4
+    act_impl: str = "exact"
+    pipelined: bool = False
+
+    def resources(self, board: FPGABoard = DEFAULT_BOARD) -> dict:
+        dsp = min(self.n_mac, board.dsp)
+        lut = LUT_CTRL + (self.n_mac - dsp) * LUT_PER_FABRIC_MAC + self.n_act * ACT_LUT[self.act_impl]
+        return {"dsp": dsp, "lut": lut, "bram_kb": self.n_act * ACT_BRAM_KB[self.act_impl]}
+
+    def feasible(self, board: FPGABoard = DEFAULT_BOARD) -> bool:
+        r = self.resources(board)
+        return r["lut"] <= board.lut and r["bram_kb"] <= board.bram_kb
+
+    def latency_s(self, w: MLPWorkload, board: FPGABoard = DEFAULT_BOARD) -> float:
+        mac = math.ceil(w.macs / self.n_mac)
+        act = math.ceil(w.act_count * ACT_CYCLES[self.act_impl] / self.n_act)
+        cyc = max(mac, act) + PIPE_DRAIN if self.pipelined else mac + act
+        return (cyc + CTRL_CYCLES) / board.clock_hz
+
+    def power_w(self, board: FPGABoard = DEFAULT_BOARD) -> float:
+        r = self.resources(board)
+        return board.active_power(r["lut"], r["dsp"])
+
+    def gops_per_w(self, w: MLPWorkload, board: FPGABoard = DEFAULT_BOARD) -> float:
+        return w.total_ops / self.latency_s(w, board) / self.power_w(board) / 1e9
+
+    @property
+    def max_abs_error(self) -> float:
+        return VARIANT_ERROR[self.act_impl]

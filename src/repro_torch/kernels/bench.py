@@ -8,12 +8,15 @@ timed region.  Used by ``repro_torch.launch.train --paper-lstm`` and by
 ``chip_smoke.py`` so the methodology cannot drift between the two.
 
 These functions measure a device and therefore need one: ``device=None``
-means the card, and a CPU device is refused.  The empirical ``measure_fn``
-for the block-size tuner arrives with the tuner.
+means the card, and a CPU device is refused.  The one exception is
+:func:`make_measure_fn`, the block-size tuner's empirical ``measure_fn``,
+which on the CPU times the kernels' plain versions so that the tests can
+drive the tuner's measured refinement; on the card it times the kernels.
 """
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
@@ -118,3 +121,100 @@ def compare_lstm_stack(batch: int, seq: int, d_in: int, hidden: int,
         [lambda: lstm_stack_fused(x, params, impl=impl, quantized=quantized), sequential], n,
     )
     return t_stack, t_seq
+
+
+def candidate_calls(kernel: str, problem: dict, dtype: str = "float32", device=None, *,
+                    impl: str = "exact", seed: int = 0):
+    """Inputs for ``kernel`` at ``problem`` (``kernels.autotune``'s problem
+    dicts and dtypes), made once from a seeded ``torch.Generator`` on
+    ``device``, and two functions of them: ``run(candidate)``, a thunk that
+    runs the kernel's wrapper at that candidate's geometry, and ``plain()``,
+    the kernel's plain PyTorch version on the same inputs.  Both return the
+    output as a tuple of tensors (an LSTM sequence: its hs)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+    from repro_torch.kernels.lstm_cell import lstm_cell_fused, lstm_cell_plain
+    from repro_torch.kernels.lstm_quant import quantize_lstm_stack
+    from repro_torch.kernels.lstm_seq import (
+        _lstm_seq_call, _lstm_stack_call, lstm_seq_plain, lstm_stack_plain,
+    )
+    from repro_torch.kernels.ref import quantize_colwise, quantize_rowwise
+
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=gen, dtype=torch.float32).to(dev)  # noqa: E731
+    quantized = "int8" in dtype
+
+    if kernel == "lstm_cell":
+        b, d, h = problem["batch"], problem["d_in"], problem["hidden"]
+        params, _ = _lstm_inputs(b, 1, d, h, dev)
+        args = (randn(b, d), torch.tanh(randn(b, h)), randn(b, h),
+                params["w"], params["u"], params["b"])
+        return (lambda c: lambda: lstm_cell_fused(*args, impl=impl, block_b=c["block_b"]),
+                lambda: lstm_cell_plain(*args, impl=impl))
+    if kernel in ("lstm_seq", "lstm_stack"):
+        b, s, d, h = problem["batch"], problem["seq"], problem["d_in"], problem["hidden"]
+        layers = problem.get("layers")
+        params, x = _lstm_inputs(b, s, d, h, dev, layers=layers)
+        params = params if layers else [params]
+        if quantized:  # quantized once, as a deployment holds them
+            operands = [(q.w_q, q.u_q, q.b, q.w_scale, q.u_scale)
+                        for q in quantize_lstm_stack(params)]
+        else:
+            operands = [(p["w"], p["u"], p["b"], None, None) for p in params]
+        if layers:
+            return (lambda c: lambda: (_lstm_stack_call(
+                        x, operands, impl=impl, block_b=c["block_b"], return_state=False,
+                        packed=quantized),),
+                    lambda: lstm_stack_plain(x, operands, impl=impl, packed=quantized)[:1])
+        return (lambda c: lambda: (_lstm_seq_call(
+                    x, *operands[0], impl=impl, block_b=c["block_b"], return_state=False,
+                    packed=quantized),),
+                lambda: lstm_seq_plain(x, *operands[0], impl=impl, packed=quantized)[:1])
+    if kernel == "int8_matmul":
+        m, k, n = problem["m"], problem["k"], problem["n"]
+        xq, sx = quantize_rowwise(randn(m, k))
+        wq, sw = quantize_colwise(randn(k, n))
+        return (lambda c: lambda: (int8_matmul(xq, wq, sx, sw, block_m=c["block_m"],
+                                               block_n=c["block_n"], block_k=c["block_k"]),),
+                lambda: (int8_matmul_plain(xq, wq, sx, sw),))
+    if kernel == "flash_attention":
+        b, h, sq, sk, d = (problem[f] for f in ("b", "h", "sq", "sk", "d"))
+        kind = torch.bfloat16 if "bfloat16" in dtype else torch.float32
+        q, kk, v = randn(b, h, sq, d).to(kind), randn(b, h, sk, d).to(kind), randn(b, h, sk, d).to(kind)
+        return (lambda c: lambda: (flash_attention(q, kk, v, causal=True, block_q=c["block_q"],
+                                                   block_k=c["block_k"]),),
+                lambda: (flash_attention_plain(q, kk, v, causal=True),))
+    raise ValueError(f"no empirical measure for kernel {kernel!r}")
+
+
+def make_measure_fn(kernel: str, problem: dict, dtype: str = "float32", device=None, *,
+                    impl: str = "exact", n: int = 5):
+    """Build the block-size tuner's empirical ``measure_fn`` (candidate →
+    seconds) for ``kernel`` at ``problem`` (``kernels.autotune``'s problem
+    dicts and dtypes): inputs made once from a seeded ``torch.Generator``
+    (:func:`candidate_calls`), then, for each candidate, the kernel run at
+    that candidate's geometry and its median per-call time over ``n``
+    samples (CUDA events, the interleaved medians above; a warm-up call
+    first).
+
+    This is step 3 of the Generator method: analytical pruning picks the
+    top-k, timing on the card ranks the survivors.  ``device="cpu"`` times
+    the plain PyTorch versions with the host clock instead; their time does
+    not depend on the candidate, so that is for tests only."""
+    dev = resolve_device(device)
+    run, _ = candidate_calls(kernel, problem, dtype, dev, impl=impl)
+
+    def measure(candidate: dict) -> float:
+        fn = run(candidate)
+        if dev.type == "cuda":
+            return _interleaved_medians_us([fn], max(n, 1))[0] * 1e-6
+        fn()
+        samples = []
+        for _ in range(max(n, 1)):
+            t0 = time.perf_counter()
+            fn()
+            samples.append(time.perf_counter() - t0)
+        return statistics.median(samples)
+
+    return measure

@@ -22,6 +22,7 @@ through ``kernels/ops.flash_attention``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -35,6 +36,35 @@ STAGES_BF16 = 2           # key/value tiles in flight; `kMmaStages`
 ROW_PAD_BF16 = 8          # bf16 elements of padding per shared row; `kRowPad`
 HEAD_DIMS = (16, 32, 64, 128)  # head widths the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (query rows, key rows) of a block's tiles, by input type: what each kernel
+# is built with (`kRowsQ`, `kTileK`; `kMmaRowsQ`, `kMmaTileK`)
+BUILT_TILES = {"float32": (64, TILE_K), "bfloat16": (64, TILE_K_BF16)}
+
+
+@functools.lru_cache(maxsize=1024)
+def tiles(q_dtype: torch.dtype, block_q, block_k, shape: tuple[int, ...],
+          backend: str = "cpu") -> tuple[int, int]:
+    """The (block_q, block_k) of a launch: the tuner's pick for ``"auto"``
+    (``kernels.autotune``, kernel ``flash_attention``: one built tile per
+    type), and explicit values only where the kernel is built with them;
+    any other raises a ``ValueError`` that names the built tiles.  ``shape``
+    is (B, H, Sq, Sk, D); memoized, so the tuner is asked once a shape."""
+    kind = str(q_dtype).replace("torch.", "")
+    if kind not in BUILT_TILES:
+        raise TypeError(f"flash_attention takes f32 or bf16, got {q_dtype}")
+    built = BUILT_TILES[kind]
+    if "auto" in (block_q, block_k):
+        from repro_torch.kernels import autotune
+
+        b, h, sq, sk, d = shape
+        best = autotune.autotune("flash_attention", {"b": b, "h": h, "sq": sq, "sk": sk, "d": d},
+                                 dtype=kind, backend=backend)
+        block_q = best["block_q"] if block_q == "auto" else block_q
+        block_k = best["block_k"] if block_k == "auto" else block_k
+    if (block_q, block_k) != built:
+        raise ValueError(f"flash_attention: no {kind} kernel is built with tiles "
+                         f"({block_q}, {block_k}); the built (block_q, block_k) are {BUILT_TILES}")
+    return built
 
 
 def flash_smem_bytes(d: int) -> int:
@@ -93,12 +123,15 @@ def _check(q, k, v) -> None:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, block_q="auto", block_k="auto"):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) → (B, H, Sq, D) of q's type.
     CUDA tensors launch a kernel (head widths in ``HEAD_DIMS``, base
-    pointers 16-byte aligned), CPU tensors take the plain version."""
+    pointers 16-byte aligned), CPU tensors take the plain version.  Tiles
+    other than the kernel's (:func:`tiles`) raise on either device."""
     _check(q, k, v)
     dev = runtime.require_same_device(q, k, v)
+    tiles(q.dtype, block_q, block_k, (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]),
+          runtime.CUDA_BACKEND if dev.type == "cuda" else "cpu")
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     b, h, sq, d = q.shape

@@ -7,9 +7,10 @@ row, weights per output column (``kernels.ref.quantize_rowwise`` /
 kernel (``csrc/int8_matmul.cu``) and :func:`int8_matmul_plain` give the
 same bits: the integer sum is exact and the epilogue runs in one order.
 
-The kernel's geometry is chosen here, by :func:`plan`: the output tile, and
-how K is cut into chunks that separate blocks sum (split-K) so that a small
-M still spreads over the card's SMs.  The partial sums of a split meet in
+The kernel's geometry is chosen here, by :func:`plan` through the
+block-size tuner (``kernels.autotune``): the output tile, and how K is cut
+into chunks that separate blocks sum (split-K) so that a small M still
+spreads over the card's SMs.  The partial sums of a split meet in
 an int32 workspace that this module allocates once per device and stream
 (:func:`_workspace`) and that the kernel leaves zeroed.
 
@@ -20,6 +21,7 @@ shape, since the kernel masks ragged edges.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -28,6 +30,10 @@ from repro_torch.kernels import runtime
 
 SMALL_M = 16        # up to this many rows (decode) a tile is 16 rows high
 BLOCK_K = 64        # bytes of k per pipeline stage; `kBK` in csrc/int8_matmul.cu
+STAGES = 4          # stages of the cp.async ring; `kStages`
+# the (block_m, block_n) output tiles the kernel is instantiated for
+# (repro_int8_matmul in csrc/int8_matmul.cu)
+TILES = ((16, 64), (16, 128), (64, 128), (128, 128))
 # Largest K whose int32 sums cannot overflow: |x w| <= 128^2 for any int8
 # pair (the quantizers give -127..127, but the kernel takes any int8).
 MAX_K = (2**31 - 1) // (128 * 128)
@@ -46,30 +52,74 @@ class Plan(NamedTuple):
         return -(-m // self.block_m) * -(-n // self.block_n)
 
 
-def plan(m: int, k: int, n: int) -> Plan:
-    """The kernel's geometry for an (m, k) x (k, n) product.
+def smem_bytes(block_m: int, block_n: int) -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in the .cu file):
+    ``STAGES`` x and w tiles of ``BLOCK_K`` bytes of k, and the transposed w
+    tile."""
+    return STAGES * (block_m * BLOCK_K + BLOCK_K * block_n) + block_n * BLOCK_K
 
-    Decode (m <= 16) is bound by the weight's bytes, so it wants many blocks
-    in flight: 16-row tiles and K split until the grid holds at least
-    2 x 132 blocks (two per SM).  Tiles are 128 columns wide (a block reads
-    128 contiguous bytes of each weight row) where N is 4096 or more, else
-    64, which keeps narrow weights (wk/wv, N = 1024) from splitting K into
-    single stages.  Larger m is bound by the tensor cores:
-    64 x 128 or 128 x 128 tiles, K split only while the tiles alone leave
-    SMs idle (fewer than 132 blocks), and never below 8 stages (512 bytes)
-    a chunk, so that the atomics of a split stay small beside its loads."""
-    if m <= SMALL_M:
-        block_m, target, min_steps = 16, 2 * runtime.SM_COUNT, 1
-        block_n = 128 if n >= 4096 else 64
-    elif m <= 64:
-        block_m, block_n, target, min_steps = 64, 128, runtime.SM_COUNT, 8
-    else:
-        block_m, block_n, target, min_steps = 128, 128, runtime.SM_COUNT, 8
-    steps = -(-k // BLOCK_K)
-    tiles = -(-m // block_m) * -(-n // block_n)
-    need = -(-target // tiles)
-    per = max(steps // need, min(min_steps, steps), 1)
-    return Plan(block_m, block_n, -(-steps // per), per * BLOCK_K)
+
+def threads(block_m: int, block_n: int) -> int:
+    """Threads of one block: a warp per (WARPS_M x WARPS_N) warp tile."""
+    return 32 * (1 if block_m == SMALL_M else 2) * 4
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_for(m: int, k: int, n: int, block_m: int, block_n: int, block_k: int) -> Plan:
+    """The geometry for an (m, k) x (k, n) product at an output tile the
+    kernel is built for (``TILES``) and chunks of ``block_k`` bytes of K (a
+    positive multiple of ``BLOCK_K``; a chunk longer than K is one chunk).
+    Anything else raises a ``ValueError`` that names what is built."""
+    if (block_m, block_n) not in TILES:
+        raise ValueError(f"int8_matmul: no kernel is built for a {block_m} x {block_n} tile; "
+                         f"the built (block_m, block_n) are {TILES}")
+    if (isinstance(block_k, bool) or not isinstance(block_k, int) or block_k < BLOCK_K
+            or block_k % BLOCK_K):
+        raise ValueError(f"int8_matmul: block_k must be a positive multiple of {BLOCK_K} "
+                         f"(bytes of K a chunk), got {block_k!r}")
+    if min(m, k, n) < 1:
+        raise ValueError(f"int8_matmul: empty operand ({m}, {k}) x ({k}, {n})")
+    k_chunk = min(block_k, -(-k // BLOCK_K) * BLOCK_K)
+    split_k = -(-k // k_chunk)
+    if split_k > 65535:
+        raise ValueError(f"int8_matmul: {split_k} chunks of K, over the kernel's 65535")
+    return Plan(block_m, block_n, split_k, k_chunk)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, k: int, n: int, block_m="auto", block_n="auto", block_k="auto",
+         backend: str = "cpu") -> Plan:
+    """:func:`plan_for` with every ``"auto"`` resolved by the block-size
+    tuner (``kernels.autotune``, kernel ``int8_matmul``): the built tile and
+    the K chunks whose grid keeps enough weight bytes in flight to draw the
+    memory rate at decode, and the tile with the least re-read weight at
+    larger M.  Fields given explicitly are kept, the others taken from the
+    best-ranked candidate that agrees with them.  Memoized per shape and
+    arguments, so that the captured decode and verify ticks, which resolve
+    it on every launch, reach the tuner only in their warm-up."""
+    given = {f: v for f, v in (("block_m", block_m), ("block_n", block_n),
+                               ("block_k", block_k)) if v != "auto"}
+    if len(given) < 3:
+        from repro_torch.kernels import autotune
+
+        problem = {"m": m, "k": k, "n": n}
+        if not given:
+            given = autotune.autotune("int8_matmul", problem, dtype="int8", backend=backend)
+        else:
+            pairs = [t for t in TILES if given.get("block_m", t[0]) == t[0]
+                     and given.get("block_n", t[1]) == t[1]]
+            if not pairs:
+                raise ValueError(f"int8_matmul: no kernel is built for {given}; the built "
+                                 f"(block_m, block_n) are {TILES}")
+            if "block_k" in given:  # refused here with the kernel's own bound
+                plan_for(m, k, n, *pairs[0], given["block_k"])
+            chunks = [given["block_k"]] if "block_k" in given else autotune.k_chunks(k)
+            given = min(({"block_m": bm, "block_n": bn, "block_k": bk}
+                         for bm, bn in pairs for bk in chunks),
+                        key=lambda c: (autotune.predict_time_s("int8_matmul", problem, c,
+                                                               dtype="int8"),
+                                       tuple(sorted(c.items()))))
+    return plan_for(m, k, n, given["block_m"], given["block_n"], given["block_k"])
 
 
 def int8_matmul_plain(x_q, w_q, x_scale, w_scale):
@@ -129,15 +179,20 @@ def _workspace(dev: torch.device, ints: int, tiles: int):
     return ws, cnt
 
 
-def int8_matmul(x_q, w_q, x_scale, w_scale):
+def int8_matmul(x_q, w_q, x_scale, w_scale, *, block_m="auto", block_n="auto",
+                block_k="auto"):
     """x_q: (M, K) int8; w_q: (K, N) int8; x_scale: (M, 1) f32; w_scale: (N,)
     f32 → (M, N) f32.  CUDA tensors launch the kernel, CPU tensors take the
-    plain version.  K is at most ``MAX_K`` on either."""
+    plain version.  K is at most ``MAX_K`` on either.  The geometry is
+    :func:`plan`'s (a tile or chunk the kernel is not built for raises
+    ``ValueError`` on either device); the result does not depend on it."""
     m, k, n = _check(x_q, w_q, x_scale, w_scale)
     if k > MAX_K:
         raise ValueError(f"int8_matmul: K = {k} could overflow the int32 sums (at most {MAX_K})")
     dev = runtime.require_same_device(x_q, w_q, x_scale, w_scale)
     if dev.type == "cpu":
+        if (block_m, block_n, block_k) != ("auto", "auto", "auto"):
+            plan(m, k, n, block_m, block_n, block_k)  # refuses what the card would
         return int8_matmul_plain(x_q, w_q, x_scale, w_scale)
     for name, t in (("x_q", x_q), ("w_q", w_q), ("x_scale", x_scale), ("w_scale", w_scale)):
         if not t.is_contiguous():
@@ -145,7 +200,7 @@ def int8_matmul(x_q, w_q, x_scale, w_scale):
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     xp, wp = x_q.data_ptr(), w_q.data_ptr()
     vec = int(k % 16 == 0 and n % 16 == 0 and xp % 16 == 0 and wp % 16 == 0)
-    p = plan(m, k, n)
+    p = plan(m, k, n, block_m, block_n, block_k, runtime.CUDA_BACKEND)
     ws = cnt = 0
     if p.split_k > 1:
         tiles = p.tiles(m, n)

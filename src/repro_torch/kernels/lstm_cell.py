@@ -31,6 +31,7 @@ from repro_torch.models.activations import LUT_SIZE
 
 # The kernel's geometry; the names in brackets are csrc/lstm_cell.cu's.
 UNITS = 8                    # hidden units a block [kCellUnits]
+THREADS = 512                # threads a block [kCellThreads]
 ROW_STRIDE = 4 * UNITS + 4   # floats a row of a block's weight slice, padded [kCellStride]
 
 
@@ -50,34 +51,38 @@ class CellPlan(NamedTuple):
     smem_bytes: int           # dynamic shared memory of one block
 
 
-@functools.lru_cache(maxsize=1024)
-def plan(block_b, batch: int, d_in: int, hidden: int) -> CellPlan:
-    """Geometry of one launch.  A block owns ``UNITS`` hidden units and their
-    four gate columns for a tile of rows, so a weight is read once per row
-    tile.  ``"auto"``: as many row tiles as leave the grid within one wave
-    of the card's SMs (at least one), the rows split evenly over them, fewer
-    rows while a block's shared memory does not hold them.  An int
-    ``block_b`` is the rows a block, clipped to the batch, honoured or
-    refused with a ``ValueError`` that states the bound."""
+@functools.lru_cache(maxsize=4096)
+def plan_for(block_b: int, batch: int, d_in: int, hidden: int) -> CellPlan:
+    """Geometry of one launch at ``block_b`` rows a block, clipped to the
+    batch, or a ``ValueError`` that states the bound.  A block owns
+    ``UNITS`` hidden units and their four gate columns for a tile of rows,
+    so a weight is read once per row tile."""
     if batch < 1:
         raise ValueError("lstm_cell: empty batch")
-    if block_b != "auto" and (isinstance(block_b, bool) or not isinstance(block_b, int)
-                              or block_b < 1):
+    if isinstance(block_b, bool) or not isinstance(block_b, int) or block_b < 1:
         raise ValueError(f"lstm_cell: block_b must be a positive int or 'auto', got {block_b!r}")
-    groups = -(-hidden // UNITS)
-    if block_b == "auto":
-        rows = -(-batch // max(1, runtime.SM_COUNT // groups))
-        while rows > 1 and cell_smem_bytes(rows, d_in, hidden) > runtime.MAX_SHARED_BYTES:
-            rows -= 1
-    else:
-        rows = min(block_b, batch)
+    rows = min(block_b, batch)
     need = cell_smem_bytes(rows, d_in, hidden)
     if need > runtime.MAX_SHARED_BYTES:
         raise ValueError(
             f"lstm_cell: a tile of {rows} rows needs {need} bytes of shared memory, over the "
             f"{runtime.MAX_SHARED_BYTES} one block may use; pass a smaller block_b"
         )
-    return CellPlan(UNITS, rows, (-(-batch // rows), groups), need)
+    return CellPlan(UNITS, rows, (-(-batch // rows), -(-hidden // UNITS)), need)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(block_b, batch: int, d_in: int, hidden: int, backend: str = "cpu") -> CellPlan:
+    """:func:`plan_for`, with ``"auto"`` resolved to the block-size tuner's
+    rows (``kernels.autotune``, kernel ``lstm_cell``: the fewest waves of
+    blocks, then the fewest rows a block).  Memoized per shape: the tuner is
+    asked once per shape; ``backend`` is its cache key's."""
+    if block_b == "auto":
+        from repro_torch.kernels import autotune
+
+        block_b = autotune.autotune("lstm_cell", {"batch": batch, "d_in": d_in, "hidden": hidden},
+                                    dtype="float32", backend=backend)["block_b"]
+    return plan_for(block_b, batch, d_in, hidden)
 
 
 def lstm_cell_plain(x, h, c, w, u, b, *, impl: str = "exact"):
@@ -100,8 +105,8 @@ def lstm_cell_fused(x, h, c, w, u, b, *, impl: str = "exact", block_b: int | str
     """x: (B, D); h/c: (B, H); w: (D, 4H); u: (H, 4H); b: (4H,); all f32
     (anything else raises).  Returns (h', c').
 
-    ``block_b`` is the rows of one thread block; ``"auto"`` follows the
-    fixed rule of :func:`plan`.
+    ``block_b`` is the rows of one thread block; ``"auto"`` is the tuner's
+    pick (:func:`plan`).
     """
     code = impl_code(impl)
     runtime.require_dtype("lstm_cell", torch.float32, _OPERANDS, x, h, c, w, u, b)
@@ -114,7 +119,8 @@ def lstm_cell_fused(x, h, c, w, u, b, *, impl: str = "exact", block_b: int | str
             f"c {tuple(c.shape)} w {tuple(w.shape)} u {tuple(u.shape)} b {tuple(b.shape)}"
         )
     dev = runtime.require_same_device(x, h, c, w, u, b)
-    geometry = plan(block_b, bsz, d_in, hidden)
+    geometry = plan(block_b, bsz, d_in, hidden,
+                    runtime.CUDA_BACKEND if dev.type == "cuda" else "cpu")
     if dev.type == "cpu":
         return lstm_cell_plain(x, h, c, w, u, b, impl=impl)
     ptrs = runtime.aligned_pointers("lstm_cell", _OPERANDS, x, h, c, w, u, b)

@@ -79,12 +79,10 @@ def resident_weight_bytes(d_in: int, hidden: int, dtype: str = "float32") -> flo
     """Bytes of one layer's weights at ``dtype``: the (D+H)·4H payload at 4
     or 1 bytes per element, the 4H f32 bias, and for int8 two 4H f32 scale
     vectors.  D = H = 256 gives 2,101,248 bytes in f32 and 536,576 in int8,
-    a factor of 3.9.  ``lstm_seq`` compares the payload with what one thread
-    block may hold in shared memory to decide where the weights live."""
+    a factor of 3.9.  Delegates to the block-size tuner's weight-bytes model
+    (``autotune._lstm_weight_bytes``) so that the two cannot diverge."""
     if dtype not in ("float32", "int8"):
         raise ValueError(f"resident_weight_bytes: dtype must be 'float32' or 'int8', got {dtype!r}")
-    wbytes = 1 if dtype == "int8" else 4
-    payload = (d_in + hidden) * 4 * hidden * wbytes
-    bias = 4 * hidden * 4
-    scales = 2 * 4 * hidden * 4 if dtype == "int8" else 0
-    return float(payload + bias + scales)
+    from repro_torch.kernels.autotune import _lstm_weight_bytes
+
+    return _lstm_weight_bytes({"d_in": d_in, "hidden": hidden}, dtype)

@@ -57,7 +57,8 @@ Each kernel has its plain PyTorch version here (:func:`lstm_seq_plain`,
 
 ``block_b`` is the batch tile of one thread block, or of one cluster on the
 cluster path: an int is honoured or refused with a ``ValueError`` that
-states the bound; ``"auto"`` follows the fixed rules of :func:`plan_launch`.
+states the bound; ``"auto"`` is the block-size tuner's pick
+(``kernels.autotune``), resolved once per shape by :func:`plan_launch`.
 """
 from __future__ import annotations
 
@@ -171,13 +172,11 @@ class LaunchPlan(NamedTuple):
         return "block" if self.resident else "l2"
 
 
-def _cluster_plan(block_b, batch: int, seq: int, hidden: int, wbytes: int, slots: int):
-    """The cluster path, or None where a cluster block cannot hold its rows.
-
-    Rows per cluster: an int ``block_b`` (clipped to the batch), or for
-    "auto" the batch spread over ``slots`` clusters.  The projection holds
-    as many steps as fit, all S if they do."""
-    bb = min(block_b, batch) if block_b != "auto" else -(-batch // slots)
+def _cluster_plan(bb: int, batch: int, seq: int, hidden: int, wbytes: int):
+    """The cluster path at ``bb`` rows a cluster (clipped to the batch), or
+    None where a cluster block cannot hold them.  The projection holds as
+    many steps as fit, all S if they do."""
+    bb = min(bb, batch)
     need = cluster_smem_bytes(bb, 1, hidden, wbytes)
     if need > runtime.MAX_SHARED_BYTES:
         return None
@@ -187,28 +186,28 @@ def _cluster_plan(block_b, batch: int, seq: int, hidden: int, wbytes: int, slots
     return LaunchPlan(bb, True, smem, CLUSTER, -(-batch // bb), chunk)
 
 
-@functools.lru_cache(maxsize=1024)
-def plan_launch(block_b, batch: int, seq: int, d_in: int, hidden: int, *,
-                layers: int = 1, quantized: bool = False, slots: int | None = None) -> LaunchPlan:
-    """Path, batch tile and shared memory of one launch.
-
-    One block per tile with the weights resident if they fit (the tile
-    from :func:`runtime.pick_block_b` over the memory needed WITHOUT
-    resident weights); else, where H splits over ``CLUSTER`` blocks, a
-    cluster per tile, if its blocks can hold their rows beside their slice
-    of ``u`` (one layer or a stack alike); else the weights are re-read from
-    L2 each step.  ``"auto"`` spreads the cluster path's batch over
-    ``slots`` clusters, the card's :func:`cluster_slots` (the wrappers pass
-    it; None, for plans made on the CPU, means ``SM_COUNT // CLUSTER``), so
-    that they run in one wave.  An int ``block_b`` is honoured by the path
-    chosen, or refused with a ``ValueError`` that states the bound.  A stack
-    off the cluster path also raises when even one batch row does not fit
-    (S·H·4 bytes of inter-layer sequence per row)."""
-    wbytes = 1 if quantized else 4
-    kernel = "lstm_stack" if layers > 1 else "lstm_seq"
+def _check_block_b(block_b, kernel: str) -> None:
     if block_b != "auto" and (isinstance(block_b, bool) or not isinstance(block_b, int)
                               or block_b < 1):
         raise ValueError(f"{kernel}: block_b must be a positive int or 'auto', got {block_b!r}")
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_for(block_b: int, batch: int, seq: int, d_in: int, hidden: int, *,
+             layers: int = 1, quantized: bool = False) -> LaunchPlan:
+    """Path and shared memory of a launch at ``block_b`` rows a block (or a
+    cluster), honoured or refused with a ``ValueError`` that states the
+    bound.  One block per tile with the weights resident if they fit;
+    else, where H splits over ``CLUSTER`` blocks, a cluster per tile, if its
+    blocks can hold their rows beside their slice of ``u`` (one layer or a
+    stack alike); else the weights are re-read from L2 each step.  A stack
+    off the cluster path also raises when its rows' inter-layer sequence
+    (S·H·4 bytes a row) does not fit."""
+    wbytes = 1 if quantized else 4
+    kernel = "lstm_stack" if layers > 1 else "lstm_seq"
+    _check_block_b(block_b, kernel)
+    if block_b == "auto":
+        raise ValueError(f"{kernel}: plan_for takes rows; plan_launch resolves 'auto'")
     try:
         bb = runtime.pick_block_b(
             block_b, batch,
@@ -221,14 +220,40 @@ def plan_launch(block_b, batch: int, seq: int, d_in: int, hidden: int, *,
         if with_weights <= runtime.MAX_SHARED_BYTES:
             return LaunchPlan(bb, True, with_weights, 1, -(-batch // bb))
     if cluster_shape_ok(hidden):
-        plan = _cluster_plan(block_b, batch, seq, hidden, wbytes,
-                             slots or runtime.SM_COUNT // CLUSTER)
+        plan = _cluster_plan(block_b, batch, seq, hidden, wbytes)
         if plan is not None:
             return plan
     if bb is None:
         raise refused
     return LaunchPlan(bb, False, seq_smem_bytes(bb, seq, d_in, hidden, layers, wbytes, False),
                       1, -(-batch // bb))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_launch(block_b, batch: int, seq: int, d_in: int, hidden: int, *,
+                layers: int = 1, quantized: bool = False, slots: int | None = None,
+                backend: str = "cpu") -> LaunchPlan:
+    """Path, batch tile and shared memory of one launch (:func:`plan_for`).
+
+    ``"auto"`` takes the rows from the block-size tuner
+    (``kernels.autotune``, kernel ``lstm_seq`` or ``lstm_stack``), which
+    weighs the waves of tiles the card runs against the per-step latency
+    of the rows each carries; ``slots`` is the card's
+    :func:`cluster_slots` (the wrappers pass it; None means the tuner's
+    chip model, 15 on an H100 SXM) and ``backend`` the tuner's cache key.
+    Memoized per shape, so the tuner is asked once per shape and never
+    from inside a CUDA graph capture that follows a warm-up."""
+    kernel = "lstm_stack" if layers > 1 else "lstm_seq"
+    _check_block_b(block_b, kernel)
+    if block_b == "auto":
+        from repro_torch.kernels import autotune
+
+        problem = {"batch": batch, "seq": seq, "d_in": d_in, "hidden": hidden}
+        if layers > 1:
+            problem["layers"] = layers
+        block_b = autotune.autotune(kernel, problem, dtype="int8" if quantized else "float32",
+                                    backend=backend, chip=autotune.chip_with_slots(slots))["block_b"]
+    return plan_for(block_b, batch, seq, d_in, hidden, layers=layers, quantized=quantized)
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +345,7 @@ def _lstm_seq_call(x, w, u, b, sw, su, *, impl: str, block_b, return_state: bool
         if not quantized:
             ptrs += (0, 0)
         plan = plan_launch(block_b, bsz, seq, d_in, hidden, quantized=quantized,
-                           slots=cluster_slots(dev))
+                           slots=cluster_slots(dev), backend=runtime.CUDA_BACKEND)
         hs = torch.empty((bsz, seq, hidden), dtype=f32, device=dev)
         hn = torch.empty((bsz, hidden), dtype=f32, device=dev)
         cn = torch.empty((bsz, hidden), dtype=f32, device=dev)
@@ -434,7 +459,8 @@ def _lstm_stack_call(x, layers, *, impl: str, block_b, return_state: bool, packe
         ptrs = [runtime.aligned_pointers(kernel, names, *op) + pad for op in operands]
         rest = _layer_table(dev, tuple(p for op in ptrs[1:] for p in op))
         plan = plan_launch(block_b, bsz, seq, d_in, hidden, layers=len(layers),
-                           quantized=quantized, slots=cluster_slots(dev))
+                           quantized=quantized, slots=cluster_slots(dev),
+                           backend=runtime.CUDA_BACKEND)
         hs = torch.empty((bsz, seq, hidden), dtype=f32, device=dev)
         # the cluster path's inter-layer sequence, beside hs
         seq_ws = torch.empty_like(hs) if plan.path == "cluster" else None

@@ -4,11 +4,15 @@ Where a call runs follows from where its tensors lie: CUDA tensors go
 through the CUDA kernels (or raise), CPU tensors through the kernels' plain
 PyTorch versions.  There is no switch that changes this.
 
-Batch tiles default to ``"auto"``: fixed rules (``lstm_cell.plan``,
-``lstm_seq.plan_launch``) until the block-size tuner is ported.  The attention kernel has fixed tiles and the int8-matmul kernel
-takes its geometry from a fixed rule (``int8_matmul.plan``) for the same
-reason: their ``block_*`` arguments take ``"auto"`` only, and anything else
-raises ``NotImplementedError`` (ROADMAP Queue A item 7, the tuner).
+Block arguments default to ``"auto"``: the block-size tuner's pick
+(``kernels.autotune``), resolved once per shape by the kernels' plans
+(``lstm_cell.plan``, ``lstm_seq.plan_launch``, ``int8_matmul.plan``,
+``flash_attention.tiles``).  An explicit value is honoured where the kernel
+takes it: the LSTM kernels any batch tile whose shared memory fits,
+``int8_matmul`` its built (block_m, block_n) tiles and any ``block_k`` that
+is a multiple of ``BLOCK_K``, ``flash_attention`` the one tile each type is
+built with.  Anything else raises a ``ValueError`` that states the bound or
+names what is built.
 """
 from __future__ import annotations
 
@@ -29,18 +33,9 @@ def activation(x, *, fn: str = "sigmoid", impl: str = "exact"):
     return _activation(x, fn=fn, impl=impl)
 
 
-def _auto_blocks(kernel: str, **blocks) -> None:
-    fixed = {k: v for k, v in blocks.items() if v != "auto"}
-    if fixed:
-        raise NotImplementedError(
-            f"{kernel}: block sizes {fixed} cannot be chosen yet; the kernel's tiles are "
-            "fixed until the block-size tuner is ported (ROADMAP Queue A item 7)")
-
-
 def flash_attention(q, k, v, *, causal: bool = True, block_q="auto", block_k="auto"):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) → (B, H, Sq, D)."""
-    _auto_blocks("flash_attention", block_q=block_q, block_k=block_k)
-    return _flash(q, k, v, causal=causal)
+    return _flash(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
 
 
 def lstm_cell(x, h, c, w, u, b, *, impl: str = "exact", block_b="auto"):
@@ -78,8 +73,8 @@ def lstm_stack(x, layers, *, impl: str = "exact", block_b="auto",
 
 def int8_matmul(x_q, w_q, x_scale, w_scale, *, block_m="auto", block_n="auto", block_k="auto"):
     """x_q: (M, K) int8; w_q: (K, N) int8; x_scale: (M, 1); w_scale: (N,) → (M, N) f32."""
-    _auto_blocks("int8_matmul", block_m=block_m, block_n=block_n, block_k=block_k)
-    return _int8_matmul(x_q, w_q, x_scale, w_scale)
+    return _int8_matmul(x_q, w_q, x_scale, w_scale, block_m=block_m, block_n=block_n,
+                        block_k=block_k)
 
 
 def quantized_matmul(x, w, **kw):

@@ -31,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core.energy import DEFAULT_CHIP
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -38,10 +40,13 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# What one thread block may use of an SM's shared memory on sm_90 (227 KB),
-# and the SMs of an H100 SXM; `kMaxSharedBytes` in csrc/lstm_common.cuh.
-MAX_SHARED_BYTES = 232448
-SM_COUNT = 132
+# What one thread block may use of an SM's shared memory on sm_90 (227 KB;
+# `kMaxSharedBytes` in csrc/lstm_common.cuh), and the SMs of an H100 SXM:
+# the chip model's (core/energy.py), which chip_smoke.py holds to the card's.
+MAX_SHARED_BYTES = DEFAULT_CHIP.smem_per_block
+SM_COUNT = DEFAULT_CHIP.sms
+# The backend tag of the CUDA kernels (the tuner's cache keys).
+CUDA_BACKEND = "cuda-sm90a"
 
 # C entry point -> how many 64-bit arguments it reads (for those that launch,
 # the stream is the last).  Each takes (const long long* args, int count) and
@@ -89,7 +94,7 @@ def resolve_device(device=None) -> torch.device:
 
 def backend_key(device=None) -> str:
     """Short backend tag: ``"cuda-sm90a"`` or ``"cpu"``."""
-    return "cuda-sm90a" if resolve_device(device).type == "cuda" else "cpu"
+    return CUDA_BACKEND if resolve_device(device).type == "cuda" else "cpu"
 
 
 def require_same_device(*tensors: torch.Tensor) -> torch.device:
@@ -328,42 +333,24 @@ def round_up(n: int, multiple: int) -> int:
 
 
 def pick_block_b(block_b, batch: int, smem_bytes, kernel: str) -> int:
-    """Resolve the ``block_b`` argument of an LSTM kernel to a batch tile.
+    """Check an LSTM kernel's ``block_b``, a number of batch rows, and clip
+    it to the batch.
 
     ``smem_bytes(bb)`` is the least shared memory one block needs for a tile
-    of ``bb`` rows.  An int is honoured (clipped to the batch) and raises
-    ``ValueError`` if its tile does not fit a block's shared memory.
-
-    ``"auto"`` is a fixed rule until the block-size tuner is ported: the
-    smallest power of two in 1..4 that brings the grid down to at most one
-    block per SM (132), halved while the tile does not fit.  A batch of up
-    to 132 rows therefore gets one row per block: the S steps of a
-    recurrence depend on each other, so spreading rows over SMs shortens
-    every step, and 4 rows is what a thread keeps in registers at once.
-    """
+    of ``bb`` rows; a tile that does not fit a block's shared memory raises
+    ``ValueError`` with the bound.  ``"auto"`` is not resolved here: the
+    kernels' plans take it from the block-size tuner (``kernels.autotune``)
+    first."""
     if batch < 1:
         raise ValueError(f"{kernel}: empty batch")
-    if block_b != "auto":
-        if isinstance(block_b, bool) or not isinstance(block_b, int) or block_b < 1:
-            raise ValueError(f"{kernel}: block_b must be a positive int or 'auto', got {block_b!r}")
-        bb = min(block_b, batch)
-        need = smem_bytes(bb)
-        if need > MAX_SHARED_BYTES:
-            raise ValueError(
-                f"{kernel}: a batch tile of {bb} rows needs {need} bytes of shared memory, "
-                f"over the {MAX_SHARED_BYTES} one block may use; pass a smaller block_b"
-            )
-        return bb
-    bb = 1
-    while bb < 4 and -(-batch // bb) > SM_COUNT:
-        bb *= 2
-    bb = min(bb, batch)
-    while bb > 1 and smem_bytes(bb) > MAX_SHARED_BYTES:
-        bb //= 2
+    if isinstance(block_b, bool) or not isinstance(block_b, int) or block_b < 1:
+        raise ValueError(f"{kernel}: block_b must be a positive int here, got {block_b!r} "
+                         "('auto' is resolved by the block-size tuner first)")
+    bb = min(block_b, batch)
     need = smem_bytes(bb)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
-            f"{kernel}: even one batch row per block needs {need} bytes of shared memory, "
-            f"over the {MAX_SHARED_BYTES} one block may use"
+            f"{kernel}: a batch tile of {bb} rows needs {need} bytes of shared memory, "
+            f"over the {MAX_SHARED_BYTES} one block may use; pass a smaller block_b"
         )
     return bb

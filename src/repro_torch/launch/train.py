@@ -2,9 +2,9 @@
 
 Only the ``--paper-lstm`` mode of the reference's launcher is ported: it
 plans the paper's own LSTM workload on the CUDA kernel mapping.  It reports
-the launch geometry of the sequence kernel (``repro_torch.kernels.lstm_seq``:
-its path, batch tile, cluster size and count, projection chunk and shared
-memory),
+the block-size tuner's key, winner and predicted time a call, and the launch
+geometry of the sequence kernel (``repro_torch.kernels.lstm_seq``: its path,
+batch tile, cluster size and count, projection chunk and shared memory),
 checks the kernel against the plain PyTorch per-step path, and, on the card,
 times it against the per-step cell kernel.  Despite the module's name this
 mode runs inference only.
@@ -31,6 +31,7 @@ def plan_paper_lstm(batch: int, seq: int = 0, device=None) -> dict:
     the kernels' plain versions stand in and nothing is timed.  Returns what
     it printed, as a dict."""
     from repro_torch.core.fpga import paper_workload
+    from repro_torch.kernels.autotune import autotune, cache_key, chip_with_slots, predict_time_s
     from repro_torch.kernels.lstm_seq import cluster_slots, plan_launch
     from repro_torch.kernels.runtime import backend_key, resolve_device
     from repro_torch.models.lstm import lstm_apply, lstm_defs
@@ -39,9 +40,17 @@ def plan_paper_lstm(batch: int, seq: int = 0, device=None) -> dict:
     dev = resolve_device(device)
     lw = paper_workload()
     seq = seq or lw.seq
-    plan = plan_launch("auto", batch, seq, lw.d_in, lw.hidden, slots=cluster_slots(dev))
+    slots = cluster_slots(dev)
+    plan = plan_launch("auto", batch, seq, lw.d_in, lw.hidden, slots=slots,
+                       backend=backend_key(dev))
+    problem = {"batch": batch, "seq": seq, "d_in": lw.d_in, "hidden": lw.hidden}
+    chip = chip_with_slots(slots)
+    key = cache_key("lstm_seq", problem, "float32", backend_key(dev), chip)
+    cfg = autotune("lstm_seq", problem, dtype="float32", backend=backend_key(dev), chip=chip)
+    predicted_us = predict_time_s("lstm_seq", problem, cfg, chip=chip) * 1e6
     print(f"paper LSTM workload: batch={batch} seq={seq} d_in={lw.d_in} "
           f"hidden={lw.hidden} backend={backend_key(dev)}")
+    print(f"autotune[{key}] → {cfg} (predicted {predicted_us:.1f} µs/call)")
     weights = {"block": "resident in one block's shared memory",
                "cluster": "u's slices resident across each cluster's blocks",
                "l2": "re-read from L2 each step"}[plan.path]
@@ -60,7 +69,8 @@ def plan_paper_lstm(batch: int, seq: int = 0, device=None) -> dict:
     print(f"sequence kernel vs plain PyTorch reference: max |Δ| = {err:.2e}")
     if not (math.isfinite(err) and err < 1e-4):
         raise RuntimeError(f"sequence kernel disagrees with the reference: max |Δ| = {err}")
-    result = {"batch": batch, "seq": seq, "backend": backend_key(dev), "path": plan.path,
+    result = {"batch": batch, "seq": seq, "backend": backend_key(dev), "autotune_key": key,
+              "autotune": cfg, "predicted_us": predicted_us, "path": plan.path,
               "block_b": plan.block_b, "resident": plan.resident, "cluster": plan.cluster,
               "clusters": plan.clusters, "chunk": plan.chunk, "smem_bytes": plan.smem_bytes,
               "max_abs_err": err}

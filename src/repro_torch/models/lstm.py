@@ -114,6 +114,14 @@ def lstm_apply(params, x, *, impl: str = "exact", fused: bool | str = True,
     if fused == "pallas_step":
         from repro_torch.kernels import ops
 
+        # resolve "auto" once, before the step loop (the tuner reads its cache)
+        if block_b == "auto":
+            from repro_torch.kernels.autotune import autotune
+            from repro_torch.kernels.runtime import backend_key
+
+            block_b = autotune("lstm_cell", {"batch": b, "d_in": x.shape[2], "hidden": hidden},
+                               dtype="float32", backend=backend_key(x.device))["block_b"]
+
         def step(x_t, h, c):
             return ops.lstm_cell(x_t, h, c, params["w"], params["u"], params["b"],
                                  impl=impl, block_b=block_b)

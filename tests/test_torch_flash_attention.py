@@ -126,8 +126,17 @@ def test_wrapper_on_cpu_and_ops():
     got = ops.flash_attention(q, k, v, causal=True)
     assert runtime.launch_counts() == {}
     assert torch.equal(got, flash_attention_plain(q, k, v, causal=True))
-    with pytest.raises(NotImplementedError, match="tuner"):
-        ops.flash_attention(q, k, v, block_q=64)
+    # the built tile is honoured, with the plain version's bits; any other
+    # raises a ValueError naming the built tiles
+    built = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=32)
+    assert torch.equal(built, got)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    assert torch.equal(ops.flash_attention(*bf, causal=True, block_q=64, block_k=64),
+                       flash_attention_plain(*bf, causal=True))
+    with pytest.raises(ValueError, match="built"):
+        ops.flash_attention(q, k, v, block_q=128)
+    with pytest.raises(ValueError, match="built"):
+        ops.flash_attention(*bf, block_q=64, block_k=32)
 
 
 @pytest.mark.parametrize("bad", ["heads", "dtype", "shape"])

@@ -29,6 +29,9 @@ def test_port_files_found():
             "granite_34b.py", "starcoder2_15b.py", "qwen15_110b.py", "layers.py",
             "transformer.py", "model.py", "kv_cache.py", "slots.py", "engine.py",
             "graphs.py"} <= names
+    # the block-size tuner and the Generator stack
+    assert {"autotune.py", "energy.py", "cost_model.py", "candidates.py", "constraints.py",
+            "workload.py", "fpga.py", "generator.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -53,11 +56,15 @@ def test_no_library_kernels_in_the_port(path):
 
 def test_no_environment_switch_in_the_kernels():
     """Nothing in the kernel package reads an environment variable to pick
-    the plain version; only the search for nvcc looks at CUDA_HOME/CUDA_PATH."""
+    the plain version; only the search for nvcc looks at CUDA_HOME/CUDA_PATH,
+    and the tuner at REPRO_AUTOTUNE_CACHE, where its disk cache lives."""
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
         text = path.read_text()
         if path.name == "runtime.py":
             assert text.count("os.environ") == 1 and "CUDA_HOME" in text
+        elif path.name == "autotune.py":
+            assert text.count("os.environ") == 1 and "REPRO_AUTOTUNE_CACHE" in text
+            assert "getenv" not in text
         else:
             assert "os.environ" not in text and "getenv" not in text, path
 

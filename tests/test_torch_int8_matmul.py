@@ -21,7 +21,7 @@ from repro_torch.configs import get_reduced_config as torch_config
 from repro_torch.kernels import ops, runtime
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.int8_matmul import (
-    BLOCK_K, MAX_K, int8_matmul, int8_matmul_plain, plan,
+    BLOCK_K, MAX_K, STAGES, int8_matmul, int8_matmul_plain, plan,
 )
 from repro_torch.models import quant as tquant
 from repro_torch.models.params import params_from_numpy
@@ -117,10 +117,41 @@ def test_plan_covers_k_and_fills_the_card(m, k, n):
     # no int32 sum of a chunk or of the whole row can overflow
     assert k <= MAX_K and 128 * 128 * k <= 2**31 - 1
     if (m, k, n) in PATH_SHAPES and m <= 16:
-        assert p.blocks(m, n) >= 2 * runtime.SM_COUNT  # decode: two blocks an SM at least
-    if (m, k, n) in PATH_SHAPES and m > 16:
-        assert p.split_k == 1 or p.tiles(m, n) < runtime.SM_COUNT
-        assert p.split_k == 1 or p.k_chunk >= 8 * BLOCK_K
+        # decode: two blocks an SM at least, unless the chunks are already as
+        # short as the tuner takes them (one cp.async ring of STAGES stages)
+        assert p.blocks(m, n) >= 2 * runtime.SM_COUNT or p.k_chunk == STAGES * BLOCK_K
+    if (m, k, n) in PATH_SHAPES:
+        # the tuner's model never predicts its pick slower than the fixed rule
+        # it replaced, where that rule's chunk is one the tuner takes
+        from repro_torch.kernels import autotune
+
+        problem = {"m": m, "k": k, "n": n}
+        rule = _fixed_rule(m, k, n)
+        if rule.k_chunk in autotune.k_chunks(k):
+            assert autotune.predict_time_s("int8_matmul", problem, _fields(p), dtype="int8") \
+                <= autotune.predict_time_s("int8_matmul", problem, _fields(rule), dtype="int8")
+
+
+def _fields(p):
+    return {"block_m": p.block_m, "block_n": p.block_n, "block_k": p.k_chunk}
+
+
+def _fixed_rule(m, k, n):
+    """The geometry ``plan`` took before the block-size tuner: 16-row tiles
+    at decode, K split until the grid holds 2 x 132 blocks; 64- or 128-row
+    tiles above, K split while the tiles leave SMs idle, chunks of 8 stages
+    at least."""
+    if m <= 16:
+        block_m, target, min_steps = 16, 2 * runtime.SM_COUNT, 1
+        block_n = 128 if n >= 4096 else 64
+    elif m <= 64:
+        block_m, block_n, target, min_steps = 64, 128, runtime.SM_COUNT, 8
+    else:
+        block_m, block_n, target, min_steps = 128, 128, runtime.SM_COUNT, 8
+    steps = -(-k // BLOCK_K)
+    tiles = -(-m // block_m) * -(-n // block_n)
+    per = max(steps // -(-target // tiles), min(min_steps, steps), 1)
+    return plan(m, k, n, block_m, block_n, per * BLOCK_K)
 
 
 def _split_k_emulation(xq, wq, sx, sw, order):
@@ -156,9 +187,23 @@ def test_split_k_emulation_is_bit_identical_to_plain_and_jax(m, k, n):
 
 
 def test_block_sizes_other_than_auto_are_refused():
-    xq, wq, sx, sw = (torch.from_numpy(a) for a in _operands(3, 4, 8, 4))
-    with pytest.raises(NotImplementedError, match="tuner"):
+    """A built tile and any chunk of K that is a multiple of BLOCK_K are
+    honoured, with the plain version's bits (the int32 sum is exact); a tile
+    or chunk the kernel is not built for raises a ValueError naming what is."""
+    xq, wq, sx, sw = (torch.from_numpy(a) for a in _operands(3, 4, 200, 40))
+    want = int8_matmul_plain(xq, wq, sx, sw)
+    for bm, bn, bk in ((16, 64, 64), (64, 128, 128), (128, 128, 256), (16, 128, "auto")):
+        _same_bits(ops.int8_matmul(xq, wq, sx, sw, block_m=bm, block_n=bn, block_k=bk),
+                   want.numpy())
+        p = plan(4, 200, 40, bm, bn, bk)
+        assert (p.block_m, p.block_n) == (bm, bn)
+        assert bk == "auto" or p.k_chunk == min(bk, 256) and p.split_k == -(-200 // p.k_chunk)
+    with pytest.raises(ValueError, match=r"built \(block_m, block_n\)"):
         ops.int8_matmul(xq, wq, sx, sw, block_m=32)
+    with pytest.raises(ValueError, match=r"built \(block_m, block_n\)"):
+        ops.int8_matmul(xq, wq, sx, sw, block_m=64, block_n=64, block_k=64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ops.int8_matmul(xq, wq, sx, sw, block_m=16, block_n=64, block_k=96)
 
 
 def test_quantized_matmul_matches_jax_and_bounds_error():

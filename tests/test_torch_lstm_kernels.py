@@ -227,7 +227,17 @@ def test_kernels_take_f32_only():
 
 @pytest.mark.parametrize("batch,want", [(1, 1), (64, 1), (132, 1), (133, 2), (300, 4), (5000, 4)])
 def test_auto_block_rule(batch, want):
-    assert runtime.pick_block_b("auto", batch, lambda bb: 1024 * bb, "k") == want
+    """"auto" at the paper's widths is the block-size tuner's pick on the
+    block path; ``want`` is the tile of the fixed rule it replaced (the
+    smallest power of two up to 4 within one block an SM), which the tuner's
+    model never predicts faster than its own pick."""
+    from repro_torch.kernels import autotune
+
+    problem = {"batch": batch, "seq": 28, "d_in": 6, "hidden": 20}
+    plan = tseq.plan_launch("auto", batch, 28, 6, 20)
+    assert plan.path == "block" and plan.block_b <= batch
+    assert autotune.predict_time_s("lstm_seq", problem, {"block_b": plan.block_b}) <= \
+        autotune.predict_time_s("lstm_seq", problem, {"block_b": want})
 
 
 def test_block_b_is_honoured_or_refused():
@@ -235,8 +245,9 @@ def test_block_b_is_honoured_or_refused():
     assert runtime.pick_block_b(64, 33, lambda bb: 0, "k") == 33
     with pytest.raises(ValueError, match="shared memory"):
         runtime.pick_block_b(8, 33, lambda bb: runtime.MAX_SHARED_BYTES + 1, "k")
-    # "auto" halves the tile until it fits
-    assert runtime.pick_block_b("auto", 5000, lambda bb: 60000 * bb, "k") == 2
+    # "auto" is resolved by the tuner before a tile reaches pick_block_b
+    with pytest.raises(ValueError, match="tuner"):
+        runtime.pick_block_b("auto", 5000, lambda bb: 60000 * bb, "k")
 
 
 def test_launch_plan_residency():
@@ -306,11 +317,16 @@ def test_cluster_plan_at_the_bench_width(quantized):
 @pytest.mark.parametrize("slots,want_bb", [(15, 3), (30, 2), (None, 3), (1, 40)])
 def test_cluster_plan_spreads_the_batch_over_the_slots(slots, want_bb):
     """"auto" gives each of the card's cluster slots a share of the batch,
-    so that all clusters run in one wave (None: the SM count's bound); 40
-    rows in one cluster do not fit, and the plan falls back to L2."""
+    so that all clusters run in one wave (None: the tuner's chip model, 15
+    slots).  With one slot the clusters run one after another: 40 rows in
+    one cluster do not fit a block, 14 (3 clusters) fit with a projection of
+    one step at a time, and the tuner takes 10 rows (4 clusters, 7 steps
+    projected at a time), whose re-staged projection costs less."""
     plan = tseq.plan_launch("auto", 40, 28, 256, 256, slots=slots)
     if want_bb == 40:
-        assert plan.path == "l2"
+        assert tseq.cluster_smem_bytes(40, 1, 256, 4) > runtime.MAX_SHARED_BYTES
+        assert plan.path == "cluster" and plan.block_b == 10 and plan.clusters == 4
+        assert plan.chunk == 7
         return
     assert plan.path == "cluster" and plan.block_b == want_bb
     assert plan.clusters == -(-40 // want_bb) <= (slots or runtime.SM_COUNT // tseq.CLUSTER)
@@ -350,9 +366,10 @@ def test_cluster_plan_chunks_a_long_sequence():
 @pytest.mark.parametrize("quantized,want_chunk", [(False, 1), (True, 15)])
 def test_cluster_plan_chunks_a_large_batch(quantized, want_chunk):
     """The chunked case chip_smoke.py runs on the card: 200 rows over 15
-    clusters, 14 rows a cluster, leave room for 1 step of zx in f32 and 15
-    in int8 (two chunks, the second of 13 steps)."""
-    plan = tseq.plan_launch("auto", 200, 28, 256, 256, quantized=quantized, slots=H100_SLOTS)
+    clusters, 14 rows a cluster (the tile it passes, the plan the tuner
+    replaced), leave room for 1 step of zx in f32 and 15 in int8 (two
+    chunks, the second of 13 steps)."""
+    plan = tseq.plan_launch(14, 200, 28, 256, 256, quantized=quantized, slots=H100_SLOTS)
     assert plan.path == "cluster" and plan.block_b == 14 and plan.clusters == 15
     assert plan.chunk == want_chunk
     wbytes = 1 if quantized else 4
@@ -478,10 +495,10 @@ def test_stack_cluster_plan_honours_block_b(quantized, block_b, clusters, last):
 
 @pytest.mark.parametrize("quantized,want_chunk", [(False, 1), (True, 15)])
 def test_stack_cluster_plan_chunks_a_large_batch(quantized, want_chunk):
-    """The chunked stack chip_smoke.py runs: (200, 28, 256, 256, 3) plans 14
-    rows x 15 clusters, each layer's projection 1 step (f32) or 15 (int8)
-    at a time."""
-    plan = tseq.plan_launch("auto", 200, 28, 256, 256, layers=3, quantized=quantized,
+    """The chunked stack chip_smoke.py runs: (200, 28, 256, 256, 3) at 14
+    rows a cluster plans 15 clusters, each layer's projection 1 step (f32)
+    or 15 (int8) at a time."""
+    plan = tseq.plan_launch(14, 200, 28, 256, 256, layers=3, quantized=quantized,
                             slots=H100_SLOTS)
     assert plan.path == "cluster" and plan.block_b == 14 and plan.clusters == 15
     assert plan.chunk == want_chunk < 28
@@ -578,9 +595,14 @@ def test_cell_plan_refusals():
     with pytest.raises(ValueError, match="shared memory"):  # the wrapper refuses as the plan
         t_lstm_cell(*_t((_x(0, 300, 256), _x(1, 300, 256), _x(2, 300, 256),
                          *_weights(0, 256, 256))), block_b=200)
-    # "auto" takes fewer rows a block where its share of the batch does not fit
+    # "auto" stays within a block's shared memory where the batch is too
+    # large for one wave, and runs no more waves than the widest tile that fits
     plan = cell_mod.plan("auto", 4000, 256, 256)
-    assert plan.smem_bytes <= runtime.MAX_SHARED_BYTES < cell_smem_bytes(plan.rows + 1, 256, 256)
+    widest = max(r for r in range(1, 4001)
+                 if cell_smem_bytes(r, 256, 256) <= runtime.MAX_SHARED_BYTES)
+    blocks = lambda rows: -(-4000 // rows) * plan.grid[1]  # noqa: E731
+    assert plan.smem_bytes <= runtime.MAX_SHARED_BYTES and plan.rows <= widest
+    assert -(-blocks(plan.rows) // runtime.SM_COUNT) == -(-blocks(widest) // runtime.SM_COUNT)
 
 
 # ---------------------------------------------------------------------------
