@@ -6,7 +6,7 @@
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
 against its plain PyTorch version on the card at the shapes its path uses,
 times kernel, plain version and (where one PyTorch call computes the same
-function) the library, then drives four paths, each with the launch
+function) the library, then drives five paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * the paper-LSTM path — the plan and request batches through ``lstm_apply``
@@ -25,6 +25,20 @@ counters set to 0 just before it and read just after:
   with int8 weights: chunked == blocking and speculative == plain, token
   for token.  K5 launches 7 x layers times a chunk, verify and replayed
   tick;
+* ``serve_moe`` — the moe family through the same engine: granite-moe-3b-a800m
+  at full width and full depth (32 layers, 48 padded experts, bf16, int8:
+  ``generate``, the slot path with replayed ticks, a chunked prefill while
+  slots decode, a verify tick of K = 4 teacher-forced from the plain chain),
+  then deepseek-v3-671b at full width cut to 2 layers (one MLA + dense-MLP,
+  one MLA + MoE with 256 experts and a shared one: ``generate`` and replayed
+  ticks), each with its replayed ticks bit for bit equal to the eager ones,
+  greedy agreement with its bf16 twin >= 0.3 and one block on the card
+  against the CPU; then both reduced configs in f32 (granite-moe's with int8
+  weights; deepseek's MLA prefill and chunk paths round int8 differently, so
+  its identities hold with full-precision weights only), chunked == blocking
+  and speculative == plain, token for token.  Every
+  expert einsum is ONE K5 launch over the expert axis; the counts a call
+  makes are ``k5_per_call``'s;
 * ``flash_attention`` — its public op ``kernels.ops.flash_attention`` at a
   granite-shaped causal case (K6; no model path calls it).
 
@@ -34,7 +48,9 @@ captured); a sample that loses events is taken again and, failing three
 times, reported as null (``main_path.trace_check``).
 
 K5 is held to its plain version bit for bit at every shape, on two calls in
-a row (its split-K counters and workspace must come back to zero); K6 within
+a row (its split-K counters and workspace must come back to zero), the
+expert shapes of the moe family as one batched launch too (timed beside the
+same products as E separate launches); K6 within
 2e-5 in f32 and 3e-2 in bf16.  The SASS of the tensor-core kernels must hold
 HMMA (K6 bf16) and IMMA (K5) where the toolkit has ``cuobjdump``.  K3 and
 K4 run their cluster path at D = H = 256 (the plan and the card's cluster
@@ -57,7 +73,7 @@ under a 2 s K3 loop beside ``H100Chip.step_power``.
 
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
-the replayed and eager tick times), ``host_path`` (each
+the replayed and eager tick times), ``serve_moe``, ``host_path`` (each
 kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
@@ -69,6 +85,7 @@ report as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import importlib.util
@@ -109,6 +126,8 @@ from repro_torch.kernels.lstm_seq import (  # noqa: E402
 from repro_torch.launch.train import plan_paper_lstm  # noqa: E402
 from repro_torch.models.lstm import lstm_apply, lstm_stack_apply  # noqa: E402
 from repro_torch.kernels import int8_matmul as int8_mod  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import quant as quant_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import init_model  # noqa: E402
@@ -993,6 +1012,68 @@ def int8_library_ok(m, k, n) -> bool:
     return m > 16 and k % 8 == 0 and n % 8 == 0
 
 
+# (E, M, K, N, x shared by every product): the expert einsums of the MoE
+# dense path, one launch over the expert axis.  granite-moe-3b-a800m at
+# decode (M = 4 slots) and at a 4 x 64-token prefill, wg/wu (1536 x 512, the
+# token block shared by the 48 experts, quantized once) and wd (512 x 1536,
+# each expert's own rows); deepseek-v3 at decode, 256 experts of 7168 x 2048
+# and 2048 x 7168.
+INT8_BATCHED = [(48, 4, 1536, 512, True), (48, 4, 512, 1536, False),
+                (48, 256, 1536, 512, True), (48, 256, 512, 1536, False),
+                (256, 4, 7168, 2048, True), (256, 4, 2048, 7168, False)]
+
+
+def batched_int8_operands(e, m, k, n, dev, seed, shared: bool):
+    """E products' operands on the card, each weight quantized per expert;
+    x is one product's expanded over the batch (stride 0) when ``shared``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(((1 if shared else e) * m, k), generator=gen, device=dev)
+    xq, sx = ops.quantize_rowwise(x)
+    xq, sx = xq.reshape(-1, m, k).expand(e, m, k), sx.reshape(-1, m, 1).expand(e, m, 1)
+    wq = torch.empty((e, k, n), dtype=torch.int8, device=dev)
+    sw = torch.empty((e, n), dtype=torch.float32, device=dev)
+    for i in range(e):
+        wq[i], sw[i] = ops.quantize_colwise(torch.randn((k, n), generator=gen, device=dev))
+    return xq, wq, sx, sw
+
+
+def check_int8_batched(dev, i: int, e: int, m: int, k: int, n: int, shared: bool) -> dict:
+    """One batched shape: the kernel bit for bit against its plain version
+    on two calls in a row (the split-K workspace of every product back at
+    zero) and against E separate 2-D launches of the same kernel, and the
+    device time of both with the weights read from device memory."""
+    xq, wq, sx, sw = batched_int8_operands(e, m, k, n, dev, 400 + i, shared)
+    got = int8_matmul(xq, wq, sx, sw)
+    again = int8_matmul(xq, wq, sx, sw)
+    want = int8_matmul_plain(xq, wq, sx, sw)
+    torch.cuda.synchronize()
+    separate = lambda w: [int8_matmul(xq[j], w[j], sx[j], sw[j]) for j in range(e)]  # noqa: E731
+    one_by_one = torch.stack(separate(wq))
+    for name, out in (("first call", got), ("second call", again),
+                      ("E separate launches", one_by_one)):
+        if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+            fail(f"int8_matmul batch {(e, m, k, n)} {name}: not bit-identical to its plain "
+                 f"version, max err {float((out - want).abs().max()):.3e}")
+    del got, again, want, one_by_one
+    x_bytes = (1 if shared else e) * m * k + 4 * (1 if shared else e) * m
+    bound_ms, bound_by = bound(wq.numel() + 4 * sw.numel() + x_bytes + 4 * e * m * n,
+                               2.0 * e * m * k * n, PEAK_INT8_OPS)
+    out = {
+        "shape": [m, k, n], "batch": e, "x_shared": shared, "max_abs_err": 0.0,
+        "tolerance": 0.0,
+        "plan": list(plan(m, k, n, "auto", "auto", "auto", runtime.CUDA_BACKEND, e)),
+        "plan_of_one_product": list(plan(m, k, n, "auto", "auto", "auto",
+                                         runtime.CUDA_BACKEND)),
+        "ms": r6(time_ms(lambda: int8_matmul(xq, wq, sx, sw), reps=5, rounds=3)),
+        "device_ms": r6(cold_device_ms(lambda w: int8_matmul(xq, w, sx, sw), wq)),
+        "separate_launches_device_ms": r6(cold_device_ms(separate, wq)),
+        "plain_ms": r6(time_ms(lambda: int8_matmul_plain(xq, wq, sx, sw), reps=2, rounds=3)),
+        "library_ms": None, "bound_ms": r6(bound_ms), "bound_by": bound_by}
+    del xq, wq, sx, sw
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_int8_matmul(dev):
     shapes = []
     for i, (m, k, n) in enumerate(INT8_SHAPES):
@@ -1020,8 +1101,65 @@ def check_int8_matmul(dev):
             "plain_ms": r6(time_ms(lambda: int8_matmul_plain(xq, wq, sx, sw), reps=5, rounds=3)),
             "library_ms": r6(library_ms), "bound_ms": r6(bound_ms), "bound_by": bound_by,
         })
+    # no PyTorch call computes a batch of int8 products with these scales
+    # (torch._int_mm takes one 2-D product of more than 16 rows)
+    shapes += [check_int8_batched(dev, i, *case) for i, case in enumerate(INT8_BATCHED)]
     return entry("int8_matmul", "src/repro_torch/csrc/int8_matmul.cu",
                  "src/repro/kernels/int8_matmul.py:62", shapes)
+
+
+@contextlib.contextmanager
+def k5_shapes_recorded(seen: dict, path: str):
+    """Within, every int8_matmul call the model code makes on the card
+    (``qeinsum``, eager or while a CUDA graph is captured) records its
+    shape in ``seen``: (E, M, K, N, x shared) → the paths that launched it,
+    E = 0 for one 2-D product."""
+    real = quant_mod.int8_matmul
+
+    def recorded(xq, wq, sx, sw, **kw):
+        if xq.is_cuda:
+            e = xq.shape[0] if xq.dim() == 3 else 0
+            shared = int(e > 1 and xq.stride(0) == 0)
+            seen.setdefault((e, *xq.shape[-2:], wq.shape[-1], shared), set()).add(path)
+        return real(xq, wq, sx, sw, **kw)
+
+    quant_mod.int8_matmul = recorded
+    try:
+        yield
+    finally:
+        quant_mod.int8_matmul = real
+
+
+def check_int8_path_shapes(dev, seen: dict) -> dict:
+    """K5 at every shape the serving paths launched it at (``seen``, from
+    :func:`k5_shapes_recorded`), bit for bit against its plain version on
+    two calls in a row, from int8 operands over the whole range and random
+    positive scales, x shared by the batch where the path shared it."""
+    checked = []
+    for i, key in enumerate(sorted(seen)):
+        e, m, k, n, shared = key
+        gen = torch.Generator(device=dev).manual_seed(600 + i)
+        b = max(e, 1)
+        xb = 1 if shared else b
+        xq = torch.randint(-127, 128, (xb, m, k), generator=gen, device=dev, dtype=torch.int8)
+        sx = torch.rand((xb, m, 1), generator=gen, device=dev) + 0.5
+        wq = torch.randint(-127, 128, (b, k, n), generator=gen, device=dev, dtype=torch.int8)
+        sw = torch.rand((b, n), generator=gen, device=dev) + 0.5
+        operands = ((xq.expand(b, m, k), wq, sx.expand(b, m, 1), sw) if e
+                    else (xq[0], wq[0], sx[0], sw[0]))
+        want = int8_matmul_plain(*operands)
+        for call in ("first call", "second call"):
+            got = int8_matmul(*operands)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                fail(f"int8_matmul at the path's shape {key} ({sorted(seen[key])}), {call}: not "
+                     f"bit-identical to its plain version, max err "
+                     f"{float((got - want).abs().max()):.3e}")
+        checked.append(list(key))
+        del xq, sx, wq, sw, operands, want, got
+    torch.cuda.empty_cache()
+    return {"legend": "[E (0: one 2-D product), M, K, N, x shared by the batch]",
+            "shapes": checked, "paths": sorted(set().union(*seen.values())),
+            "calls_each": 2, "max_abs_err": 0.0, "tolerance": 0.0}
 
 
 def check_quantize_on_card(dev) -> dict:
@@ -1118,17 +1256,29 @@ BLOCK_TOL, BLOCK_MEAN_TOL = 5e-2, 5e-3
 def standard_fan_in(params, cfg) -> None:
     """Rescale the 3-D attention weights of a freshly drawn model to std
     1/sqrt(width of their contraction), in place.  The reference's fan-in
-    rule (kept by ``init_model``) takes the head count as the fan-in of wq
-    (32) and wk/wv (8), and the head width (128) as that of wo; at full width
-    that makes every attention row nearly one-hot, so a random model is
-    chaotic: one int8 rounding flips the attended key and two greedy chains
-    part at their first token (agreement 0.000 measured on an H100).  After
-    this the attention is smooth and the agreement measures
-    the int8 path, not the chaos."""
-    a = params["blocks"]["attn"]
-    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    for name, now, want in (("wq", h, d), ("wk", kv, d), ("wv", kv, d), ("wo", hd, h * hd)):
-        a[name].mul_((now / want) ** 0.5)
+    rule (kept by ``init_model``) takes ``shape[-2]`` of a 3-D weight: the
+    head count as the fan-in of wq (32) and wk/wv (8), and the head width
+    (128) as that of wo; at full width that makes every attention row nearly
+    one-hot, so a random model is chaotic: one int8 rounding flips the
+    attended key and two greedy chains part at their first token (agreement
+    0.000 measured on an H100).  The same rule takes the head count (128) for
+    MLA's wq_b, wk_b and wv_b, whose contraction is a rank r (1536, 512), and
+    the value width for its wo (h x v).  Expert weights (E, d, f) are right
+    already: ``shape[-2]`` is their contraction.  After this the attention
+    is smooth and the agreement measures the int8 path, not the chaos."""
+    d, h = cfg.d_model, cfg.num_heads
+    if cfg.mla is None:
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        rules = (("wq", h, d), ("wk", kv, d), ("wv", kv, d), ("wo", hd, h * hd))
+    else:
+        m = cfg.mla
+        rules = (("wq_b", h, m.q_lora_rank), ("wk_b", h, m.kv_lora_rank),
+                 ("wv_b", h, m.kv_lora_rank), ("wo", m.v_head_dim, h * m.v_head_dim))
+    for stack in ("dense_blocks", "blocks"):
+        if stack in params:
+            a = params[stack]["attn"]
+            for name, now, want in rules:
+                a[name].mul_((now / want) ** 0.5)
 
 
 def check_init_on_card(dev) -> dict:
@@ -1156,10 +1306,27 @@ def check_init_on_card(dev) -> dict:
             "f32_projection_stack_bytes": f32_stack}
 
 
+def k5_per_call(cfg, kind: str) -> int:
+    """int8_matmul launches of one model call (``prefill``, ``decode_step``,
+    ``prefill_chunk`` or ``decode_verify``), from the code: 7 a layer for
+    granite-3-8b and granite-moe (wq, wk, wv, wo, then wg, wu, wd, each of
+    granite-moe's three expert einsums ONE launch over all 48 experts; the
+    router is a plain f32 product).  deepseek's MLA makes 6 at prefill
+    (wq_a, wq_b, wkv_a, wk_b and wv_b decompressing K/V, wo) and 4 at decode
+    and chunk (the absorbed wk_b and wv_b contract over non-leading axes and
+    go through dequantize, as in the reference); its dense MLP 3; its MoE 3
+    expert launches + 3 of the shared expert."""
+    if cfg.mla is None:
+        return 7 * cfg.num_layers
+    attn = 6 if kind == "prefill" else 4
+    k = cfg.first_k_dense
+    return k * (attn + 3) + (cfg.num_layers - k) * (attn + 6)
+
+
 class CallLog:
     """Wraps model functions the engine calls (``prefill``, ``decode_step``,
     ``prefill_chunk``, ``decode_verify``): each call is synchronised and
-    timed, its int8_matmul launches counted against 7 x the layers of its
+    timed, its int8_matmul launches counted against ``k5_per_call`` of its
     config, its logits kept and checked finite.  A call made while a CUDA
     graph is being captured runs nothing and passes through unlogged."""
 
@@ -1179,7 +1346,8 @@ class CallLog:
             self.calls.append({
                 "kind": kind, "ms": (time.perf_counter() - t0) * 1e3,
                 "int8_matmul": runtime.launch_counts().get("int8_matmul", 0) - before,
-                "per_call": 7 * cfg.num_layers, "finite": bool(torch.isfinite(logits).all()),
+                "per_call": k5_per_call(cfg, kind) if cfg.quant == "int8" else 0,
+                "finite": bool(torch.isfinite(logits).all()),
                 "rows": int(logits.shape[0]), "logits": logits})
             return logits, cache
         return call
@@ -1188,7 +1356,7 @@ class CallLog:
         for c in self.calls:
             if c["int8_matmul"] != c["per_call"]:
                 fail(f"{what}: a {c['kind']} call launched int8_matmul {c['int8_matmul']} "
-                     f"times, {c['per_call']} expected (7 projections x layers)")
+                     f"times, {c['per_call']} expected (k5_per_call)")
             if not c["finite"]:
                 fail(f"{what}: non-finite logits in a {c['kind']} call")
 
@@ -1207,6 +1375,40 @@ class CallLog:
 def serve_configs():
     cfg = dataclasses.replace(get_config(GRANITE), num_layers=SERVE_LAYERS)
     return dataclasses.replace(cfg, quant="int8"), cfg
+
+
+def slot_path(eng, rng):
+    """A slot pool of 4: prompts of ``SLOT_PROMPTS`` tokens admitted at tick
+    0 (the last at tick 2), ``SLOT_TICKS`` masked decode ticks (the first
+    captures the graph, the others replay it), each slot retired at its
+    budget.  Returns (pool, tokens by slot, tick ms, every live slot
+    finite)."""
+    vocab = eng.cfg.vocab_size
+    pool = eng.make_pool()
+    slot_tokens = {s: [] for s in range(len(SLOT_PROMPTS))}
+    slot_finite, tick_ms = True, []
+    for tick in range(SLOT_TICKS):
+        if tick == 0:
+            for s, n in enumerate(SLOT_PROMPTS[:-1]):
+                p = rng.integers(0, vocab, n).astype(np.int32)
+                slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s,
+                                                            budget=SLOT_BUDGET))
+        if tick == 2:
+            s = len(SLOT_PROMPTS) - 1
+            p = rng.integers(0, vocab, SLOT_PROMPTS[s]).astype(np.int32)
+            slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s, budget=SLOT_BUDGET))
+        live = pool.decode_mask().copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, fin = eng.masked_decode_step(pool)  # the first tick captures the graph
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        slot_finite = slot_finite and bool(fin[live].all())
+        for s in map(int, np.flatnonzero(live)):
+            pool.advance(s, 1, int(nxt[s]))
+            slot_tokens[s].append(int(nxt[s]))
+            if pool.slots[s].emitted >= pool.slots[s].budget:
+                pool.retire(s)
+    return pool, slot_tokens, tick_ms, slot_finite
 
 
 def drive_serve_dense(dev) -> dict:
@@ -1229,31 +1431,7 @@ def drive_serve_dense(dev) -> dict:
         tokens_q = eng.generate(prompts, GEN_NEW)
         generate_s = time.perf_counter() - t0
         n_generate = len(log.calls)
-        pool = eng.make_pool()
-        slot_tokens = {s: [] for s in range(len(SLOT_PROMPTS))}
-        slot_finite, tick_ms = True, []
-        for tick in range(SLOT_TICKS):
-            if tick == 0:
-                for s, n in enumerate(SLOT_PROMPTS[:-1]):
-                    p = rng.integers(0, cfg_q.vocab_size, n).astype(np.int32)
-                    slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s,
-                                                                budget=SLOT_BUDGET))
-            if tick == 2:
-                s = len(SLOT_PROMPTS) - 1
-                p = rng.integers(0, cfg_q.vocab_size, SLOT_PROMPTS[s]).astype(np.int32)
-                slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s,
-                                                            budget=SLOT_BUDGET))
-            live = pool.decode_mask().copy()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            nxt, fin = eng.masked_decode_step(pool)  # the first tick captures the graph
-            tick_ms.append((time.perf_counter() - t0) * 1e3)
-            slot_finite = slot_finite and bool(fin[live].all())
-            for s in map(int, np.flatnonzero(live)):
-                pool.advance(s, 1, int(nxt[s]))
-                slot_tokens[s].append(int(nxt[s]))
-                if pool.slots[s].emitted >= pool.slots[s].budget:
-                    pool.retire(s)
+        pool, slot_tokens, tick_ms, slot_finite = slot_path(eng, rng)
     log.check("serve_dense")
     per_call = 7 * cfg_q.num_layers
     graph = eng.step_graphs(pool)[("decode", 0)]
@@ -1357,18 +1535,33 @@ SPEC_PROMPTS = (16, 33, 40, 25)
 CHAIN_TICKS = 16                    # the plain chain the verify windows are taken from
 FORCED_TICKS = 3                    # teacher-forced verify ticks: 3 x 4 slots x 5 positions
 VERIFY_AGREEMENT = 0.95             # per-position argmax agreement, verify vs plain decode
+# A verify position whose token differs from plain decode's must be a near
+# tie of the plain chain's own logits: its margin between the two tokens at
+# most VERIFY_TIE of the largest |logit|.  And no position's logits may differ
+# from plain decode's by more than VERIFY_LOGIT_DIFF of the largest |logit|:
+# a window scored at the wrong positions or over the wrong rows moves them by
+# their own size.  (Read on an H100 80GB HBM3 at 700 W: flips at margins
+# 0-0.015; largest differences 0.017 granite-3-8b, 0.032 granite-moe, 0.082
+# deepseek-v3.)
+VERIFY_TIE = 0.05
+VERIFY_LOGIT_DIFF = 0.25
 TIMED_TICKS = 15                    # unprofiled ticks a kind, replayed and eager in turns
 ENGINE_BUDGET = 40
 
 
-def decode_chain(eng, pool, chains: dict, ticks: int, what: str) -> None:
+def decode_chain(eng, pool, chains: dict, ticks: int, what: str, logits: list | None = None
+                 ) -> None:
     """``ticks`` masked-decode ticks; every decoding slot's token is committed
-    and appended to its chain."""
+    and appended to its chain, and each tick's logits (B, V) to ``logits``
+    when it is given."""
     for _ in range(ticks):
         live = pool.decode_mask().copy()
         nxt, fin = eng.masked_decode_step(pool)
         if not fin[live].all():
             fail(f"{what}: a decoding slot read non-finite")
+        if logits is not None:
+            out = eng.step_graphs(pool)[("decode", 0)].outputs["logits"]
+            logits.append(out[:, :eng.cfg.vocab_size].float().cpu())
         for s in map(int, np.flatnonzero(live)):
             pool.advance(s, 1, int(nxt[s]))
             chains[s].append(int(nxt[s]))
@@ -1407,12 +1600,145 @@ def graph_vs_eager(g, what: str, **inputs) -> dict:
             "workspace_zero": True, "launches_a_replay": g.launches}
 
 
-def strict_identity(dev) -> tuple[dict, list]:
-    """The reduced granite config of the CPU tests, in f32 with int8 weights,
-    on the card: chunked prefill against blocking prefill, and speculative
-    verify (oracle drafts in one slot, always-wrong in the other) against
-    plain decode.  Tokens must be identical."""
-    cfg = dataclasses.replace(get_reduced_config(GRANITE), dtype=torch.float32, quant="int8")
+def forced_verify(eng, vpool, chain: dict, chain_logits: list, what: str
+                  ) -> tuple[dict, np.ndarray]:
+    """``FORCED_TICKS`` verify ticks of the four slots of ``vpool`` (prefilled
+    as the plain ``chain`` was), the drafts teacher-forced from the chain,
+    then one tick of always-wrong drafts, which must accept none.  The
+    per-position argmax agreement with the chain must reach
+    ``VERIFY_AGREEMENT`` (``MOE_VERIFY_FLOOR`` for the moe family) over at
+    least 32 positions.  Each position's logits are held against the
+    chain's (``chain_logits``, one (B, V) a tick): their largest difference
+    at most ``VERIFY_LOGIT_DIFF``, and where the tokens differ the chain's
+    own margin between the two at most ``VERIFY_TIE``, of the largest
+    |logit|.
+    On the moe family the ticks with such flips are run again eagerly with
+    the router recorded (:func:`flip_routes`).  Returns the report and the
+    last tick's drafts."""
+    vocab, routes = eng.cfg.vocab_size, eng.cfg.moe is not None
+    floor = MOE_VERIFY_FLOOR if routes else VERIFY_AGREEMENT
+    agree = positions = 0
+    worst, flips, route_reports = 0.0, [], []
+    for tick in range(FORCED_TICKS + 1):
+        e = vpool.slots[0].emitted
+        want = np.asarray([chain[s][e:e + SPEC_K + 1] for s in range(4)])
+        drafts = want[:, :SPEC_K].astype(np.int32)
+        if tick == FORCED_TICKS:  # always wrong: the first draft is not the plain token
+            drafts = ((want[:, :1] + 1 + np.arange(SPEC_K)) % vocab).astype(np.int32)
+        before = ({k: v.clone() for k, v in vpool.cache.items()}, vpool.tok.copy(),
+                  vpool.positions().copy()) if routes else None
+        toks, acc, fin = eng.masked_speculative_step(vpool, drafts)
+        if not fin.all() or not (acc == host_accepted(drafts, toks)).all():
+            fail(f"{what}: verify tick {tick}: finite {fin}, accepted {acc}")
+        n = min(want.shape[1], toks.shape[1])
+        agree += int((toks[:, :n] == want[:, :n]).sum())
+        positions += want[:, :n].size
+        lv = eng.step_graphs(vpool)[("verify", SPEC_K)].outputs["logits"][..., :vocab].float().cpu()
+        tick_flips = []
+        for s in range(4):
+            for j in range(n):
+                ld = chain_logits[e + j - 1][s]  # decode tick e + j gave chain[s][e + j]
+                scale = float(ld.abs().max())
+                worst = max(worst, float((lv[s, j] - ld).abs().max()) / scale)
+                a, b = int(want[s, j]), int(toks[s, j])
+                if a != b:
+                    tick_flips.append({"tick": tick, "slot": s, "j": j, "chain": a, "verify": b,
+                                       "chain_margin_rel": r6(float(ld[a] - ld[b]) / scale)})
+        if routes and tick_flips:
+            route_reports.append(flip_routes(eng, *before, drafts, tick_flips))
+        flips += tick_flips
+        if tick < FORCED_TICKS:
+            for s in range(4):
+                vpool.advance(s, SPEC_K + 1, chain[s][e + SPEC_K])
+        elif acc.any():
+            fail(f"{what}: always-wrong drafts accepted {acc}")
+    agreement = agree / positions
+    report = {"k": SPEC_K, "positions": positions, "per_position_agreement": r6(agreement),
+              "floor": floor, "always_wrong_accepted": acc.tolist(),
+              "logits_max_abs_diff_rel": r6(worst), "logits_diff_limit": VERIFY_LOGIT_DIFF,
+              "flips": flips, "flip_margin_limit": VERIFY_TIE}
+    if routes:
+        report["flip_routes"] = route_reports
+    if positions < 32 or agreement < floor:
+        fail(f"{what}: verify agrees with plain decode at {agreement:.3f} of {positions} "
+             f"positions (floor {floor} over >= 32): {json.dumps(report)}")
+    if worst > VERIFY_LOGIT_DIFF or any(f["chain_margin_rel"] > VERIFY_TIE for f in flips):
+        fail(f"{what}: verify's logits differ from plain decode's by {worst:.3f} (limit "
+             f"{VERIFY_LOGIT_DIFF}), or a flip is no near tie (limit {VERIFY_TIE}): "
+             f"{json.dumps(report)}")
+    return report, drafts
+
+
+def routed(fn):
+    """``fn()`` with the MoE router recording each of its calls (one a MoE
+    layer): every token's expert set and the gap between the probability of
+    the last expert it takes and of the first it leaves."""
+    calls, real = [], moe_mod._router
+
+    def recording(params, x2d, cfg):
+        w, ids, probs = real(params, x2d, cfg)
+        edge = torch.sort(probs, dim=-1, descending=True).values[:, cfg.moe.top_k - 1:
+                                                                  cfg.moe.top_k + 1]
+        calls.append((ids.sort(dim=-1).values.cpu(), (edge[:, 0] - edge[:, 1]).cpu()))
+        return w, ids, probs
+
+    moe_mod._router = recording
+    try:
+        return fn(), calls
+    finally:
+        moe_mod._router = real
+
+
+def flip_routes(eng, cache, tok, pos, drafts, flips) -> dict:
+    """One verify tick whose tokens differ from plain decode, run again
+    eagerly from a copy of its cache: the verify window, and the same K+1
+    inputs decoded one at a time from another copy, the router recorded in
+    both (launches recorded apart: a diagnosis, not the path).  For every
+    token, the MoE layers whose expert set differs between the two, and the
+    router's gap there; for each flip, the eager runs' tokens."""
+    cfg, dev, k = eng.cfg, eng.device, drafts.shape[1]
+    tokens = torch.as_tensor(np.concatenate([tok[:, None], drafts], 1).astype(np.int64),
+                             device=dev)
+    p = torch.as_tensor(pos.astype(np.int64), device=dev)
+    with runtime.launches_recorded(), torch.inference_mode():
+        copy = {n: t.clone() for n, t in cache.items()}
+        (vlog, _), vcalls = routed(lambda: model_mod.decode_verify(eng.params, copy, tokens, p, cfg))
+        copy = {n: t.clone() for n, t in cache.items()}
+        steps = [routed(lambda j=j: model_mod.decode_step(eng.params, copy, tokens[:, j:j + 1],
+                                                          p + j, cfg)) for j in range(k + 1)]
+    vocab = cfg.vocab_size
+    differ = []  # (slot, j, layer, verify's gap, decode's gap) where the expert sets differ
+    for j, ((_, _), dcalls) in enumerate(steps):
+        for layer, ((vid, vgap), (did, dgap)) in enumerate(zip(vcalls, dcalls)):
+            for s in range(tok.shape[0]):
+                r = s * (k + 1) + j
+                if not torch.equal(vid[r], did[s]):
+                    differ.append([s, j, layer, r6(float(vgap[r])), r6(float(dgap[s]))])
+    out = {"tick": flips[0]["tick"], "moe_layers": len(vcalls), "tokens": tok.shape[0] * (k + 1),
+           "expert_sets_differ": differ, "flips": []}
+    for f in flips:
+        s, j = f["slot"], f["j"]
+        out["flips"].append({
+            "slot": s, "j": j, "eager_verify": int(vlog[s, j, :vocab].argmax()),
+            "eager_decode": int(steps[j][0][0][s, :vocab].argmax()),
+            "layers_differ": [d[2] for d in differ if d[0] == s and d[1] == j]})
+    return out
+
+
+def strict_identity(dev, arch: str = GRANITE, quant: str | None = "int8") -> tuple[dict, list]:
+    """The reduced config of ``arch`` of the CPU tests, in f32 (with int8
+    weights unless ``quant`` is None), on the card: chunked prefill against
+    blocking prefill, and speculative verify (oracle drafts in one slot,
+    always-wrong in the other) against plain decode.  Tokens must be
+    identical.  MLA with int8 weights skips the first: its blocking prefill
+    decompresses K/V through int8 ``wk_b`` / ``wv_b`` (c row-quantized)
+    where its chunk step contracts with the dequantized weights, as in the
+    reference, so the two agree to quantization noise only (the reference
+    claims that identity in f32 without int8, ``tests/test_serving.py``).
+    Verify and decode both take the absorbed path: speculative == plain
+    holds with int8 weights too."""
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32, quant=quant)
+    chunked = quant is None or cfg.mla is None
     # f32 weights, as the CPU tests carry them (init_model draws bf16 leaves)
     params = tree_map(lambda t: t.float(), init_model(cfg, torch.Generator(dev).manual_seed(0),
                                                       dev))
@@ -1423,13 +1749,14 @@ def strict_identity(dev) -> tuple[dict, list]:
     block = {j: [eng.prefill_into_slot(pools[0], j, prompts[j], rid=j, budget=10)]
              for j in range(2)}
     decode_chain(eng, pools[0], block, 6, "strict identity")
-    st = eng.begin_chunked_prefill(pools[1], [0, 1], prompts, rids=[0, 1], budgets=[10, 10])
-    while not st.done:
-        eng.chunked_prefill_step(st, 4)
-    chunked = {j: [int(t)] for j, t in enumerate(eng.finish_chunked_prefill(pools[1], st))}
-    decode_chain(eng, pools[1], chunked, 6, "strict identity")
-    if chunked != block:
-        fail(f"strict identity: chunked prefill {chunked} != blocking {block}")
+    if chunked:
+        st = eng.begin_chunked_prefill(pools[1], [0, 1], prompts, rids=[0, 1], budgets=[10, 10])
+        while not st.done:
+            eng.chunked_prefill_step(st, 4)
+        chunk = {j: [int(t)] for j, t in enumerate(eng.finish_chunked_prefill(pools[1], st))}
+        decode_chain(eng, pools[1], chunk, 6, "strict identity")
+        if chunk != block:
+            fail(f"strict identity: chunked prefill {chunk} != blocking {block}")
     ref, pool = block[0], pools[2]
     good = [eng.prefill_into_slot(pool, 0, prompts[0], rid=0, budget=len(ref))]
     bad = [eng.prefill_into_slot(pool, 1, prompts[0], rid=1, budget=len(ref))]
@@ -1452,9 +1779,10 @@ def strict_identity(dev) -> tuple[dict, list]:
     if good != ref or bad != ref:
         fail(f"strict identity: speculative {good} / {bad} != plain decode {ref}")
     graphs = [g for p in pools for g in eng.step_graphs(p).values()]
-    return {"config": cfg.name, "dtype": "float32", "quant": "int8",
+    return {"config": cfg.name, "dtype": "float32", "quant": quant,
             "layers": cfg.num_layers, "tokens": ref, "verify_ticks": ticks,
-            "chunked_equals_blocking": True, "speculative_equals_plain": True}, graphs
+            "chunked_equals_blocking": True if chunked else "not run",
+            "speculative_equals_plain": True}, graphs
 
 
 def drive_serve_engine(dev, base) -> dict:
@@ -1511,43 +1839,23 @@ def drive_serve_engine(dev, base) -> dict:
         plain = eng.make_pool()
         chain = {s: [eng.prefill_into_slot(plain, s, p, rid=s, budget=ENGINE_BUDGET)]
                  for s, p in enumerate(prompts)}
-        decode_chain(eng, plain, chain, CHAIN_TICKS, "serve_engine plain chain")
+        chain_logits = []
+        decode_chain(eng, plain, chain, CHAIN_TICKS, "serve_engine plain chain", chain_logits)
         vpool = eng.make_pool()
         for s, p in enumerate(prompts):
             if eng.prefill_into_slot(vpool, s, p, rid=s, budget=ENGINE_BUDGET) != chain[s][0]:
                 fail("serve_engine: the same prefill gave another first token")
-        agree = positions = 0
         quant_mod.int8_matmul = k5_logged  # the first verify tick: warm-up and capture
-        for tick in range(FORCED_TICKS + 1):
-            e = vpool.slots[0].emitted
-            want = np.asarray([chain[s][e:e + SPEC_K + 1] for s in range(4)])
-            drafts = want[:, :SPEC_K].astype(np.int32)
-            if tick == FORCED_TICKS:  # always wrong: the first draft is not the plain token
-                drafts = ((want[:, :1] + 1 + np.arange(SPEC_K)) % vocab).astype(np.int32)
-            toks, acc, fin = eng.masked_speculative_step(vpool, drafts)
+        try:
+            report["speculative"], drafts = forced_verify(eng, vpool, chain, chain_logits,
+                                                          "serve_engine")
+        finally:
             quant_mod.int8_matmul = real_k5
-            if not fin.all() or not (acc == host_accepted(drafts, toks)).all():
-                fail(f"serve_engine: verify tick {tick}: finite {fin}, accepted {acc}")
-            n = min(want.shape[1], toks.shape[1])
-            agree += int((toks[:, :n] == want[:, :n]).sum())
-            positions += want[:, :n].size
-            if tick < FORCED_TICKS:
-                for s in range(4):
-                    vpool.advance(s, SPEC_K + 1, chain[s][e + SPEC_K])
-            elif acc.any():
-                fail(f"serve_engine: always-wrong drafts accepted {acc}")
         vgraph = eng.step_graphs(vpool)[("verify", SPEC_K)]
         if set(k5_rows) != {4 * (SPEC_K + 1)} or vgraph.launches.get("int8_matmul") != per_call:
             fail(f"serve_engine: verify graph holds {vgraph.launches} launches at rows "
                  f"{sorted(set(k5_rows))} ({per_call} at M = {4 * (SPEC_K + 1)} expected)")
-        agreement = agree / positions
-        if positions < 32 or agreement < VERIFY_AGREEMENT:
-            fail(f"serve_engine: verify agrees with plain decode at {agreement:.3f} of "
-                 f"{positions} positions (floor {VERIFY_AGREEMENT} over >= 32)")
-        report["speculative"] = {
-            "k": SPEC_K, "prompts": list(SPEC_PROMPTS), "positions": positions,
-            "per_position_agreement": r6(agreement), "floor": VERIFY_AGREEMENT,
-            "always_wrong_accepted": acc.tolist(), "int8_matmul_rows": 4 * (SPEC_K + 1)}
+        report["speculative"].update(prompts=list(SPEC_PROMPTS), int8_matmul_rows=4 * (SPEC_K + 1))
 
         # -- poison one slot, quarantine it, resume it ------------------------
         eng.poison_slot(plain, 1)
@@ -1668,20 +1976,22 @@ def _quant_leaves(tree):
     return out
 
 
-def check_block_card_vs_cpu(eng, dev) -> dict:
-    """Layer 0 of the int8 engine, one full-width decoder block, on the card
-    and on the CPU from the same weights and a 16-token prompt."""
+def check_block_card_vs_cpu(eng, dev, stack: str = "blocks",
+                            body=transformer.dense_block_prefill) -> dict:
+    """Layer 0 of ``stack`` of the int8 engine, one full-width decoder block
+    (``body``, a prefill body returning (out, cache rows)), on the card and
+    on the CPU from the same weights and a 16-token prompt."""
     cfg = eng.cfg
-    p_card = tree_map(lambda t: layer_of(t, 0), eng.params["blocks"])
+    p_card = tree_map(lambda t: layer_of(t, 0), eng.params[stack])
     p_cpu = tree_map(lambda t: QuantTensor(t.q.cpu(), t.scale.cpu())
                      if isinstance(t, QuantTensor) else t.cpu(), p_card)
     toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 16)))
     x = eng.params["embed"]["tokens"][toks.to(dev)]
     with torch.inference_mode():
-        y_card, (k_card, _) = transformer.dense_block_prefill(p_card, x, cfg)
-        y_cpu, (k_cpu, _) = transformer.dense_block_prefill(p_cpu, x.cpu(), cfg)
+        y_card, (k_card, _) = body(p_card, x, cfg)
+        y_cpu, (k_cpu, _) = body(p_cpu, x.cpu(), cfg)
     worst = {}
-    for name, got, want in (("out", y_card, y_cpu), ("k", k_card, k_cpu)):
+    for name, got, want in (("out", y_card, y_cpu), ("cache", k_card, k_cpu)):
         got, want = got.float().cpu(), want.float()
         if not bool(torch.isfinite(got).all()):
             fail(f"block card vs cpu: non-finite {name}")
@@ -1689,11 +1999,183 @@ def check_block_card_vs_cpu(eng, dev) -> dict:
         err = float((got - want).abs().max())
         mean = float((got - want).abs().mean())
         if err > BLOCK_TOL * scale or mean > BLOCK_MEAN_TOL * scale:
-            fail(f"block card vs cpu: {name} max err {err:.3e}, mean {mean:.3e}, over "
-                 f"{BLOCK_TOL} / {BLOCK_MEAN_TOL} x {scale:.3e}")
+            fail(f"block card vs cpu ({cfg.name} {body.__name__}): {name} max err {err:.3e}, "
+                 f"mean {mean:.3e}, over {BLOCK_TOL} / {BLOCK_MEAN_TOL} x {scale:.3e}")
         worst[name] = {"max_abs_err": r6(err), "max_abs": r6(scale), "mean_abs_err": r6(mean)}
-    return {"tokens": 16,
+    return {"config": cfg.name, "block": body.__name__, "tokens": 16,
             "tolerance": f"max {BLOCK_TOL}, mean {BLOCK_MEAN_TOL} x max|cpu|", **worst}
+
+
+# ---------------------------------------------------------------------------
+# serve_moe: the moe family at full width, the expert einsums one K5 launch
+# over the expert axis
+# ---------------------------------------------------------------------------
+MOE = "granite-moe-3b-a800m"        # full width, full depth (32 layers)
+DEEPSEEK = "deepseek-v3-671b"
+DEEPSEEK_LAYERS = 2                 # the only cut: 61 → 2 layers, one MLA-dense, one MLA-MoE
+# Verify's agreement with plain decode on the moe family, below the dense
+# engine's 0.95: both configs read 0.9375-0.953 over 64 positions (H100
+# 80GB HBM3, 700 W), every flip at a near tie (VERIFY_TIE): bf16 rounding
+# that differs between the window and single steps moves a router near its
+# top-k edge (gaps of 1e-5 to 3e-3 in probability) or a logit near a tie.
+# 0.85 leaves room for that rate's spread (~3.5 flips of 64) and fails a
+# verify wrong at one position in six.
+MOE_VERIFY_FLOOR = 0.85
+
+
+def moe_engines(dev, cfg_f):
+    """The int8 engine and its bf16 twin over the same random weights (seed
+    0, attention at the standard fan-in), with ``spec_slack`` for verify."""
+    params = init_model(cfg_f, torch.Generator(device=dev).manual_seed(0), dev)
+    standard_fan_in(params, cfg_f)
+    sc = engine_mod.ServeConfig(**ENGINE_SC)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = engine_mod.InferenceEngine(dataclasses.replace(cfg_f, quant="int8"), params=params,
+                                     sc=sc)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    return eng, engine_mod.InferenceEngine(cfg_f, params=params, sc=sc), init_s
+
+
+def serve_moe_config(dev, arch: str, layers: int | None) -> dict:
+    """One config of the moe family through the int8 engine: ``generate``,
+    the slot path (replayed ticks), a chunked prefill while two slots
+    decode, verify ticks teacher-forced from the plain chain (as
+    ``serve_engine``'s); the replayed ticks against the eager ones; greedy agreement
+    with the bf16 engine on the same weights; one block on the card against
+    the CPU (its launches recorded apart, not counted)."""
+    t_start = time.perf_counter()
+    cfg_f = get_config(arch)
+    if layers is not None:
+        cfg_f = dataclasses.replace(cfg_f, num_layers=layers, first_k_dense=min(
+            cfg_f.first_k_dense, layers - 1))
+    torch.cuda.reset_peak_memory_stats()
+    eng, full, init_s = moe_engines(dev, cfg_f)
+    cfg, vocab = eng.cfg, cfg_f.vocab_size
+    rng = np.random.default_rng(60)
+    prompts = rng.integers(0, vocab, (GEN_PROMPTS, GEN_LEN)).astype(np.int32)
+    report = {"arch": arch, "layers": cfg.num_layers, "of_layers": get_config(arch).num_layers,
+              "first_k_dense": cfg.first_k_dense, "dtype": "bfloat16", "quant": "int8",
+              "int8_weight_bytes": sum(t.q.numel() for t in _quant_leaves(eng.params)),
+              "quantize_at_init_s": r6(init_s)}
+    with CallLog() as log:
+        t0 = time.perf_counter()
+        tokens_q = eng.generate(prompts, GEN_NEW)
+        report["generate"] = {"prompts": GEN_PROMPTS, "prompt_len": GEN_LEN,
+                              "new_tokens": GEN_NEW, "seconds": r6(time.perf_counter() - t0)}
+        pool, slot_tokens, tick_ms, slot_finite = slot_path(eng, rng)
+        if not slot_finite:
+            fail(f"serve_moe {arch}: masked_decode_step flagged a live slot non-finite")
+        report["slots"] = {"max_batch": 4, "max_len": 128, "prompts": list(SLOT_PROMPTS),
+                           "tick_ms_median": r6(statistics.median(tick_ms[1:])),
+                           "tokens": slot_tokens}
+        # where a replayed tick's time goes: K5 against the bytes it must read
+        tick = profile_call(lambda: eng.masked_decode_step(pool))
+        k5_bytes = sum(t.q.numel() + 4 * t.scale.numel()
+                       for stack in ("dense_blocks", "blocks") if stack in eng.params
+                       for t in _quant_leaves(eng.params[stack]))
+        report["decode_tick_profile"] = {
+            **tick, "int8_weight_bytes_a_tick": k5_bytes,
+            "int8_matmul_bound_ms": r6(k5_bytes / PEAK_BYTES_PER_S * 1e3),
+            "int8_matmul_share_of_busy": r6(tick["int8_matmul_device_ms"]
+                                            / tick["device_busy_ms"])}
+        graphs = list(eng.step_graphs(pool).values())
+        cpool = eng.make_pool()
+        chains = {2 + i: [eng.prefill_into_slot(cpool, 2 + i, p, rid=2 + i, budget=ENGINE_BUDGET)]
+                  for i, p in enumerate(rng.integers(0, vocab, n).astype(np.int32)
+                                        for n in DECODING_PROMPTS)}
+        group = rng.integers(0, vocab, (2, GROUP_LEN)).astype(np.int32)
+        st = eng.begin_chunked_prefill(cpool, [0, 1], group, rids=[0, 1],
+                                       budgets=[ENGINE_BUDGET] * 2)
+        chunks = 0
+        while not st.done:
+            eng.chunked_prefill_step(st, CHUNK_TOKENS)
+            chunks += 1
+            decode_chain(eng, cpool, chains, 1, f"serve_moe {arch} chunked prefill")
+        first = eng.finish_chunked_prefill(cpool, st)
+        chains.update({j: [int(first[j])] for j in range(2)})
+        decode_chain(eng, cpool, chains, 2, f"serve_moe {arch} after the group")
+        report["chunked_prefill"] = {"group": [2, GROUP_LEN], "chunk_tokens": CHUNK_TOKENS,
+                                     "chunk_calls": chunks, "first_tokens": first.tolist()}
+
+        sprompts = [rng.integers(0, vocab, n).astype(np.int32) for n in SPEC_PROMPTS]
+        plain = eng.make_pool()
+        chain = {s: [eng.prefill_into_slot(plain, s, p, rid=s, budget=ENGINE_BUDGET)]
+                 for s, p in enumerate(sprompts)}
+        chain_logits = []
+        decode_chain(eng, plain, chain, CHAIN_TICKS, f"serve_moe {arch} plain chain", chain_logits)
+        vpool = eng.make_pool()
+        for s, p in enumerate(sprompts):
+            if eng.prefill_into_slot(vpool, s, p, rid=s, budget=ENGINE_BUDGET) != chain[s][0]:
+                fail(f"serve_moe {arch}: the same prefill gave another first token")
+        report["speculative"], drafts = forced_verify(eng, vpool, chain, chain_logits,
+                                                      f"serve_moe {arch}")
+        vgraph = eng.step_graphs(vpool)[("verify", SPEC_K)]
+        dgraph = eng.step_graphs(plain)[("decode", 0)]
+        report["graph_vs_eager"] = {
+            "decode": graph_vs_eager(dgraph, f"serve_moe {arch} decode tick", tok=plain.tok,
+                                     pos=plain.positions(), active=plain.decode_mask()),
+            "verify": graph_vs_eager(vgraph, f"serve_moe {arch} verify tick", tok=vpool.tok,
+                                     drafts=drafts, pos=vpool.positions(),
+                                     active=vpool.decode_mask())}
+        graphs += [g for p in (cpool, plain, vpool) for g in eng.step_graphs(p).values()]
+    log.check(f"serve_moe {arch}")
+    for g in graphs:
+        kind = "decode_verify" if "drafts" in g.inputs else "decode_step"
+        if g.launches.get("int8_matmul") != k5_per_call(cfg, kind):
+            fail(f"serve_moe {arch}: a {kind} graph holds {g.launches} launches, "
+                 f"{k5_per_call(cfg, kind)} int8_matmul expected")
+    replayed = sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
+
+    tokens_f = full.generate(prompts, GEN_NEW)
+    agreement = float((tokens_q == tokens_f).mean())
+    if agreement < AGREEMENT_FLOOR:
+        fail(f"serve_moe {arch}: greedy-chain agreement {agreement:.3f} with the bf16 engine, "
+             f"under the floor {AGREEMENT_FLOOR}")
+    stack, body = (("blocks", transformer.dense_block_prefill) if cfg.mla is None
+                   else ("dense_blocks", transformer.mla_block_prefill))
+    with runtime.launches_recorded() as block_launches:  # a module check, not the path
+        report["block_card_vs_cpu"] = check_block_card_vs_cpu(eng, dev, stack, body)
+    want = k5_per_call(dataclasses.replace(cfg, num_layers=1, first_k_dense=cfg.first_k_dense
+                                           and 1), "prefill")
+    if block_launches.get("int8_matmul") != want:
+        fail(f"serve_moe {arch}: the block on the card launched {block_launches}, "
+             f"{want} int8_matmul expected")
+    report["block_card_vs_cpu"]["int8_matmul_launches"] = want
+    decode_ms = [c["ms"] for c in log.calls if c["kind"] == "decode_step"]
+    report.update({
+        "int8_matmul_per_call": {k: k5_per_call(cfg, k) for k in
+                                 ("prefill", "decode_step", "prefill_chunk", "decode_verify")},
+        "calls": len(log.calls), "graphs": len(graphs),
+        "replays": sum(g.replays for g in graphs),
+        "eager_decode_ms_median": r6(statistics.median(decode_ms)),
+        "greedy_agreement_vs_bf16": r6(agreement), "agreement_floor": AGREEMENT_FLOOR,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "seconds": r6(time.perf_counter() - t_start)})
+    return {"int8_matmul": sum(c["per_call"] for c in log.calls) + replayed, "report": report}
+
+
+def drive_serve_moe(dev) -> dict:
+    """granite-moe-3b-a800m at full width and depth, then (its engines
+    freed) deepseek-v3-671b at full width and 2 layers, then the reduced
+    configs of both in f32, token for token: granite-moe with int8 weights
+    chunked == blocking and speculative == plain; deepseek both with
+    full-precision weights, and speculative == plain with int8 weights."""
+    moe = serve_moe_config(dev, MOE, None)
+    torch.cuda.empty_cache()
+    deepseek = serve_moe_config(dev, DEEPSEEK, DEEPSEEK_LAYERS)
+    torch.cuda.empty_cache()
+    report = {"granite_moe": moe["report"], "deepseek": deepseek["report"], "strict_identity": {}}
+    expect = moe["int8_matmul"] + deepseek["int8_matmul"]
+    for arch, quant in ((MOE, "int8"), (DEEPSEEK, None), (DEEPSEEK, "int8")):
+        with CallLog() as log:
+            report["strict_identity"][f"{arch} {quant or 'f32'}"], graphs = strict_identity(
+                dev, arch, quant)
+        log.check(f"serve_moe strict identity {arch} {quant}")
+        expect += sum(c["per_call"] for c in log.calls)
+        expect += sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
+    return {"expect": {"int8_matmul": expect}, "report": report}
 
 
 # ---------------------------------------------------------------------------
@@ -1787,6 +2269,12 @@ def tuner_cases() -> list[tuple]:
         for k, n in INT8_PROJ_KN:
             cases.append(("int8_matmul", {"m": m, "k": k, "n": n}, "int8",
                           fixed_int8_plan(m, k, n), 0.0, True))
+    # the expert einsums, one launch over E: the fixed plan is the one the
+    # rule gives a single product of the shape (a split of K that fills the
+    # card for one product, over-split when E products share the grid)
+    for e, m, k, n, _ in INT8_BATCHED:
+        cases.append(("int8_matmul", {"m": m, "k": k, "n": n, "batch": e}, "int8",
+                      fixed_int8_plan(m, k, n), 0.0, True))
     fb, fh, _, fsq, fsk, fd, _, _ = FLASH_MAIN
     flash = {"b": fb, "h": fh, "sq": fsq, "sk": fsk, "d": fd}
     cases += [("flash_attention", flash, "bfloat16", {"block_q": 64, "block_k": 64}, TOL_BF16,
@@ -1824,7 +2312,9 @@ def tuner_case(dev, kernel, problem, dtype, fixed, tol, main_path) -> dict:
     run, plain = bench.candidate_calls(kernel, problem, dtype, dev, seed=500)
     timer = lambda c: device_ms(run(c), reps=5)  # noqa: E731
     if kernel == "int8_matmul":  # from device memory, as the serving path reads its weights
-        xq, wq, sx, sw = int8_operands(problem["m"], problem["k"], problem["n"], dev, 500)
+        m, k, n, e = problem["m"], problem["k"], problem["n"], problem.get("batch")
+        xq, wq, sx, sw = (batched_int8_operands(e, m, k, n, dev, 500, False) if e
+                          else int8_operands(m, k, n, dev, 500))
         run = lambda c: lambda: (int8_matmul(xq, wq, sx, sw, **c),)  # noqa: E731
         plain = lambda: (int8_matmul_plain(xq, wq, sx, sw),)  # noqa: E731
         timer = lambda c: cold_device_ms(lambda w: int8_matmul(xq, w, sx, sw, **c), wq)  # noqa: E731
@@ -2186,14 +2676,19 @@ def main(argv=None) -> int:
 
     # Each path runs with the counters set to 0 just before it and read just
     # after; a kernel's "launches" are those of the path it belongs to.
-    driven, counts_by_path = {}, {}
+    driven, counts_by_path, k5_seen = {}, {}, {}
     paths = {"lstm": drive_main_path, "serve_dense": drive_serve_dense,
              "serve_engine": lambda d: drive_serve_engine(d, driven["serve_dense"]["engine"]),
-             "flash_attention": drive_flash_path}
+             "serve_moe": drive_serve_moe, "flash_attention": drive_flash_path}
     for name, drive in paths.items():
         runtime.reset_launch_counts()
-        driven[name] = phase(f"path:{name}", drive, dev)
+        with k5_shapes_recorded(k5_seen, name):
+            driven[name] = phase(f"path:{name}", drive, dev)
         counts_by_path[name] = runtime.launch_counts()
+    k5_entry = next(k for k in kernels if k["name"] == "int8_matmul")
+    path_shapes = phase("int8_path_shapes", check_int8_path_shapes, dev, k5_seen)
+    k5_entry["path_shapes"] = {k: v for k, v in path_shapes.items() if k not in ("legend", "shapes")}
+    k5_entry["path_shapes"]["bitwise_equal"] = len(path_shapes["shapes"])
     for k in kernels:
         on = [p for p in paths if k["name"] in driven[p]["expect"]]
         k["launches_by_path"] = {p: counts_by_path[p].get(k["name"], 0) for p in on}
@@ -2221,6 +2716,8 @@ def main(argv=None) -> int:
                                    driven["serve_engine"])
     for key in ("engine", "pools", "drafts"):
         driven["serve_engine"].pop(key)
+    moe_report = driven["serve_moe"]["report"]
+    moe_report["launches"] = counts_by_path["serve_moe"]
     driven = driven["lstm"]
 
     lw = paper_workload()
@@ -2246,7 +2743,9 @@ def main(argv=None) -> int:
     }
     main_path["trace_check"] = TRACE_CHECK
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
-              "serve_engine": engine_report, "host_path": host, "chip_model": chip_model,
+              "serve_engine": engine_report, "serve_moe": moe_report,
+              "int8_path_shapes": path_shapes, "host_path": host,
+              "chip_model": chip_model,
               "tuner": tuner, "energy": energy,
               "lut_seen": {k: {n: r6(v) for n, v in d.items()} for k, d in LUT_SEEN.items()},
               "tensor_core_kernels": {"ptxas": ptxas_usage(runtime.compile_log()),
@@ -2261,6 +2760,8 @@ def main(argv=None) -> int:
 
     print("serve_dense " + json.dumps(serve), flush=True)
     print("serve_engine " + json.dumps(engine_report), flush=True)
+    print("serve_moe " + json.dumps(moe_report), flush=True)
+    print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)
     print("tuner " + json.dumps(tuner_summary(tuner)), flush=True)

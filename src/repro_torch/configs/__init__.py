@@ -1,7 +1,7 @@
 """Architecture registry of the port.  Importing this package registers the
-dense configurations whose features the port's serving path covers; the
-other families of the JAX package are registered when their modules are
-ported (ROADMAP Queue A item 8)."""
+configurations whose families the port's serving path covers (dense, and
+the moe family with MLA); the other families of the JAX package are
+registered when their modules are ported (ROADMAP Queue A item 8)."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ArchConfig,
@@ -16,8 +16,10 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # One module per architecture, as in the JAX package.
 from repro_torch.configs import (  # noqa: F401
+    deepseek_v3_671b,
     granite_3_8b,
     granite_34b,
+    granite_moe_3b_a800m,
     qwen15_110b,
     starcoder2_15b,
 )

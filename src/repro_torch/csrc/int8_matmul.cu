@@ -45,6 +45,16 @@
 // workspace and counters belong to the wrapper, which allocates them zeroed
 // once and reuses them.
 //
+// Batch.  A call may hold E independent products of one shape, x (E, M, K),
+// w (E, K, N), x scales (E, M), w scales (E, N), out (E, M, N): the MoE
+// expert einsums, which the reference runs as `jax.vmap` of its pallas_call,
+// one launch with a batch grid axis.  Here too it is one launch: the batch
+// index is folded into grid z with the split-K chunk (z = e * split_k +
+// chunk), and each batch index has its own slice of the split-K workspace
+// and counters.  x and its scales are either stacked, one per product, or
+// shared by every product (x_shared): the MoE dense path hands every expert
+// the same token block, quantized once.
+//
 // Ragged M, N and K are masked: loads past an edge read zeros (K and N
 // multiples of 16 take the cp.async path; other shapes load bytes one by
 // one), stores past an edge are skipped.  The epilogue multiplies in the
@@ -84,7 +94,7 @@ int8_matmul_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
                    const float* __restrict__ sx, const float* __restrict__ sw,
                    float* __restrict__ out, int32_t* __restrict__ ws,
                    int32_t* __restrict__ counters, int M, int N, int K, int k_chunk,
-                   int split_k) {
+                   int split_k, int x_shared) {
   constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // a warp's tile
   constexpr int TM = WTM / 16, TN = WTN / 8;             // its mma tiles
@@ -96,12 +106,21 @@ int8_matmul_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
   unsigned char* b_s = w_s + kStages * W_BYTES;      // [BN][64], k contiguous, swizzled
   __shared__ int last_arrival;
 
+  // this block's product of the batch and its chunk of K
+  const int batch = blockIdx.z / split_k, chunk = blockIdx.z % split_k;
+  const long long xb = x_shared ? 0 : batch;
+  xq += xb * M * K;
+  wq += batch * static_cast<long long>(K) * N;
+  sx += xb * M;
+  sw += static_cast<long long>(batch) * N;
+  out += batch * static_cast<long long>(M) * N;
+
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int g = lane / 4, t = lane % 4;
   const long long m0 = static_cast<long long>(blockIdx.y) * BM;
   const long long n0 = static_cast<long long>(blockIdx.x) * BN;
-  const long long k_begin = static_cast<long long>(blockIdx.z) * k_chunk;
+  const long long k_begin = static_cast<long long>(chunk) * k_chunk;
   const long long k_stop = min(static_cast<long long>(K), k_begin + k_chunk);
   const int steps = static_cast<int>((k_stop - k_begin + kBK - 1) / kBK);
 
@@ -243,7 +262,7 @@ int8_matmul_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
     return;
   }
 
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int tile = (batch * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   int32_t* tile_ws = ws + static_cast<long long>(tile) * BM * BN;
 #pragma unroll
   for (int tm = 0; tm < TM; ++tm)
@@ -291,23 +310,23 @@ int8_matmul_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
 template <int BM, int BN, int WARPS_M, int WARPS_N>
 int launch(const int8_t* xq, const int8_t* wq, const float* sx, const float* sw, float* out,
            int32_t* ws, int32_t* counters, int M, int N, int K, int vec, int split_k,
-           int k_chunk, cudaStream_t s) {
+           int k_chunk, int batch, int x_shared, cudaStream_t s) {
   constexpr int smem = smem_bytes<BM, BN>();
   static int smem_set[2][kMaxDevices] = {};
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split_k);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch * split_k);
   if (grid.y > 65535) return -2;
   if (vec) {
     auto kernel = int8_matmul_kernel<BM, BN, WARPS_M, WARPS_N, true>;
     const int rc = allow_smem(kernel, smem, smem_set[1]);
     if (rc != 0) return rc;
     kernel<<<grid, 32 * WARPS_M * WARPS_N, smem, s>>>(xq, wq, sx, sw, out, ws, counters, M, N, K,
-                                                       k_chunk, split_k);
+                                                       k_chunk, split_k, x_shared);
   } else {
     auto kernel = int8_matmul_kernel<BM, BN, WARPS_M, WARPS_N, false>;
     const int rc = allow_smem(kernel, smem, smem_set[0]);
     if (rc != 0) return rc;
     kernel<<<grid, 32 * WARPS_M * WARPS_N, smem, s>>>(xq, wq, sx, sw, out, ws, counters, M, N, K,
-                                                       k_chunk, split_k);
+                                                       k_chunk, split_k, x_shared);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -316,21 +335,24 @@ int launch(const int8_t* xq, const int8_t* wq, const float* sx, const float* sw,
 }  // namespace repro
 
 // a = {x_q, w_q, x_scale, w_scale, out, workspace, counters, M, N, K, vec,
-// block_m, block_n, split_k, k_chunk, stream}.
-// x_q: (M, K) int8; w_q: (K, N) int8; x_scale: (M) f32; w_scale: (N) f32;
-// out: (M, N) f32; all contiguous.  vec: 1 if K and N are multiples of 16
-// and x_q and w_q start on 16-byte boundaries.  The plan, from
-// kernels/int8_matmul.py:plan: (block_m, block_n) one of (16, 64),
-// (16, 128), (64, 128), (128, 128); K cut into split_k chunks of k_chunk bytes, a
-// positive multiple of 64, the last one non-empty.  With split_k > 1,
-// workspace holds ceil(M / block_m) * ceil(N / block_n) * block_m * block_n
-// int32 and counters one int32 per tile, all zero, and the kernel leaves
-// them zero.  K <= 131071, so that no int32 sum of int8 products overflows.
-// Returns -2 for a plan or arguments it does not take, else the CUDA error
-// of the launch.
+// block_m, block_n, split_k, k_chunk, batch, x_shared, stream}.
+// E = batch products of one shape: x_q: (E, M, K) int8 and x_scale: (E, M)
+// f32, or with x_shared = 1 one (M, K) x_q and one (M) x_scale for every
+// product; w_q: (E, K, N) int8; w_scale: (E, N) f32; out: (E, M, N) f32;
+// each product contiguous.
+// vec: 1 if K and N are multiples of 16 and x_q and w_q start on 16-byte
+// boundaries.  The plan, from kernels/int8_matmul.py:plan: (block_m, block_n)
+// one of (16, 64), (16, 128), (64, 128), (128, 128); K cut into split_k chunks
+// of k_chunk bytes, a positive multiple of 64, the last one non-empty;
+// batch * split_k <= 65535.  With split_k > 1, workspace holds E *
+// ceil(M / block_m) * ceil(N / block_n) * block_m * block_n int32 and
+// counters one int32 per tile of each product, all zero, and the kernel
+// leaves them zero.  K <= 131071, so that no int32 sum of int8 products
+// overflows.  Returns -2 for a plan or arguments it does not take, else the
+// CUDA error of the launch.
 extern "C" int repro_int8_matmul(const long long* a, int count) {
   using namespace repro;
-  if (count != 16) return kBadArgCount;
+  if (count != 18) return kBadArgCount;
   const void* x_q = arg_ptr<const void>(a[0]);
   const void* w_q = arg_ptr<const void>(a[1]);
   const void* x_scale = arg_ptr<const void>(a[2]);
@@ -341,10 +363,13 @@ extern "C" int repro_int8_matmul(const long long* a, int count) {
   const int M = static_cast<int>(a[7]), N = static_cast<int>(a[8]), K = static_cast<int>(a[9]);
   const int vec = static_cast<int>(a[10]), block_m = static_cast<int>(a[11]);
   const int block_n = static_cast<int>(a[12]), split_k = static_cast<int>(a[13]);
-  const int k_chunk = static_cast<int>(a[14]);
-  cudaStream_t s = arg_stream(a[15]);
+  const int k_chunk = static_cast<int>(a[14]), batch = static_cast<int>(a[15]);
+  const int x_shared = static_cast<int>(a[16]);
+  cudaStream_t s = arg_stream(a[17]);
   if (M < 1 || N < 1 || K < 1 || K > 131071) return -2;
   if (k_chunk < kBK || k_chunk % kBK || split_k < 1 || split_k > 65535) return -2;
+  if (batch < 1 || static_cast<long long>(batch) * split_k > 65535) return -2;
+  if (x_shared != 0 && x_shared != 1) return -2;
   if (static_cast<long long>(split_k) * k_chunk < K ||
       static_cast<long long>(split_k - 1) * k_chunk >= K)
     return -2;
@@ -356,13 +381,13 @@ extern "C" int repro_int8_matmul(const long long* a, int count) {
   auto* o = static_cast<float*>(out);
   auto* ws = static_cast<int32_t*>(workspace);
   auto* cnt = static_cast<int32_t*>(counters);
-  if (block_m == 16 && block_n == 64)
-    return launch<16, 64, 1, 4>(xq, wq, sx, sw, o, ws, cnt, M, N, K, vec, split_k, k_chunk, s);
-  if (block_m == 16 && block_n == 128)
-    return launch<16, 128, 1, 4>(xq, wq, sx, sw, o, ws, cnt, M, N, K, vec, split_k, k_chunk, s);
-  if (block_m == 64 && block_n == 128)
-    return launch<64, 128, 2, 4>(xq, wq, sx, sw, o, ws, cnt, M, N, K, vec, split_k, k_chunk, s);
-  if (block_m == 128 && block_n == 128)
-    return launch<128, 128, 2, 4>(xq, wq, sx, sw, o, ws, cnt, M, N, K, vec, split_k, k_chunk, s);
+#define REPRO_INT8_LAUNCH(BM, BN, WM, WN)                                                    \
+  return launch<BM, BN, WM, WN>(xq, wq, sx, sw, o, ws, cnt, M, N, K, vec, split_k, k_chunk, \
+                                batch, x_shared, s)
+  if (block_m == 16 && block_n == 64) REPRO_INT8_LAUNCH(16, 64, 1, 4);
+  if (block_m == 16 && block_n == 128) REPRO_INT8_LAUNCH(16, 128, 1, 4);
+  if (block_m == 64 && block_n == 128) REPRO_INT8_LAUNCH(64, 128, 2, 4);
+  if (block_m == 128 && block_n == 128) REPRO_INT8_LAUNCH(128, 128, 2, 4);
+#undef REPRO_INT8_LAUNCH
   return -2;
 }

@@ -22,7 +22,7 @@ Supported kernels and their problem dicts:
   lstm_cell       {batch, d_in, hidden}                    → block_b  (K2 rows a block)
   lstm_seq        {batch, seq, d_in, hidden}               → block_b  (K3 rows a block or cluster)
   lstm_stack      {batch, seq, d_in, hidden, layers}       → block_b  (K4, as K3)
-  int8_matmul     {m, k, n}                                → block_m, block_n, block_k (K5)
+  int8_matmul     {m, k, n[, batch]}                       → block_m, block_n, block_k (K5)
   flash_attention {b, h, sq, sk, d}                        → block_q, block_k (K6)
 
 **The time model.**  The reference's LSTM model is a roofline over weights
@@ -43,7 +43,9 @@ counts the bytes each wave of resident blocks moves at the share of the
 memory rate that its loads in flight can draw, the bytes of the busiest SM,
 a fixed launch cost, and what each extra chunk of K costs (its partial
 sums, and its prologue); chunks shorter than the kernel's cp.async ring are
-not candidates.  K6 has one built tile per type: its model is its roofline.
+not candidates.  A batch of E products (the MoE expert einsums, one launch)
+counts the tiles, bytes and operations of all E: a split of K that fills
+the card for one product leaves E of them over-split.  K6 has one built tile per type: its model is its roofline.
 
 The cache key is ``kernel|dims|dtype|backend|chip.name:smem_per_block``;
 the disk file (``<tmpdir>/repro_torch_autotune_cache.json``, relocated by
@@ -287,10 +289,12 @@ def _lstm_cell_analyze(p: Mapping[str, int], c: Mapping[str, int], dtype: str = 
 def _int8_matmul_candidates(p: Mapping[str, int]) -> list[dict]:
     """The built tiles for the problem's rows (16-row tiles for decode, m <=
     16; 64- and 128-row tiles above), times every K chunk, a multiple of
-    BLOCK_K, that gives a distinct number of chunks."""
+    BLOCK_K, that gives a distinct number of chunks (at most 65535 / batch
+    of them: the batch shares the kernel's grid z with the chunks)."""
     pairs = [t for t in _k5.TILES if (t[0] == _k5.SMALL_M) == (p["m"] <= _k5.SMALL_M)]
+    most = 65535 // p.get("batch", 1)
     return [{"block_m": bm, "block_n": bn, "block_k": bk}
-            for bm, bn in pairs for bk in k_chunks(p["k"])]
+            for bm, bn in pairs for bk in k_chunks(p["k"]) if -(-p["k"] // bk) <= most]
 
 
 def k_chunks(k: int) -> list[int]:
@@ -302,19 +306,24 @@ def k_chunks(k: int) -> list[int]:
     return [per * _k5.BLOCK_K for per in _even_tiles(-(-k // _k5.BLOCK_K)) if per >= ring]
 
 
+def _k5_plan(p: Mapping[str, int], c: Mapping[str, int]):
+    return _k5.plan_for(p["m"], p["k"], p["n"], c["block_m"], c["block_n"], c["block_k"],
+                        p.get("batch", 1))
+
+
 def _int8_matmul_analyze(p: Mapping[str, int], c: Mapping[str, int], dtype: str = "int8",
                          chip: H100Chip = DEFAULT_CHIP) -> _Analysis | None:
-    m, k, n = p["m"], p["k"], p["n"]
+    m, k, n, e = p["m"], p["k"], p["n"], p.get("batch", 1)
     try:
-        plan = _k5.plan_for(m, k, n, c["block_m"], c["block_n"], c["block_k"])
+        plan = _k5_plan(p, c)
     except ValueError:
         return None
     bm, bn = plan.block_m, plan.block_n
     m_tiles, n_tiles = -(-m // bm), -(-n // bn)
-    blocks = m_tiles * n_tiles * plan.split_k
     # the weight is read once per row of tiles, x once per column of tiles
-    traffic = k * n * m_tiles + m * k * n_tiles + 4 * m * n + 4 * (m * n_tiles + n * m_tiles)
-    return _Analysis(float(traffic), _k5.smem_bytes(bm, bn), blocks,
+    traffic = e * (k * n * m_tiles + m * k * n_tiles + 4 * m * n
+                   + 4 * (m * n_tiles + n * m_tiles))
+    return _Analysis(float(traffic), _k5.smem_bytes(bm, bn), plan.blocks(m, n, e),
                      _dot(_k5_features(p, plan, chip), K5_FIT))
 
 
@@ -324,13 +333,13 @@ def _k5_features(p: Mapping[str, int], plan, chip: H100Chip) -> tuple[float, ...
     of 16-row tiles and of the others, bytes of the busiest SM of 64- and
     of 128-row tiles): the grid runs in waves of the blocks the SMs hold at
     once (registers, shared memory), and a wave draws the memory rate in
-    proportion to its loads in flight."""
-    m, k, n = p["m"], p["k"], p["n"]
+    proportion to its loads in flight.  A batch's E products count E times
+    over, in one grid."""
+    m, k, n, e = p["m"], p["k"], p["n"], p.get("batch", 1)
     bm, bn = plan.block_m, plan.block_n
     m_tiles, n_tiles = -(-m // bm), -(-n // bn)
-    tiles = m_tiles * n_tiles
-    blocks = tiles * plan.split_k
-    traffic = k * n * m_tiles + m * k * n_tiles + 4 * m * n
+    blocks = plan.blocks(m, n, e)
+    traffic = e * (k * n * m_tiles + m * k * n_tiles + 4 * m * n)
     small = bm == _k5.SMALL_M
     full = K5_INFLIGHT_FULL * (1.0 if small else K5_INFLIGHT_BIG)
     threads = _k5.threads(bm, bn)
@@ -346,9 +355,9 @@ def _k5_features(p: Mapping[str, int], plan, chip: H100Chip) -> tuple[float, ...
         left -= wave
         moved += wave * per_block / (chip.hbm_bw * min(1.0, wave * flight / full))
     moved *= chip.hbm_bw  # bytes at full rate: the fit scales them
-    ops = 2.0 * m_tiles * bm * n_tiles * bn * k / min(1.0, blocks / chip.sms)
+    ops = 2.0 * e * m_tiles * bm * n_tiles * bn * k / min(1.0, blocks / chip.sms)
     # each chunk adds its real rows into the int32 workspace, the last reads them back
-    partial = (plan.split_k + 1) * m * n * 4 if plan.split_k > 1 else 0.0
+    partial = e * (plan.split_k + 1) * m * n * 4 if plan.split_k > 1 else 0.0
     splits = plan.split_k - 1
     # the bytes of the busiest SM, at its share of the rate: a grid a little
     # over a multiple of the SMs leaves some of them two blocks' work
@@ -430,9 +439,7 @@ def features(kernel: str, problem: Mapping[str, int], candidate: Mapping[str, in
                 _cluster_features(waves, problem.get("layers", 1), problem["seq"],
                                   plan.block_b, -(-problem["seq"] // plan.chunk)))
     if kernel == "int8_matmul":
-        plan = _k5.plan_for(problem["m"], problem["k"], problem["n"], candidate["block_m"],
-                            candidate["block_n"], candidate["block_k"])
-        return "int8_matmul", _k5_features(problem, plan, chip)
+        return "int8_matmul", _k5_features(problem, _k5_plan(problem, candidate), chip)
     return None
 
 

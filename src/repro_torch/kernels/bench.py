@@ -172,9 +172,15 @@ def candidate_calls(kernel: str, problem: dict, dtype: str = "float32", device=N
                     packed=quantized),),
                 lambda: lstm_seq_plain(x, *operands[0], impl=impl, packed=quantized)[:1])
     if kernel == "int8_matmul":
-        m, k, n = problem["m"], problem["k"], problem["n"]
-        xq, sx = quantize_rowwise(randn(m, k))
-        wq, sw = quantize_colwise(randn(k, n))
+        m, k, n, e = problem["m"], problem["k"], problem["n"], problem.get("batch")
+        if e:  # E products: their own rows, one weight copied E times on the device
+            xq, sx = quantize_rowwise(randn(e * m, k))
+            xq, sx = xq.reshape(e, m, k), sx.reshape(e, m, 1)
+            wq, sw = (t.expand(e, *t.shape).contiguous()
+                      for t in quantize_colwise(randn(k, n)))
+        else:
+            xq, sx = quantize_rowwise(randn(m, k))
+            wq, sw = quantize_colwise(randn(k, n))
         return (lambda c: lambda: (int8_matmul(xq, wq, sx, sw, block_m=c["block_m"],
                                                block_n=c["block_n"], block_k=c["block_k"]),),
                 lambda: (int8_matmul_plain(xq, wq, sx, sw),))

@@ -57,7 +57,7 @@ ENTRY_ARGS = {
     "repro_lstm_seq": 23,
     "repro_lstm_seq_cluster_occupancy": 3,
     "repro_lstm_stack": 26,
-    "repro_int8_matmul": 16,
+    "repro_int8_matmul": 18,
     "repro_flash_attention": 14,
 }
 

@@ -1,5 +1,5 @@
-"""Core transformer layers of the dense family: norms, RoPE, GQA attention,
-MLP, embedding.
+"""Core transformer layers: norms, RoPE, GQA and MLA attention, MLP,
+embedding.
 
 Pure functions over parameter dictionaries, as in the JAX package: each
 module exposes ``*_defs(cfg) -> ParamDef tree`` and ``*_apply(params, ...)``.
@@ -27,7 +27,11 @@ Differences from the JAX package, all of them without effect on the numbers:
 * The cache write is in place (``cache_update`` "dus" and "onehot" are the
   same write on one device), where JAX returns a new cache.
 
-MLA attention comes with its family (ROADMAP Queue A item 8).
+MLA attention (DeepSeek-V3) has a prefill form that decompresses K/V per
+head and runs ``run_attention`` (q/k of width nope + rope, v of its own
+width), and decode and chunk forms that attend over the compressed
+(c, k_rope) cache with ``q_nope`` absorbed through ``wk_b``, one position
+per row as for GQA.
 """
 from __future__ import annotations
 
@@ -294,6 +298,115 @@ def gqa_decode_apply(params, x, cache_k, cache_v, pos, cfg: ArchConfig, *, rope:
     out = attention_decode(q, k_cache, v_cache, pos)
     out = qeinsum("bshe,hed->bsd", out, params["wo"])
     return out, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V3): compressed-KV attention
+# ---------------------------------------------------------------------------
+def mla_defs(cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": ParamDef((d, m.q_lora_rank), ("embed", None)),
+        "q_norm": rmsnorm_defs(m.q_lora_rank),
+        "wq_b": ParamDef((m.q_lora_rank, h, qd), (None, "heads", None)),
+        "wkv_a": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None)),
+        "kv_norm": rmsnorm_defs(m.kv_lora_rank),
+        "wk_b": ParamDef((m.kv_lora_rank, h, m.qk_nope_head_dim), (None, "heads", None)),
+        "wv_b": ParamDef((m.kv_lora_rank, h, m.v_head_dim), (None, "heads", None)),
+        "wo": ParamDef((h, m.v_head_dim, d), ("heads", None, "embed")),
+    }
+
+
+def _mla_q(params, x, cfg, positions):
+    m = cfg.mla
+    cq = qeinsum("bsd,dr->bsr", x, params["wq_a"])
+    cq = rmsnorm(params["q_norm"], cq, cfg.norm_eps)
+    q = qeinsum("bsr,rhe->bshe", cq, params["wq_b"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(params, x, cfg, positions):
+    m = cfg.mla
+    ckv = qeinsum("bsd,dr->bsr", x, params["wkv_a"])
+    c, k_rope = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+    c = rmsnorm(params["kv_norm"], c, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c, k_rope  # (B,S,r), (B,S,rope_d)
+
+
+def mla_prefill_attn(params, x, cfg: ArchConfig, *, causal: bool = True):
+    """Train/prefill MLA: decompress K/V per head, then standard attention
+    (q/k of width nope + rope against v of width ``v_head_dim``).  Returns
+    (out, (c, k_rope)), the compressed cache rows for a prefill."""
+    m = cfg.mla
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c, k_rope = _mla_ckv(params, x, cfg, positions)
+    k_nope = qeinsum("bsr,rhe->bshe", c, params["wk_b"])
+    v = qeinsum("bsr,rhe->bshe", c, params["wv_b"])
+    h = cfg.num_heads
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], h, m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = run_attention(cfg, q, k, v, causal=causal)  # kv heads == q heads (decompressed)
+    return qeinsum("bshe,hed->bsd", out, params["wo"]), (c, k_rope)
+
+
+def mla_apply(params, x, cfg: ArchConfig, *, causal: bool = True):
+    """Train/prefill MLA (see :func:`mla_prefill_attn`)."""
+    return mla_prefill_attn(params, x, cfg, causal=causal)[0]
+
+
+def _mla_absorbed(params, q_nope, q_rope, cache_c, cache_krope, valid, cfg, dtype):
+    """Attention over the compressed cache: q_nope absorbed through wk_b
+    into the latent space, the scores ``(q_abs·c + q_rope·k_rope) /
+    sqrt(nope + rope)`` in f32 with the cache upcast, ``valid`` (B, T, S)
+    masking the dead rows, the output back through wv_b and wo."""
+    m = cfg.mla
+    q_abs = qeinsum("bqhe,rhe->bqhr", q_nope, params["wk_b"])  # (B,T,H,r)
+    s = torch.einsum("bqhr,bkr->bhqk", q_abs.to(torch.float32), cache_c.to(torch.float32))
+    s = s + torch.einsum("bqhe,bke->bhqk", q_rope.to(torch.float32),
+                         cache_krope.to(torch.float32))
+    s = s / _sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = _where_valid(valid[:, None], s)
+    p = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhqk,bkr->bqhr", p, cache_c.to(torch.float32)).to(dtype)
+    out = qeinsum("bqhr,rhe->bqhe", o_c, params["wv_b"])
+    return qeinsum("bshe,hed->bsd", out, params["wo"])
+
+
+def mla_decode_apply(params, x, cache_c, cache_krope, pos, cfg: ArchConfig):
+    """Absorbed-MLA decode: one token a row at ``pos`` (B,), attending
+    directly over the compressed cache, O(S·r) a step instead of O(S·h·d).
+    Returns (out, cache_c, cache_krope), the caches written in place."""
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)  # (B,1,H,*)
+    c_new, krope_new = _mla_ckv(params, x, cfg, positions)  # (B,1,r), (B,1,rd)
+    cache_c = write_cache(cache_c, c_new, pos, cfg)
+    cache_krope = write_cache(cache_krope, krope_new, pos, cfg)
+    valid = torch.arange(cache_c.shape[1], device=x.device)[None, None, :] <= pos[:, None, None]
+    out = _mla_absorbed(params, q_nope, q_rope, cache_c, cache_krope, valid, cfg, x.dtype)
+    return out, cache_c, cache_krope
+
+
+def mla_chunk_apply(params, x, cache_c, cache_krope, pos, cfg: ArchConfig):
+    """Absorbed-MLA chunk: ``mla_decode_apply`` generalized to T queries a
+    row at positions [pos[b], pos[b]+T).  The chunk's compressed rows are
+    written in place and every query attends causally over the compressed
+    cache, the decode step's numerical path."""
+    t = x.shape[1]
+    positions = pos[:, None] + torch.arange(t, device=x.device)  # (B, T)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)  # (B,T,H,*)
+    c_new, krope_new = _mla_ckv(params, x, cfg, positions)  # (B,T,r), (B,T,rd)
+    cache_c = write_cache_span(cache_c, c_new, pos)
+    cache_krope = write_cache_span(cache_krope, krope_new, pos)
+    valid = torch.arange(cache_c.shape[1], device=x.device)[None, None, :] <= positions[:, :, None]
+    out = _mla_absorbed(params, q_nope, q_rope, cache_c, cache_krope, valid, cfg, x.dtype)
+    return out, cache_c, cache_krope
 
 
 # ---------------------------------------------------------------------------

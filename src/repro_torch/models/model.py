@@ -1,9 +1,15 @@
 """Model API: param_defs / init_model / forward / prefill / decode_step /
 prefill_chunk / decode_verify / commit_verify.
 
-Ported so far: the dense and vlm families.  The other families (moe,
-deepseek, ssm, hybrid, audio) and the loss raise ``NotImplementedError``
-until they are ported (ROADMAP Queue A item 8).
+Ported so far: the dense and vlm families, and the moe family: granite-moe
+(GQA attention + MoE) and deepseek (MLA attention; ``first_k_dense`` leading
+MLA + dense-MLP blocks in ``dense_blocks``, then MLA + MoE blocks in
+``blocks``; the compressed (c, k_rope) cache spans both stacks, the first
+``first_k_dense`` layers of it the dense ones').  The other families (ssm,
+hybrid, audio) raise ``NotImplementedError`` until they are ported (ROADMAP
+Queue A item 8); the loss, and deepseek's multi-token-prediction head, whose
+parameters (``mtp``) are drawn but not used when serving, come with training
+(item 13).
 
 Decode, chunked prefill and verify take one position per row (an int for
 all rows, or a (B,) tensor), where the JAX package takes a scalar and maps
@@ -33,10 +39,11 @@ from repro_torch.models.quant import (
     QuantTensor,
     contract_axes,
     layer_of,
+    lead_axes,
     quantize_weight,
 )
 
-_PORTED = ("dense", "vlm")
+_PORTED = ("dense", "vlm", "moe")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -51,19 +58,32 @@ def _require_ported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 def param_defs(cfg: ArchConfig) -> dict:
     _require_ported(cfg)
-    return {
-        "embed": embed_defs(cfg),
-        "final_norm": T.norm_defs(cfg),
-        "blocks": stacked(cfg.num_layers, T.dense_block_defs(cfg)),
-    }
+    defs: dict[str, Any] = {"embed": embed_defs(cfg), "final_norm": T.norm_defs(cfg)}
+    if cfg.family in ("dense", "vlm"):
+        defs["blocks"] = stacked(cfg.num_layers, T.dense_block_defs(cfg))
+    elif cfg.mla is None:  # moe
+        defs["blocks"] = stacked(cfg.num_layers, T.moe_block_defs(cfg))
+    else:  # deepseek
+        k = cfg.first_k_dense
+        defs["dense_blocks"] = stacked(k, T.mla_dense_block_defs(cfg))
+        defs["blocks"] = stacked(cfg.num_layers - k, T.mla_moe_block_defs(cfg))
+        if cfg.mtp:
+            defs["mtp"] = {
+                "norm_h": T.norm_defs(cfg),
+                "norm_e": T.norm_defs(cfg),
+                "proj": ParamDef((2 * cfg.d_model, cfg.d_model), (None, "embed")),
+                "block": T.mla_dense_block_defs(cfg),
+            }
+    return defs
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator, device=None, *,
                quantize: bool = False):
     """Random parameters from ``generator`` on ``device`` (``None`` means the
     card).  A stacked leaf is drawn one layer at a time into its stacked
-    tensor; with ``quantize`` each layer of a projection weight is quantized
-    as soon as it is drawn, so no full-precision copy of the stack exists.
+    tensor; with ``quantize`` each layer of a projection weight (all its
+    experts at once) is quantized as soon as it is drawn, so no
+    full-precision copy of the stack exists.
     The numbers drawn do not depend on ``quantize``: the quantized model is
     the full-precision one, quantized."""
     dev = resolve_device(device)
@@ -77,7 +97,8 @@ def init_model(cfg: ArchConfig, generator: torch.Generator, device=None, *,
         for i in range(d.shape[0]):
             w = init_params(one, generator, dev)
             if quant:
-                w = quantize_weight(w, lead=0, n_contract=contract_axes(key, w.dim()))
+                lead = lead_axes(one.logical)
+                w = quantize_weight(w, lead=lead, n_contract=contract_axes(key, w.dim() - lead))
                 if out is None:
                     out = QuantTensor(
                         torch.empty((d.shape[0], *w.q.shape), dtype=w.q.dtype, device=dev),
@@ -100,7 +121,7 @@ def init_model(cfg: ArchConfig, generator: torch.Generator, device=None, *,
 
 
 # ---------------------------------------------------------------------------
-# The layer stack: a Python loop over layers
+# The layer stacks: a Python loop over layers
 # ---------------------------------------------------------------------------
 def _stack_len(stack) -> int:
     leaf = tree_leaves(stack)[0]
@@ -111,29 +132,61 @@ def _layer(stack, i: int):
     return tree_map(lambda t: layer_of(t, i), stack)
 
 
-def run_stack(stack, x, body, cfg: ArchConfig):
-    """body(p, x) -> (x, aux).  Returns (x, aux summed over layers)."""
+def _bodies(cfg: ArchConfig):
+    """The block bodies (apply, prefill, chunk, decode): MLA's, or the GQA
+    block's (dense, vlm and granite-moe; each block's FFN, MLP or MoE, by its
+    params)."""
+    _require_ported(cfg)
+    bodies = ((T.mla_block_apply, T.mla_block_prefill, T.mla_block_chunk, T.mla_block_decode)
+              if cfg.mla is not None else
+              (T.dense_block_apply, T.dense_block_prefill, T.dense_block_chunk,
+               T.dense_block_decode))
+    return [partial(body, cfg=cfg) for body in bodies]
+
+
+def _stacks(params) -> list:
+    """The layer stacks in order: deepseek's leading dense blocks, then the
+    blocks every family has."""
+    return [params[key] for key in ("dense_blocks", "blocks") if key in params]
+
+
+def cache_keys(cfg: ArchConfig) -> tuple[str, str]:
+    """The decode cache's leaves: the compressed (c, k_rope) pair of MLA,
+    K and V otherwise."""
+    return ("c", "krope") if cfg.mla is not None else ("k", "v")
+
+
+def run_stack(stacks, x, body, cfg: ArchConfig):
+    """body(p, x) -> (x, aux) over the layers of ``stacks``.  Returns (x,
+    aux summed over layers)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(_stack_len(stack)):
-        x, a = body(_layer(stack, i), x)
-        aux = aux + a
+    for stack in stacks:
+        for i in range(_stack_len(stack)):
+            x, a = body(_layer(stack, i), x)
+            aux = aux + a
     return x, aux
 
 
-def run_stack_prefill(stack, x, body, cfg: ArchConfig):
-    """body(p, x) -> (x, cache slices).  Returns (x, stacked cache)."""
+def run_stack_prefill(stacks, x, body, cfg: ArchConfig):
+    """body(p, x) -> (x, cache slices) over the layers of ``stacks``.
+    Returns (x, the cache slices stacked over all layers)."""
     outs = []
-    for i in range(_stack_len(stack)):
-        x, c = body(_layer(stack, i), x)
-        outs.append(c)
+    for stack in stacks:
+        for i in range(_stack_len(stack)):
+            x, c = body(_layer(stack, i), x)
+            outs.append(c)
     return x, tuple(torch.stack(ts) for ts in zip(*outs))
 
 
-def run_stack_decode(stack, caches, x, body, pos, cfg: ArchConfig):
-    """body(p, x, cache, pos) -> (x, cache).  ``caches`` is a tuple of
-    stacked tensors; each layer writes its slices in place."""
-    for i in range(_stack_len(stack)):
-        x, _ = body(_layer(stack, i), x, tuple(c[i] for c in caches), pos)
+def run_stack_decode(stacks, caches, x, body, pos, cfg: ArchConfig):
+    """body(p, x, cache, pos) -> (x, cache) over the layers of ``stacks``.
+    ``caches`` is a tuple of tensors stacked over all layers; each layer
+    writes its slices in place."""
+    layer = 0
+    for stack in stacks:
+        for i in range(_stack_len(stack)):
+            x, _ = body(_layer(stack, i), x, tuple(c[layer] for c in caches), pos)
+            layer += 1
     return x, caches
 
 
@@ -152,20 +205,22 @@ def _embed_tokens(params, tokens, cfg: ArchConfig, frontend_embeds=None):
 # Forward → final hidden states; prefill → (last logits, cache); decode
 # ---------------------------------------------------------------------------
 def forward(params, tokens, cfg: ArchConfig, frontend_embeds=None):
-    _require_ported(cfg)
+    """tokens: (B, S) → (final hidden states (B, S, D), the MoE load-balance
+    loss summed over layers; 0 for the dense family)."""
+    apply, _, _, _ = _bodies(cfg)
     x = _embed_tokens(params, tokens, cfg, frontend_embeds)
-    x, aux = run_stack(params["blocks"], x, partial(T.dense_block_apply, cfg=cfg), cfg)
+    x, aux = run_stack(_stacks(params), x, apply, cfg)
     return T.apply_norm(cfg, params["final_norm"], x), aux
 
 
 def prefill(params, tokens, cfg: ArchConfig, frontend_embeds=None):
-    """tokens: (B, S) → (last-position logits (B, V) f32, cache {"k", "v"}
-    of shape (L, B, S, KV, hd))."""
-    _require_ported(cfg)
+    """tokens: (B, S) → (last-position logits (B, V) f32, cache): {"k", "v"}
+    of shape (L, B, S, KV, hd), or MLA's {"c": (L, B, S, kv_lora_rank),
+    "krope": (L, B, S, qk_rope_head_dim)}."""
+    _, body, _, _ = _bodies(cfg)
     x = _embed_tokens(params, tokens, cfg, frontend_embeds)
-    x, (k, v) = run_stack_prefill(params["blocks"], x, partial(T.dense_block_prefill, cfg=cfg),
-                                  cfg)
-    cache: dict[str, Any] = {"k": k, "v": v}
+    x, leaves = run_stack_prefill(_stacks(params), x, body, cfg)
+    cache: dict[str, Any] = dict(zip(cache_keys(cfg), leaves))
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden[:, -1:], cfg)[:, 0]
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
@@ -182,13 +237,12 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
     for all rows or a (B,) tensor, one per row (the JAX package takes a
     scalar and maps the step over a pool's slots).  The cache is written in
     place and returned."""
-    _require_ported(cfg)
+    _, _, _, body = _bodies(cfg)
     b = token.shape[0]
     pos = _positions(pos, b, token.device)
     x = embed_apply(params["embed"], token, cfg)
-    x, (k, v) = run_stack_decode(params["blocks"], (cache["k"], cache["v"]), x,
-                                 partial(T.dense_block_decode, cfg=cfg), pos, cfg)
-    cache = {"k": k, "v": v}
+    keys = cache_keys(cfg)
+    x, _ = run_stack_decode(_stacks(params), tuple(cache[k] for k in keys), x, body, pos, cfg)
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden, cfg)[:, 0]
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
@@ -202,7 +256,7 @@ def _chunk_forward(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=
     tokens a row against a full-capacity decode cache at positions
     [pos[b], pos[b]+T).  Returns (final hidden states before the norm,
     (B, T, D); the cache, written in place)."""
-    _require_ported(cfg)
+    _, _, body, _ = _bodies(cfg)
     b, t = tokens.shape
     pos = _positions(pos, b, tokens.device)
     x = embed_apply(params["embed"], tokens, cfg)
@@ -215,9 +269,9 @@ def _chunk_forward(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=
         fe = frontend_embeds[rows, start[:, None] + steps]
         sel = (pos[:, None] + steps)[..., None] < cfg.frontend_seq
         x = torch.where(sel, fe.to(x.dtype), x)
-    x, (k, v) = run_stack_decode(params["blocks"], (cache["k"], cache["v"]), x,
-                                 partial(T.dense_block_chunk, cfg=cfg), pos, cfg)
-    return x, {"k": k, "v": v}
+    keys = cache_keys(cfg)
+    x, _ = run_stack_decode(_stacks(params), tuple(cache[k] for k in keys), x, body, pos, cfg)
+    return x, cache
 
 
 def prefill_chunk(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=None):
@@ -237,8 +291,8 @@ def decode_verify(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=N
     """Score T candidate tokens a row in one pass at positions [pos, pos+T):
     the last committed next-input token, then T-1 drafts.  Returns logits
     for every position, (B, T, V) f32: logits[:, j] is the next-token
-    distribution after tokens[:, :j+1].  The K/V rows of rejected
-    candidates are dead data past the committed prefix (see
+    distribution after tokens[:, :j+1].  The K/V (or MLA c/k_rope) rows of
+    rejected candidates are dead data past the committed prefix (see
     ``layers.attention_chunk``), so attention caches need no rollback."""
     x, cache = _chunk_forward(params, cache, tokens, pos, cfg, frontend_embeds)
     hidden = T.apply_norm(cfg, params["final_norm"], x)

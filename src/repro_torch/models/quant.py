@@ -19,7 +19,12 @@ Pallas kernel runs only when M, K and N are multiples of 128 (a TPU tiling
 constraint) and the jnp reference otherwise; here every fast-path call
 launches the kernel on a CUDA tensor (it masks ragged edges) and takes the
 kernel's plain version on a CPU tensor.  The int32 sum is exact, so both give
-the same bits.
+the same bits.  A spec with a batch label (the MoE expert einsums, which the
+JAX package maps over the label with ``vmap``) is one row quantization of
+all batch x M rows and ONE batched kernel launch; an x broadcast over the
+label (``Tensor.expand``: every expert sees the same tokens) is quantized
+once.  Row quantization is per row, so the bytes are those of a loop over
+the label.
 """
 from __future__ import annotations
 
@@ -84,6 +89,14 @@ def quantize_weight(w: torch.Tensor, *, lead: int, n_contract: int) -> QuantTens
     return QuantTensor(q=q2.reshape(w.shape), scale=s2.reshape(*w.shape[:lead], *n_dims))
 
 
+def lead_axes(logical) -> int:
+    """Leading stack/batch axes of a ParamDef's logical axis names."""
+    lead = 0
+    while lead < len(logical) and logical[lead] in _LEAD_AXES:
+        lead += 1
+    return lead
+
+
 def contract_axes(key: str, core_nd: int) -> int:
     """Contraction axes of a projection weight past its lead axes: 3-D
     attention output weights (h, hd, d) contract two, everything else one."""
@@ -106,9 +119,7 @@ def quantize_params(params, cfg):
             return {k: walk(k, v, d[k]) for k, v in p.items()}
         if key not in QUANT_KEYS or isinstance(p, QuantTensor):
             return p
-        lead = 0
-        while lead < len(d.logical) and d.logical[lead] in _LEAD_AXES:
-            lead += 1
+        lead = lead_axes(d.logical)
         n_contract = contract_axes(key, p.dim() - lead)
         return quantize_weight(p, lead=lead, n_contract=n_contract)
 
@@ -147,19 +158,25 @@ def qeinsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
             and out == "".join(batch + xm + wout))
     if not fast:
         return _einsum(spec, x, dequantize(w)).to(x.dtype)
-    if batch:
-        sub = f"{s1[1:]},{s2[1:]}->{out[1:]}"  # all three start with the label
-        return torch.stack([qeinsum(sub, x[i], QuantTensor(w.q[i], w.scale[i]))
-                            for i in range(x.shape[0])])
-    nm, nk = len(xm), len(contract)
-    xm_shape, n_shape = tuple(x.shape[:nm]), tuple(w.q.shape[nk:])
-    k = math.prod(x.shape[nm:])
-    if math.prod(w.q.shape[:nk]) != k:
+    nm, nk, nb = len(xm), len(contract), len(batch)
+    xm_shape, n_shape = tuple(x.shape[nb:nb + nm]), tuple(w.q.shape[nb + nk:])
+    k = math.prod(x.shape[nb + nm:])
+    if math.prod(w.q.shape[nb:nb + nk]) != k or x.shape[:nb] != w.q.shape[:nb]:
         raise ValueError(f"qeinsum {spec!r}: x {tuple(x.shape)} and w {tuple(w.q.shape)} "
-                         "disagree on the contraction")
-    x2 = x.reshape(math.prod(xm_shape) if xm_shape else 1, k)
-    q2 = w.q.reshape(k, -1)
-    s2_ = w.scale.reshape(-1)
-    xq, xs = quantize_rowwise(x2)
-    y2 = int8_matmul(xq, q2.contiguous(), xs.contiguous(), s2_.contiguous())
-    return y2.reshape(*xm_shape, *n_shape).to(x.dtype)
+                         "disagree on the contraction or the batch")
+    m = math.prod(xm_shape)
+    if not batch:
+        xq, xs = quantize_rowwise(x.reshape(m, k))
+        y = int8_matmul(xq, w.q.reshape(k, -1).contiguous(), xs.contiguous(),
+                        w.scale.reshape(-1).contiguous())
+        return y.reshape(*xm_shape, *n_shape).to(x.dtype)
+    e = x.shape[0]
+    if x.stride(0) == 0:  # one block of rows shared by every batch index: quantized once
+        xq, xs = quantize_rowwise(x[0].reshape(m, k))
+        xq, xs = xq.expand(e, m, k), xs.expand(e, m, 1)
+    else:
+        xq, xs = quantize_rowwise(x.reshape(e * m, k))
+        xq, xs = xq.reshape(e, m, k), xs.reshape(e, m, 1)
+    y = int8_matmul(xq, w.q.reshape(e, k, -1).contiguous(), xs,
+                    w.scale.reshape(e, -1).contiguous())
+    return y.reshape(e, *xm_shape, *n_shape).to(x.dtype)

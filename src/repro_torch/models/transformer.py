@@ -1,8 +1,14 @@
 """Per-family transformer blocks (train/prefill/chunk/decode bodies).
 
-Ported so far: the dense / vlm block (pre-norm GQA attention + SwiGLU or
-GELU MLP).  The MoE, MLA, SSM, hybrid and encoder-decoder blocks come with
-their families (ROADMAP Queue A item 8).
+Ported so far:
+
+  dense / vlm       pre-norm GQA attention + (SwiGLU) MLP
+  moe               GQA attention + top-k MoE FFN (+ shared experts): the
+                    dense bodies, the FFN chosen by the block's params
+  deepseek (moe)    MLA attention + dense MLP (first_k layers) or MoE
+
+The SSM, hybrid and encoder-decoder blocks come with their families
+(ROADMAP Queue A item 8).
 
 Every train/prefill body returns ``(x, aux)`` or ``(x, cache slices)`` as in
 the JAX package; chunk and decode bodies consume the layer's cache slices
@@ -20,12 +26,18 @@ from repro_torch.models.layers import (
     gqa_project_qkv,
     layernorm,
     layernorm_defs,
+    mla_apply,
+    mla_chunk_apply,
+    mla_decode_apply,
+    mla_defs,
+    mla_prefill_attn,
     mlp_apply,
     mlp_defs,
     rmsnorm,
     rmsnorm_defs,
     run_attention,
 )
+from repro_torch.models.moe import moe_apply, moe_defs
 from repro_torch.models.quant import qeinsum
 
 
@@ -67,17 +79,27 @@ def gqa_full(p, x, cfg: ArchConfig, *, causal: bool, rope: bool):
     return qeinsum("bshe,hed->bsd", out, p["wo"]), (k, v)
 
 
+def _ffn(p, x, cfg: ArchConfig):
+    """(x + FFN(ln2(x)), aux): the block's dense MLP (aux 0), or its MoE
+    and the MoE's load-balance loss."""
+    h = apply_norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        y, aux = moe_apply(p["moe"], h, cfg)
+        return x + y, aux
+    return x + mlp_apply(p["mlp"], h, cfg), _zero(x)
+
+
 def dense_block_apply(p, x, cfg: ArchConfig):
+    """The GQA block, with its dense MLP or, for granite-moe, its MoE (the
+    JAX package's ``dense_block_*`` and ``moe_block_*`` bodies, by the
+    block's params)."""
     x = x + gqa_full(p["attn"], apply_norm(cfg, p["ln1"], x), cfg, causal=True, rope=True)[0]
-    x = x + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], x), cfg)
-    return x, _zero(x)
+    return _ffn(p, x, cfg)
 
 
 def dense_block_prefill(p, x, cfg: ArchConfig):
     a, (k, v) = gqa_full(p["attn"], apply_norm(cfg, p["ln1"], x), cfg, causal=True, rope=True)
-    x = x + a
-    x = x + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], x), cfg)
-    return x, (k, v)
+    return _ffn(p, x + a, cfg)[0], (k, v)
 
 
 def dense_block_chunk(p, x, cache, pos, cfg: ArchConfig):
@@ -86,9 +108,7 @@ def dense_block_chunk(p, x, cache, pos, cfg: ArchConfig):
     a, k_cache, v_cache = gqa_chunk_apply(
         p["attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg
     )
-    x = x + a
-    x = x + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], x), cfg)
-    return x, (k_cache, v_cache)
+    return _ffn(p, x + a, cfg)[0], (k_cache, v_cache)
 
 
 def dense_block_decode(p, x, cache, pos, cfg: ArchConfig):
@@ -96,6 +116,61 @@ def dense_block_decode(p, x, cache, pos, cfg: ArchConfig):
     a, k_cache, v_cache = gqa_decode_apply(
         p["attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg
     )
-    x = x + a
-    x = x + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], x), cfg)
-    return x, (k_cache, v_cache)
+    return _ffn(p, x + a, cfg)[0], (k_cache, v_cache)
+
+
+def moe_block_defs(cfg: ArchConfig) -> dict:
+    """granite-moe's block: the GQA block with a MoE for its MLP; its bodies
+    are the ``dense_block_*`` ones."""
+    return {
+        "ln1": norm_defs(cfg),
+        "attn": gqa_defs(cfg),
+        "ln2": norm_defs(cfg),
+        "moe": moe_defs(cfg),
+    }
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek (MLA attention; a dense MLP in the first_k_dense layers, a MoE
+# after).  One set of bodies, the FFN chosen by the block's params (the JAX
+# package's ``mla_dense_block_*`` and ``mla_moe_block_*``).
+# ---------------------------------------------------------------------------
+def mla_dense_block_defs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": norm_defs(cfg),
+        "attn": mla_defs(cfg),
+        "ln2": norm_defs(cfg),
+        "mlp": mlp_defs(cfg),
+    }
+
+
+def mla_moe_block_defs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": norm_defs(cfg),
+        "attn": mla_defs(cfg),
+        "ln2": norm_defs(cfg),
+        "moe": moe_defs(cfg),
+    }
+
+
+def mla_block_apply(p, x, cfg: ArchConfig):
+    x = x + mla_apply(p["attn"], apply_norm(cfg, p["ln1"], x), cfg, causal=True)
+    return _ffn(p, x, cfg)
+
+
+def mla_block_prefill(p, x, cfg: ArchConfig):
+    """The block with the compressed (c, k_rope) cache rows it produces."""
+    a, cache = mla_prefill_attn(p["attn"], apply_norm(cfg, p["ln1"], x), cfg)
+    return _ffn(p, x + a, cfg)[0], cache
+
+
+def mla_block_chunk(p, x, cache, pos, cfg: ArchConfig):
+    c, krope = cache
+    a, c, krope = mla_chunk_apply(p["attn"], apply_norm(cfg, p["ln1"], x), c, krope, pos, cfg)
+    return _ffn(p, x + a, cfg)[0], (c, krope)
+
+
+def mla_block_decode(p, x, cache, pos, cfg: ArchConfig):
+    c, krope = cache
+    a, c, krope = mla_decode_apply(p["attn"], apply_norm(cfg, p["ln1"], x), c, krope, pos, cfg)
+    return _ffn(p, x + a, cfg)[0], (c, krope)

@@ -5,9 +5,12 @@ prefill (``begin_chunked_prefill`` → ``chunked_prefill_step`` →
 ``masked_speculative_step``, with ``poison_slot`` / ``resume_into_slot``
 for quarantine and re-admission.
 
-Ported: the contiguous engine of the dense family, in full precision or
-with int8 weights (``ArchConfig.quant = "int8"``, every attention and MLP
-projection through the ``int8_matmul`` kernel), ``spec_slack`` included.
+Ported: the contiguous engine of the dense and moe families (granite-moe's
+GQA attention and deepseek's MLA over its compressed cache, the MoE FFN on
+its dense path), in full precision or with int8 weights (``ArchConfig.quant
+= "int8"``, every attention, MLP and expert projection through the
+``int8_matmul`` kernel, each expert einsum one launch over the expert
+axis), ``spec_slack`` included.
 The options whose modules are not ported raise ``NotImplementedError`` at
 construction: the paged cache and int8 KV pages (ROADMAP Queue A item 10),
 fault injection and the energy budget (item 11).  Without the paged pool,
@@ -94,7 +97,7 @@ def _refuse_unported(sc: ServeConfig) -> None:
 
 
 class InferenceEngine:
-    """Batched prefill → decode loop (dense family)."""
+    """Batched prefill → decode loop (dense and moe families)."""
 
     def __init__(self, cfg: ArchConfig, params=None, sc: ServeConfig | None = None,
                  seed: int = 0, device=None):

@@ -1,9 +1,10 @@
 """Decode-cache definitions of the port's families.
 
-  GQA families    k/v: (L, B, S, KV, hd)   in ``cfg.kv_dtype or cfg.dtype``
+  GQA families    k/v: (L, B, S, KV, hd)                      in ``cfg.kv_dtype or cfg.dtype``
+  MLA (deepseek)  c: (L, B, S, r), krope: (L, B, S, rope_d)   compressed, same type
 
 ParamDef trees, as in the JAX package, so the cache is initialised by the
-same machinery as the weights.  The MLA, SSM, hybrid and audio layouts come
+same machinery as the weights.  The SSM, hybrid and audio layouts come
 with their families (ROADMAP Queue A item 8); the paged layout and its int8
 pages (``page_defs``, ``quantize_kv``) with the paged pool (item 10).
 """
@@ -26,11 +27,17 @@ def _kv(num_layers: int, b: int, s: int, kv: int, hd: int, dtype) -> ParamDef:
 
 def cache_defs(cfg: ArchConfig, *, batch: int, max_len: int) -> dict:
     f = cfg.family
-    if not (f in ("dense", "vlm") or (f == "moe" and cfg.mla is None)):
+    if f not in ("dense", "vlm", "moe"):
         raise NotImplementedError(f"the {f!r} cache layout is not ported yet "
                                   "(ROADMAP Queue A item 8)")
     l, hd, kv = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
     dt = cfg.kv_dtype or cfg.dtype
+    if cfg.mla is not None:  # deepseek: the compressed cache
+        m = cfg.mla
+        axes = ("layers", "batch", "kv_seq", None)
+        return {"c": ParamDef((l, batch, max_len, m.kv_lora_rank), axes, init="zeros", dtype=dt),
+                "krope": ParamDef((l, batch, max_len, m.qk_rope_head_dim), axes, init="zeros",
+                                  dtype=dt)}
     return {"k": _kv(l, batch, max_len, kv, hd, dt), "v": _kv(l, batch, max_len, kv, hd, dt)}
 
 

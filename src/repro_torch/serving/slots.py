@@ -50,11 +50,10 @@ def grow_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
         shape[axis] = pad
         return torch.cat([x, torch.zeros(shape, dtype=x.dtype, device=x.device)], dim=axis)
 
-    f = cfg.family
-    if f in ("dense", "vlm") or (f == "moe" and cfg.mla is None):
-        return dict(cache, k=grow(cache["k"], 2), v=grow(cache["v"], 2))
-    raise NotImplementedError(f"growing the {f!r} cache is not ported yet "
-                              "(ROADMAP Queue A item 8)")
+    if cfg.family not in ("dense", "vlm", "moe"):
+        raise NotImplementedError(f"growing the {cfg.family!r} cache is not ported yet "
+                                  "(ROADMAP Queue A item 8)")
+    return {key: grow(t, 2) for key, t in cache.items()}  # k/v, or MLA's c/krope
 
 
 @dataclasses.dataclass

@@ -32,6 +32,8 @@ def test_port_files_found():
     # the block-size tuner and the Generator stack
     assert {"autotune.py", "energy.py", "cost_model.py", "candidates.py", "constraints.py",
             "workload.py", "fpga.py", "generator.py"} <= names
+    # the moe family: granite-moe and deepseek-v3 with MLA
+    assert {"moe.py", "granite_moe_3b_a800m.py", "deepseek_v3_671b.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
