@@ -6,7 +6,7 @@
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
 against its plain PyTorch version on the card at the shapes its path uses,
 times kernel, plain version and (where one PyTorch call computes the same
-function) the library, then drives five paths, each with the launch
+function) the library, then drives six paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * the paper-LSTM path — the plan and request batches through ``lstm_apply``
@@ -39,6 +39,20 @@ counters set to 0 just before it and read just after:
   and speculative == plain, token for token.  Every
   expert einsum is ONE K5 launch over the expert axis; the counts a call
   makes are ``k5_per_call``'s;
+* ``serve_ssm`` — the ssm and hybrid families through the same engine, each
+  at full width and full depth: mamba2-780m (48 Mamba2 layers) and zamba2-7b
+  (81 Mamba2 layers, the weight-shared attention block applied 14 times),
+  bf16 with int8 weights and a bf16 twin: ``generate``, the slot path with
+  the replayed decode tick timed and profiled beside the bytes it must move,
+  a chunked prefill while slots decode, verify ticks teacher-forced from the
+  plain chain (each row's conv tail and SSM state rolled to its own accepted
+  count), accept-0, poison/resume, replayed ticks bit for bit equal to eager
+  ones, a 512-token prompt (two 256-token SSD chunks) against its chunked
+  composition, agreement with the bf16 twin >= 0.3, one Mamba2 block and
+  the shared block on the card against the CPU; then both reduced configs
+  in f32 with int8 weights, chunked == blocking and speculative == plain,
+  token for token.  K5 launches 3 a Mamba2 layer and 9 a shared-block
+  application a call (``k5_per_call``);
 * ``flash_attention`` — its public op ``kernels.ops.flash_attention`` at a
   granite-shaped causal case (K6; no model path calls it).
 
@@ -73,7 +87,7 @@ under a 2 s K3 loop beside ``H100Chip.step_power``.
 
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
-the replayed and eager tick times), ``serve_moe``, ``host_path`` (each
+the replayed and eager tick times), ``serve_moe``, ``serve_ssm``, ``host_path`` (each
 kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
@@ -90,6 +104,7 @@ import ctypes
 import dataclasses
 import importlib.util
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -131,9 +146,12 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import quant as quant_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import init_model  # noqa: E402
-from repro_torch.models.params import params_from_numpy, tree_map  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    init_params, params_from_numpy, tree_leaves, tree_map,
+)
 from repro_torch.models.quant import QuantTensor, layer_of, quantize_weight  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
+from repro_torch.serving.kv_cache import cache_defs  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # the f32 rate outside the tensor cores, and the dense tensor-core rates of
@@ -1254,18 +1272,31 @@ BLOCK_TOL, BLOCK_MEAN_TOL = 5e-2, 5e-3
 
 
 def standard_fan_in(params, cfg) -> None:
-    """Rescale the 3-D attention weights of a freshly drawn model to std
-    1/sqrt(width of their contraction), in place.  The reference's fan-in
-    rule (kept by ``init_model``) takes ``shape[-2]`` of a 3-D weight: the
-    head count as the fan-in of wq (32) and wk/wv (8), and the head width
-    (128) as that of wo; at full width that makes every attention row nearly
-    one-hot, so a random model is chaotic: one int8 rounding flips the
-    attended key and two greedy chains part at their first token (agreement
-    0.000 measured on an H100).  The same rule takes the head count (128) for
-    MLA's wq_b, wk_b and wv_b, whose contraction is a rank r (1536, 512), and
-    the value width for its wo (h x v).  Expert weights (E, d, f) are right
-    already: ``shape[-2]`` is their contraction.  After this the attention
-    is smooth and the agreement measures the int8 path, not the chaos."""
+    """Rescale a freshly drawn model in place where its random weights make
+    it chaotic, so that agreement with its bf16 twin measures the int8 path
+    and not the chaos: :func:`attention_fan_in`, and on the ssm and hybrid
+    families :func:`depth_scaled_mamba` and
+    :func:`embedding_at_residual_scale` (``ssm_rescale_check.py`` measures
+    each step on the card)."""
+    attention_fan_in(params, cfg)
+    depth_scaled_mamba(params)
+    embedding_at_residual_scale(params)
+
+
+def attention_fan_in(params, cfg) -> None:
+    """The 3-D attention weights to std 1/sqrt(width of their contraction).
+    The reference's fan-in rule (kept by ``init_model``) takes ``shape[-2]``
+    of a 3-D weight: the head count as the fan-in of wq (32) and wk/wv (8),
+    and the head width (128) as that of wo; at full width that makes every
+    attention row nearly one-hot, so a random model is chaotic: one int8
+    rounding flips the attended key and two greedy chains part at their
+    first token (agreement 0.000 measured on an H100).  The same rule takes
+    the head count (128) for MLA's wq_b, wk_b and wv_b, whose contraction is
+    a rank r (1536, 512), and the value width for its wo (h x v).  Expert
+    weights (E, d, f) are right already: ``shape[-2]`` is their contraction.
+    zamba2's shared block is a GQA attention too (``params["shared"]["attn"]``,
+    one weight set, not stacked); the Mamba2 layers' weights are 2-D, where
+    the rule reads their contraction."""
     d, h = cfg.d_model, cfg.num_heads
     if cfg.mla is None:
         kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -1274,11 +1305,44 @@ def standard_fan_in(params, cfg) -> None:
         m = cfg.mla
         rules = (("wq_b", h, m.q_lora_rank), ("wk_b", h, m.kv_lora_rank),
                  ("wv_b", h, m.kv_lora_rank), ("wo", m.v_head_dim, h * m.v_head_dim))
-    for stack in ("dense_blocks", "blocks"):
-        if stack in params:
-            a = params[stack]["attn"]
-            for name, now, want in rules:
-                a[name].mul_((now / want) ** 0.5)
+    attns = ([params["shared"]["attn"]] if "shared" in params else
+             [params[s]["attn"] for s in ("dense_blocks", "blocks")
+              if s in params and "attn" in params[s]])
+    for a in attns:
+        for name, now, want in rules:
+            a[name].mul_((now / want) ** 0.5)
+
+
+def depth_scaled_mamba(params) -> None:
+    """Each Mamba2 layer's projections (wz, wx, wB, wC, wdt, wo) times
+    1/sqrt(l + 1), l its index in the stack (depth-scaled initialisation,
+    Zhang, Titov & Sennrich 2019).  A random Mamba2 stack is chaotic: each
+    block's gated product y * silu(z) doubles a relative perturbation of its
+    input, and every later block re-amplifies what the earlier ones added,
+    so the int8 path's rounding, a few percent a layer (the gate's output,
+    int8-quantized by row before wo, has a largest entry ~12x its RMS),
+    grows with depth.  Scaled, the first layers keep their size and later
+    ones add less.  ``ssm_rescale_check.py`` on an H100 (80GB HBM3, 700 W):
+    int8 against bf16, mamba2-780m's final hidden states 26% apart before
+    and 5.6% after, zamba2-7b's 20% and 11.3%."""
+    if "mamba" not in params.get("blocks", {}):
+        return
+    m = params["blocks"]["mamba"]
+    depth = torch.arange(1, m["wo"].shape[0] + 1, dtype=torch.float32, device=m["wo"].device)
+    for name in ("wz", "wx", "wB", "wC", "wdt", "wo"):
+        m[name].mul_(depth.rsqrt().to(m[name].dtype)[:, None, None])
+
+
+def embedding_at_residual_scale(params) -> None:
+    """zamba2's (untied) token embedding drawn at std 1 in place of 0.02.
+    Its shared block takes concat(x, x0), x0 the embedding, while the
+    residual x it joins is of order 1: one int8 step of that row is larger
+    than x0's entries, so the int8 engine's shared block loses the token
+    identity it re-injects 14 times where the bf16 twin keeps it.  With it
+    (``ssm_rescale_check.py``, same card): zamba2-7b's hidden states 4.6%
+    apart, 87-92% of argmaxes kept."""
+    if "shared" in params:
+        params["embed"]["tokens"].mul_(1 / 0.02)
 
 
 def check_init_on_card(dev) -> dict:
@@ -1315,7 +1379,13 @@ def k5_per_call(cfg, kind: str) -> int:
     (wq_a, wq_b, wkv_a, wk_b and wv_b decompressing K/V, wo) and 4 at decode
     and chunk (the absorbed wk_b and wv_b contract over non-leading axes and
     go through dequantize, as in the reference); its dense MLP 3; its MoE 3
-    expert launches + 3 of the shared expert."""
+    expert launches + 3 of the shared expert.  A Mamba2 layer makes 3 (wz, wx,
+    wo; wB, wC and wdt are plain products) and an application of zamba2's
+    shared block 9 (w_in, wq, wk, wv, wo, wg, wu, wd, w_out): 144 a call for
+    mamba2-780m, 243 + 14 x 9 = 369 for zamba2-7b."""
+    if cfg.family in ("ssm", "hybrid"):
+        apps = math.ceil(cfg.num_layers / cfg.attn_every) if cfg.family == "hybrid" else 0
+        return 3 * cfg.num_layers + 9 * apps
     if cfg.mla is None:
         return 7 * cfg.num_layers
     attn = 6 if kind == "prefill" else 4
@@ -1620,8 +1690,9 @@ def forced_verify(eng, vpool, chain: dict, chain_logits: list, what: str
     agree = positions = 0
     worst, flips, route_reports = 0.0, [], []
     for tick in range(FORCED_TICKS + 1):
-        e = vpool.slots[0].emitted
-        want = np.asarray([chain[s][e:e + SPEC_K + 1] for s in range(4)])
+        es = [vpool.slots[s].emitted for s in range(4)]  # a slot that flipped is behind
+        n = min(SPEC_K + 1, *(len(chain[s]) - e for s, e in enumerate(es)))
+        want = np.asarray([chain[s][e:e + n] for s, e in enumerate(es)])
         drafts = want[:, :SPEC_K].astype(np.int32)
         if tick == FORCED_TICKS:  # always wrong: the first draft is not the plain token
             drafts = ((want[:, :1] + 1 + np.arange(SPEC_K)) % vocab).astype(np.int32)
@@ -1637,7 +1708,7 @@ def forced_verify(eng, vpool, chain: dict, chain_logits: list, what: str
         tick_flips = []
         for s in range(4):
             for j in range(n):
-                ld = chain_logits[e + j - 1][s]  # decode tick e + j gave chain[s][e + j]
+                ld = chain_logits[es[s] + j - 1][s]  # decode tick e + j gave chain[s][e + j]
                 scale = float(ld.abs().max())
                 worst = max(worst, float((lv[s, j] - ld).abs().max()) / scale)
                 a, b = int(want[s, j]), int(toks[s, j])
@@ -1647,9 +1718,10 @@ def forced_verify(eng, vpool, chain: dict, chain_logits: list, what: str
         if routes and tick_flips:
             route_reports.append(flip_routes(eng, *before, drafts, tick_flips))
         flips += tick_flips
-        if tick < FORCED_TICKS:
+        if tick < FORCED_TICKS:  # each slot commits its accepted drafts, then the chain's token
             for s in range(4):
-                vpool.advance(s, SPEC_K + 1, chain[s][e + SPEC_K])
+                a = int(acc[s])
+                vpool.advance(s, a + 1, chain[s][es[s] + a])
         elif acc.any():
             fail(f"{what}: always-wrong drafts accepted {acc}")
     agreement = agree / positions
@@ -1858,21 +1930,7 @@ def drive_serve_engine(dev, base) -> dict:
         report["speculative"].update(prompts=list(SPEC_PROMPTS), int8_matmul_rows=4 * (SPEC_K + 1))
 
         # -- poison one slot, quarantine it, resume it ------------------------
-        eng.poison_slot(plain, 1)
-        nxt, fin = eng.masked_decode_step(plain)
-        if fin[1] or not fin[[0, 2, 3]].all():
-            fail(f"serve_engine: after poisoning slot 1, finite {fin}")
-        for s in (0, 2, 3):
-            plain.advance(s, 1, int(nxt[s]))
-            chain[s].append(int(nxt[s]))
-        plain.retire(1)
-        context = np.concatenate([prompts[1], np.asarray(chain[1][:-1], np.int32)])
-        eng.resume_into_slot(plain, 1, context, rid=1, budget=ENGINE_BUDGET,
-                             emitted=len(chain[1]), next_tok=chain[1][-1])
-        resumed = {s: [] for s in range(4)}
-        decode_chain(eng, plain, resumed, 2, "serve_engine after resume")
-        report["poison_resume"] = {"finite_after_poison": fin.tolist(),
-                                   "resumed_tokens": resumed[1]}
+        report["poison_resume"] = poison_resume(eng, plain, prompts, chain, "serve_engine")
 
         # -- the replayed ticks against the eager ones -----------------------
         dgraph = eng.step_graphs(plain)[("decode", 0)]
@@ -1977,12 +2035,14 @@ def _quant_leaves(tree):
 
 
 def check_block_card_vs_cpu(eng, dev, stack: str = "blocks",
-                            body=transformer.dense_block_prefill) -> dict:
-    """Layer 0 of ``stack`` of the int8 engine, one full-width decoder block
+                            body=transformer.dense_block_prefill, layered: bool = True) -> dict:
+    """Layer 0 of ``stack`` of the int8 engine (``stack`` itself where it is
+    not ``layered``, as zamba2's one shared block), one full-width block
     (``body``, a prefill body returning (out, cache rows)), on the card and
     on the CPU from the same weights and a 16-token prompt."""
     cfg = eng.cfg
-    p_card = tree_map(lambda t: layer_of(t, 0), eng.params[stack])
+    p_card = tree_map(lambda t: layer_of(t, 0), eng.params[stack]) if layered else \
+        eng.params[stack]
     p_cpu = tree_map(lambda t: QuantTensor(t.q.cpu(), t.scale.cpu())
                      if isinstance(t, QuantTensor) else t.cpu(), p_card)
     toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 16)))
@@ -2006,6 +2066,118 @@ def check_block_card_vs_cpu(eng, dev, stack: str = "blocks",
             "tolerance": f"max {BLOCK_TOL}, mean {BLOCK_MEAN_TOL} x max|cpu|", **worst}
 
 
+def generate_and_slots(eng, prompts, rng, what: str, report: dict):
+    """``generate`` of ``prompts`` (GEN_NEW tokens) and the slot path, into
+    ``report``.  Returns (the slot pool, generate's tokens)."""
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, GEN_NEW)
+    report["generate"] = {"prompts": GEN_PROMPTS, "prompt_len": GEN_LEN,
+                          "new_tokens": GEN_NEW, "seconds": r6(time.perf_counter() - t0)}
+    pool, slot_tokens, tick_ms, slot_finite = slot_path(eng, rng)
+    if not slot_finite:
+        fail(f"{what}: masked_decode_step flagged a live slot non-finite")
+    report["slots"] = {"max_batch": 4, "max_len": 128, "prompts": list(SLOT_PROMPTS),
+                       "tick_ms_median": r6(statistics.median(tick_ms[1:])),
+                       "tokens": slot_tokens}
+    return pool, tokens
+
+
+def chunked_group(eng, rng, what: str, report: dict):
+    """A group of 2 prompts of GROUP_LEN tokens prefilled in chunks of
+    CHUNK_TOKENS while slots 2 and 3 decode, then two ticks of all four.
+    Returns the pool."""
+    vocab = eng.cfg.vocab_size
+    cpool = eng.make_pool()
+    chains = {2 + i: [eng.prefill_into_slot(cpool, 2 + i, p, rid=2 + i, budget=ENGINE_BUDGET)]
+              for i, p in enumerate(rng.integers(0, vocab, n).astype(np.int32)
+                                    for n in DECODING_PROMPTS)}
+    group = rng.integers(0, vocab, (2, GROUP_LEN)).astype(np.int32)
+    st = eng.begin_chunked_prefill(cpool, [0, 1], group, rids=[0, 1],
+                                   budgets=[ENGINE_BUDGET] * 2)
+    chunks = 0
+    while not st.done:
+        eng.chunked_prefill_step(st, CHUNK_TOKENS)
+        chunks += 1
+        decode_chain(eng, cpool, chains, 1, f"{what} chunked prefill")
+    first = eng.finish_chunked_prefill(cpool, st)
+    chains.update({j: [int(first[j])] for j in range(2)})
+    decode_chain(eng, cpool, chains, 2, f"{what} after the group")
+    report["chunked_prefill"] = {"group": [2, GROUP_LEN], "chunk_tokens": CHUNK_TOKENS,
+                                 "chunk_calls": chunks, "first_tokens": first.tolist()}
+    return cpool
+
+
+def verify_steps(eng, rng, what: str, report: dict):
+    """The plain chain of SPEC_PROMPTS (CHAIN_TICKS decode ticks) and, from
+    the same prefills, the teacher-forced verify ticks (:func:`forced_verify`).
+    Returns (plain pool, verify pool, prompts, chain, the last drafts)."""
+    vocab = eng.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in SPEC_PROMPTS]
+    plain = eng.make_pool()
+    chain = {s: [eng.prefill_into_slot(plain, s, p, rid=s, budget=ENGINE_BUDGET)]
+             for s, p in enumerate(prompts)}
+    chain_logits = []
+    decode_chain(eng, plain, chain, CHAIN_TICKS, f"{what} plain chain", chain_logits)
+    vpool = eng.make_pool()
+    for s, p in enumerate(prompts):
+        if eng.prefill_into_slot(vpool, s, p, rid=s, budget=ENGINE_BUDGET) != chain[s][0]:
+            fail(f"{what}: the same prefill gave another first token")
+    report["speculative"], drafts = forced_verify(eng, vpool, chain, chain_logits, what)
+    return plain, vpool, prompts, chain, drafts
+
+
+def poison_resume(eng, plain, prompts, chain, what: str) -> dict:
+    """Poison slot 1 of ``plain`` (decoding ``chain``), see it alone flagged,
+    quarantine it, resume it from its committed context, two more ticks."""
+    eng.poison_slot(plain, 1)
+    nxt, fin = eng.masked_decode_step(plain)
+    if fin[1] or not fin[[0, 2, 3]].all():
+        fail(f"{what}: after poisoning slot 1, finite {fin}")
+    for s in (0, 2, 3):
+        plain.advance(s, 1, int(nxt[s]))
+        chain[s].append(int(nxt[s]))
+    plain.retire(1)
+    context = np.concatenate([prompts[1], np.asarray(chain[1][:-1], np.int32)])
+    eng.resume_into_slot(plain, 1, context, rid=1, budget=ENGINE_BUDGET,
+                         emitted=len(chain[1]), next_tok=chain[1][-1])
+    resumed = {s: [] for s in range(4)}
+    decode_chain(eng, plain, resumed, 2, f"{what} after resume")
+    return {"finite_after_poison": fin.tolist(), "resumed_tokens": resumed[1]}
+
+
+def ticks_vs_eager(eng, plain, vpool, drafts, what: str) -> dict:
+    """:func:`graph_vs_eager` for the decode tick of ``plain`` and the verify
+    tick of ``vpool``."""
+    dgraph = eng.step_graphs(plain)[("decode", 0)]
+    vgraph = eng.step_graphs(vpool)[("verify", SPEC_K)]
+    return {"decode": graph_vs_eager(dgraph, f"{what} decode tick", tok=plain.tok,
+                                     pos=plain.positions(), active=plain.decode_mask()),
+            "verify": graph_vs_eager(vgraph, f"{what} verify tick", tok=vpool.tok,
+                                     drafts=drafts, pos=vpool.positions(),
+                                     active=vpool.decode_mask())}
+
+
+def graph_launches(graphs, cfg, what: str) -> int:
+    """Every graph holds ``k5_per_call`` int8_matmul launches of its kind;
+    returns the launches their replays ran."""
+    for g in graphs:
+        kind = "decode_verify" if "drafts" in g.inputs else "decode_step"
+        if g.launches.get("int8_matmul") != k5_per_call(cfg, kind):
+            fail(f"{what}: a {kind} graph holds {g.launches} launches, "
+                 f"{k5_per_call(cfg, kind)} int8_matmul expected")
+    return sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
+
+
+def twin_agreement(full, prompts, tokens, what: str) -> float:
+    """Greedy-chain agreement of ``tokens`` with the bf16 twin's ``generate``
+    of the same prompts, held to AGREEMENT_FLOOR."""
+    agreement = float((tokens == full.generate(prompts, GEN_NEW)).mean())
+    if agreement < AGREEMENT_FLOOR:
+        fail(f"{what}: greedy-chain agreement {agreement:.3f} with the bf16 engine, "
+             f"under the floor {AGREEMENT_FLOOR}")
+    return agreement
+
+
 # ---------------------------------------------------------------------------
 # serve_moe: the moe family at full width, the expert einsums one K5 launch
 # over the expert axis
@@ -2023,7 +2195,7 @@ DEEPSEEK_LAYERS = 2                 # the only cut: 61 → 2 layers, one MLA-den
 MOE_VERIFY_FLOOR = 0.85
 
 
-def moe_engines(dev, cfg_f):
+def twin_engines(dev, cfg_f):
     """The int8 engine and its bf16 twin over the same random weights (seed
     0, attention at the standard fan-in), with ``spec_slack`` for verify."""
     params = init_model(cfg_f, torch.Generator(device=dev).manual_seed(0), dev)
@@ -2051,7 +2223,7 @@ def serve_moe_config(dev, arch: str, layers: int | None) -> dict:
         cfg_f = dataclasses.replace(cfg_f, num_layers=layers, first_k_dense=min(
             cfg_f.first_k_dense, layers - 1))
     torch.cuda.reset_peak_memory_stats()
-    eng, full, init_s = moe_engines(dev, cfg_f)
+    eng, full, init_s = twin_engines(dev, cfg_f)
     cfg, vocab = eng.cfg, cfg_f.vocab_size
     rng = np.random.default_rng(60)
     prompts = rng.integers(0, vocab, (GEN_PROMPTS, GEN_LEN)).astype(np.int32)
@@ -2059,17 +2231,9 @@ def serve_moe_config(dev, arch: str, layers: int | None) -> dict:
               "first_k_dense": cfg.first_k_dense, "dtype": "bfloat16", "quant": "int8",
               "int8_weight_bytes": sum(t.q.numel() for t in _quant_leaves(eng.params)),
               "quantize_at_init_s": r6(init_s)}
+    what = f"serve_moe {arch}"
     with CallLog() as log:
-        t0 = time.perf_counter()
-        tokens_q = eng.generate(prompts, GEN_NEW)
-        report["generate"] = {"prompts": GEN_PROMPTS, "prompt_len": GEN_LEN,
-                              "new_tokens": GEN_NEW, "seconds": r6(time.perf_counter() - t0)}
-        pool, slot_tokens, tick_ms, slot_finite = slot_path(eng, rng)
-        if not slot_finite:
-            fail(f"serve_moe {arch}: masked_decode_step flagged a live slot non-finite")
-        report["slots"] = {"max_batch": 4, "max_len": 128, "prompts": list(SLOT_PROMPTS),
-                           "tick_ms_median": r6(statistics.median(tick_ms[1:])),
-                           "tokens": slot_tokens}
+        pool, tokens_q = generate_and_slots(eng, prompts, rng, what, report)
         # where a replayed tick's time goes: K5 against the bytes it must read
         tick = profile_call(lambda: eng.masked_decode_step(pool))
         k5_bytes = sum(t.q.numel() + 4 * t.scale.numel()
@@ -2080,59 +2244,13 @@ def serve_moe_config(dev, arch: str, layers: int | None) -> dict:
             "int8_matmul_bound_ms": r6(k5_bytes / PEAK_BYTES_PER_S * 1e3),
             "int8_matmul_share_of_busy": r6(tick["int8_matmul_device_ms"]
                                             / tick["device_busy_ms"])}
-        graphs = list(eng.step_graphs(pool).values())
-        cpool = eng.make_pool()
-        chains = {2 + i: [eng.prefill_into_slot(cpool, 2 + i, p, rid=2 + i, budget=ENGINE_BUDGET)]
-                  for i, p in enumerate(rng.integers(0, vocab, n).astype(np.int32)
-                                        for n in DECODING_PROMPTS)}
-        group = rng.integers(0, vocab, (2, GROUP_LEN)).astype(np.int32)
-        st = eng.begin_chunked_prefill(cpool, [0, 1], group, rids=[0, 1],
-                                       budgets=[ENGINE_BUDGET] * 2)
-        chunks = 0
-        while not st.done:
-            eng.chunked_prefill_step(st, CHUNK_TOKENS)
-            chunks += 1
-            decode_chain(eng, cpool, chains, 1, f"serve_moe {arch} chunked prefill")
-        first = eng.finish_chunked_prefill(cpool, st)
-        chains.update({j: [int(first[j])] for j in range(2)})
-        decode_chain(eng, cpool, chains, 2, f"serve_moe {arch} after the group")
-        report["chunked_prefill"] = {"group": [2, GROUP_LEN], "chunk_tokens": CHUNK_TOKENS,
-                                     "chunk_calls": chunks, "first_tokens": first.tolist()}
-
-        sprompts = [rng.integers(0, vocab, n).astype(np.int32) for n in SPEC_PROMPTS]
-        plain = eng.make_pool()
-        chain = {s: [eng.prefill_into_slot(plain, s, p, rid=s, budget=ENGINE_BUDGET)]
-                 for s, p in enumerate(sprompts)}
-        chain_logits = []
-        decode_chain(eng, plain, chain, CHAIN_TICKS, f"serve_moe {arch} plain chain", chain_logits)
-        vpool = eng.make_pool()
-        for s, p in enumerate(sprompts):
-            if eng.prefill_into_slot(vpool, s, p, rid=s, budget=ENGINE_BUDGET) != chain[s][0]:
-                fail(f"serve_moe {arch}: the same prefill gave another first token")
-        report["speculative"], drafts = forced_verify(eng, vpool, chain, chain_logits,
-                                                      f"serve_moe {arch}")
-        vgraph = eng.step_graphs(vpool)[("verify", SPEC_K)]
-        dgraph = eng.step_graphs(plain)[("decode", 0)]
-        report["graph_vs_eager"] = {
-            "decode": graph_vs_eager(dgraph, f"serve_moe {arch} decode tick", tok=plain.tok,
-                                     pos=plain.positions(), active=plain.decode_mask()),
-            "verify": graph_vs_eager(vgraph, f"serve_moe {arch} verify tick", tok=vpool.tok,
-                                     drafts=drafts, pos=vpool.positions(),
-                                     active=vpool.decode_mask())}
-        graphs += [g for p in (cpool, plain, vpool) for g in eng.step_graphs(p).values()]
-    log.check(f"serve_moe {arch}")
-    for g in graphs:
-        kind = "decode_verify" if "drafts" in g.inputs else "decode_step"
-        if g.launches.get("int8_matmul") != k5_per_call(cfg, kind):
-            fail(f"serve_moe {arch}: a {kind} graph holds {g.launches} launches, "
-                 f"{k5_per_call(cfg, kind)} int8_matmul expected")
-    replayed = sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
-
-    tokens_f = full.generate(prompts, GEN_NEW)
-    agreement = float((tokens_q == tokens_f).mean())
-    if agreement < AGREEMENT_FLOOR:
-        fail(f"serve_moe {arch}: greedy-chain agreement {agreement:.3f} with the bf16 engine, "
-             f"under the floor {AGREEMENT_FLOOR}")
+        cpool = chunked_group(eng, rng, what, report)
+        plain, vpool, _, _, drafts = verify_steps(eng, rng, what, report)
+        report["graph_vs_eager"] = ticks_vs_eager(eng, plain, vpool, drafts, what)
+        graphs = [g for p in (pool, cpool, plain, vpool) for g in eng.step_graphs(p).values()]
+    log.check(what)
+    replayed = graph_launches(graphs, cfg, what)
+    agreement = twin_agreement(full, prompts, tokens_q, what)
     stack, body = (("blocks", transformer.dense_block_prefill) if cfg.mla is None
                    else ("dense_blocks", transformer.mla_block_prefill))
     with runtime.launches_recorded() as block_launches:  # a module check, not the path
@@ -2173,6 +2291,209 @@ def drive_serve_moe(dev) -> dict:
             report["strict_identity"][f"{arch} {quant or 'f32'}"], graphs = strict_identity(
                 dev, arch, quant)
         log.check(f"serve_moe strict identity {arch} {quant}")
+        expect += sum(c["per_call"] for c in log.calls)
+        expect += sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
+    return {"expect": {"int8_matmul": expect}, "report": report}
+
+
+# ---------------------------------------------------------------------------
+# serve_ssm: the ssm and hybrid families at full width and full depth
+# ---------------------------------------------------------------------------
+SSM_ARCHS = ("mamba2-780m", "zamba2-7b")  # full width, full depth: 48 and 81 Mamba2 layers
+LONG_PROMPT, LONG_CHUNK = 512, 64       # two of the 256-token SSD chunks; its composition in 64s
+# The long prompt's blocking prefill against its chunked composition, bf16
+# with int8 weights, per leaf: the two sum the same recurrence in other
+# orders and round to bf16 after every layer, and a last-bit difference can
+# move an activation across an int8 rounding edge; over 48-81 layers that
+# drift is the noise (the reduced zamba2 in bf16 on the CPU: logits max 7.5%,
+# mean 1.7% of the largest; shared K/V max 14%, mean 0.8%).  A wrong carry of
+# the state or the conv tail moves them by their own size.  Max within
+# VERIFY_LOGIT_DIFF, mean within 0.02 (the int8 mean rule of the CPU tests)
+# of the largest magnitude.
+LONG_TOL, LONG_MEAN_TOL = VERIFY_LOGIT_DIFF, 0.02
+
+
+def shared_block_prefill(p, x, cfg):
+    """zamba2's shared attention block over a prompt, ``x`` also its x0 (the
+    first application, where the block's input is the embedding)."""
+    return transformer.shared_attn_prefill(p, x, x, cfg)
+
+
+def held(got: torch.Tensor, want: torch.Tensor, what: str, tol: float, mean_tol: float) -> dict:
+    """Max and mean |got - want| against ``tol`` / ``mean_tol`` times the
+    largest |want|; fails past either."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{what}: non-finite values")
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max())
+    mean = float((got - want).abs().mean())
+    if err > tol * scale or mean > mean_tol * scale:
+        fail(f"{what}: max err {err:.3e}, mean {mean:.3e}, over {tol} / {mean_tol} x {scale:.3e}")
+    return {"max_abs_err": r6(err), "mean_abs_err": r6(mean), "max_abs": r6(scale)}
+
+
+def tree_bytes(tree) -> int:
+    """Device bytes of a tree of tensors and ``QuantTensor`` leaves."""
+    return sum(x.numel() * x.element_size() for leaf in tree_leaves(tree)
+               for x in (leaf if isinstance(leaf, QuantTensor) else (leaf,)))
+
+
+def ssm_tick_bytes(eng, pool) -> dict:
+    """Bytes one decode tick of the pool must move: every weight once (the
+    shared block once per application, the unembedding: the tied table for
+    mamba2), the (conv, state) of every layer read and written, and the
+    shared K/V read over the pool's capacity."""
+    cfg, p = eng.cfg, eng.params
+    apps = math.ceil(cfg.num_layers / cfg.attn_every) if "shared" in p else 0
+    unembed = p["embed"].get("unembed", p["embed"]["tokens"])
+    weights = {"mamba_layers": tree_bytes(p["blocks"]),
+               "shared_block_x_applications": apps * tree_bytes(p.get("shared", {})),
+               "unembedding": tree_bytes(unembed)}
+    state = {"conv_and_state_read_and_written": 2 * tree_bytes(
+        [pool.cache["conv"], pool.cache["state"]]),
+        "shared_kv_read": tree_bytes([pool.cache[k] for k in pool.cache
+                                      if k.startswith("shared")])}
+    total = sum(weights.values()) + sum(state.values())
+    return {"weights": weights, "state": state, "total": total,
+            "bound_ms": r6(total / PEAK_BYTES_PER_S * 1e3), "bound_by": "bytes"}
+
+
+def snapshot_bytes(cfg, batch: int, window: int) -> dict:
+    """What a verify window of ``window`` tokens keeps for the rollback, at
+    ``batch`` slots: the reference's per-position snapshots of every layer
+    (state f32, conv tail in the cache's type), and the port's
+    ``ssm.VerifyCarry`` (the raw window in the cache's type; cum, dt·x and B
+    in f32)."""
+    s, layers = cfg.ssm, cfg.num_layers
+    h, p, n, w = s.num_heads(cfg.d_model), s.head_dim, s.state_size, s.conv_width
+    c, item = s.d_inner(cfg.d_model) + 2 * n, cfg.dtype.itemsize
+    carry = batch * ((w - 1 + window) * c * item + window * (h + h * p + n) * 4)
+    return {"batch": batch, "window": window,
+            "reference_state_snapshots": layers * batch * window * h * p * n * 4,
+            "reference_conv_snapshots": layers * batch * window * (w - 1) * c * item,
+            "verify_carry": layers * carry}
+
+
+def long_prompt(eng, dev) -> dict:
+    """One prompt of ``LONG_PROMPT`` tokens through ``prefill`` (two SSD
+    chunks of 256: the inter-chunk scan at full width) and the same prompt
+    as chunked prefill in chunks of ``LONG_CHUNK``, both through the
+    engine's model calls (logged and counted): the last logits and every
+    cache leaf held to each other (``LONG_TOL``)."""
+    cfg = eng.cfg
+    toks = torch.as_tensor(np.random.default_rng(71).integers(0, cfg.vocab_size, (
+        1, LONG_PROMPT)), device=dev)
+    with torch.inference_mode():
+        logits, cache = engine_mod.prefill(eng.params, toks, cfg)
+        chunked = init_params(cache_defs(cfg, batch=1, max_len=LONG_PROMPT), torch.Generator(),
+                              dev)
+        for pos in range(0, LONG_PROMPT, LONG_CHUNK):
+            clog, chunked = engine_mod.prefill_chunk(eng.params, chunked,
+                                                     toks[:, pos:pos + LONG_CHUNK], pos, cfg)
+    vocab = cfg.vocab_size
+    out = {"tokens": LONG_PROMPT, "ssd_chunk": cfg.ssm.chunk_size, "chunk_tokens": LONG_CHUNK,
+           "tolerance": f"max {LONG_TOL}, mean {LONG_MEAN_TOL} x max|blocking|",
+           "last_logits": held(clog[:, :vocab], logits[:, :vocab], f"serve_ssm {cfg.name} long "
+                               "prompt logits", LONG_TOL, LONG_MEAN_TOL),
+           "argmax_blocking": int(logits[0, :vocab].argmax()),
+           "argmax_chunked": int(clog[0, :vocab].argmax())}
+    for key, t in cache.items():
+        out[key] = held(chunked[key], t, f"serve_ssm {cfg.name} long prompt cache {key!r}",
+                        LONG_TOL, LONG_MEAN_TOL)
+    return out
+
+
+def serve_ssm_config(dev, arch: str) -> dict:
+    """One config of the ssm or hybrid family at full width and depth through
+    the int8 engine: ``generate``, the slot path (replayed ticks, timed and
+    profiled beside the bytes a tick must move), a chunked prefill while two
+    slots decode, verify ticks teacher-forced from the plain chain (each row
+    rolled back to its own accepted count), poison → quarantine → resume, the
+    replayed ticks against the eager ones, the long prompt's two-chunk scan
+    against its chunked composition; greedy agreement with the bf16 engine
+    on the same weights; one Mamba2 block (and zamba2's shared block) on the
+    card against the CPU."""
+    t_start = time.perf_counter()
+    cfg_f = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    eng, full, init_s = twin_engines(dev, cfg_f)
+    cfg, vocab = eng.cfg, cfg_f.vocab_size
+    rng = np.random.default_rng(70)
+    prompts = rng.integers(0, vocab, (GEN_PROMPTS, GEN_LEN)).astype(np.int32)
+    report = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+              "of_layers": get_config(arch).num_layers,
+              "shared_applications": math.ceil(cfg.num_layers / cfg.attn_every)
+              if cfg.family == "hybrid" else 0,
+              "dtype": "bfloat16", "quant": "int8",
+              "int8_weight_bytes": sum(t.q.numel() for t in _quant_leaves(eng.params)),
+              "quantize_at_init_s": r6(init_s)}
+    what = f"serve_ssm {arch}"
+    with CallLog() as log:
+        pool, tokens_q = generate_and_slots(eng, prompts, rng, what, report)
+        # the replayed decode tick: unprofiled, profiled, and what it must move
+        replayed = []
+        for _ in range(TIMED_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.masked_decode_step(pool)
+            replayed.append((time.perf_counter() - t0) * 1e3)
+        tick = profile_call(lambda: eng.masked_decode_step(pool))
+        moved = ssm_tick_bytes(eng, pool)
+        report["decode_tick"] = {
+            "unprofiled_ms_median": r6(statistics.median(replayed)),
+            "unprofiled_ms": [r6(t) for t in replayed], "profile": tick, "bytes": moved,
+            "busy_over_bound": r6(tick["device_busy_ms"] / moved["bound_ms"]),
+            "int8_matmul_share_of_busy": r6(tick["int8_matmul_device_ms"]
+                                            / tick["device_busy_ms"])}
+        cpool = chunked_group(eng, rng, what, report)
+        plain, vpool, sprompts, chain, drafts = verify_steps(eng, rng, what, report)
+        report["poison_resume"] = poison_resume(eng, plain, sprompts, chain, what)
+        report["graph_vs_eager"] = ticks_vs_eager(eng, plain, vpool, drafts, what)
+        report["long_prompt"] = long_prompt(eng, dev)
+        report["verify_snapshot_bytes"] = snapshot_bytes(cfg, vpool.max_batch, SPEC_K + 1)
+        graphs = [g for p in (pool, cpool, plain, vpool) for g in eng.step_graphs(p).values()]
+    log.check(what)
+    replays = graph_launches(graphs, cfg, what)
+    agreement = twin_agreement(full, prompts, tokens_q, what)
+    del full
+    blocks = [("mamba", "blocks", transformer.ssm_block_prefill, True, 3)]
+    if "shared" in eng.params:
+        blocks.append(("shared", "shared", shared_block_prefill, False, 9))
+    report["block_card_vs_cpu"] = {}
+    for name, stack, body, layered, want in blocks:
+        with runtime.launches_recorded() as block_launches:  # a module check, not the path
+            r = check_block_card_vs_cpu(eng, dev, stack, body, layered)
+        if block_launches.get("int8_matmul") != want:
+            fail(f"serve_ssm {arch}: the {name} block on the card launched {block_launches}, "
+                 f"{want} int8_matmul expected")
+        report["block_card_vs_cpu"][name] = dict(r, int8_matmul_launches=want)
+    decode_ms = [c["ms"] for c in log.calls if c["kind"] == "decode_step"]
+    report.update({
+        "int8_matmul_per_call": k5_per_call(cfg, "decode_step"),
+        "calls": len(log.calls), "graphs": len(graphs),
+        "replays": sum(g.replays for g in graphs),
+        "eager_decode_ms_median": r6(statistics.median(decode_ms)),
+        "greedy_agreement_vs_bf16": r6(agreement), "agreement_floor": AGREEMENT_FLOOR,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "seconds": r6(time.perf_counter() - t_start)})
+    return {"int8_matmul": sum(c["per_call"] for c in log.calls) + replays, "report": report}
+
+
+def drive_serve_ssm(dev) -> dict:
+    """mamba2-780m, then (its engines freed) zamba2-7b, each at full width and
+    full depth, then the reduced configs of both in f32 with int8 weights,
+    token for token: chunked == blocking and speculative == plain."""
+    report, expect = {"strict_identity": {}}, 0
+    for arch in SSM_ARCHS:
+        out = serve_ssm_config(dev, arch)
+        report[arch] = out["report"]
+        expect += out["int8_matmul"]
+        torch.cuda.empty_cache()
+    for arch in SSM_ARCHS:
+        with CallLog() as log:
+            report["strict_identity"][arch], graphs = strict_identity(dev, arch, "int8")
+        log.check(f"serve_ssm strict identity {arch}")
         expect += sum(c["per_call"] for c in log.calls)
         expect += sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
     return {"expect": {"int8_matmul": expect}, "report": report}
@@ -2679,7 +3000,8 @@ def main(argv=None) -> int:
     driven, counts_by_path, k5_seen = {}, {}, {}
     paths = {"lstm": drive_main_path, "serve_dense": drive_serve_dense,
              "serve_engine": lambda d: drive_serve_engine(d, driven["serve_dense"]["engine"]),
-             "serve_moe": drive_serve_moe, "flash_attention": drive_flash_path}
+             "serve_moe": drive_serve_moe, "serve_ssm": drive_serve_ssm,
+             "flash_attention": drive_flash_path}
     for name, drive in paths.items():
         runtime.reset_launch_counts()
         with k5_shapes_recorded(k5_seen, name):
@@ -2718,6 +3040,8 @@ def main(argv=None) -> int:
         driven["serve_engine"].pop(key)
     moe_report = driven["serve_moe"]["report"]
     moe_report["launches"] = counts_by_path["serve_moe"]
+    ssm_report = driven["serve_ssm"]["report"]
+    ssm_report["launches"] = counts_by_path["serve_ssm"]
     driven = driven["lstm"]
 
     lw = paper_workload()
@@ -2743,7 +3067,7 @@ def main(argv=None) -> int:
     }
     main_path["trace_check"] = TRACE_CHECK
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
-              "serve_engine": engine_report, "serve_moe": moe_report,
+              "serve_engine": engine_report, "serve_moe": moe_report, "serve_ssm": ssm_report,
               "int8_path_shapes": path_shapes, "host_path": host,
               "chip_model": chip_model,
               "tuner": tuner, "energy": energy,
@@ -2761,6 +3085,7 @@ def main(argv=None) -> int:
     print("serve_dense " + json.dumps(serve), flush=True)
     print("serve_engine " + json.dumps(engine_report), flush=True)
     print("serve_moe " + json.dumps(moe_report), flush=True)
+    print("serve_ssm " + json.dumps(ssm_report), flush=True)
     print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)

@@ -1,19 +1,30 @@
 """Model API: param_defs / init_model / forward / prefill / decode_step /
 prefill_chunk / decode_verify / commit_verify.
 
-Ported so far: the dense and vlm families, and the moe family: granite-moe
+Ported so far: the dense and vlm families; the moe family: granite-moe
 (GQA attention + MoE) and deepseek (MLA attention; ``first_k_dense`` leading
 MLA + dense-MLP blocks in ``dense_blocks``, then MLA + MoE blocks in
 ``blocks``; the compressed (c, k_rope) cache spans both stacks, the first
-``first_k_dense`` layers of it the dense ones').  The other families (ssm,
-hybrid, audio) raise ``NotImplementedError`` until they are ported (ROADMAP
-Queue A item 8); the loss, and deepseek's multi-token-prediction head, whose
-parameters (``mtp``) are drawn but not used when serving, come with training
-(item 13).
+``first_k_dense`` layers of it the dense ones'); the ssm family (a single
+Mamba2 stack, a per-layer (conv, state) cache); and hybrid (zamba2:
+segments of ``attn_every`` Mamba2 layers, each preceded by the ONE
+weight-shared attention block, which takes concat(x, x0) with x0 the
+embedding of the call's own tokens; its (shared_k, shared_v) cache has one
+entry per application).  The audio family raises ``NotImplementedError``
+until it is ported (ROADMAP Queue A item 8); the loss, and deepseek's
+multi-token-prediction head, whose parameters (``mtp``) are drawn but not
+used when serving, come with training (item 13).
 
 Decode, chunked prefill and verify take one position per row (an int for
 all rows, or a (B,) tensor), where the JAX package takes a scalar and maps
-the call over a pool's slots with ``vmap``.
+the call over a pool's slots with ``vmap``.  ``commit_verify`` likewise
+takes one accepted count per row.
+
+Speculative verify on the ssm and hybrid families leaves the recurrent
+leaves as they are and returns, beside them, what ``commit_verify`` needs
+to roll each row forward to its accepted count in place
+(``ssm.VerifyCarry`` per layer, under the key ``"verify"``); the JAX package
+returns (L, B, T, ...) snapshots of every position instead.
 
 Parameters are stacked over layers as in the JAX package (a leading
 "layers" axis on every block leaf), so the JAX package's parameter trees
@@ -31,6 +42,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import embed_apply, embed_defs, unembed_apply
 from repro_torch.models.params import ParamDef, init_params, stacked, tree_leaves, tree_map
@@ -43,7 +55,8 @@ from repro_torch.models.quant import (
     quantize_weight,
 )
 
-_PORTED = ("dense", "vlm", "moe")
+_PORTED = ("dense", "vlm", "moe", "ssm", "hybrid")
+_RECURRENT = ("ssm", "hybrid")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -61,6 +74,10 @@ def param_defs(cfg: ArchConfig) -> dict:
     defs: dict[str, Any] = {"embed": embed_defs(cfg), "final_norm": T.norm_defs(cfg)}
     if cfg.family in ("dense", "vlm"):
         defs["blocks"] = stacked(cfg.num_layers, T.dense_block_defs(cfg))
+    elif cfg.family in _RECURRENT:
+        defs["blocks"] = stacked(cfg.num_layers, T.ssm_block_defs(cfg))
+        if cfg.family == "hybrid":
+            defs["shared"] = T.shared_attn_defs(cfg)
     elif cfg.mla is None:  # moe
         defs["blocks"] = stacked(cfg.num_layers, T.moe_block_defs(cfg))
     else:  # deepseek
@@ -89,10 +106,13 @@ def init_model(cfg: ArchConfig, generator: torch.Generator, device=None, *,
     dev = resolve_device(device)
 
     def draw(key: str, d: ParamDef):
-        if d.logical[:1] != ("layers",):
-            return init_params(d, generator, dev)
-        one = dataclasses.replace(d, shape=d.shape[1:], logical=d.logical[1:])
         quant = quantize and key in QUANT_KEYS
+        if d.logical[:1] != ("layers",):  # an unstacked leaf, e.g. hybrid's shared block
+            w = init_params(d, generator, dev)
+            lead = lead_axes(d.logical)
+            return quantize_weight(w, lead=lead, n_contract=contract_axes(
+                key, w.dim() - lead)) if quant else w
+        one = dataclasses.replace(d, shape=d.shape[1:], logical=d.logical[1:])
         out = None
         for i in range(d.shape[0]):
             w = init_params(one, generator, dev)
@@ -133,14 +153,18 @@ def _layer(stack, i: int):
 
 
 def _bodies(cfg: ArchConfig):
-    """The block bodies (apply, prefill, chunk, decode): MLA's, or the GQA
-    block's (dense, vlm and granite-moe; each block's FFN, MLP or MoE, by its
+    """The block bodies (apply, prefill, chunk, decode): the Mamba2 block's
+    (ssm, and hybrid between its shared blocks), MLA's, or the GQA block's
+    (dense, vlm and granite-moe; each block's FFN, MLP or MoE, by its
     params)."""
     _require_ported(cfg)
-    bodies = ((T.mla_block_apply, T.mla_block_prefill, T.mla_block_chunk, T.mla_block_decode)
-              if cfg.mla is not None else
-              (T.dense_block_apply, T.dense_block_prefill, T.dense_block_chunk,
-               T.dense_block_decode))
+    if cfg.family in _RECURRENT:
+        bodies = (T.ssm_block_apply, T.ssm_block_prefill, T.ssm_block_chunk, T.ssm_block_decode)
+    elif cfg.mla is not None:
+        bodies = (T.mla_block_apply, T.mla_block_prefill, T.mla_block_chunk, T.mla_block_decode)
+    else:
+        bodies = (T.dense_block_apply, T.dense_block_prefill, T.dense_block_chunk,
+                  T.dense_block_decode)
     return [partial(body, cfg=cfg) for body in bodies]
 
 
@@ -151,43 +175,81 @@ def _stacks(params) -> list:
 
 
 def cache_keys(cfg: ArchConfig) -> tuple[str, str]:
-    """The decode cache's leaves: the compressed (c, k_rope) pair of MLA,
-    K and V otherwise."""
+    """The decode cache's per-layer leaves: the (conv, state) pair of the
+    Mamba2 layers, the compressed (c, k_rope) pair of MLA, K and V
+    otherwise.  Hybrid's shared block adds (shared_k, shared_v), one entry
+    per application."""
+    if cfg.family in _RECURRENT:
+        return ("conv", "state")
     return ("c", "krope") if cfg.mla is not None else ("k", "v")
 
 
-def run_stack(stacks, x, body, cfg: ArchConfig):
-    """body(p, x) -> (x, aux) over the layers of ``stacks``.  Returns (x,
-    aux summed over layers)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for stack in stacks:
-        for i in range(_stack_len(stack)):
-            x, a = body(_layer(stack, i), x)
-            aux = aux + a
-    return x, aux
+def _hybrid_segments(cfg: ArchConfig) -> list[tuple[int, int]]:
+    """[(start, length)] mamba-layer segments, each preceded by shared attn."""
+    k = cfg.attn_every
+    return [(s, min(k, cfg.num_layers - s)) for s in range(0, cfg.num_layers, k)]
 
 
-def run_stack_prefill(stacks, x, body, cfg: ArchConfig):
-    """body(p, x) -> (x, cache slices) over the layers of ``stacks``.
-    Returns (x, the cache slices stacked over all layers)."""
-    outs = []
-    for stack in stacks:
-        for i in range(_stack_len(stack)):
-            x, c = body(_layer(stack, i), x)
-            outs.append(c)
-    return x, tuple(torch.stack(ts) for ts in zip(*outs))
+def _shared_before(params, cfg: ArchConfig, x0, apply):
+    """Hybrid's ``before`` hook of the stack drivers: ``apply(p, x, x0, i)``,
+    the i-th application of the shared block, ahead of the first layer of
+    segment i; ``None`` for the other families."""
+    if cfg.family != "hybrid":
+        return None
+    starts = {start: i for i, (start, _) in enumerate(_hybrid_segments(cfg))}
+
+    def before(layer: int, x):
+        i = starts.get(layer)
+        return x if i is None else apply(params["shared"], x, x0, i)
+
+    return before
 
 
-def run_stack_decode(stacks, caches, x, body, pos, cfg: ArchConfig):
-    """body(p, x, cache, pos) -> (x, cache) over the layers of ``stacks``.
-    ``caches`` is a tuple of tensors stacked over all layers; each layer
-    writes its slices in place."""
+def _walk(stacks):
+    """(layer index over all stacks, that layer's params), in order."""
     layer = 0
     for stack in stacks:
         for i in range(_stack_len(stack)):
-            x, _ = body(_layer(stack, i), x, tuple(c[layer] for c in caches), pos)
+            yield layer, _layer(stack, i)
             layer += 1
-    return x, caches
+
+
+def run_stack(stacks, x, body, cfg: ArchConfig, before=None):
+    """body(p, x) -> (x, aux) over the layers of ``stacks``, ``before(layer,
+    x) -> x`` ahead of each (hybrid's shared block).  Returns (x, aux summed
+    over layers)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer, p in _walk(stacks):
+        if before is not None:
+            x = before(layer, x)
+        x, a = body(p, x)
+        aux = aux + a
+    return x, aux
+
+
+def run_stack_prefill(stacks, x, body, cfg: ArchConfig, before=None):
+    """body(p, x) -> (x, cache slices) over the layers of ``stacks``.
+    Returns (x, the cache slices stacked over all layers)."""
+    outs = []
+    for layer, p in _walk(stacks):
+        if before is not None:
+            x = before(layer, x)
+        x, c = body(p, x)
+        outs.append(c)
+    return x, tuple(torch.stack(ts) for ts in zip(*outs))
+
+
+def run_stack_decode(stacks, caches, x, body, pos, cfg: ArchConfig, before=None):
+    """body(p, x, cache, pos) -> (x, out) over the layers of ``stacks``.
+    ``caches`` is a tuple of tensors stacked over all layers; each layer
+    writes its slices in place.  Returns (x, each layer's ``out``)."""
+    outs = []
+    for layer, p in _walk(stacks):
+        if before is not None:
+            x = before(layer, x)
+        x, out = body(p, x, tuple(c[layer] for c in caches), pos)
+        outs.append(out)
+    return x, outs
 
 
 # ---------------------------------------------------------------------------
@@ -206,21 +268,35 @@ def _embed_tokens(params, tokens, cfg: ArchConfig, frontend_embeds=None):
 # ---------------------------------------------------------------------------
 def forward(params, tokens, cfg: ArchConfig, frontend_embeds=None):
     """tokens: (B, S) → (final hidden states (B, S, D), the MoE load-balance
-    loss summed over layers; 0 for the dense family)."""
+    loss summed over layers; 0 for the other families)."""
     apply, _, _, _ = _bodies(cfg)
     x = _embed_tokens(params, tokens, cfg, frontend_embeds)
-    x, aux = run_stack(_stacks(params), x, apply, cfg)
+    before = _shared_before(params, cfg, x, lambda p, x, x0, i: T.shared_attn_apply(
+        p, x, x0, cfg))
+    x, aux = run_stack(_stacks(params), x, apply, cfg, before)
     return T.apply_norm(cfg, params["final_norm"], x), aux
 
 
 def prefill(params, tokens, cfg: ArchConfig, frontend_embeds=None):
     """tokens: (B, S) → (last-position logits (B, V) f32, cache): {"k", "v"}
-    of shape (L, B, S, KV, hd), or MLA's {"c": (L, B, S, kv_lora_rank),
-    "krope": (L, B, S, qk_rope_head_dim)}."""
+    of shape (L, B, S, KV, hd); MLA's {"c": (L, B, S, kv_lora_rank),
+    "krope": (L, B, S, qk_rope_head_dim)}; the Mamba2 layers' {"conv": (L,
+    B, W-1, d_inner + 2N), "state": (L, B, H, P, N) f32}, and for hybrid
+    {"shared_k", "shared_v"}: (applications, B, S, KV, hd)."""
     _, body, _, _ = _bodies(cfg)
     x = _embed_tokens(params, tokens, cfg, frontend_embeds)
-    x, leaves = run_stack_prefill(_stacks(params), x, body, cfg)
+    shared = []
+
+    def apply_shared(p, x, x0, i):
+        y, kv = T.shared_attn_prefill(p, x, x0, cfg)
+        shared.append(kv)
+        return y
+
+    x, leaves = run_stack_prefill(_stacks(params), x, body, cfg,
+                                  _shared_before(params, cfg, x, apply_shared))
     cache: dict[str, Any] = dict(zip(cache_keys(cfg), leaves))
+    if shared:
+        cache["shared_k"], cache["shared_v"] = (torch.stack(ts) for ts in zip(*shared))
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden[:, -1:], cfg)[:, 0]
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
@@ -232,6 +308,19 @@ def _positions(pos, batch: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1).expand(batch)
 
 
+def _run_cached(params, cache, x, body, pos, cfg: ArchConfig, shared_body):
+    """The stack over a full-capacity decode cache, in place: ``body`` on
+    each layer's slices of ``cache_keys(cfg)``, hybrid's shared block
+    (``shared_body``: ``T.shared_attn_decode`` or ``T.shared_attn_chunk``)
+    on its application's (shared_k, shared_v) ahead of each segment.
+    Returns (x, each layer's second output)."""
+    def apply_shared(p, x, x0, i):
+        return shared_body(p, x, x0, cache["shared_k"][i], cache["shared_v"][i], pos, cfg)[0]
+
+    return run_stack_decode(_stacks(params), tuple(cache[k] for k in cache_keys(cfg)), x, body,
+                            pos, cfg, _shared_before(params, cfg, x, apply_shared))
+
+
 def decode_step(params, cache, token, pos, cfg: ArchConfig):
     """token: (B, 1) integers; pos: the position each row writes, an int
     for all rows or a (B,) tensor, one per row (the JAX package takes a
@@ -241,8 +330,7 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
     b = token.shape[0]
     pos = _positions(pos, b, token.device)
     x = embed_apply(params["embed"], token, cfg)
-    keys = cache_keys(cfg)
-    x, _ = run_stack_decode(_stacks(params), tuple(cache[k] for k in keys), x, body, pos, cfg)
+    x, _ = _run_cached(params, cache, x, body, pos, cfg, T.shared_attn_decode)
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden, cfg)[:, 0]
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
@@ -251,12 +339,18 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 # Chunked prefill and speculative verify
 # ---------------------------------------------------------------------------
-def _chunk_forward(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=None):
+def _chunk_forward(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=None,
+                   verify: bool = False):
     """The chunk body shared by ``prefill_chunk`` and ``decode_verify``: T
     tokens a row against a full-capacity decode cache at positions
-    [pos[b], pos[b]+T).  Returns (final hidden states before the norm,
-    (B, T, D); the cache, written in place)."""
+    [pos[b], pos[b]+T).  ``verify`` swaps the Mamba2 layers' body for
+    ``T.ssm_block_verify``, which leaves their (conv, state) as they are.
+    Returns (final hidden states before the norm, (B, T, D); each layer's
+    second output: its cache slices, or with ``verify`` on the ssm and
+    hybrid families its ``ssm.VerifyCarry``)."""
     _, _, body, _ = _bodies(cfg)
+    if verify and cfg.family in _RECURRENT:
+        body = partial(T.ssm_block_verify, cfg=cfg)
     b, t = tokens.shape
     pos = _positions(pos, b, tokens.device)
     x = embed_apply(params["embed"], tokens, cfg)
@@ -269,19 +363,18 @@ def _chunk_forward(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=
         fe = frontend_embeds[rows, start[:, None] + steps]
         sel = (pos[:, None] + steps)[..., None] < cfg.frontend_seq
         x = torch.where(sel, fe.to(x.dtype), x)
-    keys = cache_keys(cfg)
-    x, _ = run_stack_decode(_stacks(params), tuple(cache[k] for k in keys), x, body, pos, cfg)
-    return x, cache
+    return _run_cached(params, cache, x, body, pos, cfg, T.shared_attn_chunk)
 
 
 def prefill_chunk(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=None):
     """One chunk of T prompt tokens a row against a full-capacity decode
     cache (``cache_defs`` layout, zero-initialised) at positions
-    [pos, pos+T).  Successive chunks compose to ``prefill``; attention masks
-    the dead rows past the written prefix.  For vlm, ``frontend_embeds`` is
-    padded to cache capacity on the sequence axis.  Returns (last-position
-    logits (B, V) f32, cache written in place)."""
-    x, cache = _chunk_forward(params, cache, tokens, pos, cfg, frontend_embeds)
+    [pos, pos+T).  Successive chunks compose to ``prefill``: attention masks
+    the dead rows past the written prefix, the Mamba2 layers carry their
+    conv tail and state.  For vlm, ``frontend_embeds`` is padded to cache
+    capacity on the sequence axis.  Returns (last-position logits (B, V)
+    f32, cache written in place)."""
+    x, _ = _chunk_forward(params, cache, tokens, pos, cfg, frontend_embeds)
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden[:, -1:], cfg)[:, 0]
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
@@ -291,20 +384,40 @@ def decode_verify(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=N
     """Score T candidate tokens a row in one pass at positions [pos, pos+T):
     the last committed next-input token, then T-1 drafts.  Returns logits
     for every position, (B, T, V) f32: logits[:, j] is the next-token
-    distribution after tokens[:, :j+1].  The K/V (or MLA c/k_rope) rows of
-    rejected candidates are dead data past the committed prefix (see
-    ``layers.attention_chunk``), so attention caches need no rollback."""
-    x, cache = _chunk_forward(params, cache, tokens, pos, cfg, frontend_embeds)
+    distribution after tokens[:, :j+1]; and the cache.
+
+    Attention caches (K/V, MLA's c/k_rope, hybrid's shared K/V) are written
+    in place: the rows of rejected candidates are dead data past the
+    committed prefix (see ``layers.attention_chunk``), so they need no
+    rollback.  The Mamba2 layers' (conv, state) are left as they were; the
+    returned dict holds the same tensors and, under ``"verify"``, one
+    ``ssm.VerifyCarry`` a layer, from which ``commit_verify`` writes each
+    row's state after its accepted count."""
+    x, outs = _chunk_forward(params, cache, tokens, pos, cfg, frontend_embeds, verify=True)
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden, cfg)
+    if cfg.family in _RECURRENT:
+        cache = dict(cache, verify=outs)
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
 
 
 def commit_verify(cache, accepted, cfg: ArchConfig):
-    """Resolve a ``decode_verify`` cache to the accepted prefix: the identity
-    for attention caches (rollback is positional).  The ssm/hybrid state
-    snapshots come with those families (ROADMAP Queue A item 8)."""
+    """Resolve a ``decode_verify`` cache to the accepted prefix.
+
+    ``accepted``: accepted drafts a in [0, K] a row (an int for all rows,
+    or a (B,) tensor), i.e. a+1 tokens of the window were consumed.
+    Attention caches need nothing (rollback is positional); the ssm/hybrid
+    (conv, state) of row b are written, in place, as they stand after
+    a[b]+1 tokens (the JAX package's snapshot at index a).  Returns the
+    cache without the ``"verify"`` entry."""
     _require_ported(cfg)
+    if cfg.family not in _RECURRENT:
+        return cache
+    cache = dict(cache)
+    carries = cache.pop("verify")
+    acc = _positions(accepted, cache["state"].shape[1], cache["state"].device)
+    for layer, carry in enumerate(carries):
+        ssm_mod.mamba_verify_commit(carry, acc, cache["conv"][layer], cache["state"][layer], cfg)
     return cache
 
 

@@ -6,9 +6,11 @@ Ported so far:
   moe               GQA attention + top-k MoE FFN (+ shared experts): the
                     dense bodies, the FFN chosen by the block's params
   deepseek (moe)    MLA attention + dense MLP (first_k layers) or MoE
+  ssm               Mamba2 (SSD) block
+  hybrid (zamba2)   Mamba2 stack + ONE weight-shared attention block applied
+                    every ``attn_every`` layers (input = concat(x, x0) → proj)
 
-The SSM, hybrid and encoder-decoder blocks come with their families
-(ROADMAP Queue A item 8).
+The encoder-decoder blocks come with their family (ROADMAP Queue A item 8).
 
 Every train/prefill body returns ``(x, aux)`` or ``(x, cache slices)`` as in
 the JAX package; chunk and decode bodies consume the layer's cache slices
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     gqa_chunk_apply,
     gqa_decode_apply,
@@ -38,6 +41,7 @@ from repro_torch.models.layers import (
     run_attention,
 )
 from repro_torch.models.moe import moe_apply, moe_defs
+from repro_torch.models.params import ParamDef
 from repro_torch.models.quant import qeinsum
 
 
@@ -174,3 +178,101 @@ def mla_block_decode(p, x, cache, pos, cfg: ArchConfig):
     c, krope = cache
     a, c, krope = mla_decode_apply(p["attn"], apply_norm(cfg, p["ln1"], x), c, krope, pos, cfg)
     return _ffn(p, x + a, cfg)[0], (c, krope)
+
+
+# ---------------------------------------------------------------------------
+# SSM (mamba2) and hybrid (zamba2)
+# ---------------------------------------------------------------------------
+def ssm_block_defs(cfg: ArchConfig) -> dict:
+    return {"ln": norm_defs(cfg), "mamba": ssm_mod.mamba_defs(cfg)}
+
+
+def ssm_block_apply(p, x, cfg: ArchConfig):
+    return x + ssm_mod.mamba_apply(p["mamba"], apply_norm(cfg, p["ln"], x), cfg), _zero(x)
+
+
+def ssm_block_prefill(p, x, cfg: ArchConfig):
+    """The block with the (conv tail, f32 state) it leaves: the prefill body
+    the JAX package writes inline in ``model.prefill``."""
+    y, tail, h = ssm_mod.mamba_prefill_apply(p["mamba"], apply_norm(cfg, p["ln"], x), cfg)
+    return x + y, (tail, h.to(torch.float32))
+
+
+def ssm_block_chunk(p, x, cache, pos, cfg: ArchConfig):
+    """Chunk body (``pos`` unused: the SSM carries state, not positions); the
+    layer's (conv, state) slices are written in place."""
+    conv, state = cache
+    y, new_conv, new_state = ssm_mod.mamba_chunk_apply(
+        p["mamba"], apply_norm(cfg, p["ln"], x), conv, state, cfg)
+    conv.copy_(new_conv)
+    state.copy_(new_state)
+    return x + y, cache
+
+
+def ssm_block_verify(p, x, cache, pos, cfg: ArchConfig):
+    """Speculative-verify body: like ``ssm_block_chunk``, but the layer's
+    cache is left as it is and the second output is the
+    ``ssm.VerifyCarry`` that ``ssm.mamba_verify_commit`` rolls it forward
+    with once the accepted counts are known."""
+    conv, state = cache
+    y, carry = ssm_mod.mamba_verify_apply(p["mamba"], apply_norm(cfg, p["ln"], x), conv, state,
+                                          cfg)
+    return x + y, carry
+
+
+def ssm_block_decode(p, x, cache, pos, cfg: ArchConfig):
+    conv, state = cache
+    y, new_conv, new_state = ssm_mod.mamba_decode_apply(
+        p["mamba"], apply_norm(cfg, p["ln"], x), conv, state, cfg)
+    conv.copy_(new_conv)
+    state.copy_(new_state)
+    return x + y, cache
+
+
+def shared_attn_defs(cfg: ArchConfig) -> dict:
+    """Zamba2's weight-shared global attention block (one weight set)."""
+    d = cfg.d_model
+    return {
+        "w_in": ParamDef((2 * d, d), (None, "embed")),  # concat(x, x0) → d
+        "ln1": norm_defs(cfg),
+        "attn": gqa_defs(cfg),
+        "ln2": norm_defs(cfg),
+        "mlp": mlp_defs(cfg),
+        "w_out": ParamDef((d, d), ("embed", None)),
+    }
+
+
+def _shared_in(p, x, x0):
+    return qeinsum("bsd,de->bse", torch.cat([x, x0], dim=-1), p["w_in"])
+
+
+def _shared_out(p, x, inp, a, cfg: ArchConfig):
+    y = inp + a
+    y = y + mlp_apply(p["mlp"], apply_norm(cfg, p["ln2"], y), cfg)
+    return x + qeinsum("bse,ed->bsd", y, p["w_out"])
+
+
+def shared_attn_apply(p, x, x0, cfg: ArchConfig):
+    return shared_attn_prefill(p, x, x0, cfg)[0]
+
+
+def shared_attn_prefill(p, x, x0, cfg: ArchConfig):
+    """The shared block over a whole prompt with the (k, v) it leaves: the
+    body the JAX package writes inline in ``model.prefill``."""
+    inp = _shared_in(p, x, x0)
+    a, kv = gqa_full(p["attn"], apply_norm(cfg, p["ln1"], inp), cfg, causal=True, rope=True)
+    return _shared_out(p, x, inp, a, cfg), kv
+
+
+def shared_attn_chunk(p, x, x0, k_cache, v_cache, pos, cfg: ArchConfig):
+    inp = _shared_in(p, x, x0)
+    a, k_cache, v_cache = gqa_chunk_apply(
+        p["attn"], apply_norm(cfg, p["ln1"], inp), k_cache, v_cache, pos, cfg)
+    return _shared_out(p, x, inp, a, cfg), k_cache, v_cache
+
+
+def shared_attn_decode(p, x, x0, k_cache, v_cache, pos, cfg: ArchConfig):
+    inp = _shared_in(p, x, x0)
+    a, k_cache, v_cache = gqa_decode_apply(
+        p["attn"], apply_norm(cfg, p["ln1"], inp), k_cache, v_cache, pos, cfg)
+    return _shared_out(p, x, inp, a, cfg), k_cache, v_cache

@@ -5,12 +5,18 @@ prefill (``begin_chunked_prefill`` → ``chunked_prefill_step`` →
 ``masked_speculative_step``, with ``poison_slot`` / ``resume_into_slot``
 for quarantine and re-admission.
 
-Ported: the contiguous engine of the dense and moe families (granite-moe's
-GQA attention and deepseek's MLA over its compressed cache, the MoE FFN on
-its dense path), in full precision or with int8 weights (``ArchConfig.quant
-= "int8"``, every attention, MLP and expert projection through the
+Ported: the contiguous engine of the dense, moe, ssm and hybrid families
+(granite-moe's GQA attention and deepseek's MLA over its compressed cache,
+the MoE FFN on its dense path; mamba2's per-layer conv tail and SSM state,
+zamba2's shared attention block with a K/V cache per application), in full
+precision or with int8 weights (``ArchConfig.quant = "int8"``, every
+attention, MLP, expert, Mamba2 and shared-block projection through the
 ``int8_matmul`` kernel, each expert einsum one launch over the expert
-axis), ``spec_slack`` included.
+axis), ``spec_slack`` included.  No family needs a branch of its own here:
+prefill, chunked prefill (the group's own cache), poison/resume and
+``generate`` go through the model's entry points, and the verify tick's
+``commit_verify`` rolls each row's recurrent state forward to that row's
+own accepted count (what the JAX engine does per slot under ``vmap``).
 The options whose modules are not ported raise ``NotImplementedError`` at
 construction: the paged cache and int8 KV pages (ROADMAP Queue A item 10),
 fault injection and the energy budget (item 11).  Without the paged pool,
@@ -97,7 +103,7 @@ def _refuse_unported(sc: ServeConfig) -> None:
 
 
 class InferenceEngine:
-    """Batched prefill → decode loop (dense and moe families)."""
+    """Batched prefill → decode loop (dense, moe, ssm and hybrid families)."""
 
     def __init__(self, cfg: ArchConfig, params=None, sc: ServeConfig | None = None,
                  seed: int = 0, device=None):
@@ -211,7 +217,8 @@ class InferenceEngine:
     def _verify_tick(self, cache, tok, drafts, pos, active):
         """One ``decode_verify`` over all slots' K+1 windows (the next decode
         input, then the K drafts), greedy prefix acceptance and
-        ``commit_verify``; the finiteness flag covers the whole window."""
+        ``commit_verify`` at each row's own accepted count; the finiteness
+        flag covers the whole window."""
         cfg, v = self.cfg, self.cfg.vocab_size
         pos = torch.where(active, pos, torch.zeros_like(pos))
         tokens = torch.cat([tok[:, None], drafts], dim=1)  # (B, K+1)

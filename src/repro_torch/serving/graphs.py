@@ -17,7 +17,14 @@ host instead of one launch per kernel (about 1300 at granite-3-8b's width).
   gets a new graph (``signature``).
 * **Warm-up.**  The step runs once uncaptured on the capture stream before
   the capture: what a kernel wrapper allocates lazily per stream (K5's
-  split-K workspace) then exists, and no allocation of it is captured.
+  split-K workspace) then exists, and no allocation of it is captured.  The
+  cache is put back as it was before the warm-up, so the first replay is
+  the step's first application (an SSM state would otherwise advance
+  twice).
+* **Transients** the step allocates (activations, the verify tick's
+  ``ssm.VerifyCarry``) come from the graph's own memory pool at capture
+  and keep their addresses on every replay; only the cache, which outlives
+  the step, is part of ``signature``.
 * **Launch counts.**  A replay runs no wrapper, so the kernels' launch
   counters (``kernels/runtime.py``) would not move: the graph records what
   the capture launched, per kernel, and adds it on each replay.
@@ -100,10 +107,13 @@ class StepGraph:
         return out
 
     def _capture(self) -> None:
-        # The warm-up writes the cache rows the step writes, with the values
-        # the first replay writes again: the step is a function of its inputs
-        # and of rows it does not write.
+        # The warm-up writes the cache; what it wrote is put back, so that the
+        # first replay starts from the cache the caller left.
+        saved = {k: t.clone() for k, t in self.cache.items()}
         self.eager()
+        for k, t in saved.items():
+            self.cache[k].copy_(t)
+        del saved
         graph = torch.cuda.CUDAGraph()
         with runtime.launches_recorded() as captured:
             with torch.cuda.graph(graph, stream=self.stream):

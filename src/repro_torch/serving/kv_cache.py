@@ -2,18 +2,24 @@
 
   GQA families    k/v: (L, B, S, KV, hd)                      in ``cfg.kv_dtype or cfg.dtype``
   MLA (deepseek)  c: (L, B, S, r), krope: (L, B, S, rope_d)   compressed, same type
+  SSM (mamba2)    conv: (L, B, W-1, d_inner+2N) same type, state: (L, B, H, P, N) f32
+  hybrid (zamba2) the SSM leaves + shared-attention k/v: (applications, B, S, KV, hd)
 
 ParamDef trees, as in the JAX package, so the cache is initialised by the
-same machinery as the weights.  The SSM, hybrid and audio layouts come
-with their families (ROADMAP Queue A item 8); the paged layout and its int8
-pages (``page_defs``, ``quantize_kv``) with the paged pool (item 10).
+same machinery as the weights.  The audio layout comes with its family
+(ROADMAP Queue A item 8); the paged layout and its int8 pages
+(``page_defs``, ``quantize_kv``) with the paged pool (item 10), where
+``paged_keys`` gives the leaves with a sequence axis to page.
 """
 from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.params import ParamDef, tree_leaves
+from repro_torch.models.ssm import conv_channels
 
 
 def _kv(num_layers: int, b: int, s: int, kv: int, hd: int, dtype) -> ParamDef:
@@ -27,11 +33,25 @@ def _kv(num_layers: int, b: int, s: int, kv: int, hd: int, dtype) -> ParamDef:
 
 def cache_defs(cfg: ArchConfig, *, batch: int, max_len: int) -> dict:
     f = cfg.family
-    if f not in ("dense", "vlm", "moe"):
+    if f not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"the {f!r} cache layout is not ported yet "
                                   "(ROADMAP Queue A item 8)")
     l, hd, kv = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
     dt = cfg.kv_dtype or cfg.dtype
+    if f in ("ssm", "hybrid"):  # recurrent leaves: O(1) in max_len
+        sm = cfg.ssm
+        out = {
+            "conv": ParamDef((l, batch, sm.conv_width - 1, conv_channels(cfg)),
+                             ("layers", "batch", None, None), init="zeros", dtype=dt),
+            "state": ParamDef((l, batch, sm.num_heads(cfg.d_model), sm.head_dim, sm.state_size),
+                              ("layers", "batch", "ssm_heads", None, None), init="zeros",
+                              dtype=torch.float32),
+        }
+        if f == "hybrid":
+            n_apps = math.ceil(cfg.num_layers / cfg.attn_every)
+            out["shared_k"] = _kv(n_apps, batch, max_len, kv, hd, dt)
+            out["shared_v"] = _kv(n_apps, batch, max_len, kv, hd, dt)
+        return out
     if cfg.mla is not None:  # deepseek: the compressed cache
         m = cfg.mla
         axes = ("layers", "batch", "kv_seq", None)
@@ -48,3 +68,17 @@ def _defs_bytes(defs: dict) -> int:
 def cache_bytes(cfg: ArchConfig, *, batch: int, max_len: int) -> int:
     """Device bytes of the contiguous layout: every slot owns max_len rows."""
     return _defs_bytes(cache_defs(cfg, batch=batch, max_len=max_len))
+
+
+def paged_keys(cfg: ArchConfig) -> tuple[str, ...]:
+    """Cache leaves whose SEQUENCE axis (axis 2) the paged pool (ROADMAP
+    Queue A item 10) will page.  The SSM conv/state are recurrent, O(1) in
+    the sequence, and stay per slot: ssm pages nothing, hybrid only its
+    shared-attention K/V."""
+    f = cfg.family
+    if f in ("ssm", "hybrid"):
+        return ("shared_k", "shared_v") if f == "hybrid" else ()
+    if f in ("dense", "vlm", "moe"):
+        return ("c", "krope") if cfg.mla is not None else ("k", "v")
+    raise NotImplementedError(f"the {f!r} cache layout is not ported yet "
+                              "(ROADMAP Queue A item 8)")

@@ -36,11 +36,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.params import init_params
-from repro_torch.serving.kv_cache import cache_defs
+from repro_torch.serving.kv_cache import cache_defs, paged_keys
 
 
 def grow_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
-    """Pad prefill-produced sequence-axis caches out to ``max_len`` rows."""
+    """Pad prefill-produced sequence-axis caches out to ``max_len`` rows:
+    K/V, MLA's c/k_rope, hybrid's shared K/V.  The ssm conv/state leaves
+    are O(1) in the sequence and pass through as they are."""
 
     def grow(x, axis):
         pad = max_len - x.shape[axis]
@@ -50,10 +52,8 @@ def grow_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
         shape[axis] = pad
         return torch.cat([x, torch.zeros(shape, dtype=x.dtype, device=x.device)], dim=axis)
 
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise NotImplementedError(f"growing the {cfg.family!r} cache is not ported yet "
-                                  "(ROADMAP Queue A item 8)")
-    return {key: grow(t, 2) for key, t in cache.items()}  # k/v, or MLA's c/krope
+    seq = paged_keys(cfg)  # the leaves with a sequence axis (raises for unported families)
+    return {key: grow(t, 2) if key in seq else t for key, t in cache.items()}
 
 
 @dataclasses.dataclass

@@ -130,7 +130,7 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(cfg, sc=ServeConfig(**opt), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(dataclasses.replace(cfg, family="ssm"), device="cpu")
+        InferenceEngine(dataclasses.replace(cfg, family="audio"), device="cpu")
 
 
 def test_spec_slack_is_accepted_and_a_verify_tick_runs():

@@ -7,7 +7,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "ssm_rescale_check.py"]
 BANNED = ("jax", "repro")
 
 
@@ -34,6 +35,8 @@ def test_port_files_found():
             "workload.py", "fpga.py", "generator.py"} <= names
     # the moe family: granite-moe and deepseek-v3 with MLA
     assert {"moe.py", "granite_moe_3b_a800m.py", "deepseek_v3_671b.py"} <= names
+    # the ssm and hybrid families: mamba2 and zamba2
+    assert {"ssm.py", "mamba2_780m.py", "zamba2_7b.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 

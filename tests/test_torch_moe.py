@@ -65,6 +65,8 @@ def numpy_params(defs, rng):
     def draw(d):
         if d.init == "ones":
             return np.ones(d.shape, np.float32)
+        if d.init == "scalar_log":  # Mamba's A_log, log of [1, 16)
+            return np.log1p(15.0 * rng.random(d.shape)).astype(np.float32)
         x = rng.standard_normal(d.shape).astype(np.float32)
         if d.init == "zeros":
             return x * 0.1
