@@ -6,7 +6,7 @@
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
 against its plain PyTorch version on the card at the shapes its path uses,
 times kernel, plain version and (where one PyTorch call computes the same
-function) the library, then drives six paths, each with the launch
+function) the library, then drives eight paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * the paper-LSTM path — the plan and request batches through ``lstm_apply``
@@ -53,6 +53,24 @@ counters set to 0 just before it and read just after:
   in f32 with int8 weights, chunked == blocking and speculative == plain,
   token for token.  K5 launches 3 a Mamba2 layer and 9 a shared-block
   application a call (``k5_per_call``);
+* ``serve_audio`` — the enc-dec audio family through the same engine:
+  whisper-tiny at full width and full depth (4 encoder + 4 decoder layers,
+  encoder_seq 1500, vocab 51865 tied), bf16 with int8 weights and a bf16
+  twin, the same steps as ``serve_ssm`` (the chunked group's cross K/V from
+  ``encoder_cross_cache`` of the front-end stub, the resumed slot's cross
+  K/V a fresh prefill's, bit for bit), the replayed decode tick beside the
+  bytes it must move (the decoder's weights, the tied table, the cross K/V
+  of 4 slots), one prompt over seeded random frames held to its chunked
+  composition, the encoder and decoder blocks on the card against the CPU;
+  then the reduced config in f32 with int8 weights, token for token.  K5
+  launches 6 an encoder layer, 10 a decoder layer at prefill and 8 at the
+  other calls, every encoder and cross K/V product at M = B x 1500;
+* ``serve_vlm`` — the vision-language model: internvl2-76b at full width
+  (d_model 8192, 64 heads, GQA kv 8, d_ff 28672, vocab 128256 untied) cut
+  80 → 8 layers, its prompts 256 image positions (the engine's stub) and
+  then text, the same steps (the chunked prefill in chunks of 48, one of
+  which straddles position 256; a prefill of seeded random patch
+  embeddings against its chunked composition), 7 K5 launches a layer;
 * ``flash_attention`` — its public op ``kernels.ops.flash_attention`` at a
   granite-shaped causal case (K6; no model path calls it).
 
@@ -87,7 +105,8 @@ under a 2 s K3 loop beside ``H100Chip.step_power``.
 
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
-the replayed and eager tick times), ``serve_moe``, ``serve_ssm``, ``host_path`` (each
+the replayed and eager tick times), ``serve_moe``, ``serve_ssm``,
+``serve_audio``, ``serve_vlm``, ``int8_path_shapes``, ``host_path`` (each
 kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
@@ -145,6 +164,7 @@ from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import quant as quant_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.layers import unembed_apply  # noqa: E402
 from repro_torch.models.model import init_model  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
     init_params, params_from_numpy, tree_leaves, tree_map,
@@ -1296,7 +1316,13 @@ def attention_fan_in(params, cfg) -> None:
     weights (E, d, f) are right already: ``shape[-2]`` is their contraction.
     zamba2's shared block is a GQA attention too (``params["shared"]["attn"]``,
     one weight set, not stacked); the Mamba2 layers' weights are 2-D, where
-    the rule reads their contraction."""
+    the rule reads their contraction.  whisper has three GQA attentions, all
+    rescaled: its encoder's and its decoder's self- and cross-attention.
+    With the reference's draw its cross-attention is one-hot over the
+    stub's 1500 frames, and on the card a last-bit difference between
+    blocking and chunked prefill moved a query to another frame: the
+    random-frames prefill's logits 30% apart (``agreement_check.py`` on an
+    H100 80GB HBM3 at 700 W)."""
     d, h = cfg.d_model, cfg.num_heads
     if cfg.mla is None:
         kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -1306,8 +1332,8 @@ def attention_fan_in(params, cfg) -> None:
         rules = (("wq_b", h, m.q_lora_rank), ("wk_b", h, m.kv_lora_rank),
                  ("wv_b", h, m.kv_lora_rank), ("wo", m.v_head_dim, h * m.v_head_dim))
     attns = ([params["shared"]["attn"]] if "shared" in params else
-             [params[s]["attn"] for s in ("dense_blocks", "blocks")
-              if s in params and "attn" in params[s]])
+             [params[s][a] for s in ("dense_blocks", "enc_blocks", "blocks") if s in params
+              for a in ("attn", "self_attn", "cross_attn") if a in params[s]])
     for a in attns:
         for name, now, want in rules:
             a[name].mul_((now / want) ** 0.5)
@@ -1334,14 +1360,20 @@ def depth_scaled_mamba(params) -> None:
 
 
 def embedding_at_residual_scale(params) -> None:
-    """zamba2's (untied) token embedding drawn at std 1 in place of 0.02.
-    Its shared block takes concat(x, x0), x0 the embedding, while the
-    residual x it joins is of order 1: one int8 step of that row is larger
-    than x0's entries, so the int8 engine's shared block loses the token
-    identity it re-injects 14 times where the bf16 twin keeps it.  With it
-    (``ssm_rescale_check.py``, same card): zamba2-7b's hidden states 4.6%
-    apart, 87-92% of argmaxes kept."""
-    if "shared" in params:
+    """zamba2's (untied) and whisper's (tied) token embedding drawn at std 1
+    in place of 0.02.  zamba2's shared block takes concat(x, x0), x0 the
+    embedding, while the residual x it joins is of order 1: one int8 step of
+    that row is larger than x0's entries, so the int8 engine's shared block
+    loses the token identity it re-injects 14 times where the bf16 twin
+    keeps it.  With it (``ssm_rescale_check.py``, same card): zamba2-7b's
+    hidden states 4.6% apart, 87-92% of argmaxes kept.  whisper's decoder
+    adds the embedding to a sinusoid of RMS 0.71: at 0.02 the tokens are a
+    3% perturbation of the positions and every prompt's greedy chain is the
+    same one token.  At std 1 the tokens reach the logits, but through the
+    tied table: the residual holds the last token's row, so each chain
+    repeats its prompt's last token (``serve_audio``'s ``distinct_tokens``
+    says how many a run saw)."""
+    if "shared" in params or "enc_blocks" in params:
         params["embed"]["tokens"].mul_(1 / 0.02)
 
 
@@ -1382,7 +1414,16 @@ def k5_per_call(cfg, kind: str) -> int:
     expert launches + 3 of the shared expert.  A Mamba2 layer makes 3 (wz, wx,
     wo; wB, wC and wdt are plain products) and an application of zamba2's
     shared block 9 (w_in, wq, wk, wv, wo, wg, wu, wd, w_out): 144 a call for
-    mamba2-780m, 243 + 14 x 9 = 369 for zamba2-7b."""
+    mamba2-780m, 243 + 14 x 9 = 369 for zamba2-7b.  whisper's encoder makes 6
+    a layer (wq, wk, wv, wo, wi, wo), its decoder 10 a layer at prefill (self
+    wq, wk, wv, wo; cross wq, wk and wv over the encoder output, wo; wi, wo)
+    and 8 at decode, chunk and verify, whose cross K/V are the cache's;
+    ``encoder_cross_cache`` the encoder's and 2 a decoder layer (cross wk,
+    wv): 64 / 32 / 32 for whisper-tiny."""
+    if cfg.family == "audio":
+        enc, dec = 6 * cfg.encoder_layers, cfg.num_layers
+        return {"prefill": enc + 10 * dec, "encoder_cross_cache": enc + 2 * dec}.get(
+            kind, 8 * dec)
     if cfg.family in ("ssm", "hybrid"):
         apps = math.ceil(cfg.num_layers / cfg.attn_every) if cfg.family == "hybrid" else 0
         return 3 * cfg.num_layers + 9 * apps
@@ -1395,9 +1436,11 @@ def k5_per_call(cfg, kind: str) -> int:
 
 class CallLog:
     """Wraps model functions the engine calls (``prefill``, ``decode_step``,
-    ``prefill_chunk``, ``decode_verify``): each call is synchronised and
-    timed, its int8_matmul launches counted against ``k5_per_call`` of its
-    config, its logits kept and checked finite.  A call made while a CUDA
+    ``prefill_chunk``, ``decode_verify``, and whisper's
+    ``encoder_cross_cache``): each call is synchronised and timed, its
+    int8_matmul launches counted against ``k5_per_call`` of its config, its
+    logits (the cross K/V of ``encoder_cross_cache``) kept and checked
+    finite.  A call made while a CUDA
     graph is being captured runs nothing and passes through unlogged."""
 
     def __init__(self):
@@ -1432,7 +1475,8 @@ class CallLog:
 
     def __enter__(self):
         self.real = {name: getattr(engine_mod, name) for name in
-                     ("prefill", "decode_step", "prefill_chunk", "decode_verify")}
+                     ("prefill", "decode_step", "prefill_chunk", "decode_verify",
+                      "encoder_cross_cache")}
         for name, fn in self.real.items():
             setattr(engine_mod, name, self.wrap(name, fn))
         return self
@@ -1447,25 +1491,33 @@ def serve_configs():
     return dataclasses.replace(cfg, quant="int8"), cfg
 
 
+def image_rows(eng) -> int:
+    """Positions a prompt of the vision-language model gives its image: the
+    ``frontend_seq`` patch rows of the engine's front-end stub take the
+    place of its first tokens, so every prompt of the serving helpers is
+    that much longer (256 image positions, then the text); 0 otherwise."""
+    return eng.cfg.frontend_seq if eng.cfg.frontend == "vision" else 0
+
+
 def slot_path(eng, rng):
-    """A slot pool of 4: prompts of ``SLOT_PROMPTS`` tokens admitted at tick
-    0 (the last at tick 2), ``SLOT_TICKS`` masked decode ticks (the first
-    captures the graph, the others replay it), each slot retired at its
-    budget.  Returns (pool, tokens by slot, tick ms, every live slot
-    finite)."""
-    vocab = eng.cfg.vocab_size
+    """A slot pool of 4: prompts of ``SLOT_PROMPTS`` tokens (after the image
+    rows, :func:`image_rows`) admitted at tick 0 (the last at tick 2),
+    ``SLOT_TICKS`` masked decode ticks (the first captures the graph, the
+    others replay it), each slot retired at its budget.  Returns (pool,
+    tokens by slot, tick ms, every live slot finite)."""
+    vocab, lead = eng.cfg.vocab_size, image_rows(eng)
     pool = eng.make_pool()
     slot_tokens = {s: [] for s in range(len(SLOT_PROMPTS))}
     slot_finite, tick_ms = True, []
     for tick in range(SLOT_TICKS):
         if tick == 0:
             for s, n in enumerate(SLOT_PROMPTS[:-1]):
-                p = rng.integers(0, vocab, n).astype(np.int32)
+                p = rng.integers(0, vocab, lead + n).astype(np.int32)
                 slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s,
                                                             budget=SLOT_BUDGET))
         if tick == 2:
             s = len(SLOT_PROMPTS) - 1
-            p = rng.integers(0, vocab, SLOT_PROMPTS[s]).astype(np.int32)
+            p = rng.integers(0, vocab, lead + SLOT_PROMPTS[s]).astype(np.int32)
             slot_tokens[s].append(eng.prefill_into_slot(pool, s, p, rid=s, budget=SLOT_BUDGET))
         live = pool.decode_mask().copy()
         torch.cuda.synchronize()
@@ -1676,7 +1728,8 @@ def forced_verify(eng, vpool, chain: dict, chain_logits: list, what: str
     as the plain ``chain`` was), the drafts teacher-forced from the chain,
     then one tick of always-wrong drafts, which must accept none.  The
     per-position argmax agreement with the chain must reach
-    ``VERIFY_AGREEMENT`` (``MOE_VERIFY_FLOOR`` for the moe family) over at
+    ``VERIFY_AGREEMENT`` (``MOE_VERIFY_FLOOR`` for the moe family and the
+    vision-language model) over at
     least 32 positions.  Each position's logits are held against the
     chain's (``chain_logits``, one (B, V) a tick): their largest difference
     at most ``VERIFY_LOGIT_DIFF``, and where the tokens differ the chain's
@@ -1686,7 +1739,7 @@ def forced_verify(eng, vpool, chain: dict, chain_logits: list, what: str
     the router recorded (:func:`flip_routes`).  Returns the report and the
     last tick's drafts."""
     vocab, routes = eng.cfg.vocab_size, eng.cfg.moe is not None
-    floor = MOE_VERIFY_FLOOR if routes else VERIFY_AGREEMENT
+    floor = MOE_VERIFY_FLOOR if routes or eng.cfg.family == "vlm" else VERIFY_AGREEMENT
     agree = positions = 0
     worst, flips, route_reports = 0.0, [], []
     for tick in range(FORCED_TICKS + 1):
@@ -1855,6 +1908,17 @@ def strict_identity(dev, arch: str = GRANITE, quant: str | None = "int8") -> tup
             "layers": cfg.num_layers, "tokens": ref, "verify_ticks": ticks,
             "chunked_equals_blocking": True if chunked else "not run",
             "speculative_equals_plain": True}, graphs
+
+
+def strict_identity_logged(dev, arch: str, what: str, quant: str | None = "int8"
+                           ) -> tuple[dict, int]:
+    """:func:`strict_identity` with its calls logged; returns (report, the
+    int8_matmul launches it made)."""
+    with CallLog() as log:
+        report, graphs = strict_identity(dev, arch, quant)
+    log.check(what)
+    return report, (sum(c["per_call"] for c in log.calls)
+                    + sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs))
 
 
 def drive_serve_engine(dev, base) -> dict:
@@ -2039,7 +2103,8 @@ def check_block_card_vs_cpu(eng, dev, stack: str = "blocks",
     """Layer 0 of ``stack`` of the int8 engine (``stack`` itself where it is
     not ``layered``, as zamba2's one shared block), one full-width block
     (``body``, a prefill body returning (out, cache rows)), on the card and
-    on the CPU from the same weights and a 16-token prompt."""
+    on the CPU from the same weights and a 16-token prompt: the output and
+    the first cache leaf held to each other."""
     cfg = eng.cfg
     p_card = tree_map(lambda t: layer_of(t, 0), eng.params[stack]) if layered else \
         eng.params[stack]
@@ -2048,8 +2113,9 @@ def check_block_card_vs_cpu(eng, dev, stack: str = "blocks",
     toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 16)))
     x = eng.params["embed"]["tokens"][toks.to(dev)]
     with torch.inference_mode():
-        y_card, (k_card, _) = body(p_card, x, cfg)
-        y_cpu, (k_cpu, _) = body(p_cpu, x.cpu(), cfg)
+        y_card, rows_card = body(p_card, x, cfg)
+        y_cpu, rows_cpu = body(p_cpu, x.cpu(), cfg)
+    k_card, k_cpu = rows_card[0], rows_cpu[0]  # the first cache leaf: K, c or the conv tail
     worst = {}
     for name, got, want in (("out", y_card, y_cpu), ("cache", k_card, k_cpu)):
         got, want = got.float().cpu(), want.float()
@@ -2076,43 +2142,45 @@ def generate_and_slots(eng, prompts, rng, what: str, report: dict):
     pool, slot_tokens, tick_ms, slot_finite = slot_path(eng, rng)
     if not slot_finite:
         fail(f"{what}: masked_decode_step flagged a live slot non-finite")
-    report["slots"] = {"max_batch": 4, "max_len": 128, "prompts": list(SLOT_PROMPTS),
+    report["slots"] = {"max_batch": 4, "max_len": eng.sc.max_len,
+                       "prompts": [image_rows(eng) + n for n in SLOT_PROMPTS],
                        "tick_ms_median": r6(statistics.median(tick_ms[1:])),
                        "tokens": slot_tokens}
     return pool, tokens
 
 
-def chunked_group(eng, rng, what: str, report: dict):
-    """A group of 2 prompts of GROUP_LEN tokens prefilled in chunks of
-    CHUNK_TOKENS while slots 2 and 3 decode, then two ticks of all four.
-    Returns the pool."""
-    vocab = eng.cfg.vocab_size
+def chunked_group(eng, rng, what: str, report: dict, chunk_tokens: int = CHUNK_TOKENS):
+    """A group of 2 prompts of GROUP_LEN tokens (after the image rows)
+    prefilled in chunks of ``chunk_tokens`` while slots 2 and 3 decode, then
+    two ticks of all four.  Returns the pool."""
+    vocab, lead = eng.cfg.vocab_size, image_rows(eng)
     cpool = eng.make_pool()
     chains = {2 + i: [eng.prefill_into_slot(cpool, 2 + i, p, rid=2 + i, budget=ENGINE_BUDGET)]
-              for i, p in enumerate(rng.integers(0, vocab, n).astype(np.int32)
+              for i, p in enumerate(rng.integers(0, vocab, lead + n).astype(np.int32)
                                     for n in DECODING_PROMPTS)}
-    group = rng.integers(0, vocab, (2, GROUP_LEN)).astype(np.int32)
+    group = rng.integers(0, vocab, (2, lead + GROUP_LEN)).astype(np.int32)
     st = eng.begin_chunked_prefill(cpool, [0, 1], group, rids=[0, 1],
                                    budgets=[ENGINE_BUDGET] * 2)
     chunks = 0
     while not st.done:
-        eng.chunked_prefill_step(st, CHUNK_TOKENS)
+        eng.chunked_prefill_step(st, chunk_tokens)
         chunks += 1
         decode_chain(eng, cpool, chains, 1, f"{what} chunked prefill")
     first = eng.finish_chunked_prefill(cpool, st)
     chains.update({j: [int(first[j])] for j in range(2)})
     decode_chain(eng, cpool, chains, 2, f"{what} after the group")
-    report["chunked_prefill"] = {"group": [2, GROUP_LEN], "chunk_tokens": CHUNK_TOKENS,
+    report["chunked_prefill"] = {"group": list(group.shape), "chunk_tokens": chunk_tokens,
                                  "chunk_calls": chunks, "first_tokens": first.tolist()}
     return cpool
 
 
 def verify_steps(eng, rng, what: str, report: dict):
-    """The plain chain of SPEC_PROMPTS (CHAIN_TICKS decode ticks) and, from
-    the same prefills, the teacher-forced verify ticks (:func:`forced_verify`).
-    Returns (plain pool, verify pool, prompts, chain, the last drafts)."""
-    vocab = eng.cfg.vocab_size
-    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in SPEC_PROMPTS]
+    """The plain chain of SPEC_PROMPTS (after the image rows; CHAIN_TICKS
+    decode ticks) and, from the same prefills, the teacher-forced verify
+    ticks (:func:`forced_verify`).  Returns (plain pool, verify pool,
+    prompts, chain, the last drafts)."""
+    vocab, lead = eng.cfg.vocab_size, image_rows(eng)
+    prompts = [rng.integers(0, vocab, lead + n).astype(np.int32) for n in SPEC_PROMPTS]
     plain = eng.make_pool()
     chain = {s: [eng.prefill_into_slot(plain, s, p, rid=s, budget=ENGINE_BUDGET)]
              for s, p in enumerate(prompts)}
@@ -2191,16 +2259,20 @@ DEEPSEEK_LAYERS = 2                 # the only cut: 61 → 2 layers, one MLA-den
 # that differs between the window and single steps moves a router near its
 # top-k edge (gaps of 1e-5 to 3e-3 in probability) or a logit near a tie.
 # 0.85 leaves room for that rate's spread (~3.5 flips of 64) and fails a
-# verify wrong at one position in six.
+# verify wrong at one position in six.  internvl2-76b (8 layers at full
+# width, vocab 128256) reads the same: 0.922-1.0 over seven prompt draws,
+# mean 0.973, every flip at a chain margin of 0-2.1% (1-3 bf16 ulps of its
+# logits; ``agreement_check.py``'s six draws and this script's own, same
+# card), so the vlm takes this floor.
 MOE_VERIFY_FLOOR = 0.85
 
 
-def twin_engines(dev, cfg_f):
+def twin_engines(dev, cfg_f, sc: dict = ENGINE_SC):
     """The int8 engine and its bf16 twin over the same random weights (seed
     0, attention at the standard fan-in), with ``spec_slack`` for verify."""
     params = init_model(cfg_f, torch.Generator(device=dev).manual_seed(0), dev)
     standard_fan_in(params, cfg_f)
-    sc = engine_mod.ServeConfig(**ENGINE_SC)
+    sc = engine_mod.ServeConfig(**sc)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng = engine_mod.InferenceEngine(dataclasses.replace(cfg_f, quant="int8"), params=params,
@@ -2287,12 +2359,9 @@ def drive_serve_moe(dev) -> dict:
     report = {"granite_moe": moe["report"], "deepseek": deepseek["report"], "strict_identity": {}}
     expect = moe["int8_matmul"] + deepseek["int8_matmul"]
     for arch, quant in ((MOE, "int8"), (DEEPSEEK, None), (DEEPSEEK, "int8")):
-        with CallLog() as log:
-            report["strict_identity"][f"{arch} {quant or 'f32'}"], graphs = strict_identity(
-                dev, arch, quant)
-        log.check(f"serve_moe strict identity {arch} {quant}")
-        expect += sum(c["per_call"] for c in log.calls)
-        expect += sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
+        report["strict_identity"][f"{arch} {quant or 'f32'}"], launched = strict_identity_logged(
+            dev, arch, f"serve_moe strict identity {arch} {quant}", quant)
+        expect += launched
     return {"expect": {"int8_matmul": expect}, "report": report}
 
 
@@ -2491,12 +2560,270 @@ def drive_serve_ssm(dev) -> dict:
         expect += out["int8_matmul"]
         torch.cuda.empty_cache()
     for arch in SSM_ARCHS:
-        with CallLog() as log:
-            report["strict_identity"][arch], graphs = strict_identity(dev, arch, "int8")
-        log.check(f"serve_ssm strict identity {arch}")
-        expect += sum(c["per_call"] for c in log.calls)
-        expect += sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
+        report["strict_identity"][arch], launched = strict_identity_logged(
+            dev, arch, f"serve_ssm strict identity {arch}")
+        expect += launched
     return {"expect": {"int8_matmul": expect}, "report": report}
+
+
+# ---------------------------------------------------------------------------
+# serve_audio and serve_vlm: the enc-dec audio family (whisper-tiny) and the
+# vision-language model (internvl2-76b) through the same engine
+# ---------------------------------------------------------------------------
+WHISPER = "whisper-tiny"            # full width, full depth: 4 encoder + 4 decoder layers
+WHISPER_K5_M, WHISPER_K5_KN = (4, 1500, 6000), [(384, 384), (384, 1536), (1536, 384)]
+VLM_K5_M = (4, 20, 96, 320, 1280)
+VLM_K5_KN = [(8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192)]
+VLM = "internvl2-76b"
+VLM_LAYERS = 8                      # the only cut: 80 → 8 layers (int8 + the bf16 twin fit)
+VLM_SC = {"max_batch": 4, "max_len": 384, "spec_slack": 4}  # 256 image rows + text + budget
+VLM_CHUNK = 48                      # chunks 240-288 of a 320-position prompt straddle 256
+FRONTEND_PROMPT = 64                # the text tokens of the random-input prefill
+
+
+def encoder_block(p, x, cfg):
+    """whisper's encoder block over ``x``, with its attention's (k, v), for
+    :func:`check_block_card_vs_cpu` (``transformer.enc_block_apply``, the
+    attention's rows kept)."""
+    a, kv = transformer.gqa_full(p["attn"], transformer.apply_norm(cfg, p["ln1"], x), cfg,
+                                 causal=False, rope=False)
+    return transformer._ffn(p, x + a, cfg)[0], kv
+
+
+def decoder_block():
+    """whisper's decoder prefill body over seeded random frames (numpy, std
+    1, 1500 x 384) as the encoder output, on whichever device its input
+    lies: its cache rows are (k, v, cross_k, cross_v)."""
+    cfg = get_config(WHISPER)
+    enc = np.random.default_rng(81).standard_normal((1, cfg.encoder_seq, cfg.d_model))
+
+    def decoder_block(p, x, cfg):
+        e = torch.as_tensor(enc, dtype=x.dtype, device=x.device)
+        return transformer.dec_block_prefill(p, x, e, cfg)
+
+    return decoder_block
+
+
+def attention_tick_bytes(eng, pool) -> dict:
+    """Bytes one decode tick of the pool must move: the decoder's weights
+    once (the stack, the final norm, the unembedding: whisper's tied table,
+    internvl2's own), the self-attention K/V read over the pool's capacity,
+    and whisper's cross K/V read over its frames."""
+    p = eng.params
+    unembed = p["embed"].get("unembed", p["embed"]["tokens"])
+    weights = {"decoder_layers": tree_bytes(p["blocks"]),
+               "final_norm": tree_bytes(p["final_norm"]), "unembedding": tree_bytes(unembed)}
+    cache = {"kv_read": tree_bytes([pool.cache["k"], pool.cache["v"]]),
+             "cross_kv_read": tree_bytes([pool.cache[k] for k in ("cross_k", "cross_v")
+                                          if k in pool.cache])}
+    total = sum(weights.values()) + sum(cache.values())
+    return {"weights": weights, "cache": cache, "total": total,
+            "cross_kv_a_slot": cache["cross_kv_read"] // pool.max_batch,
+            "bound_ms": r6(total / PEAK_BYTES_PER_S * 1e3), "bound_by": "bytes"}
+
+
+def frontend_prefill(eng, dev) -> dict:
+    """One prompt through ``prefill`` with seeded random front-end inputs
+    (numpy): whisper's 1500 frames at std 1, internvl2's 256 patch
+    embeddings at the token embedding's scale (0.02) ahead of
+    ``FRONTEND_PROMPT`` text tokens; and the same prompt as its chunked
+    composition: whisper's cross K/V from ``encoder_cross_cache``, then
+    chunks of ``CHUNK_TOKENS``; internvl2's patches padded to the prompt's
+    length, chunks of ``VLM_CHUNK``.  All through the engine's model calls
+    (logged and counted).  The last logits and every layer's K/V held to
+    each other (``LONG_TOL``), whisper's cross K/V the same bits."""
+    cfg = eng.cfg
+    rng = np.random.default_rng(82)
+    lead = image_rows(eng)
+    n = lead + FRONTEND_PROMPT
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)), device=dev)
+    if cfg.family == "audio":
+        fe = rng.standard_normal((1, cfg.encoder_seq, cfg.d_model))
+        chunk = CHUNK_TOKENS
+    else:
+        fe = rng.standard_normal((1, cfg.frontend_seq, cfg.d_model)) * 0.02
+        chunk = VLM_CHUNK
+    fe = torch.as_tensor(fe, dtype=cfg.dtype, device=dev)
+    with torch.inference_mode():
+        logits, cache = engine_mod.prefill(eng.params, toks, cfg, frontend_embeds=fe)
+        chunked = init_params(cache_defs(cfg, batch=1, max_len=n), torch.Generator(), dev)
+        padded = None
+        if cfg.family == "audio":
+            ck, cv = engine_mod.encoder_cross_cache(eng.params, cfg, fe)
+            chunked["cross_k"].copy_(ck)
+            chunked["cross_v"].copy_(cv)
+        else:
+            padded = torch.zeros((1, n, cfg.d_model), dtype=cfg.dtype, device=dev)
+            padded[:, :lead] = fe
+        for pos in range(0, n, chunk):
+            clog, chunked = engine_mod.prefill_chunk(eng.params, chunked, toks[:, pos:pos + chunk],
+                                                     pos, cfg, frontend_embeds=padded)
+    vocab, what = cfg.vocab_size, f"{cfg.name} random-input prefill"
+    out = {"tokens": n, "front_end": list(fe.shape), "chunk_tokens": chunk,
+           "tolerance": f"max {LONG_TOL}, mean {LONG_MEAN_TOL} x max|blocking|",
+           "last_logits": held(clog[:, :vocab], logits[:, :vocab], f"{what} logits", LONG_TOL,
+                               LONG_MEAN_TOL),
+           "argmax_blocking": int(logits[0, :vocab].argmax()),
+           "argmax_chunked": int(clog[0, :vocab].argmax())}
+    for key in ("k", "v"):
+        out[key] = held(chunked[key], cache[key], f"{what} cache {key!r}", LONG_TOL,
+                        LONG_MEAN_TOL)
+    for key in ("cross_k", "cross_v"):
+        if key in cache:
+            if not same_bits(chunked[key], cache[key]):
+                fail(f"{what}: encoder_cross_cache's {key} is not prefill's, bit for bit")
+            out[key] = "bitwise equal"
+    return out
+
+
+def serve_frontend_config(dev, arch: str, layers: int | None, sc: dict, chunk_tokens: int,
+                          blocks) -> dict:
+    """One config with a front-end through the int8 engine, as
+    :func:`serve_ssm_config`: ``generate``, the slot path (the replayed
+    decode tick timed, profiled and set beside :func:`attention_tick_bytes`),
+    a chunked prefill while two slots decode (in chunks of
+    ``chunk_tokens``), verify ticks teacher-forced from the plain chain,
+    poison → quarantine → resume (whisper: the resumed slot's cross K/V
+    those of a fresh prefill of its context, bit for bit), the replayed
+    ticks against the eager ones, :func:`frontend_prefill`; greedy
+    agreement with the bf16 twin; ``blocks`` (name, stack, prefill body,
+    int8_matmul launches) on the card against the CPU."""
+    t_start = time.perf_counter()
+    cfg_f = get_config(arch)
+    if layers is not None:
+        cfg_f = dataclasses.replace(cfg_f, num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    eng, full, init_s = twin_engines(dev, cfg_f, sc)
+    cfg, vocab = eng.cfg, cfg_f.vocab_size
+    rng = np.random.default_rng(80)
+    prompts = rng.integers(0, vocab, (GEN_PROMPTS, image_rows(eng) + GEN_LEN)).astype(np.int32)
+    report = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+              "of_layers": get_config(arch).num_layers, "encoder_layers": cfg.encoder_layers,
+              "image_rows": image_rows(eng), "dtype": "bfloat16", "quant": "int8",
+              "serve_config": sc,
+              "int8_weight_bytes": sum(t.q.numel() for t in _quant_leaves(eng.params)),
+              "quantize_at_init_s": r6(init_s)}
+    what = f"serve {arch}"
+    with CallLog() as log:
+        pool, tokens_q = generate_and_slots(eng, prompts, rng, what, report)
+        replayed = []
+        for _ in range(TIMED_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.masked_decode_step(pool)
+            replayed.append((time.perf_counter() - t0) * 1e3)
+        tick = profile_call(lambda: eng.masked_decode_step(pool))
+        moved = attention_tick_bytes(eng, pool)
+        report["decode_tick"] = {
+            "unprofiled_ms_median": r6(statistics.median(replayed)),
+            "unprofiled_ms": [r6(t) for t in replayed], "profile": tick, "bytes": moved,
+            "busy_over_bound": r6(tick["device_busy_ms"] / moved["bound_ms"]),
+            "int8_matmul_share_of_busy": r6(tick["int8_matmul_device_ms"]
+                                            / tick["device_busy_ms"])}
+        cpool = chunked_group(eng, rng, what, report, chunk_tokens)
+        plain, vpool, sprompts, chain, drafts = verify_steps(eng, rng, what, report)
+        report["poison_resume"] = poison_resume(eng, plain, sprompts, chain, what)
+        if cfg.family == "audio":
+            context = np.concatenate([sprompts[1], np.asarray(chain[1][:-1], np.int32)])
+            with torch.inference_mode():  # a fresh prefill of the context, outside the count
+                with runtime.launches_recorded():
+                    _, fresh = model_mod.prefill(
+                        eng.params, torch.as_tensor(context[None].astype(np.int64), device=dev),
+                        cfg, frontend_embeds=eng._frontend_stub(1))
+            for key in ("cross_k", "cross_v"):
+                if not same_bits(plain.cache[key][:, 1], fresh[key][:, 0]):
+                    fail(f"{what}: the resumed slot's {key} is not a fresh prefill's")
+            report["poison_resume"]["resumed_cross_kv"] = "bitwise equal to a fresh prefill's"
+        report["graph_vs_eager"] = ticks_vs_eager(eng, plain, vpool, drafts, what)
+        report["frontend_prefill"] = frontend_prefill(eng, dev)
+        graphs = [g for p in (pool, cpool, plain, vpool) for g in eng.step_graphs(p).values()]
+    log.check(what)
+    replays = graph_launches(graphs, cfg, what)
+    tokens_f = full.generate(prompts, GEN_NEW)
+    agreement = float((tokens_q == tokens_f).mean())
+    per_step = step_agreement(eng, full, prompts, tokens_f, dev)
+    # the vision-language model's chains part at near ties within a few
+    # tokens (0.03-0.31 over six prompt draws, ``agreement_check.py``) while its
+    # per-step agreement reads 0.59-0.75: there the floor holds the per-step
+    # agreement, which the chain agreement lower-bounds; whisper the chain's
+    gated = per_step["agreement"] if cfg.family == "vlm" else agreement
+    if gated < AGREEMENT_FLOOR:
+        fail(f"{what}: agreement {gated:.3f} with the bf16 engine (chain {agreement:.3f}, "
+             f"per step {per_step['agreement']}), under the floor {AGREEMENT_FLOOR}")
+    del full
+    report["block_card_vs_cpu"] = {}
+    for name, stack, body, want in blocks:
+        with runtime.launches_recorded() as block_launches:  # a module check, not the path
+            r = check_block_card_vs_cpu(eng, dev, stack, body)
+        if block_launches.get("int8_matmul") != want:
+            fail(f"{what}: the {name} block on the card launched {block_launches}, "
+                 f"{want} int8_matmul expected")
+        report["block_card_vs_cpu"][name] = dict(r, int8_matmul_launches=want)
+    decode_ms = [c["ms"] for c in log.calls if c["kind"] == "decode_step"]
+    report.update({
+        "int8_matmul_per_call": {k: k5_per_call(cfg, k) for k in (
+            "prefill", "decode_step", "prefill_chunk", "decode_verify",
+            *(("encoder_cross_cache",) if cfg.family == "audio" else ()))},
+        "calls": len(log.calls), "graphs": len(graphs),
+        "replays": sum(g.replays for g in graphs),
+        "eager_decode_ms_median": r6(statistics.median(decode_ms)),
+        "greedy_agreement_vs_bf16": r6(agreement), "step_agreement_vs_bf16": per_step,
+        "agreement_floor": AGREEMENT_FLOOR,
+        "floor_holds": "per-step agreement" if cfg.family == "vlm" else "chain agreement",
+        "distinct_tokens": {"generate": len(set(tokens_q.ravel().tolist())),
+                            "of": int(tokens_q.size)},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "seconds": r6(time.perf_counter() - t_start)})
+    return {"int8_matmul": sum(c["per_call"] for c in log.calls) + replays, "report": report}
+
+
+def step_agreement(eng, full, prompts, chain_f, dev) -> dict:
+    """Per-step agreement with the bf16 twin: the int8 model's argmax at each
+    of the twin's greedy positions, given the twin's own chain as context
+    (teacher-forced, one forward pass of each; launches recorded apart), and
+    the largest |int8 - bf16| of those logits over the largest |logit|.
+    The greedy-chain agreement is a lower bound of it (``docs/kernels.md``):
+    two chains part for good at their first flip."""
+    b, n = chain_f.shape
+    ctx = np.concatenate([prompts, chain_f[:, :-1]], axis=1).astype(np.int64)
+    toks = torch.as_tensor(ctx, device=dev)
+    vocab, last = eng.cfg.vocab_size, prompts.shape[1] - 1
+    logits = []
+    with torch.inference_mode(), runtime.launches_recorded():
+        for e in (eng, full):
+            hidden, _ = model_mod.forward(e.params, toks, e.cfg, e._frontend_stub(b))
+            logits.append(unembed_apply(e.params["embed"], hidden[:, last:], e.cfg)[
+                ..., :vocab].float())
+    lq, lf = logits
+    scale = lf.abs().amax(dim=-1)
+    return {"positions": b * n,
+            "agreement": r6(float((lq.argmax(-1).cpu().numpy() == chain_f).mean())),
+            "logits_max_abs_diff_rel": r6(float(((lq - lf).abs().amax(-1) / scale).max()))}
+
+
+def drive_serve_audio(dev) -> dict:
+    """whisper-tiny at full width and full depth (4 + 4 layers, no cut),
+    then its reduced config in f32 with int8 weights, token for token:
+    chunked == blocking and speculative == plain."""
+    blocks = [("encoder", "enc_blocks", encoder_block, 6),
+              ("decoder", "blocks", decoder_block(), 10)]
+    out = serve_frontend_config(dev, WHISPER, None, ENGINE_SC, CHUNK_TOKENS, blocks)
+    torch.cuda.empty_cache()
+    identity, launched = strict_identity_logged(dev, WHISPER, "serve_audio strict identity")
+    return {"expect": {"int8_matmul": out["int8_matmul"] + launched},
+            "report": {WHISPER: out["report"], "strict_identity": identity}}
+
+
+def drive_serve_vlm(dev) -> dict:
+    """internvl2-76b at full width, cut to ``VLM_LAYERS`` layers, its prompts
+    256 image positions (the engine's stub) and then text; then its reduced
+    config in f32 with int8 weights, token for token."""
+    blocks = [("decoder", "blocks", transformer.dense_block_prefill, 7)]
+    out = serve_frontend_config(dev, VLM, VLM_LAYERS, VLM_SC, VLM_CHUNK, blocks)
+    torch.cuda.empty_cache()
+    identity, launched = strict_identity_logged(dev, VLM, "serve_vlm strict identity")
+    return {"expect": {"int8_matmul": out["int8_matmul"] + launched},
+            "report": {VLM: out["report"], "strict_identity": identity}}
 
 
 # ---------------------------------------------------------------------------
@@ -2596,6 +2923,15 @@ def tuner_cases() -> list[tuple]:
     for e, m, k, n, _ in INT8_BATCHED:
         cases.append(("int8_matmul", {"m": m, "k": k, "n": n, "batch": e}, "int8",
                       fixed_int8_plan(m, k, n), 0.0, True))
+    # whisper-tiny's and internvl2-76b's projections at the row counts their
+    # paths launch: decode (4), whisper's encoder over one and four requests'
+    # 1500 frames; internvl2's verify (4 x 5), a chunk of 2 x 48, one prompt
+    # of 320 positions and four
+    for ms, kns in ((WHISPER_K5_M, WHISPER_K5_KN), (VLM_K5_M, VLM_K5_KN)):
+        for m in ms:
+            for k, n in kns:
+                cases.append(("int8_matmul", {"m": m, "k": k, "n": n}, "int8",
+                              fixed_int8_plan(m, k, n), 0.0, True))
     fb, fh, _, fsq, fsk, fd, _, _ = FLASH_MAIN
     flash = {"b": fb, "h": fh, "sq": fsq, "sk": fsk, "d": fd}
     cases += [("flash_attention", flash, "bfloat16", {"block_q": 64, "block_k": 64}, TOL_BF16,
@@ -3001,6 +3337,7 @@ def main(argv=None) -> int:
     paths = {"lstm": drive_main_path, "serve_dense": drive_serve_dense,
              "serve_engine": lambda d: drive_serve_engine(d, driven["serve_dense"]["engine"]),
              "serve_moe": drive_serve_moe, "serve_ssm": drive_serve_ssm,
+             "serve_audio": drive_serve_audio, "serve_vlm": drive_serve_vlm,
              "flash_attention": drive_flash_path}
     for name, drive in paths.items():
         runtime.reset_launch_counts()
@@ -3042,6 +3379,10 @@ def main(argv=None) -> int:
     moe_report["launches"] = counts_by_path["serve_moe"]
     ssm_report = driven["serve_ssm"]["report"]
     ssm_report["launches"] = counts_by_path["serve_ssm"]
+    audio_report = driven["serve_audio"]["report"]
+    audio_report["launches"] = counts_by_path["serve_audio"]
+    vlm_report = driven["serve_vlm"]["report"]
+    vlm_report["launches"] = counts_by_path["serve_vlm"]
     driven = driven["lstm"]
 
     lw = paper_workload()
@@ -3068,6 +3409,7 @@ def main(argv=None) -> int:
     main_path["trace_check"] = TRACE_CHECK
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
               "serve_engine": engine_report, "serve_moe": moe_report, "serve_ssm": ssm_report,
+              "serve_audio": audio_report, "serve_vlm": vlm_report,
               "int8_path_shapes": path_shapes, "host_path": host,
               "chip_model": chip_model,
               "tuner": tuner, "energy": energy,
@@ -3086,6 +3428,8 @@ def main(argv=None) -> int:
     print("serve_engine " + json.dumps(engine_report), flush=True)
     print("serve_moe " + json.dumps(moe_report), flush=True)
     print("serve_ssm " + json.dumps(ssm_report), flush=True)
+    print("serve_audio " + json.dumps(audio_report), flush=True)
+    print("serve_vlm " + json.dumps(vlm_report), flush=True)
     print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)

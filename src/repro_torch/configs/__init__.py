@@ -1,8 +1,7 @@
 """Architecture registry of the port.  Importing this package registers the
-configurations whose families the port's serving path covers (dense, the
-moe family with MLA, ssm and hybrid); the other families of the JAX package
-(audio, and the vlm's vision front-end) are registered when their modules
-are ported (ROADMAP Queue A item 8)."""
+ten architectures of the JAX package, one module each: every family the
+port serves (dense, vlm, moe with MLA, ssm, hybrid and the audio
+encoder-decoder)."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     ArchConfig,
@@ -21,8 +20,10 @@ from repro_torch.configs import (  # noqa: F401
     granite_3_8b,
     granite_34b,
     granite_moe_3b_a800m,
+    internvl2_76b,
     mamba2_780m,
     qwen15_110b,
     starcoder2_15b,
+    whisper_tiny,
     zamba2_7b,
 )

@@ -217,7 +217,10 @@ def run_attention(cfg: ArchConfig, q, k, v, *, causal: bool) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # GQA attention block
 # ---------------------------------------------------------------------------
-def gqa_defs(cfg: ArchConfig) -> dict:
+def gqa_defs(cfg: ArchConfig, *, cross: bool = False) -> dict:
+    """The GQA projections (and QKV biases).  ``cross`` (whisper's decoder
+    cross-attention) takes the same leaves, as in the JAX package: its wk/wv
+    project the encoder output."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     defs = {
@@ -252,6 +255,18 @@ def gqa_apply(params, x, cfg: ArchConfig, *, causal: bool = True, rope: bool = T
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = gqa_project_qkv(params, x, cfg, positions, rope=rope)
     out = run_attention(cfg, q, k, v, causal=causal)
+    return qeinsum("bshe,hed->bsd", out, params["wo"])
+
+
+def gqa_cross_apply(params, x, kv_pair, cfg: ArchConfig):
+    """Cross-attention (whisper's decoder): queries from ``x`` (B, T, D)
+    through wq (+ bq), attending without a mask over ``kv_pair`` = (k, v),
+    (B, Sk, KV, hd) precomputed from the encoder output; then wo."""
+    q = qeinsum("bsd,dhe->bshe", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    k, v = kv_pair
+    out = run_attention(cfg, q, k, v, causal=False)
     return qeinsum("bshe,hed->bsd", out, params["wo"])
 
 

@@ -1,19 +1,26 @@
 """Model API: param_defs / init_model / forward / prefill / decode_step /
 prefill_chunk / decode_verify / commit_verify.
 
-Ported so far: the dense and vlm families; the moe family: granite-moe
-(GQA attention + MoE) and deepseek (MLA attention; ``first_k_dense`` leading
-MLA + dense-MLP blocks in ``dense_blocks``, then MLA + MoE blocks in
-``blocks``; the compressed (c, k_rope) cache spans both stacks, the first
-``first_k_dense`` layers of it the dense ones'); the ssm family (a single
-Mamba2 stack, a per-layer (conv, state) cache); and hybrid (zamba2:
-segments of ``attn_every`` Mamba2 layers, each preceded by the ONE
-weight-shared attention block, which takes concat(x, x0) with x0 the
-embedding of the call's own tokens; its (shared_k, shared_v) cache has one
-entry per application).  The audio family raises ``NotImplementedError``
-until it is ported (ROADMAP Queue A item 8); the loss, and deepseek's
-multi-token-prediction head, whose parameters (``mtp``) are drawn but not
-used when serving, come with training (item 13).
+Every family of the JAX package: dense, and vlm (the dense stack, the
+front-end's ``frontend_seq`` patch embeddings in place of the first token
+positions); the moe family: granite-moe (GQA attention + MoE) and deepseek
+(MLA attention; ``first_k_dense`` leading MLA + dense-MLP blocks in
+``dense_blocks``, then MLA + MoE blocks in ``blocks``; the compressed
+(c, k_rope) cache spans both stacks, the first ``first_k_dense`` layers of
+it the dense ones'); the ssm family (a single Mamba2 stack, a per-layer
+(conv, state) cache); hybrid (zamba2: segments of ``attn_every`` Mamba2
+layers, each preceded by the ONE weight-shared attention block, which takes
+concat(x, x0) with x0 the embedding of the call's own tokens; its
+(shared_k, shared_v) cache has one entry per application); and audio
+(whisper: an encoder stack over the front-end's frames, ``enc_blocks`` and
+``enc_norm``, and a causal decoder stack with cross-attention in
+``blocks``; sinusoidal positions on both sides; a cache of four leaves a
+layer, the self-attention's (k, v), which grow with the sequence, and the
+cross-attention's (cross_k, cross_v) over ``encoder_seq`` frames, which the
+prompt's prefill or ``encoder_cross_cache`` fills once and nothing writes
+after).  The loss, and deepseek's multi-token-prediction head, whose
+parameters (``mtp``) are drawn but not used when serving, come with
+training (ROADMAP Queue A item 13).
 
 Decode, chunked prefill and verify take one position per row (an int for
 all rows, or a (B,) tensor), where the JAX package takes a scalar and maps
@@ -55,15 +62,13 @@ from repro_torch.models.quant import (
     quantize_weight,
 )
 
-_PORTED = ("dense", "vlm", "moe", "ssm", "hybrid")
+_PORTED = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 _RECURRENT = ("ssm", "hybrid")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
     if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue A item 8); "
-            f"ported: {_PORTED}")
+        raise ValueError(f"unknown family {cfg.family!r}; the port serves {_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +83,10 @@ def param_defs(cfg: ArchConfig) -> dict:
         defs["blocks"] = stacked(cfg.num_layers, T.ssm_block_defs(cfg))
         if cfg.family == "hybrid":
             defs["shared"] = T.shared_attn_defs(cfg)
+    elif cfg.family == "audio":
+        defs["enc_blocks"] = stacked(cfg.encoder_layers, T.enc_block_defs(cfg))
+        defs["enc_norm"] = T.norm_defs(cfg)
+        defs["blocks"] = stacked(cfg.num_layers, T.dec_block_defs(cfg))
     elif cfg.mla is None:  # moe
         defs["blocks"] = stacked(cfg.num_layers, T.moe_block_defs(cfg))
     else:  # deepseek
@@ -154,12 +163,15 @@ def _layer(stack, i: int):
 
 def _bodies(cfg: ArchConfig):
     """The block bodies (apply, prefill, chunk, decode): the Mamba2 block's
-    (ssm, and hybrid between its shared blocks), MLA's, or the GQA block's
-    (dense, vlm and granite-moe; each block's FFN, MLP or MoE, by its
-    params)."""
+    (ssm, and hybrid between its shared blocks), whisper's decoder block
+    (its apply and prefill bodies also take the encoder output, ``enc``),
+    MLA's, or the GQA block's (dense, vlm and granite-moe; each block's FFN,
+    MLP or MoE, by its params)."""
     _require_ported(cfg)
     if cfg.family in _RECURRENT:
         bodies = (T.ssm_block_apply, T.ssm_block_prefill, T.ssm_block_chunk, T.ssm_block_decode)
+    elif cfg.family == "audio":
+        bodies = (T.dec_block_apply, T.dec_block_prefill, T.dec_block_chunk, T.dec_block_decode)
     elif cfg.mla is not None:
         bodies = (T.mla_block_apply, T.mla_block_prefill, T.mla_block_chunk, T.mla_block_decode)
     else:
@@ -170,17 +182,20 @@ def _bodies(cfg: ArchConfig):
 
 def _stacks(params) -> list:
     """The layer stacks in order: deepseek's leading dense blocks, then the
-    blocks every family has."""
+    blocks every family has (whisper's encoder stack is not among them: it
+    runs once, ahead of the decoder, in ``_encode_audio``)."""
     return [params[key] for key in ("dense_blocks", "blocks") if key in params]
 
 
-def cache_keys(cfg: ArchConfig) -> tuple[str, str]:
+def cache_keys(cfg: ArchConfig) -> tuple[str, ...]:
     """The decode cache's per-layer leaves: the (conv, state) pair of the
-    Mamba2 layers, the compressed (c, k_rope) pair of MLA, K and V
-    otherwise.  Hybrid's shared block adds (shared_k, shared_v), one entry
-    per application."""
+    Mamba2 layers, the compressed (c, k_rope) pair of MLA, whisper's
+    decoder (k, v, cross_k, cross_v), K and V otherwise.  Hybrid's shared
+    block adds (shared_k, shared_v), one entry per application."""
     if cfg.family in _RECURRENT:
         return ("conv", "state")
+    if cfg.family == "audio":
+        return ("k", "v", "cross_k", "cross_v")
     return ("c", "krope") if cfg.mla is not None else ("k", "v")
 
 
@@ -256,11 +271,53 @@ def run_stack_decode(stacks, caches, x, body, pos, cfg: ArchConfig, before=None)
 # Embedding front
 # ---------------------------------------------------------------------------
 def _embed_tokens(params, tokens, cfg: ArchConfig, frontend_embeds=None):
+    """The prompt's embeddings.  vlm: the ``frontend_seq`` patch rows are
+    concatenated ahead of x[:, frontend_seq:], as in the JAX package, so a
+    prompt shorter than ``frontend_seq`` gives ``frontend_seq`` positions,
+    not S.  audio: plus the sinusoid of positions 0..S-1."""
     x = embed_apply(params["embed"], tokens, cfg)
     if cfg.family == "vlm" and frontend_embeds is not None:
         fs = cfg.frontend_seq
         x = torch.cat([frontend_embeds.to(x.dtype), x[:, fs:]], dim=1)
-    return x
+    return _add_positions(x, cfg, 0)
+
+
+def _add_positions(x, cfg: ArchConfig, pos):
+    """Whisper's sinusoidal positions added to x (B, T, D) at ``pos`` (an
+    int, or (B,): one a row), cast to x's type; x as it is for the other
+    families."""
+    if cfg.family != "audio":
+        return x
+    return x + T.sinusoid_positions(x.shape[1], cfg.d_model, pos, x.device).to(x.dtype)
+
+
+def _encode_audio(params, cfg: ArchConfig, frontend_embeds):
+    """The audio encoder pass shared by prefill and ``encoder_cross_cache``
+    (one definition keeps their cross K/V the same bits): the frames plus
+    their sinusoid, the encoder stack, its final norm."""
+    enc = frontend_embeds.to(cfg.dtype)
+    enc = enc + T.sinusoid_positions(enc.shape[1], cfg.d_model, 0, enc.device).to(enc.dtype)
+    enc, _ = run_stack([params["enc_blocks"]], enc, partial(T.enc_block_apply, cfg=cfg), cfg)
+    return T.apply_norm(cfg, params["enc_norm"], enc)
+
+
+def encoder_cross_cache(params, cfg: ArchConfig, frontend_embeds):
+    """Run the audio encoder once and return the decoder's cross K/V stacks
+    (cross_k, cross_v), each (L, B, encoder_seq, KV, hd): the static cache
+    leaves that chunked prefill and decode read.  A loop over the decoder
+    layers where the JAX package maps ``_cross_kv`` over them."""
+    enc = _encode_audio(params, cfg, frontend_embeds)
+    kv = [T._cross_kv(p["cross_attn"], enc, cfg) for _, p in _walk([params["blocks"]])]
+    return tuple(torch.stack(ts) for ts in zip(*kv))
+
+
+def _with_encoder(body, params, cfg: ArchConfig, frontend_embeds):
+    """Whisper's apply and prefill bodies take the encoder output: ``body``
+    with ``enc`` bound (the JAX package's lambda); the other families'
+    bodies as they are."""
+    if cfg.family != "audio":
+        return body
+    return partial(body, enc=_encode_audio(params, cfg, frontend_embeds))
 
 
 # ---------------------------------------------------------------------------
@@ -270,6 +327,7 @@ def forward(params, tokens, cfg: ArchConfig, frontend_embeds=None):
     """tokens: (B, S) → (final hidden states (B, S, D), the MoE load-balance
     loss summed over layers; 0 for the other families)."""
     apply, _, _, _ = _bodies(cfg)
+    apply = _with_encoder(apply, params, cfg, frontend_embeds)
     x = _embed_tokens(params, tokens, cfg, frontend_embeds)
     before = _shared_before(params, cfg, x, lambda p, x, x0, i: T.shared_attn_apply(
         p, x, x0, cfg))
@@ -282,8 +340,11 @@ def prefill(params, tokens, cfg: ArchConfig, frontend_embeds=None):
     of shape (L, B, S, KV, hd); MLA's {"c": (L, B, S, kv_lora_rank),
     "krope": (L, B, S, qk_rope_head_dim)}; the Mamba2 layers' {"conv": (L,
     B, W-1, d_inner + 2N), "state": (L, B, H, P, N) f32}, and for hybrid
-    {"shared_k", "shared_v"}: (applications, B, S, KV, hd)."""
+    {"shared_k", "shared_v"}: (applications, B, S, KV, hd); whisper's
+    {"k", "v"} and {"cross_k", "cross_v"}: (L, B, encoder_seq, KV, hd), the
+    encoder run over ``frontend_embeds`` (B, encoder_seq, D)."""
     _, body, _, _ = _bodies(cfg)
+    body = _with_encoder(body, params, cfg, frontend_embeds)
     x = _embed_tokens(params, tokens, cfg, frontend_embeds)
     shared = []
 
@@ -329,7 +390,7 @@ def decode_step(params, cache, token, pos, cfg: ArchConfig):
     _, _, _, body = _bodies(cfg)
     b = token.shape[0]
     pos = _positions(pos, b, token.device)
-    x = embed_apply(params["embed"], token, cfg)
+    x = _add_positions(embed_apply(params["embed"], token, cfg), cfg, pos)
     x, _ = _run_cached(params, cache, x, body, pos, cfg, T.shared_attn_decode)
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden, cfg)[:, 0]
@@ -363,12 +424,14 @@ def _chunk_forward(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=
         fe = frontend_embeds[rows, start[:, None] + steps]
         sel = (pos[:, None] + steps)[..., None] < cfg.frontend_seq
         x = torch.where(sel, fe.to(x.dtype), x)
+    x = _add_positions(x, cfg, pos)
     return _run_cached(params, cache, x, body, pos, cfg, T.shared_attn_chunk)
 
 
 def prefill_chunk(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=None):
     """One chunk of T prompt tokens a row against a full-capacity decode
-    cache (``cache_defs`` layout, zero-initialised) at positions
+    cache (``cache_defs`` layout, zero-initialised; for audio with its
+    cross_k/cross_v filled up front by ``encoder_cross_cache``) at positions
     [pos, pos+T).  Successive chunks compose to ``prefill``: attention masks
     the dead rows past the written prefix, the Mamba2 layers carry their
     conv tail and state.  For vlm, ``frontend_embeds`` is padded to cache
@@ -386,13 +449,14 @@ def decode_verify(params, cache, tokens, pos, cfg: ArchConfig, frontend_embeds=N
     for every position, (B, T, V) f32: logits[:, j] is the next-token
     distribution after tokens[:, :j+1]; and the cache.
 
-    Attention caches (K/V, MLA's c/k_rope, hybrid's shared K/V) are written
-    in place: the rows of rejected candidates are dead data past the
-    committed prefix (see ``layers.attention_chunk``), so they need no
-    rollback.  The Mamba2 layers' (conv, state) are left as they were; the
-    returned dict holds the same tensors and, under ``"verify"``, one
-    ``ssm.VerifyCarry`` a layer, from which ``commit_verify`` writes each
-    row's state after its accepted count."""
+    Attention caches (K/V, MLA's c/k_rope, hybrid's shared K/V, whisper's
+    self-attention K/V) are written in place: the rows of rejected
+    candidates are dead data past the committed prefix (see
+    ``layers.attention_chunk``), so they need no rollback; whisper's
+    cross_k/cross_v are read, never written.  The Mamba2 layers' (conv,
+    state) are left as they were; the returned dict holds the same tensors
+    and, under ``"verify"``, one ``ssm.VerifyCarry`` a layer, from which
+    ``commit_verify`` writes each row's state after its accepted count."""
     x, outs = _chunk_forward(params, cache, tokens, pos, cfg, frontend_embeds, verify=True)
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden, cfg)
@@ -406,9 +470,10 @@ def commit_verify(cache, accepted, cfg: ArchConfig):
 
     ``accepted``: accepted drafts a in [0, K] a row (an int for all rows,
     or a (B,) tensor), i.e. a+1 tokens of the window were consumed.
-    Attention caches need nothing (rollback is positional); the ssm/hybrid
-    (conv, state) of row b are written, in place, as they stand after
-    a[b]+1 tokens (the JAX package's snapshot at index a).  Returns the
+    Attention caches need nothing (rollback is positional: the dense, vlm,
+    moe and audio families, whose static cross K/V verify never wrote);
+    the ssm/hybrid (conv, state) of row b are written, in place, as they
+    stand after a[b]+1 tokens (the JAX package's snapshot at index a).  Returns the
     cache without the ``"verify"`` entry."""
     _require_ported(cfg)
     if cfg.family not in _RECURRENT:

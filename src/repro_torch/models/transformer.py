@@ -1,7 +1,5 @@
 """Per-family transformer blocks (train/prefill/chunk/decode bodies).
 
-Ported so far:
-
   dense / vlm       pre-norm GQA attention + (SwiGLU) MLP
   moe               GQA attention + top-k MoE FFN (+ shared experts): the
                     dense bodies, the FFN chosen by the block's params
@@ -9,8 +7,8 @@ Ported so far:
   ssm               Mamba2 (SSD) block
   hybrid (zamba2)   Mamba2 stack + ONE weight-shared attention block applied
                     every ``attn_every`` layers (input = concat(x, x0) → proj)
-
-The encoder-decoder blocks come with their family (ROADMAP Queue A item 8).
+  audio (whisper)   enc-dec: bidirectional encoder blocks + causal decoder
+                    blocks with cross-attention; LayerNorm + GELU
 
 Every train/prefill body returns ``(x, aux)`` or ``(x, cache slices)`` as in
 the JAX package; chunk and decode bodies consume the layer's cache slices
@@ -24,6 +22,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     gqa_chunk_apply,
+    gqa_cross_apply,
     gqa_decode_apply,
     gqa_defs,
     gqa_project_qkv,
@@ -276,3 +275,115 @@ def shared_attn_decode(p, x, x0, k_cache, v_cache, pos, cfg: ArchConfig):
     a, k_cache, v_cache = gqa_decode_apply(
         p["attn"], apply_norm(cfg, p["ln1"], inp), k_cache, v_cache, pos, cfg)
     return _shared_out(p, x, inp, a, cfg), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Whisper encoder / decoder blocks
+# ---------------------------------------------------------------------------
+def enc_block_defs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": norm_defs(cfg),
+        "attn": gqa_defs(cfg),
+        "ln2": norm_defs(cfg),
+        "mlp": mlp_defs(cfg),
+    }
+
+
+def enc_block_apply(p, x, cfg: ArchConfig):
+    """Bidirectional self-attention (no mask, no RoPE), then the GELU MLP."""
+    x = x + gqa_full(p["attn"], apply_norm(cfg, p["ln1"], x), cfg, causal=False, rope=False)[0]
+    return _ffn(p, x, cfg)
+
+
+def dec_block_defs(cfg: ArchConfig) -> dict:
+    return {
+        "ln1": norm_defs(cfg),
+        "self_attn": gqa_defs(cfg),
+        "ln_x": norm_defs(cfg),
+        "cross_attn": gqa_defs(cfg, cross=True),
+        "ln2": norm_defs(cfg),
+        "mlp": mlp_defs(cfg),
+    }
+
+
+def _cross_kv(p, enc, cfg: ArchConfig):
+    """The cross-attention's (k, v) over the encoder output enc (B, S_enc, D):
+    (B, S_enc, KV, hd) each.  ``prefill`` and ``model.encoder_cross_cache``
+    both take them from here, so both give the same bits."""
+    k = qeinsum("bsd,dhe->bshe", enc, p["wk"])
+    v = qeinsum("bsd,dhe->bshe", enc, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k, v
+
+
+def dec_block_apply(p, x, enc, cfg: ArchConfig):
+    x = x + gqa_full(p["self_attn"], apply_norm(cfg, p["ln1"], x), cfg, causal=True,
+                     rope=False)[0]
+    kv = _cross_kv(p["cross_attn"], enc, cfg)
+    x = x + gqa_cross_apply(p["cross_attn"], apply_norm(cfg, p["ln_x"], x), kv, cfg)
+    return _ffn(p, x, cfg)
+
+
+def dec_block_prefill(p, x, enc, cfg: ArchConfig):
+    """The decoder block over a prompt, with the cache rows it produces: the
+    self-attention's (k, v) and the cross-attention's (cross_k, cross_v)."""
+    a, (k, v) = gqa_full(p["self_attn"], apply_norm(cfg, p["ln1"], x), cfg, causal=True,
+                         rope=False)
+    x = x + a
+    ck, cv = _cross_kv(p["cross_attn"], enc, cfg)
+    x = x + gqa_cross_apply(p["cross_attn"], apply_norm(cfg, p["ln_x"], x), (ck, cv), cfg)
+    return _ffn(p, x, cfg)[0], (k, v, ck, cv)
+
+
+def dec_block_chunk(p, x, cache, pos, cfg: ArchConfig):
+    """Decoder chunk: causal self-attention over the cache (the chunk's K/V
+    written in place at ``pos``) and cross-attention against the static,
+    precomputed encoder K/V, which stay as they are."""
+    k_cache, v_cache, ck, cv = cache
+    a, k_cache, v_cache = gqa_chunk_apply(
+        p["self_attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg, rope=False)
+    x = x + a
+    x = x + gqa_cross_apply(p["cross_attn"], apply_norm(cfg, p["ln_x"], x), (ck, cv), cfg)
+    return _ffn(p, x, cfg)[0], (k_cache, v_cache, ck, cv)
+
+
+def dec_block_decode(p, x, cache, pos, cfg: ArchConfig):
+    """One token a row; the cross-attention inline (wq + bq, one query
+    against the static encoder K/V, wo), as in the JAX package."""
+    k_cache, v_cache, ck, cv = cache
+    a, k_cache, v_cache = gqa_decode_apply(
+        p["self_attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg, rope=False)
+    x = x + a
+    q = qeinsum("bsd,dhe->bshe", apply_norm(cfg, p["ln_x"], x), p["cross_attn"]["wq"])
+    if cfg.qkv_bias:
+        q = q + p["cross_attn"]["bq"]
+    out = run_attention(cfg, q, ck, cv, causal=False)
+    x = x + qeinsum("bshe,hed->bsd", out, p["cross_attn"]["wo"])
+    return _ffn(p, x, cfg)[0], (k_cache, v_cache, ck, cv)
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (whisper enc/dec — length-agnostic, no params)
+# ---------------------------------------------------------------------------
+def sinusoid_positions(seq: int, dim: int, offset=0, device=None) -> torch.Tensor:
+    """The f32 table of positions offset..offset+seq-1: sin in the even
+    columns, cos in the odd ones.  ``offset`` is an int, giving (seq, dim),
+    or a (B,) tensor of positions, one a row, giving (B, seq, dim) on its
+    device.  The frequency factor is the JAX package's f32 one: log(10000)
+    in f32, divided by ``dim`` as a tensor (CUDA divides by a Python number
+    through its reciprocal); everything is built on the device, so a captured
+    tick copies nothing from the host."""
+    if isinstance(offset, torch.Tensor):
+        device = offset.device
+        steps = offset.reshape(-1, 1) + torch.arange(seq, device=device)
+    else:
+        steps = torch.arange(seq, device=device) + offset
+    pos = steps.to(torch.float32)[..., None]
+    base = torch.full((), 10000.0, dtype=torch.float32, device=device)
+    width = torch.full((), dim, dtype=torch.float32, device=device)
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-torch.log(base) / width))
+    angles = pos * div
+    return torch.stack([torch.sin(angles), torch.cos(angles)], dim=-1).flatten(-2)

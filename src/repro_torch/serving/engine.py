@@ -5,16 +5,22 @@ prefill (``begin_chunked_prefill`` → ``chunked_prefill_step`` →
 ``masked_speculative_step``, with ``poison_slot`` / ``resume_into_slot``
 for quarantine and re-admission.
 
-Ported: the contiguous engine of the dense, moe, ssm and hybrid families
-(granite-moe's GQA attention and deepseek's MLA over its compressed cache,
-the MoE FFN on its dense path; mamba2's per-layer conv tail and SSM state,
-zamba2's shared attention block with a K/V cache per application), in full
-precision or with int8 weights (``ArchConfig.quant = "int8"``, every
-attention, MLP, expert, Mamba2 and shared-block projection through the
-``int8_matmul`` kernel, each expert einsum one launch over the expert
-axis), ``spec_slack`` included.  No family needs a branch of its own here:
-prefill, chunked prefill (the group's own cache), poison/resume and
-``generate`` go through the model's entry points, and the verify tick's
+Ported: the contiguous engine of every family of the JAX package (the
+dense family, and vlm with its front-end stub of ``frontend_seq`` patch
+rows; granite-moe's GQA attention and deepseek's MLA over its compressed
+cache, the MoE FFN on its dense path; mamba2's per-layer conv tail and SSM
+state, zamba2's shared attention block with a K/V cache per application;
+whisper's encoder over its front-end stub of ``encoder_seq`` frames and
+its decoder's cross K/V, filled once at admission and read by every later
+tick), in full precision or with int8 weights (``ArchConfig.quant =
+"int8"``, every attention, MLP, expert, Mamba2, shared-block, encoder and
+cross-attention projection through the ``int8_matmul`` kernel, each expert
+einsum one launch over the expert axis), ``spec_slack`` included.  Two
+families need a line of their own here: the front-end stubs (vlm, audio),
+and a chunked audio group's cross K/V, which ``begin_chunked_prefill``
+fills from ``encoder_cross_cache`` before the first chunk.  Everything
+else (prefill, chunked prefill on the group's own cache, poison/resume,
+``generate``) goes through the model's entry points, and the verify tick's
 ``commit_verify`` rolls each row's recurrent state forward to that row's
 own accepted count (what the JAX engine does per slot under ``vmap``).
 The options whose modules are not ported raise ``NotImplementedError`` at
@@ -53,6 +59,7 @@ from repro_torch.models.model import (
     commit_verify,
     decode_step,
     decode_verify,
+    encoder_cross_cache,
     init_model,
     prefill,
     prefill_chunk,
@@ -103,7 +110,8 @@ def _refuse_unported(sc: ServeConfig) -> None:
 
 
 class InferenceEngine:
-    """Batched prefill → decode loop (dense, moe, ssm and hybrid families)."""
+    """Batched prefill → decode loop (every family: dense, vlm, moe, ssm,
+    hybrid, audio)."""
 
     def __init__(self, cfg: ArchConfig, params=None, sc: ServeConfig | None = None,
                  seed: int = 0, device=None):
@@ -133,14 +141,19 @@ class InferenceEngine:
         self._graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
     def _frontend_stub(self, batch: int):
+        """The front-end's stand-in, zeros as in the JAX engine: vlm's
+        (batch, frontend_seq, d_model) patch embeddings, whisper's (batch,
+        encoder_seq, d_model) frames; ``None`` without a front-end."""
         cfg = self.cfg
         if cfg.frontend == "vision":
-            return torch.zeros((batch, cfg.frontend_seq, cfg.d_model), dtype=cfg.dtype,
-                               device=self.device)
-        if cfg.frontend is not None:
-            raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet "
-                                      "(ROADMAP Queue A item 8)")
-        return None
+            seq = cfg.frontend_seq
+        elif cfg.frontend == "audio":
+            seq = cfg.encoder_seq
+        elif cfg.frontend is None:
+            return None
+        else:
+            raise ValueError(f"unknown frontend {cfg.frontend!r}")
+        return torch.zeros((batch, seq, cfg.d_model), dtype=cfg.dtype, device=self.device)
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, new_tokens: int) -> np.ndarray:
@@ -266,7 +279,8 @@ class InferenceEngine:
                          rid: int, budget: int, emitted: int, next_tok: int) -> None:
         """Re-admit a quarantined (retired) request: prefill its committed
         context (prompt + all but the last emitted token) and land it in
-        ``slot``, overwriting the poisoned rows.  ``next_tok``, the last
+        ``slot``, overwriting the poisoned rows (every leaf: whisper's cross
+        K/V come from the prefill's encoder pass).  ``next_tok``, the last
         committed token, is the slot's next decode input, so the greedy
         continuation is the fault-free run's."""
         context = np.asarray(context, np.int32)
@@ -319,10 +333,11 @@ class InferenceEngine:
     def begin_chunked_prefill(self, pool: SlotPool, slots: list[int], prompts: np.ndarray, *,
                               rids: list[int], budgets: list[int]) -> "ChunkedPrefillState":
         """Reserve ``slots`` for a same-length admission group and build the
-        group's own full-capacity cache (batch = group size).  The group
-        prefills outside the pool, whose masked decode keeps serving the
-        decoding slots between chunks; ``finish_chunked_prefill`` lands each
-        row in its reserved slot."""
+        group's own full-capacity cache (batch = group size; for audio its
+        cross K/V filled from ``encoder_cross_cache`` of the front-end stub,
+        cast to the cache's type).  The group prefills outside the pool,
+        whose masked decode keeps serving the decoding slots between chunks;
+        ``finish_chunked_prefill`` lands each row in its reserved slot."""
         prompts = np.asarray(prompts, np.int32)
         k, s0 = prompts.shape
         if not len(slots) == len(rids) == len(budgets) == k:
@@ -336,6 +351,10 @@ class InferenceEngine:
                 pool.reserve(slot, rid=rid, s0=s0, budget=budget)
         cache = init_params(cache_defs(self.cfg, batch=k, max_len=self.capacity),
                             torch.Generator(), self.device)
+        if self.cfg.family == "audio":
+            ck, cv = encoder_cross_cache(self.params, self.cfg, self._frontend_stub(k))
+            cache["cross_k"].copy_(ck)
+            cache["cross_v"].copy_(cv)
         return ChunkedPrefillState(prompts=prompts, rids=list(rids), budgets=list(budgets),
                                    slots=list(slots), cache=cache,
                                    frontend=self._chunk_frontend(k))
@@ -353,7 +372,9 @@ class InferenceEngine:
         prefill step (a chunk of zeros at position 0 on a fresh
         full-capacity cache, rewritten in place by every call) and returns
         its logits, for calibration timing.  Its cost does not depend on the
-        position: attention spans the whole capacity, dead rows masked."""
+        position: attention spans the whole capacity, dead rows masked.
+        Whisper's cross K/V stay zero, as in the JAX engine: the step's
+        cost does not depend on their values."""
         cache = init_params(cache_defs(self.cfg, batch=batch, max_len=self.capacity),
                             torch.Generator(), self.device)
         toks = torch.zeros((batch, chunk_tokens), dtype=torch.int64, device=self.device)

@@ -4,12 +4,14 @@
   MLA (deepseek)  c: (L, B, S, r), krope: (L, B, S, rope_d)   compressed, same type
   SSM (mamba2)    conv: (L, B, W-1, d_inner+2N) same type, state: (L, B, H, P, N) f32
   hybrid (zamba2) the SSM leaves + shared-attention k/v: (applications, B, S, KV, hd)
+  audio (whisper) k/v: (L, B, S, KV, hd) + cross_k/cross_v: (L, B, encoder_seq, KV, hd),
+                  the cross leaves fixed at the encoder's frames, whatever S
 
 ParamDef trees, as in the JAX package, so the cache is initialised by the
-same machinery as the weights.  The audio layout comes with its family
-(ROADMAP Queue A item 8); the paged layout and its int8 pages
-(``page_defs``, ``quantize_kv``) with the paged pool (item 10), where
-``paged_keys`` gives the leaves with a sequence axis to page.
+same machinery as the weights.  The paged layout and its int8 pages
+(``page_defs``, ``quantize_kv``) come with the paged pool (ROADMAP Queue A
+item 10), where ``paged_keys`` gives the leaves with a sequence axis to
+page.
 """
 from __future__ import annotations
 
@@ -33,9 +35,8 @@ def _kv(num_layers: int, b: int, s: int, kv: int, hd: int, dtype) -> ParamDef:
 
 def cache_defs(cfg: ArchConfig, *, batch: int, max_len: int) -> dict:
     f = cfg.family
-    if f not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"the {f!r} cache layout is not ported yet "
-                                  "(ROADMAP Queue A item 8)")
+    if f not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
+        raise ValueError(f"unknown family {f!r}")
     l, hd, kv = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads
     dt = cfg.kv_dtype or cfg.dtype
     if f in ("ssm", "hybrid"):  # recurrent leaves: O(1) in max_len
@@ -58,7 +59,11 @@ def cache_defs(cfg: ArchConfig, *, batch: int, max_len: int) -> dict:
         return {"c": ParamDef((l, batch, max_len, m.kv_lora_rank), axes, init="zeros", dtype=dt),
                 "krope": ParamDef((l, batch, max_len, m.qk_rope_head_dim), axes, init="zeros",
                                   dtype=dt)}
-    return {"k": _kv(l, batch, max_len, kv, hd, dt), "v": _kv(l, batch, max_len, kv, hd, dt)}
+    out = {"k": _kv(l, batch, max_len, kv, hd, dt), "v": _kv(l, batch, max_len, kv, hd, dt)}
+    if f == "audio":  # the cross-attention's K/V over the encoder's frames
+        out["cross_k"] = _kv(l, batch, cfg.encoder_seq, kv, hd, dt)
+        out["cross_v"] = _kv(l, batch, cfg.encoder_seq, kv, hd, dt)
+    return out
 
 
 def _defs_bytes(defs: dict) -> int:
@@ -72,13 +77,13 @@ def cache_bytes(cfg: ArchConfig, *, batch: int, max_len: int) -> int:
 
 def paged_keys(cfg: ArchConfig) -> tuple[str, ...]:
     """Cache leaves whose SEQUENCE axis (axis 2) the paged pool (ROADMAP
-    Queue A item 10) will page.  The SSM conv/state are recurrent, O(1) in
-    the sequence, and stay per slot: ssm pages nothing, hybrid only its
-    shared-attention K/V."""
+    Queue A item 10) will page.  What is O(1) in the sequence stays per
+    slot: the SSM conv/state (recurrent: ssm pages nothing, hybrid only its
+    shared-attention K/V) and whisper's cross K/V (fixed at encoder_seq:
+    audio pages its decoder's self-attention K/V)."""
     f = cfg.family
     if f in ("ssm", "hybrid"):
         return ("shared_k", "shared_v") if f == "hybrid" else ()
-    if f in ("dense", "vlm", "moe"):
+    if f in ("dense", "vlm", "moe", "audio"):
         return ("c", "krope") if cfg.mla is not None else ("k", "v")
-    raise NotImplementedError(f"the {f!r} cache layout is not ported yet "
-                              "(ROADMAP Queue A item 8)")
+    raise ValueError(f"unknown family {f!r}")

@@ -42,7 +42,8 @@ from repro_torch.serving.kv_cache import cache_defs, paged_keys
 def grow_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
     """Pad prefill-produced sequence-axis caches out to ``max_len`` rows:
     K/V, MLA's c/k_rope, hybrid's shared K/V.  The ssm conv/state leaves
-    are O(1) in the sequence and pass through as they are."""
+    and whisper's cross K/V (fixed at encoder_seq) are O(1) in the sequence
+    and pass through as they are."""
 
     def grow(x, axis):
         pad = max_len - x.shape[axis]
@@ -52,7 +53,7 @@ def grow_cache(cfg: ArchConfig, cache: dict, max_len: int) -> dict:
         shape[axis] = pad
         return torch.cat([x, torch.zeros(shape, dtype=x.dtype, device=x.device)], dim=axis)
 
-    seq = paged_keys(cfg)  # the leaves with a sequence axis (raises for unported families)
+    seq = paged_keys(cfg)  # the leaves with a sequence axis
     return {key: grow(t, 2) if key in seq else t for key, t in cache.items()}
 
 

@@ -129,8 +129,10 @@ def test_unported_options_raise():
                 {"energy_budget_j": 1.0}, {"share_prefix": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(cfg, sc=ServeConfig(**opt), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceEngine(dataclasses.replace(cfg, family="audio"), device="cpu")
+    # every family of the JAX package is served now; a family it does not
+    # have is refused
+    with pytest.raises(ValueError, match="unknown family"):
+        InferenceEngine(dataclasses.replace(cfg, family="speech"), device="cpu")
 
 
 def test_spec_slack_is_accepted_and_a_verify_tick_runs():

@@ -8,7 +8,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "ssm_rescale_check.py"]
+    ROOT / "chip_smoke.py", ROOT / "ssm_rescale_check.py", ROOT / "agreement_check.py"]
 BANNED = ("jax", "repro")
 
 
@@ -37,6 +37,8 @@ def test_port_files_found():
     assert {"moe.py", "granite_moe_3b_a800m.py", "deepseek_v3_671b.py"} <= names
     # the ssm and hybrid families: mamba2 and zamba2
     assert {"ssm.py", "mamba2_780m.py", "zamba2_7b.py"} <= names
+    # the audio family and the vision-language model: whisper and internvl2
+    assert {"whisper_tiny.py", "internvl2_76b.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
