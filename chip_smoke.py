@@ -6,7 +6,7 @@
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
 against its plain PyTorch version on the card at the shapes its path uses,
 times kernel, plain version and (where one PyTorch call computes the same
-function) the library, then drives eight paths, each with the launch
+function) the library, then drives nine paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * the paper-LSTM path — the plan and request batches through ``lstm_apply``
@@ -25,6 +25,21 @@ counters set to 0 just before it and read just after:
   with int8 weights: chunked == blocking and speculative == plain, token
   for token.  K5 launches 7 x layers times a chunk, verify and replayed
   tick;
+* ``duty_cycle`` — the paper's RQ2 layer on the same int8 weights
+  (``ServeConfig(max_batch=4, max_len=128)``): ``WorkloadAwareServer``'s
+  ``measure_latency`` (the eager ``generate`` of 4 x 16 prompts, 8 new
+  tokens; the median of 3) beside ``serve_engine``'s replayed decode tick;
+  the three ``AccelProfile`` constants measured for this engine
+  (``power.draw`` idle and during a 2.5 s ``generate`` loop, a pinned
+  host-to-device copy of its weight tensors) beside ``H100Chip`` and
+  ``gpu_reload_costs``; ``compare_strategies`` under the chip's profile and
+  the measured one on regular traces at 0.05 and 20 break-even τ and a
+  seeded bursty trace, the engine run during each (on-off <= idle-waiting
+  at short gaps, idle-waiting <= on-off at long, adaptive >= 0.45 x the
+  best); a ``StreamingTauPolicy`` refitting on the card within 10% of
+  offline ``learn_tau``; ``NgramDrafter`` + ``SpecThrottle`` drafts for 4
+  periodic prompts verified on the replayed verify tick, the chains equal
+  to plain decode token for token.  K5 launches 56 a model call;
 * ``serve_moe`` — the moe family through the same engine: granite-moe-3b-a800m
   at full width and full depth (32 layers, 48 padded experts, bf16, int8:
   ``generate``, the slot path with replayed ticks, a chunked prefill while
@@ -106,8 +121,8 @@ under a 2 s K3 loop beside ``H100Chip.step_power``.
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
 the replayed and eager tick times), ``serve_moe``, ``serve_ssm``,
-``serve_audio``, ``serve_vlm``, ``int8_path_shapes``, ``host_path`` (each
-kernel wrapper's host time, ``"auto"`` against the same plan passed
+``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``int8_path_shapes``,
+``host_path`` (each kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
 ``main_path``, the card as ``nvidia-smi`` names it, and last
@@ -170,7 +185,11 @@ from repro_torch.models.params import (  # noqa: E402
     init_params, params_from_numpy, tree_leaves, tree_map,
 )
 from repro_torch.models.quant import QuantTensor, layer_of, quantize_weight  # noqa: E402
+from repro_torch.core import workload as workload_mod  # noqa: E402
+from repro_torch.serving import draft as draft_mod  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
+from repro_torch.serving import load as load_mod  # noqa: E402
+from repro_torch.serving import policy as policy_mod  # noqa: E402
 from repro_torch.serving.kv_cache import cache_defs  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
@@ -2402,10 +2421,16 @@ def held(got: torch.Tensor, want: torch.Tensor, what: str, tol: float, mean_tol:
     return {"max_abs_err": r6(err), "mean_abs_err": r6(mean), "max_abs": r6(scale)}
 
 
+def tree_tensors(tree) -> list[torch.Tensor]:
+    """The tensors of a tree of tensors and ``QuantTensor`` leaves (a
+    ``QuantTensor`` gives its payload and its scales)."""
+    return [x for leaf in tree_leaves(tree)
+            for x in (leaf if isinstance(leaf, QuantTensor) else (leaf,))]
+
+
 def tree_bytes(tree) -> int:
     """Device bytes of a tree of tensors and ``QuantTensor`` leaves."""
-    return sum(x.numel() * x.element_size() for leaf in tree_leaves(tree)
-               for x in (leaf if isinstance(leaf, QuantTensor) else (leaf,)))
+    return sum(x.numel() * x.element_size() for x in tree_tensors(tree))
 
 
 def ssm_tick_bytes(eng, pool) -> dict:
@@ -2827,6 +2852,269 @@ def drive_serve_vlm(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# duty_cycle: the paper's RQ2 strategies applied to the served int8 engine
+# ---------------------------------------------------------------------------
+DUTY_LATENCY = {"batch": 4, "prompt_len": 16, "new_tokens": 8}  # measure_latency's defaults
+DUTY_SAMPLES = 3                    # measure_latency calls; the profiles take their median
+DUTY_GAPS = 40                      # each regular trace: tests/test_serving.py's regimes,
+DUTY_SCALES = {"short": 0.05, "long": 20.0}  # gaps of 0.05 and 20 break-even τ
+DUTY_BURSTY = 400                   # the seeded bursty trace
+DUTY_EXECUTE = {"short": 40, "long": 40, "bursty": 200}  # execute_every: 1, 1, 2 runs a strategy
+ADAPTIVE_FLOOR = 0.45               # adaptive's items/J against the best (tests/test_serving.py)
+STREAM_GAPS = 1200                  # the streaming policy's run (tests/test_scheduler.py)
+STREAM_KW = {"window": 400, "refit_every": 150, "refit_steps": 150}
+STREAM_FLOOR = 0.9                  # online items/J against offline learn_tau's
+IDLE_SETTLE_S, POWER_LOOP_S = 2.0, 2.5
+DRAFT_LENS, DRAFT_BUDGET, DRAFT_PERIOD = (16, 24, 32), 24, 4
+
+
+def generate_calls(new_tokens: int) -> int:
+    """Model calls of one ``generate``: the prefill and one decode step a
+    new token."""
+    return 1 + new_tokens
+
+
+def measured_chip(eng, fixed_s: float) -> tuple[dict, object, int]:
+    """The three ``AccelProfile`` constants of this engine on the card:
+    ``power.draw`` idle, ``power.draw`` during a loop of the ``generate``
+    that ``measure_latency`` times, and one pinned host-to-device copy of
+    the engine's weight tensors (each copied back into a tensor of its own
+    and held bit for bit).  ``fixed_s`` is the ``energy`` phase's library
+    load and first launch.  Returns the report, an ``H100Chip`` holding the
+    measured constants, and the ``generate`` calls of the loop."""
+    chip = DEFAULT_CHIP
+    idle = idle_power(IDLE_SETTLE_S)
+    prompts = np.zeros((DUTY_LATENCY["batch"], DUTY_LATENCY["prompt_len"]), np.int32)
+    busy, loops, loop_s = power_while(
+        lambda: eng.generate(prompts, DUTY_LATENCY["new_tokens"]), POWER_LOOP_S)
+    if not busy:
+        fail("duty_cycle: no power.draw sample during the generate loop")
+
+    tensors = tree_tensors(eng.params)
+    nbytes = tree_bytes(eng.params)
+    host = [x.cpu().pin_memory() for x in tensors]
+    card = [torch.empty_like(x) for x in tensors]
+
+    def reload():
+        for c, h in zip(card, host):
+            c.copy_(h, non_blocking=True)
+
+    copy_ms = time_ms(reload, reps=1, rounds=5)
+    if not all(same_bits(c, x) for c, x in zip(card, tensors)):
+        fail("duty_cycle: the reloaded weights differ from the engine's")
+    del host, card
+    idle_w, active_w = statistics.median(idle), statistics.median(busy)
+    copy_s = copy_ms * 1e-3
+    default_bytes = 2.0 * eng.cfg.param_count()
+    report = {
+        "gpu": smi_query("name") + ", " + smi_query("power.limit") + " W",
+        "idle_w": r6(idle_w), "idle_samples": idle, "chip_p_idle_w": chip.p_idle_w,
+        "active_w": r6(active_w), "active_samples": busy, "chip_p_peak_w": chip.p_peak_w,
+        "generate_loop": {"calls": loops, "seconds": r6(loop_s),
+                          "call_s": r6(loop_s / loops)},
+        "reload": {"weight_tensors": len(tensors), "weight_bytes": nbytes,
+                   "pinned_copy_ms": r6(copy_ms), "bytes_per_s": r6(nbytes / copy_s),
+                   "library_load_and_first_launch_s": r6(fixed_s),
+                   "measured_s": r6(copy_s + fixed_s),
+                   "chip_reload_time_s_at_measured_bytes": r6(chip.reload_time(nbytes)),
+                   "default_weight_bytes": default_bytes,
+                   "gpu_reload_costs_s": r6(engine_mod.gpu_reload_costs(eng.cfg)[0])},
+    }
+    measured = dataclasses.replace(chip, p_idle_w=idle_w, p_peak_w=active_w,
+                                   reload_bw=nbytes / copy_s, reload_fixed_s=fixed_s)
+    return report, measured, loops
+
+
+def stats_dict(stats) -> dict:
+    return {**{k: r6(v) if isinstance(v, float) else v
+               for k, v in dataclasses.asdict(stats).items()},
+            "items_per_joule": r6(stats.items_per_joule)}
+
+
+def strategy_runs(srv, t_inf: float) -> tuple[dict, int]:
+    """``compare_strategies`` under ``srv``'s profile on the regular traces
+    at 0.05 and 20 break-even τ and on a seeded bursty trace, the engine
+    really run every ``DUTY_EXECUTE`` batches; the reference's orderings
+    held.  Returns the report and the ``generate`` calls made."""
+    prof = srv.profile(t_inf)
+    tau = workload_mod.break_even_tau(prof)
+    traces = {k: workload_mod.regular_trace(s * tau + t_inf, t_inf, DUTY_GAPS)
+              for k, s in DUTY_SCALES.items()}
+    traces["bursty"] = workload_mod.bursty_trace(prof, DUTY_BURSTY, seed=21)
+    report, runs = {"profile": {k: r6(v) for k, v in dataclasses.asdict(prof).items()},
+                    "break_even_tau_s": r6(tau)}, 0
+    for name, gaps in traces.items():
+        res = srv.compare_strategies(gaps, t_inf=t_inf, execute_every=DUTY_EXECUTE[name],
+                                     **DUTY_LATENCY)
+        runs += len(res) * -(-gaps.size // DUTY_EXECUTE[name])
+        ipj = {k: v.items_per_joule for k, v in res.items()}
+        best = max(ipj.values())
+        report[name] = {"gaps": gaps.size, "mean_gap_s": r6(float(gaps.mean())),
+                        "best": max(ipj, key=ipj.get),
+                        "stats": {k: stats_dict(v) for k, v in res.items()}}
+        if name == "short" and ipj["on_off"] > ipj["idle_waiting"]:
+            fail(f"duty_cycle: on-off beats idle-waiting at short gaps: {report[name]}")
+        if name == "long" and ipj["idle_waiting"] > ipj["on_off"]:
+            fail(f"duty_cycle: idle-waiting beats on-off at long gaps: {report[name]}")
+        if ipj["adaptive"] < ADAPTIVE_FLOOR * best:
+            fail(f"duty_cycle: adaptive under {ADAPTIVE_FLOOR} of the best on {name}: "
+                 f"{report[name]}")
+    return report, runs
+
+
+def streaming_tau(prof, dev) -> dict:
+    """A ``StreamingTauPolicy`` refitting τ on the card, fed a seeded bursty
+    trace; its items/J against offline ``learn_tau`` on the same trace."""
+    gaps = workload_mod.bursty_trace(prof, STREAM_GAPS, seed=22)
+    pol = policy_mod.StreamingTauPolicy(prof, device=dev, **STREAM_KW)
+    if pol.device.type != "cuda":
+        fail(f"duty_cycle: the streaming policy refits on {pol.device}")
+    t0 = time.perf_counter()
+    gap_e = sum(pol.on_gap(float(g)).energy_j for g in gaps)
+    online_s = time.perf_counter() - t0
+    online = gaps.size / (prof.e_cfg_j + prof.p_active_w * prof.t_inf_s * gaps.size + gap_e)
+    tau_off = workload_mod.learn_tau(gaps, prof, device=dev)
+    offline = workload_mod.simulate(gaps, "adaptive", prof, tau=tau_off).items_per_joule
+    break_even = workload_mod.simulate(gaps, "adaptive", prof,
+                                       tau=workload_mod.break_even_tau(prof)).items_per_joule
+    report = {"gaps": gaps.size, **STREAM_KW, "refits": pol.refits, "tau_s": r6(pol.tau),
+              "tau_offline_s": r6(tau_off),
+              "break_even_tau_s": r6(workload_mod.break_even_tau(prof)),
+              "online_items_per_joule": r6(online), "offline_items_per_joule": r6(offline),
+              "break_even_items_per_joule": r6(break_even),
+              "online_over_offline": r6(online / offline), "floor": STREAM_FLOOR,
+              "seconds": r6(online_s)}
+    if pol.refits != STREAM_GAPS // STREAM_KW["refit_every"] or online < STREAM_FLOOR * offline:
+        fail(f"duty_cycle: streaming policy {json.dumps(report)}")
+    return report
+
+
+def drafted_chains(eng, what: str) -> dict:
+    """``NgramDrafter`` with a ``SpecThrottle`` over a pool of 4 periodic
+    prompts (``load.poisson_stream``'s ``prompt_period``): each tick the
+    drafter proposes ``SPEC_K`` tokens a slot, the tick's K is the largest
+    window the throttle grants (a plain decode tick when it grants none),
+    and ``masked_speculative_step`` verifies them on the replayed verify
+    tick.  The emitted chains must equal the plain decode chains of the
+    same engine token for token."""
+    reqs = load_mod.poisson_stream(4, rate_hz=100.0, seed=23, vocab_size=eng.cfg.vocab_size,
+                                   prompt_lens=DRAFT_LENS, new_tokens=(DRAFT_BUDGET,) * 2,
+                                   prompt_period=DRAFT_PERIOD)
+    plain, vpool = eng.make_pool(), eng.make_pool()
+    drafter, throttle = draft_mod.NgramDrafter(SPEC_K), draft_mod.SpecThrottle(SPEC_K)
+    want, got = {}, {}
+    for s, r in enumerate(reqs):
+        first = eng.prefill_into_slot(plain, s, r.prompt, rid=r.rid, budget=r.new_tokens)
+        if eng.prefill_into_slot(vpool, s, r.prompt, rid=r.rid, budget=r.new_tokens) != first:
+            fail(f"{what}: the same prefill gave another first token")
+        want[r.rid], got[r.rid] = [first], [first]
+        drafter.begin(r.rid, np.append(r.prompt, first))
+        throttle.begin(r.rid)
+    while plain.decoding_count:
+        live = plain.decoding_slots()
+        nxt, fin = eng.masked_decode_step(plain)
+        if not fin[live].all():
+            fail(f"{what}: a plain decoding slot read non-finite")
+        for s in live:
+            want[plain.slots[s].rid].append(int(nxt[s]))
+            plain.advance(s, 1, int(nxt[s]))
+            if plain.slots[s].emitted >= plain.slots[s].budget:
+                plain.retire(s)
+    ticks = {"verify": 0, "decode": 0}
+    fielded = accepted = 0
+    while vpool.decoding_count:
+        live = vpool.decoding_slots()
+        rids = {s: vpool.slots[s].rid for s in live}
+        k = max(throttle.window(rids[s]) for s in live)
+        if k:
+            drafts = np.zeros((vpool.max_batch, k), np.int32)
+            for s in live:
+                drafts[s] = drafter.propose(rids[s])[:k]
+            toks, acc, fin = eng.masked_speculative_step(vpool, drafts)
+        else:
+            nxt, fin = eng.masked_decode_step(vpool)
+            toks, acc = nxt[:, None], np.zeros(vpool.max_batch, np.int32)
+        ticks["verify" if k else "decode"] += 1
+        if not fin[live].all():
+            fail(f"{what}: a drafting slot read non-finite")
+        for s in live:
+            rid, a, info = rids[s], int(acc[s]), vpool.slots[s]
+            emit = [int(x) for x in toks[s, :a + 1][:info.budget - info.emitted]]
+            got[rid] += emit
+            drafter.observe(rid, emit)
+            throttle.observe(rid, a, k)
+            fielded, accepted = fielded + k, accepted + a
+            if info.emitted + len(emit) >= info.budget:
+                vpool.retire(s)
+                drafter.forget(rid)
+                throttle.forget(rid)
+            else:
+                vpool.advance(s, a + 1, int(toks[s, a]))
+    if got != want:
+        first = {rid: next((i for i, (a, b) in enumerate(zip(got[rid], want[rid])) if a != b),
+                           None) for rid in want}
+        fail(f"{what}: drafted chains differ from plain decode (first difference by request: "
+             f"{first}): {got} against {want}")
+    graphs = [g for p in (plain, vpool) for g in eng.step_graphs(p).values()]
+    return {"requests": len(reqs), "prompt_lens": [int(r.prompt.size) for r in reqs],
+            "prompt_period": DRAFT_PERIOD, "budget": DRAFT_BUDGET, "k_max": SPEC_K,
+            "ticks": ticks, "graphs": sorted(f"{kind}{k}" for p in (plain, vpool)
+                                              for kind, k in eng.step_graphs(p)),
+            "drafts_fielded": fielded, "drafts_accepted": accepted,
+            "acceptance_rate": r6(accepted / fielded) if fielded else None,
+            "tokens_per_request": DRAFT_BUDGET, "chains_equal_plain_decode": True,
+            "distinct_tokens": len({t for c in want.values() for t in c}),
+            "replayed_int8_matmul": sum(g.replays * g.launches.get("int8_matmul", 0)
+                                        for g in graphs)}
+
+
+def drive_duty_cycle(dev, base, energy: dict) -> dict:
+    """The workload-aware server (``WorkloadAwareServer``) on the int8
+    engine of ``serve_dense`` (granite-3-8b, 8 layers, ``standard_fan_in``,
+    the same weights and ``ServeConfig(max_batch=4, max_len=128)``): the
+    measured latency of the eager ``generate``, the three profile constants
+    measured on the card (``measured_chip``), the four strategies under the
+    chip's profile and the measured one (``strategy_runs``), the streaming
+    policy on the card, and the drafter verified on the replayed verify
+    tick (an engine of the same weights with ``spec_slack`` = 4)."""
+    eng = engine_mod.InferenceEngine(base.cfg, params=base.params, device=dev,
+                                     sc=engine_mod.ServeConfig(max_batch=4, max_len=128))
+    srv = engine_mod.WorkloadAwareServer(eng)
+    samples = [srv.measure_latency(**DUTY_LATENCY) for _ in range(DUTY_SAMPLES)]
+    t_inf = statistics.median(samples)
+    measured, chip, loops = measured_chip(eng,
+                                          energy["reload"]["library_load_and_first_launch_s"])
+    msrv = engine_mod.WorkloadAwareServer(eng, chip=chip,
+                                          weight_bytes=measured["reload"]["weight_bytes"])
+    chip_runs, chip_n = strategy_runs(srv, t_inf)
+    measured_runs, measured_n = strategy_runs(msrv, t_inf)
+    stream = streaming_tau(msrv.profile(t_inf), dev)
+    spec = engine_mod.InferenceEngine(base.cfg, params=base.params, device=dev,
+                                      sc=engine_mod.ServeConfig(**ENGINE_SC))
+    with CallLog() as log:
+        drafting = drafted_chains(spec, "duty_cycle drafter")
+    log.check("duty_cycle drafter")
+    per_call = k5_per_call(eng.cfg, "decode_step")
+    new = DUTY_LATENCY["new_tokens"]
+    generate_k5 = per_call * (DUTY_SAMPLES * (generate_calls(2) + generate_calls(new))
+                              + (loops + chip_n + measured_n) * generate_calls(new))
+    draft_k5 = sum(c["per_call"] for c in log.calls) + drafting["replayed_int8_matmul"]
+    report = {
+        "arch": GRANITE, "layers": eng.cfg.num_layers, "quant": "int8",
+        "serve_config": {"max_batch": 4, "max_len": 128},
+        "t_inf_s": r6(t_inf), "t_inf_samples_s": [r6(s) for s in samples],
+        "t_inf_is": "WorkloadAwareServer.measure_latency: one eager generate of 4 x 16 zero "
+                    "prompts, 8 new tokens, after a warm-up",
+        "profile_constants": measured,
+        "strategies": {"chip": chip_runs, "measured": measured_runs},
+        "streaming_policy": stream, "drafter": drafting,
+        "int8_matmul": {"generate_runs": DUTY_SAMPLES * 2 + loops + chip_n + measured_n,
+                        "per_call": per_call, "generate": generate_k5, "drafter": draft_k5},
+    }
+    return {"expect": {"int8_matmul": generate_k5 + draft_k5}, "report": report}
+
+
+# ---------------------------------------------------------------------------
 # The main path
 # ---------------------------------------------------------------------------
 SINGLE_MODES = (False, True, "pallas_step", "pallas_seq", "pallas_seq_q8")
@@ -3130,6 +3418,38 @@ def sample_power(stop, out: list, period: float = 0.1) -> None:
         stop.wait(period)
 
 
+def idle_power(settle_s: float) -> list[float]:
+    """``power.draw`` of the idle card (its context held): 10 samples 0.2 s
+    apart, after ``settle_s`` seconds of nothing."""
+    torch.cuda.synchronize()
+    time.sleep(settle_s)
+    idle = []
+    for _ in range(10):
+        idle.append(float(smi_query("power.draw")))
+        time.sleep(0.2)
+    return idle
+
+
+def power_while(fn, seconds: float) -> tuple[list, int, float]:
+    """``power.draw`` samples (``sample_power``'s thread) while ``fn`` runs
+    back to back for at least ``seconds``; returns the samples, the calls
+    and the seconds."""
+    import threading
+
+    busy, stop = [], threading.Event()
+    sampler = threading.Thread(target=sample_power, args=(stop, busy))
+    calls, t0 = 0, time.perf_counter()
+    sampler.start()
+    try:
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            calls += 1
+    finally:
+        stop.set()
+        sampler.join()
+    return busy, calls, time.perf_counter() - t0
+
+
 def measure_energy(dev) -> dict:
     """``power.draw`` of the idle card and during a 2 s loop of K3 at
     ``QUANT_SHAPE`` (f32), beside ``H100Chip.step_power`` at that loop's
@@ -3138,35 +3458,22 @@ def measure_energy(dev) -> dict:
     pinned host-to-device copy of one ``serve_dense`` layer's int8
     projections, and, in a fresh process, loading the built kernel library
     plus a first launch."""
-    import threading
-
     chip = DEFAULT_CHIP
-    torch.cuda.synchronize()
-    time.sleep(3.0)
-    idle = []
-    for _ in range(10):
-        idle.append(float(smi_query("power.draw")))
-        time.sleep(0.2)
+    idle = idle_power(3.0)
     b, s, d, h = QUANT_SHAPE
     x, params = make_lstm(70, b, s, d, h, 1, dev)
     p = params[0]
     fn = lambda: lstm_seq_fused(x, p["w"], p["u"], p["b"])  # noqa: E731
     fn()
     torch.cuda.synchronize()
-    busy, stop = [], threading.Event()
-    sampler = threading.Thread(target=sample_power, args=(stop, busy))
-    calls, t0 = 0, time.perf_counter()
-    sampler.start()
-    try:
-        while time.perf_counter() - t0 < ENERGY_LOOP_S:
-            for _ in range(50):
-                fn()
-            calls += 50
-            torch.cuda.synchronize()
-    finally:
-        stop.set()
-        sampler.join()
-    loop_s = time.perf_counter() - t0
+
+    def burst():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+
+    busy, bursts, loop_s = power_while(burst, ENERGY_LOOP_S)
+    calls = 50 * bursts
     call_ms = loop_s / calls * 1e3
     util = lstm_flops(b, s, d, h) / (call_ms * 1e-3) / PEAK_F32_FLOPS
     # L2: 8 MB read and 8 MB written per copy, both within the 50 MB L2
@@ -3336,6 +3643,7 @@ def main(argv=None) -> int:
     driven, counts_by_path, k5_seen = {}, {}, {}
     paths = {"lstm": drive_main_path, "serve_dense": drive_serve_dense,
              "serve_engine": lambda d: drive_serve_engine(d, driven["serve_dense"]["engine"]),
+             "duty_cycle": lambda d: drive_duty_cycle(d, driven["serve_dense"]["engine"], energy),
              "serve_moe": drive_serve_moe, "serve_ssm": drive_serve_ssm,
              "serve_audio": drive_serve_audio, "serve_vlm": drive_serve_vlm,
              "flash_attention": drive_flash_path}
@@ -3375,6 +3683,15 @@ def main(argv=None) -> int:
                                    driven["serve_engine"])
     for key in ("engine", "pools", "drafts"):
         driven["serve_engine"].pop(key)
+    duty_report = driven["duty_cycle"]["report"]
+    duty_report["launches"] = counts_by_path["duty_cycle"]
+    duty_report["t_inf_beside_the_replayed_tick"] = {
+        "t_inf_s": duty_report["t_inf_s"],
+        "model_calls_of_t_inf": generate_calls(DUTY_LATENCY["new_tokens"]),
+        "replayed_decode_tick_ms_median": engine_report["ticks"]["tick_ms_median"][
+            "decode_replayed"],
+        "eager_decode_tick_ms_median": engine_report["ticks"]["tick_ms_median"]["decode_eager"],
+        "profile_uses": "t_inf_s (eager generate)"}
     moe_report = driven["serve_moe"]["report"]
     moe_report["launches"] = counts_by_path["serve_moe"]
     ssm_report = driven["serve_ssm"]["report"]
@@ -3408,7 +3725,8 @@ def main(argv=None) -> int:
     }
     main_path["trace_check"] = TRACE_CHECK
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
-              "serve_engine": engine_report, "serve_moe": moe_report, "serve_ssm": ssm_report,
+              "serve_engine": engine_report, "duty_cycle": duty_report,
+              "serve_moe": moe_report, "serve_ssm": ssm_report,
               "serve_audio": audio_report, "serve_vlm": vlm_report,
               "int8_path_shapes": path_shapes, "host_path": host,
               "chip_model": chip_model,
@@ -3430,6 +3748,7 @@ def main(argv=None) -> int:
     print("serve_ssm " + json.dumps(ssm_report), flush=True)
     print("serve_audio " + json.dumps(audio_report), flush=True)
     print("serve_vlm " + json.dumps(vlm_report), flush=True)
+    print("duty_cycle " + json.dumps(duty_report), flush=True)
     print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)

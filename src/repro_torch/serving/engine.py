@@ -1,9 +1,22 @@
-"""Serving engine: batched prefill → greedy decode, and the slot path of
-continuous batching: ``make_pool`` → ``prefill_into_slot`` or chunked
-prefill (``begin_chunked_prefill`` → ``chunked_prefill_step`` →
-``finish_chunked_prefill``) → ``masked_decode_step`` or
-``masked_speculative_step``, with ``poison_slot`` / ``resume_into_slot``
-for quarantine and re-admission.
+"""Serving engine: batched prefill → greedy decode, the slot path of
+continuous batching, and the workload-aware duty-cycle layer on top.
+
+Two layers, as in the reference:
+
+  * ``InferenceEngine`` — the real execution path on the card (or, when
+    asked, the CPU): ``generate``, and ``make_pool`` →
+    ``prefill_into_slot`` or chunked prefill (``begin_chunked_prefill`` →
+    ``chunked_prefill_step`` → ``finish_chunked_prefill``) →
+    ``masked_decode_step`` or ``masked_speculative_step``, with
+    ``poison_slot`` / ``resume_into_slot`` for quarantine and re-admission.
+
+  * ``WorkloadAwareServer`` — the paper's RQ2 strategies (On-Off /
+    Idle-Waiting / Slow-Down / adaptive with a predefined or learned
+    threshold, ``core/workload.py``) applied to a served model: its
+    measured batch latency with ``H100Chip``'s constants, where
+    "configuration" is loading the kernel library and refilling the
+    weights over PCIe (``gpu_reload_costs``), the counterpart of the
+    reference's ``tpu_reload_costs``.
 
 Ported: the contiguous engine of every family of the JAX package (the
 dense family, and vlm with its front-end stub of ``frontend_seq`` patch
@@ -25,7 +38,9 @@ else (prefill, chunked prefill on the group's own cache, poison/resume,
 own accepted count (what the JAX engine does per slot under ``vmap``).
 The options whose modules are not ported raise ``NotImplementedError`` at
 construction: the paged cache and int8 KV pages (ROADMAP Queue A item 10),
-fault injection and the energy budget (item 11).  Without the paged pool,
+and fault injection and the energy budget, whose profiles and ledgers
+(``serving/faults.py``, ``serving/power.py``) are ported but whose reader,
+the scheduler (item 11), is not.  Without the paged pool,
 the paged branches of the reference's slot functions have no counterpart
 here.
 
@@ -48,12 +63,15 @@ How the JAX engine's idioms are expressed here:
 from __future__ import annotations
 
 import dataclasses
+import time
 import weakref
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.energy import DEFAULT_CHIP, H100Chip
+from repro_torch.core.workload import AccelProfile, break_even_tau, learn_tau, simulate
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.model import (
     commit_verify,
@@ -68,6 +86,21 @@ from repro_torch.models.params import init_params
 from repro_torch.serving.graphs import StepGraph, signature
 from repro_torch.serving.kv_cache import cache_defs
 from repro_torch.serving.slots import SlotPool, grow_cache
+
+
+def gpu_reload_costs(cfg: ArchConfig, chip: H100Chip = DEFAULT_CHIP, *,
+                     chips: int = 1, weight_bytes: float | None = None
+                     ) -> tuple[float, float]:
+    """(t_reload_s, e_reload_j) of the card's "configuration" analogue after
+    a power-off: loading the kernel library and refilling the weights over
+    PCIe (``H100Chip.reload_time``), at idle power on every card.  The
+    counterpart of the reference's ``tpu_reload_costs``, with the same
+    arithmetic: the default weight bytes are 2 a parameter (bf16), split
+    over ``chips``."""
+    if weight_bytes is None:
+        weight_bytes = 2.0 * cfg.param_count() / max(chips, 1)
+    t_reload = chip.reload_time(weight_bytes)
+    return t_reload, t_reload * chip.p_idle_w * chips
 
 
 @dataclasses.dataclass
@@ -98,9 +131,12 @@ def _refuse_unported(sc: ServeConfig) -> None:
         "paged": (sc.paged, "the paged KV cache (ROADMAP Queue A item 10)"),
         "share_prefix": (sc.share_prefix, "prefix sharing over pages (ROADMAP Queue A item 10)"),
         "kv_quant": (sc.kv_quant is not None, "int8 KV pages (ROADMAP Queue A item 10)"),
-        "faults": (sc.faults is not None, "fault injection (ROADMAP Queue A item 11)"),
+        "faults": (sc.faults is not None,
+                   "the scheduler, which reads it (ROADMAP Queue A item 11; the fault "
+                   "profiles of serving/faults.py are ported)"),
         "energy_budget_j": (sc.energy_budget_j is not None,
-                            "the energy budget (ROADMAP Queue A item 11)"),
+                            "the scheduler, which enforces it (ROADMAP Queue A item 11; the "
+                            "ledger of serving/power.py is ported)"),
     }
     for name, (asked, what) in unported.items():
         if asked:
@@ -444,3 +480,143 @@ class ChunkedPrefillState:
     @property
     def done(self) -> bool:
         return self.pos >= self.s0
+
+
+# ---------------------------------------------------------------------------
+# Workload-aware duty-cycle layer
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ServerStats:
+    items: int = 0
+    energy_j: float = 0.0
+    busy_s: float = 0.0
+    idle_s: float = 0.0
+    reloads: int = 0
+    missed: int = 0
+
+    @property
+    def items_per_joule(self) -> float:
+        return self.items / self.energy_j if self.energy_j else 0.0
+
+
+class WorkloadAwareServer:
+    """Applies RQ2 strategies to a real engine over a request trace.
+
+    Energy is modeled through the same ``AccelProfile``/``simulate`` path
+    that reproduces the paper's C3/C4 (FPGA constants) — here with
+    ``H100Chip``'s constants and the engine's *measured* per-batch latency.
+    A learned threshold is trained on the engine's device.
+    """
+
+    def __init__(
+        self,
+        engine: InferenceEngine,
+        *,
+        strategy: str = "adaptive",
+        tau: float | None = None,
+        chip: H100Chip = DEFAULT_CHIP,
+        chips: int = 1,
+        weight_bytes: float | None = None,
+    ):
+        self.engine = engine
+        self.strategy = strategy
+        self.chip = chip
+        self.chips = chips
+        self.weight_bytes = weight_bytes
+        self.t_reload, self.e_reload = gpu_reload_costs(
+            engine.cfg, chip, chips=chips, weight_bytes=weight_bytes
+        )
+        self.tau = tau
+        self._measured_t: float | None = None
+
+    def profile(self, t_inf_s: float) -> AccelProfile:
+        return AccelProfile(
+            t_inf_s=t_inf_s,
+            p_active_w=self.chip.p_peak_w * self.chips,
+            p_idle_w=self.chip.p_idle_w * self.chips,
+            e_cfg_j=self.e_reload,
+            t_cfg_s=self.t_reload,
+        )
+
+    def measure_latency(self, batch: int = 4, prompt_len: int = 16,
+                        new_tokens: int = 8) -> float:
+        """Wall seconds of one eager ``generate`` of ``batch`` zero prompts,
+        after a warm-up call.  ``generate`` copies each step's tokens to the
+        host, and that copy waits for the device, so the time covers the
+        device work of every step and needs no other synchronisation."""
+        prompts = np.zeros((batch, prompt_len), np.int32)
+        self.engine.generate(prompts, 2)  # warm-up: first launches, tuner picks
+        t0 = time.perf_counter()
+        self.engine.generate(prompts, new_tokens)
+        self._measured_t = time.perf_counter() - t0
+        return self._measured_t
+
+    def run_trace(
+        self,
+        gaps: np.ndarray,
+        *,
+        batch: int = 4,
+        prompt_len: int = 16,
+        new_tokens: int = 8,
+        learn: bool = False,
+        execute_every: int = 0,
+        t_inf: float | None = None,
+    ) -> ServerStats:
+        """Serve one request batch per trace entry; ``gaps[i]`` is the idle
+        time after batch i. ``execute_every=k`` really runs the engine every
+        k-th batch (0 = once up front) — the rest reuse the measured latency
+        (keeps CPU test time sane while the energy ledger stays faithful).
+        ``t_inf`` overrides the measured batch latency (no engine run)."""
+        if t_inf is None:
+            t_inf = self._measured_t or self.measure_latency(batch, prompt_len, new_tokens)
+        prof = self.profile(t_inf)
+        tau = self.tau
+        if self.strategy == "adaptive" and tau is None:
+            tau = (learn_tau(gaps, prof, device=self.engine.device) if learn
+                   else break_even_tau(prof))
+
+        g = np.asarray(gaps, float).ravel()
+        if execute_every:
+            prompts = np.zeros((batch, prompt_len), np.int32)
+            for _ in range(-(-g.size // execute_every)):
+                self.engine.generate(prompts, new_tokens)
+
+        # the whole energy ledger in ONE vectorized simulate call: simulate
+        # already charges the single initial configuration plus per-gap energy
+        res = simulate(g, self.strategy, prof, tau=tau)
+        if self.strategy == "on_off":
+            reloads = g.size
+        elif self.strategy == "adaptive":
+            reloads = int(np.count_nonzero(g > (tau or 0.0)))
+        else:
+            reloads = 0
+        return ServerStats(
+            items=res.items,
+            energy_j=res.energy_j,
+            busy_s=res.items * t_inf,
+            idle_s=float(g.sum()),
+            reloads=reloads,
+            missed=res.missed_deadlines,
+        )
+
+    def compare_strategies(self, gaps: np.ndarray, *, t_inf: float | None = None,
+                           **kw) -> dict[str, ServerStats]:
+        """Run every strategy over ``gaps`` at one shared measured latency.
+
+        The latency is passed to each per-strategy server explicitly —
+        no private-attribute side channel, and ``self`` is left untouched
+        when ``t_inf`` is supplied.  Each per-strategy server keeps this
+        one's reload costs (its ``weight_bytes`` too, which the reference's
+        ``compare_strategies`` does not pass on: there a server given
+        measured weight bytes compares its strategies at the default
+        2 bytes a parameter)."""
+        if t_inf is None:
+            t_inf = self._measured_t or self.measure_latency()
+        out = {}
+        for strat in ("on_off", "idle_waiting", "slow_down", "adaptive"):
+            srv = WorkloadAwareServer(
+                self.engine, strategy=strat, chip=self.chip, chips=self.chips,
+                weight_bytes=self.weight_bytes,
+            )
+            out[strat] = srv.run_trace(gaps, t_inf=t_inf, **kw)
+        return out

@@ -39,6 +39,9 @@ def test_port_files_found():
     assert {"ssm.py", "mamba2_780m.py", "zamba2_7b.py"} <= names
     # the audio family and the vision-language model: whisper and internvl2
     assert {"whisper_tiny.py", "internvl2_76b.py"} <= names
+    # the host-side serving modules under the duty-cycle layer and the scheduler
+    assert {"retry.py", "load.py", "draft.py", "faults.py", "policy.py", "power.py",
+            "brownout.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -128,6 +131,22 @@ def test_entry_points_raise_without_a_card(entry):
     for dev in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
             calls[entry](dev)
+
+
+def test_streaming_policy_raises_without_a_card():
+    """The adaptive policy refits τ on a device: asked for the card (by
+    default, by name, or through ``make_policy``) on a machine without one,
+    it raises at construction."""
+    from repro_torch.core.fpga import optimized_template, paper_workload
+    from repro_torch.core.workload import AccelProfile
+    from repro_torch.serving.policy import StreamingTauPolicy, make_policy
+
+    _needs_no_card()
+    prof = AccelProfile.from_template(optimized_template(), paper_workload())
+    for make in (lambda: StreamingTauPolicy(prof), lambda: StreamingTauPolicy(prof, device="cuda"),
+                 lambda: make_policy("adaptive", prof)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_bench_refuses_the_cpu():
