@@ -6,7 +6,7 @@
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
 against its plain PyTorch version on the card at the shapes its path uses,
 times kernel, plain version and (where one PyTorch call computes the same
-function) the library, then drives nine paths, each with the launch
+function) the library, then drives ten paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * the paper-LSTM path — the plan and request batches through ``lstm_apply``
@@ -25,6 +25,24 @@ counters set to 0 just before it and read just after:
   with int8 weights: chunked == blocking and speculative == plain, token
   for token.  K5 launches 7 x layers times a chunk, verify and replayed
   tick;
+* ``serve_paged`` — the paged KV cache on the same weights: a paged engine
+  (``ServeConfig(4, 128, paged=True, page_size=16)``, no ``spec_slack``)
+  beside the contiguous one of ``serve_engine``: the plain chains of four
+  slots (held to the contiguous engine's under the near-tie rule of
+  ``chains_near_tie``: the two attend over 160 and 132 rows), verify K = 4
+  teacher-forced from the paged chain, the replayed decode and verify ticks
+  bit for bit against their eager runs, 56 K5 launches a replay as the
+  contiguous ticks, the two replayed ticks timed in turns and profiled (the
+  paged tick's extra kernels: its gather and scatter), a fork whose shared
+  pages keep their bytes (one copy-on-write), ``swap_out`` / ``swap_in``
+  bit for bit, poison / quarantine / resume with the scratch page zeroed
+  after the flagged tick, a group of 4 prompts sharing a 64-token prefix (1
+  chunk step instead of 5, 16 shared pages, chains held to the unshared
+  group's), a pool of int8 KV pages (``quantize_kv`` on the card equal to
+  the CPU's bytes on a tick's rows), a pool of 17 pages (2 contiguous
+  slots' bytes) serving 4 requests with ``paged_cache_bytes`` allocated,
+  and the reduced configs of granite-3-8b, deepseek-v3-671b, mamba2-780m,
+  zamba2-7b and whisper-tiny in f32, paged = contiguous token for token;
 * ``duty_cycle`` — the paper's RQ2 layer on the same int8 weights
   (``ServeConfig(max_batch=4, max_len=128)``): ``WorkloadAwareServer``'s
   ``measure_latency`` (the eager ``generate`` of 4 x 16 prompts, 8 new
@@ -120,7 +138,7 @@ under a 2 s K3 loop beside ``H100Chip.step_power``.
 
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
-the replayed and eager tick times), ``serve_moe``, ``serve_ssm``,
+the replayed and eager tick times), ``serve_paged``, ``serve_moe``, ``serve_ssm``,
 ``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``int8_path_shapes``,
 ``host_path`` (each kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
@@ -191,6 +209,7 @@ from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import load as load_mod  # noqa: E402
 from repro_torch.serving import policy as policy_mod  # noqa: E402
 from repro_torch.serving.kv_cache import cache_defs  # noqa: E402
+from repro_torch.serving.pages import SCRATCH  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # the f32 rate outside the tensor cores, and the dense tensor-core rates of
@@ -2111,6 +2130,431 @@ def time_engine_ticks(driven) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serve_paged: the paged KV cache at full width, beside the contiguous pool
+# ---------------------------------------------------------------------------
+PAGE_SIZE = 16
+PAGED_SC = {"max_batch": 4, "max_len": 128, "paged": True, "page_size": PAGE_SIZE}
+PREFIX_LEN, PREFIX_TAIL = 64, 16    # a group of 4 prompts sharing a 64-token prefix
+SMALL_PAGES = 17                    # 16 allocatable pages: 272 rows, 2 contiguous slots' bytes
+SMALL_PROMPT, SMALL_BUDGET = 16, 8  # 2 pages a request
+PAGED_SCRIPT = ((0, 5, 10), (1, 9, 6))  # (slot, prompt length, budget) of the reduced configs
+PAGED_TIMED_TICKS = 15
+PAGED_ARCHS = ("granite-3-8b", "deepseek-v3-671b", "mamba2-780m", "zamba2-7b", "whisper-tiny")
+
+
+def pool_state(pool, slot: int) -> dict:
+    """The slot's state read through its table: each paged leaf's pages of
+    positions [0, pos) and each unpaged leaf's row, copied."""
+    nb = pool._blocks_for(pool.slots[slot].pos)
+    ids = torch.as_tensor(pool.table[slot, :nb].astype(np.int64), device=pool.device)
+    return {k: (v.index_select(1, ids) if k in pool._pleaves else v[:, slot]).clone()
+            for k, v in pool.cache.items()}
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+
+
+def chains_near_tie(want: dict, want_logits: list, got: dict, got_logits: list,
+                    what: str) -> dict:
+    """The paged chains against the contiguous ones (same prompts, same
+    weights, decode ticks from the same prefills).  The two attend over
+    different row counts (the paged pool's virtual_len, the contiguous
+    pool's capacity): the extra rows weigh exactly 0, but bf16 sums over
+    other lengths may round apart in their last bits.  So each slot's chain
+    must equal the contiguous one until its first differing token, that
+    token a near tie of the contiguous chain's own logits (margin at most
+    VERIFY_TIE of the largest |logit|), and until then each tick's logits
+    within VERIFY_LOGIT_DIFF of it; the slot is not compared past a flip."""
+    worst, flips, equal = 0.0, [], 0
+    for s in want:
+        if got[s][0] != want[s][0]:
+            fail(f"{what}: slot {s}'s prefill gave another first token")
+        for j in range(1, min(len(want[s]), len(got[s]))):
+            ld, lp = want_logits[j - 1][s], got_logits[j - 1][s]
+            scale = float(ld.abs().max())
+            worst = max(worst, float((lp - ld).abs().max()) / scale)
+            a, b = want[s][j], got[s][j]
+            if a != b:
+                flips.append({"slot": s, "j": j, "want": a, "got": b,
+                              "margin_rel": r6(float(ld[a] - ld[b]) / scale)})
+                break
+        else:
+            equal += 1
+    report = {"slots_equal": equal, "slots": len(want), "flips": flips,
+              "logits_max_abs_diff_rel": r6(worst), "logits_diff_limit": VERIFY_LOGIT_DIFF,
+              "flip_margin_limit": VERIFY_TIE}
+    if worst > VERIFY_LOGIT_DIFF or any(f["margin_rel"] > VERIFY_TIE for f in flips):
+        fail(f"{what}: paged chains against contiguous: {json.dumps(report)}")
+    return report
+
+
+def tick_kernels(fn) -> dict:
+    """{kernel: [device ms, count]} of one call of ``fn`` under the
+    profiler (None when no trace held every launch)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    sample = profiled(fn)
+    if sample is None:
+        return None
+    return {e.key: [e.self_device_time_total / 1e3, e.count] for e in sample[0].key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def paged_tick_costs(contig, cpool, paged, ppool) -> dict:
+    """The replayed decode tick of the paged pool beside the contiguous
+    pool's (4 live slots each, same weights, same positions): unprofiled
+    medians in turns, each profiled once (busy, idle share), and the
+    kernels the paged tick runs more of than the contiguous one: its
+    gather and scatter, their device time and share of its busy time."""
+    ticks = {"contiguous": lambda: contig.masked_decode_step(cpool),
+             "paged": lambda: paged.masked_decode_step(ppool)}
+    samples = {k: [] for k in ticks}
+    for fn in ticks.values():
+        fn()
+    for i in range(PAGED_TIMED_TICKS):
+        for name, fn in (list(ticks.items()) if i % 2 == 0 else list(ticks.items())[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: r6(statistics.median(v)) for k, v in samples.items()}
+    prof = {k: profile_call(fn) for k, fn in ticks.items()}
+    kern = {k: tick_kernels(fn) for k, fn in ticks.items()}
+    out = {"tick_ms_median": med, "tick_ms": {k: [r6(t) for t in v] for k, v in samples.items()},
+           "paged_over_contiguous": r6(med["paged"] / med["contiguous"]),
+           "profiled": prof,
+           "idle_share_of_unprofiled_median": {
+               k: r6(1.0 - prof[k]["device_busy_ms"] / med[k]) for k in ticks}}
+    if None not in kern.values():
+        extra = {}
+        for name, (ms, n) in kern["paged"].items():
+            c_ms, c_n = kern["contiguous"].get(name, [0.0, 0])
+            if n != c_n:
+                extra[name[:70]] = [r6(ms - c_ms), n - c_n]
+        busy = sum(ms for ms, _ in kern["paged"].values())
+        extra_ms = sum(ms for ms, _ in extra.values())
+        out["paged_extra_kernels"] = {
+            "kernels_a_tick": {k: sum(n for _, n in v.values()) for k, v in kern.items()},
+            "busy_ms": {k: r6(sum(ms for ms, _ in v.values())) for k, v in kern.items()},
+            "by_kernel": extra, "extra_kernels": sum(n for _, n in extra.values()),
+            "extra_ms": r6(extra_ms), "share_of_paged_busy": r6(extra_ms / busy)}
+    return out
+
+
+def gather_scatter_bytes(pool) -> dict:
+    """Bytes the paged decode tick's gather and scatter must move: every
+    slot's virtual rows of each paged leaf read from the pages and written
+    once, and one block a slot read and stored back."""
+    per_row = sum(pool.cache[k][:, 0, 0].nbytes for k in pool._pleaves)
+    rows = pool.max_batch * pool.virtual_len
+    gather = 2 * rows * per_row
+    scatter = 2 * pool.max_batch * pool.page * per_row
+    return {"gather": gather, "scatter": scatter, "total": gather + scatter,
+            "bound_ms": r6((gather + scatter) / PEAK_BYTES_PER_S * 1e3)}
+
+
+def fork_cow(eng, rng, what: str, alive: list) -> dict:
+    """Slot 1 forked from slot 0 (40 prompt tokens): both decode the same
+    tokens; the first tick copies the block both write (row 40's) once,
+    and the blocks they still share keep their bytes."""
+    pool = eng.make_pool()
+    alive.append((eng, pool))
+    p = rng.integers(0, eng.cfg.vocab_size, 40).astype(np.int32)
+    chains = {0: [eng.prefill_into_slot(pool, 0, p, rid=0, budget=ENGINE_BUDGET)]}
+    pool.fork_slot(0, 1, rid=1)
+    chains[1] = list(chains[0])
+    shared = [int(x) for x in pool.table[0, :2]]
+    before = {k: pool.cache[k][:, shared].clone() for k in pool._pleaves}
+    if [int(pool.pages.refcount[x]) for x in pool.table[0, :3]] != [2, 2, 2]:
+        fail(f"{what}: a fork shares its pages: refcounts {pool.pages.refcount.tolist()}")
+    decode_chain(eng, pool, chains, 4, f"{what} fork")
+    pool.check_invariants()
+    kept = all(same_bits(pool.cache[k][:, shared], v) for k, v in before.items())
+    if chains[0] != chains[1] or pool.cow_copies != 1 or not kept or \
+            [int(x) for x in pool.table[1, :2]] != shared:
+        fail(f"{what}: fork: chains {chains}, {pool.cow_copies} copies, shared bytes kept {kept}")
+    return {"prompt": 40, "ticks": 4, "cow_copies": pool.cow_copies, "tokens": chains[0],
+            "shared_pages_bytes_unchanged": kept}
+
+
+def shared_prefix_group(params, cfg, rng, what: str, log, alive: list) -> dict:
+    """A prompt of PREFIX_LEN + 1 tokens admitted blocking (its 4 full blocks
+    registered, then retired), then a group of 4 prompts that share its
+    first PREFIX_LEN tokens, chunk-prefilled CHUNK_TOKENS at a time, on a
+    pool with prefix sharing and on one without; then 4 ticks.  The shared
+    group maps the registered pages and chunks only its tails.  Its first
+    tokens (from the last chunk's logits, read from ``log``) and chains are
+    held to the unshared group's under the near-tie rule of
+    :func:`chains_near_tie`: the shared rows come from a blocking prefill,
+    the others from chunks, bf16 sums in other shapes."""
+    vocab = cfg.vocab_size
+    prefix = rng.integers(0, vocab, PREFIX_LEN + 1).astype(np.int32)
+    group = np.stack([np.concatenate([prefix[:PREFIX_LEN],
+                                      rng.integers(0, vocab, PREFIX_TAIL).astype(np.int32)])
+                      for _ in range(4)])
+    runs = {}
+    for name, share in (("unshared", False), ("shared", True)):
+        eng = engine_mod.InferenceEngine(cfg, params=params, sc=engine_mod.ServeConfig(
+            **PAGED_SC, share_prefix=share))
+        pool = eng.make_pool()
+        alive.append((eng, pool))
+        eng.prefill_into_slot(pool, 0, prefix, rid=9, budget=4)
+        pool.retire(0)
+        st = eng.begin_chunked_prefill(pool, [0, 1, 2, 3], group, rids=[0, 1, 2, 3],
+                                       budgets=[ENGINE_BUDGET] * 4)
+        steps = 0
+        while not st.done:
+            eng.chunked_prefill_step(st, CHUNK_TOKENS)
+            steps += 1
+        last_chunk = log.calls[-1]["logits"][:, :vocab].float().cpu()
+        first = eng.finish_chunked_prefill(pool, st)
+        chains, logits = {j: [int(first[j])] for j in range(4)}, [last_chunk]
+        decode_chain(eng, pool, chains, 4, f"{what} prefix group", logits)
+        pool.check_invariants()
+        runs[name] = {"chunk_steps": steps, "shared_hit_pages": pool.shared_hit_pages,
+                      "chains": {j: [-1] + c for j, c in chains.items()}, "logits": logits}
+    sh, un = runs["shared"], runs["unshared"]
+    if (sh["chunk_steps"], un["chunk_steps"]) != (PREFIX_TAIL // CHUNK_TOKENS,
+                                                  (PREFIX_LEN + PREFIX_TAIL) // CHUNK_TOKENS) \
+            or sh["shared_hit_pages"] != 4 * PREFIX_LEN // PAGE_SIZE:
+        fail(f"{what}: prefix group: {sh['chunk_steps']} / {un['chunk_steps']} chunk steps, "
+             f"{sh['shared_hit_pages']} shared pages")
+    # each chain led by a placeholder, so that the first token is held to the
+    # last chunk's logits as the others are to their ticks'
+    near = chains_near_tie(un["chains"], un["logits"], sh["chains"], sh["logits"],
+                           f"{what} prefix group")
+    return {"group": list(group.shape), "prefix": PREFIX_LEN, "chunk_tokens": CHUNK_TOKENS,
+            "chunk_steps": {"shared": sh["chunk_steps"], "unshared": un["chunk_steps"]},
+            "shared_hit_pages": sh["shared_hit_pages"], "chains_vs_unshared": near,
+            "tokens": {k: {s: c[1:] for s, c in r["chains"].items()} for k, r in runs.items()}}
+
+
+def int8_kv_pool(params, cfg, prompts, what: str, alive: list) -> dict:
+    """A pool of int8 KV pages: the four prompts, 4 replayed ticks, finite.
+    Then one tick's gather and decode run eagerly on a copy of the cache,
+    and the blocks it quantizes are quantized on the card and on the CPU:
+    the same bytes (payloads and scales)."""
+    from repro_torch.models.model import paged_written_blocks
+    from repro_torch.serving.kv_cache import quantize_kv
+
+    eng = engine_mod.InferenceEngine(cfg, params=params, sc=engine_mod.ServeConfig(
+        **PAGED_SC, kv_quant="int8"))
+    pool = eng.make_pool()
+    alive.append((eng, pool))
+    chains = {s: [eng.prefill_into_slot(pool, s, p, rid=s, budget=ENGINE_BUDGET)]
+              for s, p in enumerate(prompts)}
+    decode_chain(eng, pool, chains, 4, f"{what} int8 KV")
+    g = eng.step_graphs(pool)[("decode", 0)]
+    g.load(tok=pool.tok, pos=pool.positions(), active=pool.decode_mask(), table=pool.table)
+    copy = {k: v.clone() for k, v in pool.cache.items()}
+    with torch.inference_mode():
+        virt = eng._paged_gather(copy, g.inputs["table"])
+        eng._decode_tick(virt, g.inputs["tok"], g.inputs["pos"], g.inputs["active"])
+    rows, equal = 0, True
+    for key in pool._pkeys:
+        w = paged_written_blocks(virt[key], g.inputs["pos"] // PAGE_SIZE, 1, PAGE_SIZE)
+        qc, sc = quantize_kv(w)
+        qh, sh = quantize_kv(w.cpu())
+        equal = equal and same_bits(qc.cpu(), qh) and same_bits(sc.cpu(), sh)
+        rows += sc.numel()
+    if not equal:
+        fail(f"{what}: quantize_kv on the card differs from the CPU on the tick's rows")
+    page_bytes = {k: pool.cache[k].nbytes for k in pool._pleaves}
+    return {"ticks": 4, "tokens": chains, "quantized_rows": rows,
+            "card_equals_cpu_bytes": True, "page_leaf_bytes": page_bytes,
+            "payload_dtype": str(pool.cache[pool._pkeys[0]].dtype)}
+
+
+def swap_round_trip(pool, slot: int, what: str) -> dict:
+    """``swap_out`` of a decoding slot and ``swap_in`` into the same slot:
+    its pages (read through its new table row) and rows bit for bit."""
+    want = pool_state(pool, slot)
+    est = pool.swap_image_bytes(slot)
+    image = pool.swap_out(slot)
+    pool.check_invariants()
+    pool.swap_in(slot, image)
+    pool.check_invariants()
+    torch.cuda.synchronize()
+    equal = same_state(pool_state(pool, slot), want)
+    if not equal or image["bytes"] != est:
+        fail(f"{what}: swap round trip equal {equal}, {image['bytes']} bytes against {est}")
+    return {"slot": slot, "pos": pool.slots[slot].pos, "bytes": image["bytes"],
+            "bitwise_equal": True}
+
+
+def small_pool(params, cfg, rng, what: str, alive: list) -> dict:
+    """A pool of SMALL_PAGES pages, fewer than the contiguous worst case
+    (4 x max_blocks + 1): its bytes hold 2 contiguous slots of 128 rows,
+    and it serves 4 requests of SMALL_PROMPT tokens to their budget.  Its
+    allocation is ``paged_cache_bytes``."""
+    from repro_torch.serving.kv_cache import cache_bytes, paged_cache_bytes
+
+    eng = engine_mod.InferenceEngine(cfg, params=params, sc=engine_mod.ServeConfig(
+        **PAGED_SC, num_pages=SMALL_PAGES))
+    pool = eng.make_pool()
+    alive.append((eng, pool))
+    allocated = sum(v.nbytes for v in pool.cache.values()) + pool.table.nbytes
+    want = paged_cache_bytes(cfg, batch=4, num_pages=SMALL_PAGES, page_size=PAGE_SIZE,
+                             max_blocks=pool.max_blocks)
+    per_slot = cache_bytes(cfg, batch=1, max_len=PAGED_SC["max_len"])
+    chains = {}
+    for s in range(4):
+        if not pool.can_admit(SMALL_PROMPT, SMALL_BUDGET):
+            fail(f"{what}: the small pool refused request {s}")
+        p = rng.integers(0, cfg.vocab_size, SMALL_PROMPT).astype(np.int32)
+        chains[s] = [eng.prefill_into_slot(pool, s, p, rid=s, budget=SMALL_BUDGET)]
+    while pool.active_count:
+        decode_chain(eng, pool, chains, 1, f"{what} small pool")
+        for s in pool.decoding_slots():
+            if pool.slots[s].emitted >= pool.slots[s].budget:
+                pool.retire(s)
+    pool.check_invariants()
+    if allocated != want or allocated // per_slot >= 4 or \
+            any(len(c) != SMALL_BUDGET for c in chains.values()):
+        fail(f"{what}: small pool: {allocated} bytes against paged_cache_bytes {want}, "
+             f"{allocated // per_slot} contiguous slots' worth, chains {chains}")
+    return {"num_pages": SMALL_PAGES, "contiguous_worst_case_pages": 4 * pool.max_blocks + 1,
+            "allocated_bytes": allocated, "paged_cache_bytes": want,
+            "contiguous_slot_bytes": per_slot, "contiguous_slots_in_these_bytes":
+                allocated // per_slot, "requests_served": 4}
+
+
+def paged_script(eng) -> dict:
+    """The CPU tests' script (``tests/test_torch_paged_serving.py``): two
+    requests admitted, 4 ticks, one retired early and its slot given a third,
+    5 more ticks; chains by rid."""
+    rng = np.random.default_rng(7)
+    pool = eng.make_pool()
+    chains = {}
+    for slot, n, budget in PAGED_SCRIPT:
+        p = rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32)
+        chains[slot] = [eng.prefill_into_slot(pool, slot, p, rid=slot, budget=budget)]
+
+    def ticks(n):
+        for _ in range(n):
+            live = pool.decode_mask().copy()
+            nxt, fin = eng.masked_decode_step(pool)
+            if not fin[live].all():
+                fail(f"paged reduced {eng.cfg.name}: a decoding slot read non-finite")
+            for s in map(int, np.flatnonzero(live)):
+                pool.advance(s, 1, int(nxt[s]))
+                chains[pool.slots[s].rid].append(int(nxt[s]))
+                if pool.slots[s].emitted >= pool.slots[s].budget:
+                    pool.retire(s)
+
+    ticks(4)
+    pool.retire(0)
+    p = rng.integers(0, eng.cfg.vocab_size, 7).astype(np.int32)
+    chains[2] = [eng.prefill_into_slot(pool, 0, p, rid=2, budget=8)]
+    ticks(5)
+    return chains
+
+
+def reduced_paged_identity(dev) -> dict:
+    """The reduced configs of the five cache layouts in f32, full-precision
+    weights, on the card: the paged engine's chains equal the contiguous
+    engine's, token for token."""
+    out = {}
+    for arch in PAGED_ARCHS:
+        cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32, quant=None)
+        params = tree_map(lambda t: t.float(), init_model(cfg, torch.Generator(dev).manual_seed(0),
+                                                          dev))
+        chains = {}
+        for name, extra in (("contiguous", {}), ("paged", {"paged": True, "page_size": 4})):
+            eng = engine_mod.InferenceEngine(cfg, params=params, sc=engine_mod.ServeConfig(
+                max_batch=2, max_len=32, **extra))
+            chains[name] = paged_script(eng)
+        if chains["paged"] != chains["contiguous"]:
+            fail(f"paged reduced {arch}: {chains['paged']} != contiguous {chains['contiguous']}")
+        out[arch] = {"tokens_identical": True, "tokens": chains["paged"]}
+    return out
+
+
+def plain_and_verify(eng, what: str) -> dict:
+    """:func:`verify_steps`' work, keeping what the paged path compares: the
+    plain chain of SPEC_PROMPTS (CHAIN_TICKS decode ticks) with its logits,
+    and the teacher-forced verify ticks from the same prefills."""
+    vocab = eng.cfg.vocab_size
+    rng = np.random.default_rng(40)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in SPEC_PROMPTS]
+    plain = eng.make_pool()
+    chain = {s: [eng.prefill_into_slot(plain, s, p, rid=s, budget=ENGINE_BUDGET)]
+             for s, p in enumerate(prompts)}
+    logits = []
+    decode_chain(eng, plain, chain, CHAIN_TICKS, f"{what} plain chain", logits)
+    vpool = eng.make_pool()
+    for s, p in enumerate(prompts):
+        if eng.prefill_into_slot(vpool, s, p, rid=s, budget=ENGINE_BUDGET) != chain[s][0]:
+            fail(f"{what}: the same prefill gave another first token")
+    spec, drafts = forced_verify(eng, vpool, chain, logits, what)
+    return {"prompts": prompts, "plain": plain, "vpool": vpool, "logits": logits,
+            "chain": chain, "decoded": {s: list(c) for s, c in chain.items()},
+            "speculative": spec, "drafts": drafts}
+
+
+def drive_serve_paged(dev, base) -> dict:
+    """The paged KV cache at full width: serve_dense's int8 granite-3-8b
+    weights through a paged engine (``PAGED_SC``) beside a contiguous one
+    (``ENGINE_SC``), then the reduced configs of the five cache layouts."""
+    cfg, params = base.cfg, base.params
+    contig = engine_mod.InferenceEngine(cfg, params=params,
+                                        sc=engine_mod.ServeConfig(**ENGINE_SC))
+    paged = engine_mod.InferenceEngine(cfg, params=params, sc=engine_mod.ServeConfig(**PAGED_SC))
+    per_call, report, alive = 7 * cfg.num_layers, {}, []
+    with CallLog() as log:
+        c_run, p_run = plain_and_verify(contig, "serve_paged contiguous"), \
+            plain_and_verify(paged, "serve_paged")
+        ppool = p_run["plain"]
+        for eng, run in ((contig, c_run), (paged, p_run)):
+            alive += [(eng, run["plain"]), (eng, run["vpool"])]
+        report["pool"] = {"max_batch": 4, "max_len": 128, "page_size": PAGE_SIZE,
+                          "num_pages": ppool.num_pages, "max_blocks": ppool.max_blocks,
+                          "virtual_len": ppool.virtual_len,
+                          "contiguous_capacity": c_run["plain"].capacity}
+        report["chains_vs_contiguous"] = chains_near_tie(
+            c_run["decoded"], c_run["logits"], p_run["decoded"], p_run["logits"], "serve_paged")
+        report["speculative"] = p_run["speculative"]
+        report["graph_vs_eager"] = ticks_vs_eager(paged, ppool, p_run["vpool"], p_run["drafts"],
+                                                  "serve_paged")
+        report["ticks"] = paged_tick_costs(contig, c_run["plain"], paged, ppool)
+        report["gather_scatter_bytes"] = gather_scatter_bytes(ppool)
+        report["fork_cow"] = fork_cow(paged, np.random.default_rng(41), "serve_paged", alive)
+        report["swap"] = swap_round_trip(ppool, 2, "serve_paged")
+        for k in ppool._pleaves:  # a finite mark, weighed 0 where it is gathered
+            ppool.cache[k][:, SCRATCH] = 1
+        report["poison_resume"] = poison_resume(paged, ppool, p_run["prompts"], p_run["chain"],
+                                                "serve_paged")
+        if any(bool(ppool.cache[k][:, SCRATCH].any()) for k in ppool._pleaves):
+            fail("serve_paged: the scratch page was not zeroed after the flagged tick")
+        report["poison_resume"]["scratch_zeroed"] = True
+        report["shared_prefix"] = shared_prefix_group(params, cfg, np.random.default_rng(42),
+                                                      "serve_paged", log, alive)
+        report["int8_kv"] = int8_kv_pool(params, cfg, p_run["prompts"], "serve_paged", alive)
+        report["small_pool"] = small_pool(params, cfg, np.random.default_rng(43), "serve_paged",
+                                          alive)
+        report["reduced_identity"] = reduced_paged_identity(dev)
+    log.check("serve_paged")
+    graphs = [g for eng, p in alive for g in eng.step_graphs(p).values()]
+    for g in graphs:
+        if g.launches.get("int8_matmul") != per_call:
+            fail(f"serve_paged: a graph holds {g.launches} launches, {per_call} int8_matmul "
+                 "expected")
+    report["int8_matmul_a_replay"] = {
+        name: sorted({g.launches.get("int8_matmul") for p in pools
+                      for g in eng.step_graphs(p).values()})
+        for name, eng, pools in (("contiguous", contig, (c_run["plain"], c_run["vpool"])),
+                                 ("paged", paged, (ppool, p_run["vpool"])))}
+    replayed = sum(g.replays * g.launches.get("int8_matmul", 0) for g in graphs)
+    report.update(calls=len(log.calls), graphs=len(graphs),
+                  replays=sum(g.replays for g in graphs), int8_matmul_per_call=per_call)
+    return {"expect": {"int8_matmul": sum(c["per_call"] for c in log.calls) + replayed},
+            "report": report}
+
+
 def _quant_leaves(tree):
     out = []
     tree_map(lambda t: out.append(t) if isinstance(t, QuantTensor) else None, tree)
@@ -2237,11 +2681,16 @@ def ticks_vs_eager(eng, plain, vpool, drafts, what: str) -> dict:
     tick of ``vpool``."""
     dgraph = eng.step_graphs(plain)[("decode", 0)]
     vgraph = eng.step_graphs(vpool)[("verify", SPEC_K)]
+
+    def table(g, pool):  # a paged pool's ticks take its page table too
+        return {"table": pool.table} if "table" in g.inputs else {}
+
     return {"decode": graph_vs_eager(dgraph, f"{what} decode tick", tok=plain.tok,
-                                     pos=plain.positions(), active=plain.decode_mask()),
+                                     pos=plain.positions(), active=plain.decode_mask(),
+                                     **table(dgraph, plain)),
             "verify": graph_vs_eager(vgraph, f"{what} verify tick", tok=vpool.tok,
                                      drafts=drafts, pos=vpool.positions(),
-                                     active=vpool.decode_mask())}
+                                     active=vpool.decode_mask(), **table(vgraph, vpool))}
 
 
 def graph_launches(graphs, cfg, what: str) -> int:
@@ -3643,6 +4092,7 @@ def main(argv=None) -> int:
     driven, counts_by_path, k5_seen = {}, {}, {}
     paths = {"lstm": drive_main_path, "serve_dense": drive_serve_dense,
              "serve_engine": lambda d: drive_serve_engine(d, driven["serve_dense"]["engine"]),
+             "serve_paged": lambda d: drive_serve_paged(d, driven["serve_dense"]["engine"]),
              "duty_cycle": lambda d: drive_duty_cycle(d, driven["serve_dense"]["engine"], energy),
              "serve_moe": drive_serve_moe, "serve_ssm": drive_serve_ssm,
              "serve_audio": drive_serve_audio, "serve_vlm": drive_serve_vlm,
@@ -3683,6 +4133,8 @@ def main(argv=None) -> int:
                                    driven["serve_engine"])
     for key in ("engine", "pools", "drafts"):
         driven["serve_engine"].pop(key)
+    paged_report = driven["serve_paged"]["report"]
+    paged_report["launches"] = counts_by_path["serve_paged"]
     duty_report = driven["duty_cycle"]["report"]
     duty_report["launches"] = counts_by_path["duty_cycle"]
     duty_report["t_inf_beside_the_replayed_tick"] = {
@@ -3725,7 +4177,8 @@ def main(argv=None) -> int:
     }
     main_path["trace_check"] = TRACE_CHECK
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
-              "serve_engine": engine_report, "duty_cycle": duty_report,
+              "serve_engine": engine_report, "serve_paged": paged_report,
+              "duty_cycle": duty_report,
               "serve_moe": moe_report, "serve_ssm": ssm_report,
               "serve_audio": audio_report, "serve_vlm": vlm_report,
               "int8_path_shapes": path_shapes, "host_path": host,
@@ -3744,6 +4197,7 @@ def main(argv=None) -> int:
 
     print("serve_dense " + json.dumps(serve), flush=True)
     print("serve_engine " + json.dumps(engine_report), flush=True)
+    print("serve_paged " + json.dumps(paged_report), flush=True)
     print("serve_moe " + json.dumps(moe_report), flush=True)
     print("serve_ssm " + json.dumps(ssm_report), flush=True)
     print("serve_audio " + json.dumps(audio_report), flush=True)

@@ -22,6 +22,10 @@ after).  The loss, and deepseek's multi-token-prediction head, whose
 parameters (``mtp``) are drawn but not used when serving, come with
 training (ROADMAP Queue A item 13).
 
+The paged pool's bridges (``paged_virtual_cache``, ``paged_written_blocks``,
+``verify_block_span``) gather every slot's cache row through its page table
+and extract the blocks a tick wrote, for all slots at once.
+
 Decode, chunked prefill and verify take one position per row (an int for
 all rows, or a (B,) tensor), where the JAX package takes a scalar and maps
 the call over a pool's slots with ``vmap``.  ``commit_verify`` likewise
@@ -492,3 +496,52 @@ def _mask_pad_logits(logits, cfg: ArchConfig):
         keep = torch.arange(v, device=logits.device) < cfg.vocab_size
         return torch.where(keep, logits, torch.full_like(logits, -1e30))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Paged-cache bridges (serving/pages.py)
+# ---------------------------------------------------------------------------
+# The decode and verify bodies above see a contiguous cache row per slot and
+# write positions [pos, pos+T) under the positional masks of models/layers.py.
+# The paged ticks reuse them unchanged: every slot's pages are gathered into a
+# virtual contiguous row through its page-table row, and the written blocks
+# are extracted afterwards for a scatter by page id.  Rows gathered from
+# unmapped blocks (the scratch page) are garbage, but every position past a
+# row's own is masked to -1e30 before the softmax, so they weigh exactly 0.
+# Where the JAX package takes one slot under vmap, these take all slots.
+
+
+def paged_virtual_cache(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Gather every slot's virtual contiguous cache row.
+
+    pages: (lead, num_pages, page_size, *tail); table: (B, max_blocks) page
+    ids → (lead, B, max_blocks * page_size, *tail), a new tensor."""
+    g = pages[:, table]  # (lead, B, max_blocks, page, *tail)
+    return g.reshape(g.shape[0], table.shape[0], table.shape[1] * pages.shape[2],
+                     *pages.shape[3:])
+
+
+def paged_written_blocks(rows: torch.Tensor, first_blk: torch.Tensor, n_blocks: int,
+                         page_size: int) -> torch.Tensor:
+    """Extract ``n_blocks`` whole blocks of each virtual row, row b's from
+    block ``first_blk[b]`` on.
+
+    rows: (lead, B, S, *tail); first_blk: (B,) → (lead, B, n_blocks,
+    page_size, *tail).  Positions past S read as zeros, as if the rows were
+    padded by the span first (the JAX package pads, so that its
+    ``dynamic_slice`` never clamps a start and misaligns the blocks); no
+    padded copy of the rows is made."""
+    b, s = rows.shape[1], rows.shape[2]
+    span = n_blocks * page_size
+    at = first_blk.to(torch.int64)[:, None] * page_size + torch.arange(span, device=rows.device)
+    w = rows[:, torch.arange(b, device=rows.device)[:, None], at.clamp(max=s - 1)]
+    inside = (at < s).reshape(1, b, span, *([1] * (rows.dim() - 3)))
+    w = torch.where(inside, w, torch.zeros_like(w))
+    return w.reshape(w.shape[0], b, n_blocks, page_size, *w.shape[3:])
+
+
+def verify_block_span(window: int, page_size: int) -> int:
+    """Most whole blocks a verify window of ``window`` tokens can touch (a
+    window starting at a block's last row spills ceil((window-1)/page) more
+    blocks)."""
+    return 1 + (window + page_size - 2) // page_size

@@ -36,13 +36,17 @@ else (prefill, chunked prefill on the group's own cache, poison/resume,
 ``generate``) goes through the model's entry points, and the verify tick's
 ``commit_verify`` rolls each row's recurrent state forward to that row's
 own accepted count (what the JAX engine does per slot under ``vmap``).
-The options whose modules are not ported raise ``NotImplementedError`` at
-construction: the paged cache and int8 KV pages (ROADMAP Queue A item 10),
-and fault injection and the energy budget, whose profiles and ledgers
-(``serving/faults.py``, ``serving/power.py``) are ported but whose reader,
-the scheduler (item 11), is not.  Without the paged pool,
-the paged branches of the reference's slot functions have no counterpart
-here.
+With ``ServeConfig.paged`` the pool is a ``serving/pages.PagedSlotPool``:
+prefill lands on fresh pages, every decoding slot's write span is made
+writable (fresh or copied pages) before a tick, and the ticks gather every
+slot's virtual cache row through the page table, a static input of their
+graphs, and scatter the written blocks back by page id
+(``share_prefix``: chunked prefill starts past a registered prefix;
+``kv_quant="int8"``: the gather dequantizes, the scatter quantizes).  Fault
+injection and the energy budget raise ``NotImplementedError`` at
+construction: their profiles and ledgers (``serving/faults.py``,
+``serving/power.py``) are ported, their reader, the scheduler (ROADMAP
+Queue A item 11), is not.
 
 How the JAX engine's idioms are expressed here:
 
@@ -55,7 +59,8 @@ How the JAX engine's idioms are expressed here:
 * ``donate_argnums`` becomes an in-place cache update.
 * ``vmap`` over a pool's slots becomes one batched call with a position per
   row: the masked decode and verify steps run all slots as one batch, each
-  row at its own position.  The numbers are the same, since each row's
+  row at its own position (the paged ticks gather and scatter all rows at
+  once too).  The numbers are the same, since each row's
   activation quantization and each output element depend only on that row;
   the int8 projections become one launch each, M = max_batch (decode) or
   max_batch x (K + 1) (verify).
@@ -79,12 +84,16 @@ from repro_torch.models.model import (
     decode_verify,
     encoder_cross_cache,
     init_model,
+    paged_virtual_cache,
+    paged_written_blocks,
     prefill,
     prefill_chunk,
+    verify_block_span,
 )
 from repro_torch.models.params import init_params
 from repro_torch.serving.graphs import StepGraph, signature
-from repro_torch.serving.kv_cache import cache_defs
+from repro_torch.serving.kv_cache import cache_defs, dequantize_kv, paged_keys, quantize_kv
+from repro_torch.serving.pages import SCRATCH, PagedSlotPool
 from repro_torch.serving.slots import SlotPool, grow_cache
 
 
@@ -128,9 +137,6 @@ class ServeConfig:
 
 def _refuse_unported(sc: ServeConfig) -> None:
     unported = {
-        "paged": (sc.paged, "the paged KV cache (ROADMAP Queue A item 10)"),
-        "share_prefix": (sc.share_prefix, "prefix sharing over pages (ROADMAP Queue A item 10)"),
-        "kv_quant": (sc.kv_quant is not None, "int8 KV pages (ROADMAP Queue A item 10)"),
         "faults": (sc.faults is not None,
                    "the scheduler, which reads it (ROADMAP Queue A item 11; the fault "
                    "profiles of serving/faults.py are ported)"),
@@ -212,8 +218,16 @@ class InferenceEngine:
 
     # -- continuous-batching execution path ---------------------------------
     def make_pool(self) -> SlotPool:
-        return SlotPool(self.cfg, max_batch=self.sc.max_batch, max_len=self.sc.max_len,
-                        slack=self.sc.spec_slack, device=self.device)
+        sc = self.sc
+        if sc.paged:
+            return PagedSlotPool(self.cfg, max_batch=sc.max_batch, max_len=sc.max_len,
+                                 page_size=sc.page_size, slack=sc.spec_slack,
+                                 num_pages=sc.num_pages, share_prefix=sc.share_prefix,
+                                 kv_quant=sc.kv_quant, device=self.device)
+        if sc.kv_quant is not None:
+            raise ValueError("kv_quant needs paged=True")
+        return SlotPool(self.cfg, max_batch=sc.max_batch, max_len=sc.max_len,
+                        slack=sc.spec_slack, device=self.device)
 
     @torch.inference_mode()
     def prefill_into_slot(self, pool: SlotPool, slot: int, prompt: np.ndarray,
@@ -227,7 +241,8 @@ class InferenceEngine:
         toks = torch.as_tensor(prompt.astype(np.int64), device=self.device)[None]
         logits, cache = prefill(self.params, toks, self.cfg,
                                 frontend_embeds=self._frontend_stub(1))
-        cache = grow_cache(self.cfg, cache, self.capacity)
+        if not isinstance(pool, PagedSlotPool):  # pages take the prompt's rows as they are
+            cache = grow_cache(self.cfg, cache, self.capacity)
         first = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
         pool.admit(slot, cache, rid=rid, pos=s0, budget=budget, first_tok=first, prompt=prompt)
         return first
@@ -249,10 +264,39 @@ class InferenceEngine:
         overwrites.  Host-side bookkeeping (advancing positions, retiring)
         is the caller's, as in the JAX engine.  On a CUDA pool the step is a
         replayed graph (``step_graphs``).
+
+        On a paged pool each decoding slot's block of its position is made
+        writable first (a fresh page, or a copy of a shared one, enqueued
+        ahead of the tick), and after a tick that flagged a decoding slot
+        non-finite the scratch page is zeroed.
         """
         g = self._graph(pool, "decode", 0)
-        out = g(tok=pool.tok, pos=pool.positions(), active=pool.decode_mask())
-        return out["next"].cpu().numpy(), out["finite"].cpu().numpy()
+        inputs = dict(tok=pool.tok, pos=pool.positions(), active=pool.decode_mask())
+        paged = isinstance(pool, PagedSlotPool)
+        if paged:
+            self._make_writable(pool, 1)
+            inputs["table"] = pool.table
+        out = g(**inputs)
+        nxt, fin = out["next"].cpu().numpy(), out["finite"].cpu().numpy()
+        if paged and not fin[pool.decode_mask()].all():
+            pool.scrub_scratch()
+        return nxt, fin
+
+    @staticmethod
+    def _make_writable(pool: PagedSlotPool, span: int) -> None:
+        """``ensure_writable`` over every decoding slot's write span [pos,
+        pos + span); then each page a slot writes must be a page of its own,
+        none twice: inactive rows and verify blocks past a window all land
+        on SCRATCH, where duplicates are harmless, but a live page written
+        by two rows would be a race."""
+        written = []
+        for s in pool.decoding_slots():
+            p = pool.slots[s].pos
+            pool.ensure_writable(s, p, p + span)
+            written += [int(pool.table[s, b])
+                        for b in range(p // pool.page, (p + span - 1) // pool.page + 1)]
+        if SCRATCH in written or len(set(written)) != len(written):
+            raise RuntimeError(f"a tick would write pages {written}: scratch, or one twice")
 
     def _decode_tick(self, cache, tok, pos, active):
         """The masked decode step on static inputs (B,): every decoding slot
@@ -280,9 +324,66 @@ class InferenceEngine:
         commit_verify(cache, accepted, cfg)
         return {"logits": logits, "tokens": g, "accepted": accepted, "finite": fin}
 
+    def _paged_gather(self, cache, table):
+        """The paged ticks' cache: every slot's virtual contiguous row of
+        each paged leaf gathered through ``table`` (dequantized to f32 under
+        ``kv_quant``, as the JAX engine's gather is), beside the pool's own
+        unpaged leaves, which the step writes in place."""
+        pkeys, quant = paged_keys(self.cfg), self.sc.kv_quant
+        out = {k: v for k, v in cache.items()
+               if k not in pkeys and not (quant and k.endswith("_scale"))}
+        for key in pkeys:
+            virt = paged_virtual_cache(cache[key], table)
+            if quant:
+                virt = dequantize_kv(virt, paged_virtual_cache(cache[f"{key}_scale"], table))
+            out[key] = virt
+        return out
+
+    def _paged_scatter(self, cache, virt, table, pos, active, window: int) -> None:
+        """Store the blocks the tick wrote back by page id: the blocks of
+        each row's window [pos, pos + window), a fixed ``verify_block_span``
+        of them from the first; blocks past the window's last, and every
+        block of an inactive row, go to SCRATCH (quantized under
+        ``kv_quant``).  Inactive rows wrote at position 0, as the step puts
+        them there."""
+        page = self.sc.page_size
+        nw = 1 if window == 1 else verify_block_span(window, page)
+        pos = torch.where(active, pos, torch.zeros_like(pos))
+        first = pos // page
+        blks = first[:, None] + torch.arange(nw, device=pos.device)  # (B, nw)
+        valid = active[:, None] & (blks <= ((pos + window - 1) // page)[:, None])
+        mapped = torch.gather(table, 1, blks.clamp(max=table.shape[1] - 1)).to(torch.int64)
+        pids = torch.where(valid, mapped, torch.zeros_like(mapped)).reshape(-1)
+        for key in paged_keys(self.cfg):
+            w = paged_written_blocks(virt[key], first, nw, page)  # (lead, B, nw, page, *tail)
+            w = w.reshape(w.shape[0], -1, *w.shape[3:])
+            if self.sc.kv_quant:
+                q, s = quantize_kv(w)
+                cache[key].index_copy_(1, pids, q)
+                cache[f"{key}_scale"].index_copy_(1, pids, s)
+            else:
+                cache[key].index_copy_(1, pids, w.to(cache[key].dtype))
+
+    def _paged_decode_tick(self, cache, tok, pos, active, table):
+        """The paged twin of ``_decode_tick``: gather, the same step, scatter
+        of each row's written block."""
+        virt = self._paged_gather(cache, table)
+        out = self._decode_tick(virt, tok, pos, active)
+        self._paged_scatter(cache, virt, table, pos, active, 1)
+        return out
+
+    def _paged_verify_tick(self, cache, tok, drafts, pos, active, table):
+        """The paged twin of ``_verify_tick``: gather, the same step,
+        scatter of each row's window blocks."""
+        virt = self._paged_gather(cache, table)
+        out = self._verify_tick(virt, tok, drafts, pos, active)
+        self._paged_scatter(cache, virt, table, pos, active, drafts.shape[1] + 1)
+        return out
+
     def _graph(self, pool: SlotPool, kind: str, k: int) -> StepGraph:
         """The pool's captured decode (``k`` = 0) or verify tick, built anew
-        when the pool's cache is not the one it was captured on."""
+        when the pool's cache is not the one it was captured on.  A paged
+        pool's ticks take its page table as one more input."""
         graphs = self._graphs.setdefault(pool, {})
         g = graphs.get((kind, k))
         if g is None or g.signature != signature(pool.cache, pool.max_batch, k):
@@ -292,7 +393,11 @@ class InferenceEngine:
                 inputs["drafts"] = torch.zeros((b, k), dtype=torch.int64, device=dev)
             inputs["pos"] = torch.zeros(b, dtype=torch.int64, device=dev)
             inputs["active"] = torch.zeros(b, dtype=torch.bool, device=dev)
-            step = self._verify_tick if k else self._decode_tick
+            if isinstance(pool, PagedSlotPool):
+                inputs["table"] = torch.zeros(pool.table.shape, dtype=torch.int32, device=dev)
+                step = self._paged_verify_tick if k else self._paged_decode_tick
+            else:
+                step = self._verify_tick if k else self._decode_tick
             g = graphs[(kind, k)] = StepGraph(step, pool.cache, inputs, pool.max_batch, k)
         return g
 
@@ -305,7 +410,12 @@ class InferenceEngine:
     def poison_slot(self, pool: SlotPool, slot: int) -> None:
         """Overwrite ``slot``'s cache rows with NaN, in place (an injected
         fault).  The next masked decode or verify tick reports the slot
-        non-finite; recovery (``resume_into_slot``) is the caller's."""
+        non-finite; recovery (``resume_into_slot``) is the caller's.  On a
+        paged pool shared pages are copied first and only the copies
+        corrupted (``PagedSlotPool.poison``)."""
+        if isinstance(pool, PagedSlotPool):
+            pool.poison(slot)
+            return
         for leaf in pool.cache.values():
             if leaf.is_floating_point():
                 leaf[:, slot] = float("nan")
@@ -326,7 +436,10 @@ class InferenceEngine:
                              f"exceeds max_len {self.sc.max_len}")
         toks = torch.as_tensor(context.astype(np.int64), device=self.device)[None]
         _, cache = prefill(self.params, toks, self.cfg, frontend_embeds=self._frontend_stub(1))
-        cache = grow_cache(self.cfg, cache, self.capacity)
+        if not isinstance(pool, PagedSlotPool):
+            cache = grow_cache(self.cfg, cache, self.capacity)
+        # no prompt: a resumed context holds emitted tokens, which never enter
+        # the prefix registry
         pool.admit(slot, cache, rid=rid, pos=s, budget=budget, first_tok=next_tok,
                    emitted=emitted)
 
@@ -350,19 +463,35 @@ class InferenceEngine:
 
         Bookkeeping (``SlotPool.advance``, retirement, budget truncation) is
         the caller's.  On a CUDA pool the tick is a replayed graph, one per K.
+
+        A paged pool needs no ``spec_slack``: each decoding slot's K+1
+        window is made writable first (its tail blocks allocated on demand),
+        as long as the table holds a window starting at max_len - 2.
         """
         drafts = np.asarray(drafts, np.int32)
         k = drafts.shape[1] if drafts.ndim == 2 else 0
         if drafts.shape != (pool.max_batch, k) or k < 1:
             raise ValueError(f"drafts must be (max_batch={pool.max_batch}, K >= 1), "
                              f"got {drafts.shape}")
-        if pool.slack < k:
+        paged = isinstance(pool, PagedSlotPool)
+        if paged and (pool.max_len - 2 + k) // pool.page + 1 > pool.max_blocks:
+            raise ValueError(f"a verify window of {k + 1} tokens exceeds the page table "
+                             f"({pool.max_blocks} blocks of {pool.page}); raise spec_slack or "
+                             "page_size")
+        if not paged and pool.slack < k:
             raise ValueError(f"speculative verify of {k} drafts needs spec_slack >= {k} spare "
                              f"cache rows (have {pool.slack}); see ServeConfig.spec_slack")
         g = self._graph(pool, "verify", k)
-        out = g(tok=pool.tok, drafts=drafts, pos=pool.positions(), active=pool.decode_mask())
-        return (out["tokens"].cpu().numpy(), out["accepted"].cpu().numpy(),
-                out["finite"].cpu().numpy())
+        inputs = dict(tok=pool.tok, drafts=drafts, pos=pool.positions(),
+                      active=pool.decode_mask())
+        if paged:
+            self._make_writable(pool, k + 1)
+            inputs["table"] = pool.table
+        out = g(**inputs)
+        toks, acc, fin = (out[n].cpu().numpy() for n in ("tokens", "accepted", "finite"))
+        if paged and not fin[pool.decode_mask()].all():
+            pool.scrub_scratch()
+        return toks, acc, fin
 
     # -- chunked prefill ------------------------------------------------------
     @torch.inference_mode()
@@ -373,7 +502,12 @@ class InferenceEngine:
         cross K/V filled from ``encoder_cross_cache`` of the front-end stub,
         cast to the cache's type).  The group prefills outside the pool,
         whose masked decode keeps serving the decoding slots between chunks;
-        ``finish_chunked_prefill`` lands each row in its reserved slot."""
+        ``finish_chunked_prefill`` lands each row in its reserved slot.
+
+        On a paged pool with ``share_prefix`` the group's longest registered
+        prefix (the shortest match among its prompts) is pinned, gathered
+        into the leading rows of the group's cache, and chunking starts past
+        it.  The group's cache spans the pool's ``virtual_len``."""
         prompts = np.asarray(prompts, np.int32)
         k, s0 = prompts.shape
         if not len(slots) == len(rids) == len(budgets) == k:
@@ -382,26 +516,37 @@ class InferenceEngine:
             if s0 + budget > self.sc.max_len:
                 raise ValueError(f"request {rid}: prompt {s0} + budget {budget} "
                                  f"exceeds max_len {self.sc.max_len}")
+        paged = isinstance(pool, PagedSlotPool)
+        shared_len, pins = 0, None
+        if paged and pool.share_prefix:
+            shared_len = min(pool.match_prefix_len(p) for p in prompts)
+            if shared_len:
+                pins = [pool.pin_prefix(p, shared_len) for p in prompts]
         for slot, rid, budget in zip(slots, rids, budgets):
             if not pool.admitting[slot]:  # a scheduler may have reserved already
-                pool.reserve(slot, rid=rid, s0=s0, budget=budget)
-        cache = init_params(cache_defs(self.cfg, batch=k, max_len=self.capacity),
+                pool.reserve(slot, rid=rid, s0=s0, budget=budget, shared_len=shared_len)
+        group_len = pool.virtual_len if paged else self.capacity
+        cache = init_params(cache_defs(self.cfg, batch=k, max_len=group_len),
                             torch.Generator(), self.device)
         if self.cfg.family == "audio":
             ck, cv = encoder_cross_cache(self.params, self.cfg, self._frontend_stub(k))
             cache["cross_k"].copy_(ck)
             cache["cross_v"].copy_(cv)
+        if pins is not None:
+            pool.fill_group_prefix(cache, pins)
         return ChunkedPrefillState(prompts=prompts, rids=list(rids), budgets=list(budgets),
                                    slots=list(slots), cache=cache,
-                                   frontend=self._chunk_frontend(k))
+                                   frontend=self._chunk_frontend(k, group_len),
+                                   pos=shared_len, shared_len=shared_len, pins=pins)
 
-    def _chunk_frontend(self, batch: int):
-        """The vlm frontend stub padded to cache capacity on the sequence
-        axis, so that every chunk can slice it at its offset."""
+    def _chunk_frontend(self, batch: int, seq_len: int | None = None):
+        """The vlm frontend stub padded to the group cache's length (the
+        engine's capacity by default) on the sequence axis, so that every
+        chunk can slice it at its offset."""
         if self.cfg.family != "vlm":
             return None
-        return torch.zeros((batch, self.capacity, self.cfg.d_model), dtype=self.cfg.dtype,
-                           device=self.device)
+        return torch.zeros((batch, seq_len or self.capacity, self.cfg.d_model),
+                           dtype=self.cfg.dtype, device=self.device)
 
     def chunk_step_probe(self, batch: int, chunk_tokens: int):
         """A zero-argument callable that runs one representative chunked
@@ -446,6 +591,19 @@ class InferenceEngine:
         decoding) and return the group's first emitted tokens."""
         if not st.done or st.first is None:
             raise ValueError("the group's prefill is not done")
+        if isinstance(pool, PagedSlotPool):
+            # an atomic commit: the group's whole delta is checked first
+            # (evicting registry pages as needed), so exhaustion never leaves
+            # a half-activated group; the caller cancels the group instead
+            shared = len(st.pins[0]) if st.pins else 0
+            pool.require_pages(len(st.slots) * (pool._blocks_for(st.s0) - shared))
+            for j, slot in enumerate(st.slots):
+                pool.activate_from_group(slot, st.cache, j, rid=st.rids[j], pos=st.s0,
+                                         budget=st.budgets[j], first_tok=int(st.first[j]),
+                                         prompt=st.prompts[j],
+                                         pins=st.pins[j] if st.pins else ())
+            st.pins = None  # the references passed into the slots' tables
+            return st.first
         for j, slot in enumerate(st.slots):
             row = {key: t[:, j:j + 1] for key, t in st.cache.items()}
             pool.activate(slot, row, rid=st.rids[j], pos=st.s0, budget=st.budgets[j],
@@ -453,16 +611,19 @@ class InferenceEngine:
         return st.first
 
     def cancel_chunked_prefill(self, pool: SlotPool, st: "ChunkedPrefillState") -> None:
-        """Abort an in-flight admitting group: retire its reserved slots."""
+        """Abort an in-flight admitting group: release its pinned prefix
+        pages and retire its reserved slots."""
+        if st.pins:
+            for pins in st.pins:
+                pool.unpin_prefix(pins)
+            st.pins = None
         for slot in st.slots:
             pool.retire(slot)
 
 
 @dataclasses.dataclass
 class ChunkedPrefillState:
-    """One in-flight same-length admission group (chunked prefill).  The
-    reference's ``shared_len`` and ``pins`` belong to the paged pool's prefix
-    sharing (ROADMAP Queue A item 10) and come with it."""
+    """One in-flight same-length admission group (chunked prefill)."""
 
     prompts: np.ndarray           # (k, s0) int32: identical prompt lengths
     rids: list[int]
@@ -472,6 +633,8 @@ class ChunkedPrefillState:
     frontend: torch.Tensor | None = None  # capacity-padded vlm frontend stub
     pos: int = 0                  # prompt tokens prefilled so far
     first: np.ndarray | None = None  # first emitted token per request (when done)
+    shared_len: int = 0           # resident shared-prefix tokens (paged, share_prefix)
+    pins: list | None = None      # pinned prefix page ids per row (until activation)
 
     @property
     def s0(self) -> int:

@@ -8,13 +8,17 @@ replays it on every later call, so a tick costs one graph launch on the
 host instead of one launch per kernel (about 1300 at granite-3-8b's width).
 
 * **Inputs.**  The per-tick host arrays (tokens, positions, the decode mask,
-  drafts) are copied into static device buffers before each replay; the
-  graph reads them there.  Nothing is built from numpy inside the step.
+  drafts, and a paged pool's page table) are copied into static device
+  buffers before each replay; the graph reads them there.  The table's
+  values change from tick to tick, its buffer does not.  Nothing is built
+  from numpy inside the step.
 * **Outputs.**  The step's outputs are static tensors of the graph, read
   after each replay (and overwritten by the next).
 * **The cache** is written in place at the addresses it had at capture, so
   the pool must never rebind it; a pool with other addresses (a new pool)
-  gets a new graph (``signature``).
+  gets a new graph (``signature``).  What the pool writes between ticks
+  (an admission, a paged pool's copy-on-write copies) is enqueued on the
+  current stream, the one a replay runs on, so the replay sees it.
 * **Warm-up.**  The step runs once uncaptured on the capture stream before
   the capture: what a kernel wrapper allocates lazily per stream (K5's
   split-K workspace) then exists, and no allocation of it is captured.  The

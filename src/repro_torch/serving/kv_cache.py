@@ -8,10 +8,10 @@
                   the cross leaves fixed at the encoder's frames, whatever S
 
 ParamDef trees, as in the JAX package, so the cache is initialised by the
-same machinery as the weights.  The paged layout and its int8 pages
-(``page_defs``, ``quantize_kv``) come with the paged pool (ROADMAP Queue A
-item 10), where ``paged_keys`` gives the leaves with a sequence axis to
-page.
+same machinery as the weights.  The paged pool (``serving/pages.py``) pages
+the leaves ``paged_keys`` names, those with a sequence axis, in the layout
+of ``page_defs``: ``(lead, num_pages, page_size, ...)``, optionally as int8
+payloads with an f32 scale a row (``quantize_kv`` / ``dequantize_kv``).
 """
 from __future__ import annotations
 
@@ -76,14 +76,77 @@ def cache_bytes(cfg: ArchConfig, *, batch: int, max_len: int) -> int:
 
 
 def paged_keys(cfg: ArchConfig) -> tuple[str, ...]:
-    """Cache leaves whose SEQUENCE axis (axis 2) the paged pool (ROADMAP
-    Queue A item 10) will page.  What is O(1) in the sequence stays per
-    slot: the SSM conv/state (recurrent: ssm pages nothing, hybrid only its
-    shared-attention K/V) and whisper's cross K/V (fixed at encoder_seq:
-    audio pages its decoder's self-attention K/V)."""
+    """Cache leaves whose SEQUENCE axis (axis 2) the paged pool pages.  What
+    is O(1) in the sequence stays per slot: the SSM conv/state (recurrent:
+    ssm pages nothing, hybrid only its shared-attention K/V) and whisper's
+    cross K/V (fixed at encoder_seq: audio pages its decoder's
+    self-attention K/V)."""
     f = cfg.family
     if f in ("ssm", "hybrid"):
         return ("shared_k", "shared_v") if f == "hybrid" else ()
     if f in ("dense", "vlm", "moe", "audio"):
         return ("c", "krope") if cfg.mla is not None else ("k", "v")
     raise ValueError(f"unknown family {f!r}")
+
+
+def page_defs(cfg: ArchConfig, *, num_pages: int, page_size: int,
+              kv_quant: str | None = None) -> dict:
+    """The paged layout of the sequence leaves: ``(lead, num_pages,
+    page_size, ...)``, one physical-page axis shared by every slot in place
+    of the per-slot (batch, seq) rectangle.  Page 0 is the pool's scratch
+    page.
+
+    ``kv_quant="int8"`` stores each payload as int8 beside an f32
+    ``{key}_scale`` leaf of the payload's shape without its feature (last)
+    axis: one symmetric scale a (page, row, head).  The scales ride the
+    payload's page axis, so a copy, zeroing or swap of pages treats them as
+    more paged leaves."""
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unsupported kv_quant {kv_quant!r}")
+    defs = cache_defs(cfg, batch=num_pages, max_len=page_size)
+    out = {}
+    for key in paged_keys(cfg):
+        d = defs[key]
+        logical = (d.logical[0], None) + d.logical[2:]  # the page axis is not sharded
+        if kv_quant == "int8":
+            out[key] = ParamDef(d.shape, logical, init="zeros", dtype=torch.int8)
+            out[f"{key}_scale"] = ParamDef(d.shape[:-1], logical[:-1], init="zeros",
+                                           dtype=torch.float32)
+        else:
+            out[key] = ParamDef(d.shape, logical, init="zeros", dtype=d.dtype)
+    return out
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of each row over the feature (last) axis,
+    the JAX package's bytes: ``scale = max(amax, 1e-8) / 127``, then
+    ``round(x / scale)`` half to even, clipped to +-127.  Both divisions
+    are by tensors (a Python divisor becomes a product with its reciprocal
+    on the card, one rounding more).  A row holding a NaN gets a NaN scale,
+    which the pool's fault hygiene watches, and payloads of 0 where ``x /
+    scale`` is NaN, as the JAX package's conversion gives.  Returns (q int8,
+    scale f32 of ``x.shape[:-1]``)."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.maximum(amax, torch.full((), 1e-8, device=x.device)) / torch.full(
+        (), 127.0, device=x.device)
+    r = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return torch.where(torch.isnan(r), torch.zeros_like(r), r).to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize_kv``: ``q * scale`` over the feature axis."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def paged_cache_bytes(cfg: ArchConfig, *, batch: int, num_pages: int, page_size: int,
+                      max_blocks: int, kv_quant: str | None = None) -> int:
+    """Device bytes of the paged layout: the page leaves (int8 payloads and
+    f32 scales under ``kv_quant``), the per-slot unpaged leaves (SSM
+    conv/state, whisper's cross K/V: none depends on max_len), and the
+    int32 page table."""
+    unpaged = {k: d for k, d in cache_defs(cfg, batch=batch, max_len=1).items()
+               if k not in paged_keys(cfg)}
+    return (_defs_bytes(page_defs(cfg, num_pages=num_pages, page_size=page_size,
+                                  kv_quant=kv_quant))
+            + _defs_bytes(unpaged) + batch * max_blocks * 4)

@@ -22,9 +22,11 @@ Every write to ``cache`` is in place and ``cache`` is never rebound: the
 engine's captured decode and verify graphs (``serving/graphs.py``) hold the
 addresses of its tensors.
 
-What only modules not yet ported use is left out until they come: virtual
-pools (``cache=None``, ``admit_virtual``), SLO tiers and the scheduler's
-views (ROADMAP Queue A item 11), the paged pool (item 10).
+A virtual pool (``virtual=True``) allocates no cache: it keeps the host-side
+bookkeeping only, for the paged pool (``serving/pages.py``), which builds a
+cache of its own on top, and for engine-free scheduler studies
+(``admit_virtual``).  ``SlotInfo.tier`` is the SLO tier the scheduler (ROADMAP
+Queue A item 11) reads; the paged pool's swap images carry it.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.params import init_params
 from repro_torch.serving.kv_cache import cache_defs, paged_keys
 
@@ -65,6 +68,7 @@ class SlotInfo:
     pos: int = 0      # next cache position to write (== tokens resident)
     budget: int = 0   # total new tokens this request will emit
     emitted: int = 0  # tokens emitted so far (prefill's argmax counts as #1)
+    tier: str = "batch"  # SLO tier: "latency" may preempt "batch" slots
 
 
 class SlotPool:
@@ -77,14 +81,16 @@ class SlotPool:
     """
 
     def __init__(self, cfg: ArchConfig, *, max_batch: int, max_len: int, slack: int = 0,
-                 device=None):
+                 virtual: bool = False, device=None):
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_len = max_len
         self.slack = slack
         self.capacity = max_len + slack
-        self.cache = init_params(
-            cache_defs(cfg, batch=max_batch, max_len=self.capacity), torch.Generator(), device)
+        self.device = resolve_device(device)
+        self.cache = None if virtual else init_params(
+            cache_defs(cfg, batch=max_batch, max_len=self.capacity), torch.Generator(),
+            self.device)
         # tokens committed through ``advance`` (every decode/verify tick), and
         # how many of them were drafted (0 under plain decode)
         self.committed = 0
@@ -156,20 +162,33 @@ class SlotPool:
         is the slot's next decode input (the prefill's argmax, or the last
         committed token of a resumed request, whose ``emitted`` then counts
         the tokens emitted before the fault)."""
-        if pos + (budget - emitted) + 1 > self.max_len or not 1 <= emitted <= budget:
-            raise ValueError(f"request does not fit: pos {pos}, budget {budget}, "
-                             f"emitted {emitted}, max_len {self.max_len}")
+        if self.cache is None:
+            raise ValueError("cannot admit a cache into a virtual pool")
+        self._check_fits(pos, budget, emitted)
         self._claim(slot)
         self._write(slot, req_cache)
         self.slots[slot] = SlotInfo(rid=rid, pos=pos, budget=budget, emitted=emitted)
         self.tok[slot] = first_tok
+
+    def _check_fits(self, pos: int, budget: int, emitted: int) -> None:
+        if pos + (budget - emitted) + 1 > self.max_len or not 1 <= emitted <= budget:
+            raise ValueError(f"request does not fit: pos {pos}, budget {budget}, "
+                             f"emitted {emitted}, max_len {self.max_len}")
+
+    def admit_virtual(self, slot: int, *, rid: int, pos: int, budget: int,
+                      emitted: int = 1) -> None:
+        """Claim a slot with bookkeeping only (virtual pools, engine-free
+        scheduler runs): no cache is written."""
+        self._check_fits(pos, budget, emitted)
+        self._claim(slot)
+        self.slots[slot] = SlotInfo(rid=rid, pos=pos, budget=budget, emitted=emitted)
 
     def reserve(self, slot: int, *, rid: int, s0: int = 0, budget: int = 0,
                 shared_len: int = 0) -> None:
         """Claim a free slot for a request whose chunked prefill is about to
         start: occupied, but ``admitting`` and out of the decode mask until
         ``activate``.  ``s0``, ``budget`` and ``shared_len`` are the paged
-        pool's (item 10), unused here."""
+        pool's (its page reservation), unused here."""
         self._claim(slot)
         self.admitting[slot] = True
         self.slots[slot] = SlotInfo(rid=rid)
@@ -185,7 +204,8 @@ class SlotPool:
         if pos + budget > self.max_len or budget < 1:
             raise ValueError(f"request does not fit: pos {pos}, budget {budget}, "
                              f"max_len {self.max_len}")
-        self._write(slot, req_cache)
+        if self.cache is not None:
+            self._write(slot, req_cache)
         self.slots[slot] = SlotInfo(rid=rid, pos=pos, budget=budget, emitted=1)
         self.admitting[slot] = False
         self.tok[slot] = first_tok

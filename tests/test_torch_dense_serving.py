@@ -125,10 +125,13 @@ def check_masked_decode(je, te, ticks: int = 4):
 
 def test_unported_options_raise():
     cfg = dataclasses.replace(torch_config("granite-3-8b"), dtype=torch.float32)
-    for opt in ({"paged": True}, {"kv_quant": "int8"}, {"faults": object()},
-                {"energy_budget_j": 1.0}, {"share_prefix": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for opt in ({"faults": object()}, {"energy_budget_j": 1.0}):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
             InferenceEngine(cfg, sc=ServeConfig(**opt), device="cpu")
+    # the paged pool's options are ported (tests/test_torch_paged_serving.py)
+    for opt in ({"paged": True}, {"paged": True, "kv_quant": "int8"},
+                {"paged": True, "share_prefix": True}):
+        InferenceEngine(cfg, sc=ServeConfig(max_batch=2, max_len=16, **opt), device="cpu")
     # every family of the JAX package is served now; a family it does not
     # have is refused
     with pytest.raises(ValueError, match="unknown family"):

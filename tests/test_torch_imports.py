@@ -42,6 +42,8 @@ def test_port_files_found():
     # the host-side serving modules under the duty-cycle layer and the scheduler
     assert {"retry.py", "load.py", "draft.py", "faults.py", "policy.py", "power.py",
             "brownout.py"} <= names
+    # the paged KV cache
+    assert "pages.py" in names
     assert all(p.exists() for p in PORT_FILES)
 
 
