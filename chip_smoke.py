@@ -6,7 +6,7 @@
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
 against its plain PyTorch version on the card at the shapes its path uses,
 times kernel, plain version and (where one PyTorch call computes the same
-function) the library, then drives ten paths, each with the launch
+function) the library, then drives eleven paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * the paper-LSTM path — the plan and request batches through ``lstm_apply``
@@ -58,6 +58,31 @@ counters set to 0 just before it and read just after:
   offline ``learn_tau``; ``NgramDrafter`` + ``SpecThrottle`` drafts for 4
   periodic prompts verified on the replayed verify tick, the chains equal
   to plain decode token for token.  K5 launches 56 a model call;
+* ``serve_scheduler`` — the continuous-batching scheduler
+  (``serving/scheduler.py``) over the same int8 weights: a contiguous
+  engine (``ServeConfig(4, 128, spec_slack=4)``) and its paged twin
+  (``ServeConfig(4, 128, paged=True, page_size=16)``), costs measured on the
+  card by ``EngineCalibration`` (its decode and verify ticks on pools of its
+  own, dropped after), a seeded Poisson stream of 16 requests (prompts of
+  16, 32 or 48 tokens, 8-24 new tokens) at 8 arrivals a mean service time;
+  continuous, chunked (chunks of 16) and speculative (K = 4) runs, each
+  twice on one scheduler (the second timed and bit for bit the first), and
+  static batches; every chunked and speculative chain held to the
+  continuous one under ``serve_paged``'s near-tie rule (the margin read by
+  replaying the request alone, ``replay_alone``); the "light" fault profile
+  (quarantine and retry, none failed); the paged engine on a pool of 11
+  pages, half the stream's worst case, with half the requests on the
+  latency tier, preempting by swap (tokens exactly the unpressured paged
+  run's) and by recompute (near ties); a 300 W cap under the brownout
+  ladder (no window over it) and an energy budget of twice the idle floor
+  a 0.25 s window (no window over it), their tokens exactly the
+  continuous run's; the reduced configs of the five cache layouts in f32
+  through the scheduler on the card and on the CPU, the two reports equal
+  field for field; and ``python -m repro_torch.launch.serve --arch
+  granite-3-8b --mode compare --paged --n 12``, which must return 0.  Its
+  line gives the calibrated costs beside ``serve_engine``'s replayed
+  ticks, the scheduler's own host time a tick, items/J and virtual
+  p50/p99 a mode under ``H100Chip``, and K5 launches a committed token;
 * ``serve_moe`` — the moe family through the same engine: granite-moe-3b-a800m
   at full width and full depth (32 layers, 48 padded experts, bf16, int8:
   ``generate``, the slot path with replayed ticks, a chunked prefill while
@@ -139,7 +164,7 @@ under a 2 s K3 loop beside ``H100Chip.step_power``.
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
 the replayed and eager tick times), ``serve_paged``, ``serve_moe``, ``serve_ssm``,
-``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``int8_path_shapes``,
+``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``serve_scheduler``, ``int8_path_shapes``,
 ``host_path`` (each kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
@@ -155,6 +180,7 @@ import contextlib
 import ctypes
 import dataclasses
 import importlib.util
+import io
 import json
 import math
 import pathlib
@@ -190,6 +216,7 @@ from repro_torch.kernels.lstm_seq import (  # noqa: E402
     _lstm_stack_call, cluster_slots, lstm_seq_fused, lstm_seq_fused_quantized, lstm_seq_plain,
     lstm_stack_fused, lstm_stack_plain, plan_launch,
 )
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch.train import plan_paper_lstm  # noqa: E402
 from repro_torch.models.lstm import lstm_apply, lstm_stack_apply  # noqa: E402
 from repro_torch.kernels import int8_matmul as int8_mod  # noqa: E402
@@ -206,8 +233,12 @@ from repro_torch.models.quant import QuantTensor, layer_of, quantize_weight  # n
 from repro_torch.core import workload as workload_mod  # noqa: E402
 from repro_torch.serving import draft as draft_mod  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
+from repro_torch.serving import faults as faults_mod  # noqa: E402
+from repro_torch.serving import graphs as graphs_mod  # noqa: E402
 from repro_torch.serving import load as load_mod  # noqa: E402
 from repro_torch.serving import policy as policy_mod  # noqa: E402
+from repro_torch.serving import power as power_mod  # noqa: E402
+from repro_torch.serving import scheduler as sched_mod  # noqa: E402
 from repro_torch.serving.kv_cache import cache_defs  # noqa: E402
 from repro_torch.serving.pages import SCRATCH  # noqa: E402
 
@@ -3564,6 +3595,376 @@ def drive_duty_cycle(dev, base, energy: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serve_scheduler: the continuous-batching scheduler at full width
+# ---------------------------------------------------------------------------
+SCHED_REQUESTS = 16                 # a seeded Poisson stream of 16 requests
+SCHED_PROMPTS = (16, 32, 48)        # prompt lengths drawn from these buckets
+SCHED_NEW = (8, 24)                 # new tokens a request, uniform
+SCHED_LOAD = 8.0                    # arrivals a mean service time: the pool of 4 fills and queues
+SCHED_SEED = 23
+SCHED_PERIOD = 4                    # period-4 prompts, the launcher's speculative default
+SCHED_CHUNK = 16
+SCHED_FAULT_SEED = 5                # "light" profile: quarantines on this stream (see PERF.md)
+SCHED_PRESSURE_PAGES = 11           # 10 allocatable: half of 4 slots x 5 pages (48 + 24 rows)
+SCHED_TIER_MIX = 0.5
+SCHED_CAP_W = 300.0                 # sustained cap, between idle (126 W) and the 700 W limit
+SCHED_BUDGET_WINDOW_S = 0.25
+SCHED_BUDGET_IDLE_FLOORS = 2.0      # energy budget: twice the idle floor of a window
+SCHED_REDUCED_SC = {"max_batch": 3, "max_len": 48, "spec_slack": 4}
+SCHED_FIXED = {"step_s": 0.004, "prefill_base_s": 0.001, "prefill_per_tok_s": 0.001,
+               "verify_per_tok_s": 0.0001}
+
+
+class ModelCalls:
+    """While entered, counts the engine's eager model calls (``prefill``,
+    ``decode_step``, ``prefill_chunk``, ``decode_verify``,
+    ``encoder_cross_cache``; none while a graph is being captured, which
+    runs nothing) and every graph replay, with the int8_matmul launches each
+    makes: ``k5_per_call`` of an int8 config for a call, the captured count
+    for a replay.  Unlike ``CallLog`` it neither synchronises nor keeps
+    outputs, so that the scheduler's wall time stays its own."""
+
+    NAMES = ("prefill", "decode_step", "prefill_chunk", "decode_verify", "encoder_cross_cache")
+
+    def __init__(self):
+        self.calls = self.replays = self.int8_matmul = 0
+
+    def __enter__(self):
+        self.real = {name: getattr(engine_mod, name) for name in self.NAMES}
+        self.real_replay = graphs_mod.StepGraph.replay
+        for name, fn in self.real.items():
+            setattr(engine_mod, name, self.wrap(name, fn))
+        log = self
+
+        def replay(g):
+            out = log.real_replay(g)
+            log.replays += 1
+            log.int8_matmul += g.launches.get("int8_matmul", 0)
+            return out
+
+        graphs_mod.StepGraph.replay = replay
+        return self
+
+    def wrap(self, kind, fn):
+        def call(*args, **kw):
+            if not torch.cuda.is_current_stream_capturing():
+                cfg = next(a for a in (*args, *kw.values()) if isinstance(a, ArchConfig))
+                self.calls += 1
+                self.int8_matmul += k5_per_call(cfg, kind) if cfg.quant == "int8" else 0
+            return fn(*args, **kw)
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(engine_mod, name, fn)
+        graphs_mod.StepGraph.replay = self.real_replay
+
+
+def replay_alone(eng, prompt, n: int, what: str) -> tuple[list, list]:
+    """One request alone through ``eng``: its prefill's logits and first
+    token, then ``n - 1`` replayed decode ticks (``decode_chain``) with theirs.
+    Returns (tokens, the (V,) logits each token was taken from)."""
+    vocab = eng.cfg.vocab_size
+    toks = torch.as_tensor(np.asarray(prompt, np.int64), device=eng.device)[None]
+    with torch.inference_mode():
+        first = eng._prefill(eng.params, toks, eng._frontend_stub(1))[0][0, :vocab].float().cpu()
+    pool = eng.make_pool()
+    chain = {0: [eng.prefill_into_slot(pool, 0, prompt, rid=0, budget=n)]}
+    logits = []
+    decode_chain(eng, pool, chain, n - 1, what, logits)
+    return chain[0], [first] + [lg[0] for lg in logits]
+
+
+def near_tie_tokens(want: dict, got: dict, prompts: dict, eng, what: str,
+                    exact: bool = False) -> dict:
+    """``got``'s completed requests against ``want``'s (rid -> tokens): equal,
+    or (unless ``exact``) equal up to a first differing token that is a near
+    tie of the reference chain's own logits, read by replaying the request
+    alone through ``eng`` (the engine ``want`` ran on): margin between the
+    two tokens at most VERIFY_TIE of the largest |logit|, ``serve_paged``'s
+    rule.  Nothing is compared past the first flip."""
+    flips = []
+    for rid, g in got.items():
+        w = want[rid]
+        if g == w:
+            continue
+        if exact or len(g) != len(w):
+            fail(f"{what}: request {rid} gave {g}, the reference {w}")
+        j = next(i for i, (a, b) in enumerate(zip(w, g)) if a != b)
+        toks, logits = replay_alone(eng, prompts[rid], j + 1, what)
+        if toks != w[:j + 1]:
+            fail(f"{what}: request {rid} alone gave {toks}, the reference run {w[:j + 1]}")
+        scale = float(logits[j].abs().max())
+        flip = {"rid": rid, "j": j, "want": w[j], "got": g[j],
+                "margin_rel": r6(float(logits[j][w[j]] - logits[j][g[j]]) / scale)}
+        flips.append(flip)
+        if flip["margin_rel"] > VERIFY_TIE:
+            fail(f"{what}: request {rid} flips at a margin over {VERIFY_TIE}: {json.dumps(flip)}")
+    return {"compared": len(got), "equal": len(got) - len(flips), "flips": flips}
+
+
+def completed(rep) -> dict:
+    return {r.rid: list(r.tokens) for r in rep.records if not r.shed and not r.failed}
+
+
+def run_summary(rep) -> dict:
+    """A report's numbers under ``H100Chip``: items/J, virtual p50/p99 and
+    the counters that are not zero."""
+    out = {"items": rep.items, "items_per_joule": r6(rep.items_per_joule),
+           "p50_ms": r6(rep.p50_s * 1e3), "p99_ms": r6(rep.p99_s * 1e3),
+           "energy_j": r6(rep.energy_j), "time_s": r6(rep.time_s),
+           "tokens": sum(len(r.tokens) for r in rep.records)}
+    for f in dataclasses.fields(rep):
+        v = getattr(rep, f.name)
+        if f.name not in out and isinstance(v, int) and not isinstance(v, bool) and v:
+            out[f.name] = v
+    return out
+
+
+def timed_run(sched, reqs, what: str) -> tuple[object, dict]:
+    """Two runs of one scheduler over ``reqs`` (its pool and graphs made by
+    the first): the second must give the first's tokens bit for bit; its
+    wall time, the busy ticks it charged and their calibrated seconds give
+    the scheduler's own host time per tick."""
+    first = sched.run(reqs)
+    ticks: dict[str, int] = {}
+    on_busy = sched.policy.on_busy
+
+    def counted(kind, duration_s):
+        ticks[kind] = ticks.get(kind, 0) + 1
+        on_busy(kind, duration_s)
+
+    sched.policy.on_busy = counted
+    before = runtime.launch_counts().get("int8_matmul", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = sched.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sched.policy.on_busy = on_busy
+    if completed(rep) != completed(first):
+        fail(f"{what}: a second run of the same scheduler gave other tokens")
+    busy = sum(sched.policy.busy_s.values())
+    tokens = sum(len(r.tokens) for r in rep.records)
+    k5 = runtime.launch_counts().get("int8_matmul", 0) - before
+    n = sum(ticks.values())
+    return rep, {**run_summary(rep), "wall_s": r6(wall), "busy_ticks": ticks,
+                 "calibrated_busy_s": {k: r6(v) for k, v in sched.policy.busy_s.items()},
+                 "host_ms_per_tick": r6((wall - busy) / n * 1e3),
+                 "int8_matmul": k5, "int8_matmul_per_token": r6(k5 / tokens)}
+
+
+def scheduler_stream(cfg, service_s: float, tier_mix: float = 0.0):
+    return load_mod.poisson_stream(
+        SCHED_REQUESTS, rate_hz=SCHED_LOAD / service_s, seed=SCHED_SEED,
+        vocab_size=cfg.vocab_size, prompt_lens=SCHED_PROMPTS, new_tokens=SCHED_NEW,
+        prompt_period=SCHED_PERIOD, tier_mix=tier_mix)
+
+
+def reduced_card_vs_cpu(dev) -> dict:
+    """The reduced configs of the five cache layouts in f32 through the
+    scheduler (chunked admission, speculative verify, seeded NaN faults)
+    under one ``FixedCalibration``, on the card and in the port on the CPU:
+    every field of the two reports equal, tokens and counters included."""
+    out = {}
+    for arch in PAGED_ARCHS:
+        cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32, quant=None)
+        params = tree_map(lambda t: t.float(),
+                          init_model(cfg, torch.Generator(dev).manual_seed(0), dev))
+        reps = {}
+        for where, d, p in (("card", dev, params),
+                            ("cpu", "cpu", tree_map(lambda t: t.cpu(), params))):
+            eng = engine_mod.InferenceEngine(cfg, params=p, device=d,
+                                             sc=engine_mod.ServeConfig(**SCHED_REDUCED_SC))
+            reqs = load_mod.poisson_stream(8, rate_hz=40.0, seed=3, vocab_size=cfg.vocab_size,
+                                           prompt_lens=(4, 9), new_tokens=(2, 8))
+            reps[where] = sched_mod.ContinuousBatchingScheduler(
+                eng, policy="idle_waiting", prefill_chunk=4, speculate_k=3,
+                calibration=sched_mod.FixedCalibration(**SCHED_FIXED),
+                faults=faults_mod.FaultProfile(seed=7, nan_rate=0.1, max_faults=3)).run(reqs)
+        # repr: a NaN field (a request never finished) equals itself
+        if repr(dataclasses.astuple(reps["card"])) != repr(dataclasses.astuple(reps["cpu"])):
+            fail(f"serve_scheduler reduced {arch}: card {run_summary(reps['card'])} "
+                 f"{completed(reps['card'])} != cpu {run_summary(reps['cpu'])} "
+                 f"{completed(reps['cpu'])}")
+        rep = reps["card"]
+        out[arch] = {"reports_equal": True, "tokens": sum(len(r.tokens) for r in rep.records),
+                     "chunks": rep.chunks, "verify_ticks": rep.verify_ticks,
+                     "quarantined": rep.quarantined}
+    return out
+
+
+def drive_serve_scheduler(dev, base) -> dict:
+    """The continuous-batching scheduler on ``serve_dense``'s int8
+    granite-3-8b (8 layers): a contiguous engine (``ENGINE_SC``) and its
+    paged twin (``PAGED_SC``), costs from ``EngineCalibration`` on the card,
+    a seeded Poisson stream whose rate is set from them.  Continuous,
+    chunked and speculative runs (each twice: tokens equal, the second
+    timed) and static batches; the light fault profile; a paged pool of
+    half the stream's worst case, preempting by swap and by recompute; a
+    power cap under the brownout ladder and an energy budget; the reduced
+    configs card against CPU; the launcher."""
+    cfg, params = base.cfg, base.params
+    contig = engine_mod.InferenceEngine(cfg, params=params, device=dev,
+                                        sc=engine_mod.ServeConfig(**ENGINE_SC))
+    paged = engine_mod.InferenceEngine(cfg, params=params, device=dev,
+                                       sc=engine_mod.ServeConfig(**PAGED_SC))
+    report, tokens = {}, []
+    with ModelCalls() as log:
+        cal = sched_mod.EngineCalibration(contig)
+        t0 = time.perf_counter()
+        costs = {"step_s": cal.step_s(), "verify_s_4": cal.verify_s(SPEC_K),
+                 "prefill_s_1x32": cal.prefill_s(1, 32),
+                 "chunk_s_1x16": cal.chunk_s(1, SCHED_CHUNK)}
+        calibration_s = time.perf_counter() - t0
+        if len(contig._graphs):
+            fail("serve_scheduler: calibration left graphs of its pools behind")
+        service = load_mod.mean_service_s(cal, prompt_len=32, mean_tokens=16)
+        for n in SCHED_PROMPTS:  # outside the timed runs: each length's first timing
+            cal.prefill_s(1, n)
+        for k in range(1, ENGINE_SC["max_batch"] + 1):
+            cal.chunk_s(k, SCHED_CHUNK)
+        reqs = scheduler_stream(cfg, service)
+        prompts = {r.rid: r.prompt for r in reqs}
+
+        def scheduler(eng, **kw):
+            return sched_mod.ContinuousBatchingScheduler(eng, calibration=cal, **kw)
+
+        runs, modes = {}, {}
+        for mode, kw in (("continuous", {}), ("chunked", {"prefill_chunk": SCHED_CHUNK}),
+                         ("speculative", {"speculate_k": SPEC_K})):
+            rep, modes[mode] = timed_run(scheduler(contig, **kw), reqs, f"serve_scheduler {mode}")
+            runs[mode] = rep
+            tokens.append(modes[mode]["tokens"] * 2)
+        base_tokens = completed(runs["continuous"])
+        if runs["continuous"].peak_active != ENGINE_SC["max_batch"]:
+            fail(f"serve_scheduler: the pool peaked at {runs['continuous'].peak_active} slots")
+        if runs["chunked"].chunks < 1 or runs["speculative"].verify_ticks < 1:
+            fail("serve_scheduler: no chunk or no verify tick")
+        identity = {mode: near_tie_tokens(base_tokens, completed(runs[mode]), prompts, contig,
+                                          f"serve_scheduler {mode}")
+                    for mode in ("chunked", "speculative")}
+        static = sched_mod.run_static_batches(contig, reqs, calibration=cal,
+                                              flush_s=16 * service)
+        modes["static"] = run_summary(static)
+        tokens.append(modes["static"]["tokens"])
+
+        # faults: the light profile, quarantine and retry from committed tokens
+        light = faults_mod.make_profile("light", seed=SCHED_FAULT_SEED)
+        faulted = scheduler(contig, faults=light).run(reqs)
+        tokens.append(sum(len(r.tokens) for r in faulted.records))
+        if faulted.quarantined < 1 or faulted.retried < 1 or faulted.failed:
+            fail(f"serve_scheduler faults: {run_summary(faulted)}")
+        report["faults"] = {**run_summary(faulted), "vs_fault_free": near_tie_tokens(
+            base_tokens, completed(faulted), prompts, contig, "serve_scheduler faults")}
+
+        # memory pressure: half the worst case in pages, tiers, swap and recompute
+        tiered = scheduler_stream(cfg, service, SCHED_TIER_MIX)
+        paged_ref = scheduler(paged).run(tiered)
+        tokens.append(sum(len(r.tokens) for r in paged_ref.records))
+        paged_tokens = completed(paged_ref)
+        tight = engine_mod.InferenceEngine(
+            cfg, params=params, device=dev,
+            sc=engine_mod.ServeConfig(**PAGED_SC, num_pages=SCHED_PRESSURE_PAGES))
+        pressure = {"num_pages": SCHED_PRESSURE_PAGES, "unpressured": run_summary(paged_ref),
+                    "vs_contiguous": near_tie_tokens(base_tokens, paged_tokens, prompts, contig,
+                                                     "serve_scheduler paged")}
+        for swap in (True, False):
+            rep = scheduler(tight, preempt="tiered", swap=swap).run(tiered)
+            tokens.append(sum(len(r.tokens) for r in rep.records))
+            name = "swap" if swap else "recompute"
+            if rep.preempted < 1 or rep.failed or rep.shed or (
+                    swap and rep.swapped != rep.preempted) or (
+                    not swap and rep.recomputed != rep.preempted):
+                fail(f"serve_scheduler {name}: {run_summary(rep)}")
+            # swap restores the same bytes into fresh pages: exact; a recompute
+            # re-prefills the committed context: the near-tie rule
+            pressure[name] = {**run_summary(rep), "vs_unpressured": near_tie_tokens(
+                paged_tokens, completed(rep), prompts, paged, f"serve_scheduler {name}",
+                exact=swap)}
+        pressure["host_page_check_fired"] = False  # it raises: the runs above would have failed
+        report["memory_pressure"] = pressure
+
+        # power: a cap under the brownout ladder, then an energy budget
+        capped = scheduler(contig, brownout="ladder", power=power_mod.PowerEnvelope(
+            caps=(power_mod.CapWindow(0.0, math.inf, SCHED_CAP_W),))).run(tiered)
+        tokens.append(sum(len(r.tokens) for r in capped.records))
+        budget_j = SCHED_BUDGET_IDLE_FLOORS * DEFAULT_CHIP.p_idle_w * SCHED_BUDGET_WINDOW_S
+        budgeted = scheduler(engine_mod.InferenceEngine(
+            cfg, params=params, device=dev, sc=engine_mod.ServeConfig(
+                **ENGINE_SC, energy_budget_j=budget_j, budget_window_s=SCHED_BUDGET_WINDOW_S))
+        ).run(reqs)
+        tokens.append(sum(len(r.tokens) for r in budgeted.records))
+        if capped.cap_violation_ticks or budgeted.peak_budget_window_j > budget_j * (1 + 1e-9):
+            fail(f"serve_scheduler power: capped {run_summary(capped)}, budget {budget_j} J: "
+                 f"{run_summary(budgeted)} peak {budgeted.peak_budget_window_j}")
+        report["power"] = {
+            "cap_w": SCHED_CAP_W, "capped": {**run_summary(capped),
+                                             "peak_window_w": r6(capped.peak_window_w)},
+            "capped_vs_uncapped": near_tie_tokens(base_tokens, completed(capped), prompts,
+                                                  contig, "serve_scheduler capped", exact=True),
+            "budget_j": r6(budget_j), "budget_window_s": SCHED_BUDGET_WINDOW_S,
+            "budgeted": {**run_summary(budgeted),
+                         "peak_budget_window_j": r6(budgeted.peak_budget_window_j)},
+            "budgeted_vs_unbudgeted": near_tie_tokens(base_tokens, completed(budgeted), prompts,
+                                                      contig, "serve_scheduler budget",
+                                                      exact=True)}
+
+        report["reduced_card_vs_cpu"] = reduced_card_vs_cpu(dev)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = serve_launcher.main(["--arch", GRANITE, "--mode", "compare", "--paged",
+                                        "--n", "12"])
+        if code != 0:
+            fail(f"serve_scheduler: the launcher returned {code}")
+        report["launcher"] = {"argv": f"--arch {GRANITE} --mode compare --paged --n 12",
+                              "returned": code, "stdout": out.getvalue().splitlines()}
+    report.update(
+        arch=GRANITE, layers=cfg.num_layers, quant="int8",
+        stream={"requests": SCHED_REQUESTS, "prompt_lens": list(SCHED_PROMPTS),
+                "new_tokens": list(SCHED_NEW), "rate_hz": r6(SCHED_LOAD / service),
+                "mean_service_s": r6(service), "prompt_period": SCHED_PERIOD,
+                "seed": SCHED_SEED},
+        calibration={**{k: r6(v * 1e3) for k, v in costs.items()}, "unit": "ms",
+                     "seconds_to_calibrate": r6(calibration_s)},
+        modes=modes, mode_identity=identity,
+        continuous_over_static_items_per_joule=r6(
+            runs["continuous"].items_per_joule / static.items_per_joule),
+        model_calls=log.calls, graph_replays=log.replays, committed_tokens=sum(tokens))
+    return {"expect": {"int8_matmul": log.int8_matmul}, "report": report}
+
+
+def scheduler_summary(report: dict) -> dict:
+    """The ``serve_scheduler`` line: the numbers and verdicts, under 2 KB
+    (the whole report goes to ``--out``)."""
+    modes = report["modes"]
+    mp, pw = report["memory_pressure"], report["power"]
+    return {
+        "calibration_ms": report["calibration"],
+        "beside_replayed_tick": report.get("beside_replayed_tick"),
+        "host_ms_per_tick": {m: modes[m]["host_ms_per_tick"]
+                             for m in ("continuous", "chunked", "speculative")},
+        "items_per_joule": {m: v["items_per_joule"] for m, v in modes.items()},
+        "p50_p99_ms": {m: [v["p50_ms"], v["p99_ms"]] for m, v in modes.items()},
+        "continuous_over_static": report["continuous_over_static_items_per_joule"],
+        "peak_active": modes["continuous"]["peak_active"],
+        "chunks": modes["chunked"].get("chunks"), "verify_ticks": modes["speculative"].get(
+            "verify_ticks"),
+        "flips": {m: len(v["flips"]) for m, v in report["mode_identity"].items()},
+        "faults": {k: report["faults"].get(k, 0) for k in ("quarantined", "retried", "failed")},
+        "pressure": {k: [mp[k].get("preempted", 0), mp[k].get("swapped", 0),
+                         mp[k].get("recomputed", 0), len(mp[k]["vs_unpressured"]["flips"])]
+                     for k in ("swap", "recompute")},
+        "cap_violation_ticks": pw["capped"].get("cap_violation_ticks", 0),
+        "peak_budget_window_j": [pw["budgeted"]["peak_budget_window_j"], pw["budget_j"]],
+        "reduced_card_vs_cpu": sorted(report["reduced_card_vs_cpu"]),
+        "launcher_returned": report["launcher"]["returned"],
+        "int8_matmul": report.get("launches", {}).get("int8_matmul"),
+        "int8_matmul_per_committed_token": report.get("int8_matmul_per_committed_token"),
+    }
+
+
+# ---------------------------------------------------------------------------
 # The main path
 # ---------------------------------------------------------------------------
 SINGLE_MODES = (False, True, "pallas_step", "pallas_seq", "pallas_seq_q8")
@@ -4094,6 +4495,7 @@ def main(argv=None) -> int:
              "serve_engine": lambda d: drive_serve_engine(d, driven["serve_dense"]["engine"]),
              "serve_paged": lambda d: drive_serve_paged(d, driven["serve_dense"]["engine"]),
              "duty_cycle": lambda d: drive_duty_cycle(d, driven["serve_dense"]["engine"], energy),
+             "serve_scheduler": lambda d: drive_serve_scheduler(d, driven["serve_dense"]["engine"]),
              "serve_moe": drive_serve_moe, "serve_ssm": drive_serve_ssm,
              "serve_audio": drive_serve_audio, "serve_vlm": drive_serve_vlm,
              "flash_attention": drive_flash_path}
@@ -4144,6 +4546,17 @@ def main(argv=None) -> int:
             "decode_replayed"],
         "eager_decode_tick_ms_median": engine_report["ticks"]["tick_ms_median"]["decode_eager"],
         "profile_uses": "t_inf_s (eager generate)"}
+    sched_report = driven["serve_scheduler"]["report"]
+    sched_report["launches"] = counts_by_path["serve_scheduler"]
+    sched_report["int8_matmul_per_committed_token"] = r6(
+        counts_by_path["serve_scheduler"]["int8_matmul"] / sched_report["committed_tokens"])
+    med = engine_report["ticks"]["tick_ms_median"]
+    sched_report["beside_replayed_tick"] = {  # serve_engine's engine: the same weights and pool
+        "decode_replayed_ms": med["decode_replayed"], "verify_replayed_ms": med["verify_replayed"],
+        "decode_eager_ms": med["decode_eager"], "verify_eager_ms": med["verify_eager"]}
+    sched_line = json.dumps(scheduler_summary(sched_report))
+    if len(sched_line) > 2000:
+        fail(f"the serve_scheduler line is {len(sched_line)} bytes, over 2 KB")
     moe_report = driven["serve_moe"]["report"]
     moe_report["launches"] = counts_by_path["serve_moe"]
     ssm_report = driven["serve_ssm"]["report"]
@@ -4179,6 +4592,7 @@ def main(argv=None) -> int:
     report = {"env": env, "kernels": kernels, "main_path": main_path, "serve_dense": serve,
               "serve_engine": engine_report, "serve_paged": paged_report,
               "duty_cycle": duty_report,
+              "serve_scheduler": sched_report,
               "serve_moe": moe_report, "serve_ssm": ssm_report,
               "serve_audio": audio_report, "serve_vlm": vlm_report,
               "int8_path_shapes": path_shapes, "host_path": host,
@@ -4203,6 +4617,7 @@ def main(argv=None) -> int:
     print("serve_audio " + json.dumps(audio_report), flush=True)
     print("serve_vlm " + json.dumps(vlm_report), flush=True)
     print("duty_cycle " + json.dumps(duty_report), flush=True)
+    print("serve_scheduler " + sched_line, flush=True)
     print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)

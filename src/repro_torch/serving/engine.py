@@ -42,11 +42,9 @@ writable (fresh or copied pages) before a tick, and the ticks gather every
 slot's virtual cache row through the page table, a static input of their
 graphs, and scatter the written blocks back by page id
 (``share_prefix``: chunked prefill starts past a registered prefix;
-``kv_quant="int8"``: the gather dequantizes, the scatter quantizes).  Fault
-injection and the energy budget raise ``NotImplementedError`` at
-construction: their profiles and ledgers (``serving/faults.py``,
-``serving/power.py``) are ported, their reader, the scheduler (ROADMAP
-Queue A item 11), is not.
+``kv_quant="int8"``: the gather dequantizes, the scatter quantizes).
+``ServeConfig.faults`` and ``energy_budget_j`` are carried for the
+scheduler (``serving/scheduler.py``), which reads them.
 
 How the JAX engine's idioms are expressed here:
 
@@ -135,18 +133,7 @@ class ServeConfig:
     budget_window_s: float = 1.0
 
 
-def _refuse_unported(sc: ServeConfig) -> None:
-    unported = {
-        "faults": (sc.faults is not None,
-                   "the scheduler, which reads it (ROADMAP Queue A item 11; the fault "
-                   "profiles of serving/faults.py are ported)"),
-        "energy_budget_j": (sc.energy_budget_j is not None,
-                            "the scheduler, which enforces it (ROADMAP Queue A item 11; the "
-                            "ledger of serving/power.py is ported)"),
-    }
-    for name, (asked, what) in unported.items():
-        if asked:
-            raise NotImplementedError(f"ServeConfig.{name} needs {what}, not ported yet")
+def _refuse_sampling(sc: ServeConfig) -> None:
     if not sc.greedy:
         raise NotImplementedError("only greedy decoding exists, as in the JAX engine")
 
@@ -163,7 +150,7 @@ class InferenceEngine:
         means the card)."""
         self.cfg = cfg
         self.sc = sc or ServeConfig()
-        _refuse_unported(self.sc)
+        _refuse_sampling(self.sc)
         if cfg.quant not in (None, "int8"):
             raise ValueError(f"unsupported quant {cfg.quant!r}")
         self.device = resolve_device(device)
@@ -196,6 +183,14 @@ class InferenceEngine:
         else:
             raise ValueError(f"unknown frontend {cfg.frontend!r}")
         return torch.zeros((batch, seq, cfg.d_model), dtype=cfg.dtype, device=self.device)
+
+    @torch.inference_mode()
+    def _prefill(self, params, tokens: torch.Tensor, frontend_embeds=None):
+        """The model's prefill of ``tokens`` (B, S) on ``params``: (logits,
+        cache), as ``generate`` and ``prefill_into_slot`` run it (the name of
+        the reference's jitted prefill, which the scheduler's calibration
+        times)."""
+        return prefill(params, tokens, self.cfg, frontend_embeds=frontend_embeds)
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, new_tokens: int) -> np.ndarray:

@@ -656,8 +656,11 @@ class PagedSlotPool(SlotPool):
         pids = [int(self.table[slot, b]) for b in range(nb)]
         assert SCRATCH not in pids, (slot, pids)
         ids = _ids(pids, self.device)
-        pages = {k: self.cache[k].index_select(1, ids).cpu() for k in self._pleaves}
-        row = {k: v[:, slot:slot + 1].cpu() for k, v in self._unpaged()}
+        # host copies: ``.cpu()`` of a CPU pool's row would be a view of it,
+        # which the slot's next tenant overwrites
+        pages = {k: self.cache[k].index_select(1, ids).to("cpu", copy=True)
+                 for k in self._pleaves}
+        row = {k: v[:, slot:slot + 1].to("cpu", copy=True) for k, v in self._unpaged()}
         image = {
             "rid": info.rid, "pos": info.pos, "budget": info.budget, "emitted": info.emitted,
             "tier": info.tier, "tok": int(self.tok[slot]), "resv": int(self._resv[slot]),

@@ -25,8 +25,8 @@ addresses of its tensors.
 A virtual pool (``virtual=True``) allocates no cache: it keeps the host-side
 bookkeeping only, for the paged pool (``serving/pages.py``), which builds a
 cache of its own on top, and for engine-free scheduler studies
-(``admit_virtual``).  ``SlotInfo.tier`` is the SLO tier the scheduler (ROADMAP
-Queue A item 11) reads; the paged pool's swap images carry it.
+(``admit_virtual``).  ``SlotInfo.tier`` is the SLO tier the scheduler
+(``serving/scheduler.py``) reads; the paged pool's swap images carry it.
 """
 from __future__ import annotations
 

@@ -124,10 +124,30 @@ def check_masked_decode(je, te, ticks: int = 4):
 
 
 def test_unported_options_raise():
+    """Once refused until the scheduler was ported: ``ServeConfig.faults``
+    and ``energy_budget_j`` now build, and a scheduler over the engine
+    reads them (a fault profile injects, a budget bounds every window);
+    sampling (``greedy=False``) is still refused, as in the JAX engine."""
+    from repro_torch.serving.faults import FaultProfile
+    from repro_torch.serving.load import poisson_stream
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler, FixedCalibration
+
     cfg = dataclasses.replace(torch_config("granite-3-8b"), dtype=torch.float32)
-    for opt in ({"faults": object()}, {"energy_budget_j": 1.0}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 11"):
-            InferenceEngine(cfg, sc=ServeConfig(**opt), device="cpu")
+    prof = FaultProfile(seed=7, nan_rate=0.3, max_faults=3)
+    eng = InferenceEngine(cfg, sc=ServeConfig(max_batch=2, max_len=32, faults=prof,
+                                              energy_budget_j=60.0, budget_window_s=0.25),
+                          device="cpu")
+    assert eng.sc.faults is prof and eng.sc.energy_budget_j == 60.0
+    sched = ContinuousBatchingScheduler(eng, policy="idle_waiting",
+                                        calibration=FixedCalibration(step_s=0.004,
+                                                                     prefill_per_tok_s=0.001))
+    assert sched.faults is prof
+    rep = sched.run(poisson_stream(4, rate_hz=40.0, seed=1, vocab_size=cfg.vocab_size,
+                                   prompt_lens=(4,), new_tokens=(3, 6)))
+    assert rep.quarantined > 0 and rep.failed == 0 and rep.items == 4
+    assert 0.0 < rep.peak_budget_window_j <= 60.0 * (1 + 1e-9)
+    with pytest.raises(NotImplementedError, match="greedy"):
+        InferenceEngine(cfg, sc=ServeConfig(greedy=False), device="cpu")
     # the paged pool's options are ported (tests/test_torch_paged_serving.py)
     for opt in ({"paged": True}, {"paged": True, "kv_quant": "int8"},
                 {"paged": True, "share_prefix": True}):

@@ -44,6 +44,8 @@ def test_port_files_found():
             "brownout.py"} <= names
     # the paged KV cache
     assert "pages.py" in names
+    # the continuous-batching scheduler and the serving launcher
+    assert {"scheduler.py", "serve.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -51,6 +53,23 @@ def test_port_files_found():
 def test_no_jax_and_no_reference_imports(path):
     roots = _imported_roots(path)
     assert not roots & set(BANNED), f"{path} imports {sorted(roots & set(BANNED))}"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serving.scheduler", "repro_torch.launch.serve"])
+def test_the_scheduler_and_the_launcher_load_neither_jax_nor_the_reference(module):
+    """Imported in a fresh interpreter, the scheduler and the launcher (and
+    everything they import) bring in no module of JAX or of the JAX
+    package."""
+    import os
+    import subprocess
+    import sys
+
+    code = (f"import sys; import {module}; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

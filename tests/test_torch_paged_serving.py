@@ -25,8 +25,9 @@ paged, the cross K/V per slot).
   half-way point rounds either way: 1 of zamba2's 30720 payloads, none of
   granite's 10240.
 
-The reference's scheduler-driven paged tests wait for the scheduler
-(ROADMAP Queue A item 11)."""
+The reference's scheduler-driven paged tests are mirrored by
+``test_torch_scheduler_paged``, ``test_torch_scheduler_paged_modes`` and
+``test_torch_preemption*``."""
 import dataclasses
 import functools
 
@@ -334,9 +335,24 @@ def test_paged_options_build_and_the_scheduler_options_still_raise():
                                        max_blocks=pool.max_blocks, kv_quant="int8")
     with pytest.raises(ValueError, match="paged"):
         InferenceEngine(tcfg, params=tp, sc=ServeConfig(kv_quant="int8"), device="cpu").make_pool()
-    for opt in ({"faults": object()}, {"energy_budget_j": 1.0}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            InferenceEngine(tcfg, params=tp, sc=ServeConfig(**opt), device="cpu")
+    # the scheduler's options, once refused, build on a paged engine too, and
+    # a scheduler over it reads them: the profile's NaN faults are quarantined
+    # on pages, the budget bounds every window
+    from repro_torch.serving.faults import FaultProfile
+    from repro_torch.serving.load import poisson_stream
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler, FixedCalibration
+
+    prof = FaultProfile(seed=7, nan_rate=0.3, max_faults=3)
+    eng = InferenceEngine(tcfg, params=tp, device="cpu", sc=ServeConfig(
+        max_batch=2, max_len=16, paged=True, page_size=4, faults=prof, energy_budget_j=60.0,
+        budget_window_s=0.25))
+    sched = ContinuousBatchingScheduler(eng, policy="idle_waiting", calibration=FixedCalibration(
+        step_s=0.004, prefill_per_tok_s=0.001))
+    rep = sched.run(poisson_stream(4, rate_hz=40.0, seed=1, vocab_size=tcfg.vocab_size,
+                                   prompt_lens=(4,), new_tokens=(3, 6)))
+    assert sched.faults is prof and rep.quarantined > 0 and rep.items == 4
+    assert 0.0 < rep.peak_budget_window_j <= 60.0 * (1 + 1e-9)
+    sched.pool.check_invariants()
 
 
 def test_a_small_pool_admits_more_than_contiguous_bytes_would_hold():
