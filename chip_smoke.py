@@ -6,7 +6,7 @@
 Builds every CUDA kernel of ``src/repro_torch/csrc`` from source, holds each
 against its plain PyTorch version on the card at the shapes its path uses,
 times kernel, plain version and (where one PyTorch call computes the same
-function) the library, then drives eleven paths, each with the launch
+function) the library, then drives twelve paths, each with the launch
 counters set to 0 just before it and read just after:
 
 * the paper-LSTM path — the plan and request batches through ``lstm_apply``
@@ -130,7 +130,30 @@ counters set to 0 just before it and read just after:
   which straddles position 256; a prefill of seeded random patch
   embeddings against its chunked composition), 7 K5 launches a layer;
 * ``flash_attention`` — its public op ``kernels.ops.flash_attention`` at a
-  granite-shaped causal case (K6; no model path calls it).
+  granite-shaped causal case (K6; no model path calls it);
+* ``train`` — the training path, after the serving engines are dropped (no
+  kernel of the port is on it: the reference trains in plain jnp):
+  granite-3-8b at full width cut 40 → 8 layers, bf16, remat full, AdamW,
+  its random attention weights rescaled (``attention_fan_in``, as the
+  serving paths'; ``FanInTrainer``), 2 x 4096 tokens of synthetic bigram
+  data, through the ``Trainer`` for 8
+  steps with a ``WorkerFailure`` at step 4, before any checkpoint (one
+  restart from the seeded init; steps 0-3 replayed on the same batches bit
+  for bit, their losses within 1e-2), its final checkpoint (28 GB: one
+  checkpoint of this size a run keeps the run's disk writes under 45 GiB)
+  restored into a fresh Trainer, every leaf bit for bit the first
+  Trainer's; the loss lower at the last step than at the first;
+  ``loss_and_grads`` with accum=2 against accum=1 on one batch (loss and
+  gradient norm within 2e-2); one step profiled.  mamba2-780m at full
+  width and depth, 1 x 4096, 4 steps, every loss and gradient norm finite
+  (the SSD scan's gradients, NaN in the reference).  The ten reduced configs
+  in f32, one ``make_train_step`` step on the card against the CPU.  And
+  ``examples/train_lm.py``'s quick model (granite-4m) for 300 steps of 16 x
+  128 with a failure at 150 (the checkpoint of step 100 restored, its
+  ``state_digest`` the trained state's, and replayed), its final loss under
+  0.6 ln V.  Each reports step time, tokens/s, MFU against 989 TFLOP/s
+  (``train_flops``), peak memory beside the state's bytes, and the idle
+  share of the profiled step.
 
 Every profiled sample must hold one kernel event of the port's kernels for
 each launch the counters saw (a replayed graph counts the launches it
@@ -164,7 +187,8 @@ under a 2 s K3 loop beside ``H100Chip.step_power``.
 Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
 the replayed and eager tick times), ``serve_paged``, ``serve_moe``, ``serve_ssm``,
-``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``serve_scheduler``, ``int8_path_shapes``,
+``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``serve_scheduler``, ``train``,
+``int8_path_shapes``,
 ``host_path`` (each kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
@@ -179,12 +203,14 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
 import math
 import pathlib
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -196,7 +222,7 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config, get_reduced_config  # noqa: E402
+from repro_torch.configs import get_config, get_reduced_config, list_archs  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core.energy import DEFAULT_CHIP  # noqa: E402
 from repro_torch.core.fpga import paper_workload  # noqa: E402
@@ -227,10 +253,11 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import unembed_apply  # noqa: E402
 from repro_torch.models.model import init_model  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
-    init_params, params_from_numpy, tree_leaves, tree_map,
+    init_params, params_from_numpy, tree_flatten, tree_leaves, tree_map,
 )
 from repro_torch.models.quant import QuantTensor, layer_of, quantize_weight  # noqa: E402
 from repro_torch.core import workload as workload_mod  # noqa: E402
+from repro_torch.data import pipeline as data_mod  # noqa: E402
 from repro_torch.serving import draft as draft_mod  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import faults as faults_mod  # noqa: E402
@@ -241,6 +268,8 @@ from repro_torch.serving import power as power_mod  # noqa: E402
 from repro_torch.serving import scheduler as sched_mod  # noqa: E402
 from repro_torch.serving.kv_cache import cache_defs  # noqa: E402
 from repro_torch.serving.pages import SCRATCH  # noqa: E402
+from repro_torch.training import optimizer as optimizer_mod  # noqa: E402
+from repro_torch.training import train_loop as train_loop_mod  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # the f32 rate outside the tensor cores, and the dense tensor-core rates of
@@ -4366,6 +4395,419 @@ def measure_energy(dev) -> dict:
                       "reload_bw": chip.reload_bw, "reload_fixed_s": chip.reload_fixed_s}}
 
 
+# ---------------------------------------------------------------------------
+# train: the training path (Trainer, checkpoints, restarts) at full width
+# ---------------------------------------------------------------------------
+TRAIN_LAYERS = 8                    # granite-3-8b's only cut, as serve_dense's
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096    # train_4k's length; its global batch of 256 is a pod's
+TRAIN_STEPS, TRAIN_FAIL_AT = 8, 4
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+SSM_TRAIN = {"arch": "mamba2-780m", "batch": 1, "seq": 4096, "steps": 4, "lr": 1e-3}
+TRAIN_REPLAY_TOL = 1e-2             # a replayed loss against the first run's, relative
+TRAIN_ACCUM_TOL = 2e-2              # accum=2 against accum=1: bf16 grads summed apart
+TRAIN_REDUCED_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "step": 1e-5}
+CONVERGE = {"steps": 300, "batch": 16, "seq": 128, "fail_at": 150, "criterion": 0.6}
+TRAIN_DIR = pathlib.Path(__file__).resolve().parent / "build" / "train_ckpt"
+
+
+def model_quick() -> ArchConfig:
+    """``examples/train_lm.py``'s quick model (granite-4m)."""
+    return ArchConfig(name="granite-4m", family="dense", num_layers=4, d_model=192,
+                      num_heads=4, num_kv_heads=2, d_ff=512, vocab_size=1024, remat="none")
+
+
+class FanInTrainer(train_loop_mod.Trainer):
+    """The Trainer with its random attention weights at std 1/sqrt(fan-in)
+    (``attention_fan_in``, as the serving paths draw them).  With the
+    reference's draw (std 1/sqrt(heads) for wq, wk, wv) attention is nearly
+    one-hot, the gradient norm of granite-3-8b at 8 layers is ~1e8 and its
+    loss does not fall in 8 steps at any learning rate: the reference's
+    model behaves so too, on the CPU at narrower widths."""
+
+    def _init_state(self):
+        gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
+        params = init_model(self.cfg, gen, self.device)
+        attention_fan_in(params, self.cfg)
+        return params, optimizer_mod.init_opt_state(self.cfg.optimizer,
+                                                    model_mod.param_defs(self.cfg), params)
+
+
+def state_digest(tree) -> list[int]:
+    """A checksum of each leaf's bits: the sum over its elements of the bits
+    as an integer times (position mod 65521) + 1, in int64 (wrapping).
+    Integer sums are exact in any order, so equal digests mean equal bits
+    but for a collision."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tree_flatten(tree):
+        bits = t.detach().reshape(-1).view(ints[t.element_size()])
+        total = 0
+        for start in range(0, bits.numel(), 1 << 26):
+            chunk = bits[start:start + (1 << 26)].to(torch.int64)
+            w = (torch.arange(start, start + chunk.numel(), device=chunk.device) % 65521) + 1
+            total += int((chunk * w).sum())
+        out.append(total)
+    return out
+
+
+def matmul_params(cfg) -> int:
+    """Parameters that take part in a product: all but an untied input
+    embedding table (a lookup)."""
+    n = cfg.param_count()
+    return n if cfg.tie_embeddings else n - cfg.padded_vocab * cfg.d_model
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one step: 6·N·tokens, N the matmul params, plus the
+    causal attention's score and value products, 6·L·H·hd·S² a sequence
+    (the half of the S² scores a causal mask keeps; forward and backward).
+    Remat's recompute is not counted; nor is the SSD scan's own work."""
+    tokens = batch * seq
+    attn = 0.0
+    if cfg.num_heads:
+        attn = 6.0 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * seq * seq * batch
+    return 6.0 * matmul_params(cfg) * tokens + attn
+
+
+def train_numbers(cfg, trainer, rows: list, batch: int, seq: int, peak: int) -> dict:
+    """Step time (median over the steps after the first), tokens/s, MFU
+    against the bf16 peak, peak memory beside the analytic state bytes."""
+    times = [r["time_s"] for r in rows if r["step"] > 0]
+    step_s = statistics.median(times)
+    n = cfg.param_count()
+    state = tree_bytes(trainer._state())
+    return {"params": n, "step_s_median": r6(step_s), "step_s": [r6(t) for t in times],
+            "tokens_per_s": r6(batch * seq / step_s),
+            "model_tflop_per_step": r6(train_flops(cfg, batch, seq) / 1e12),
+            "mfu_bf16": r6(train_flops(cfg, batch, seq) / step_s / PEAK_BF16_FLOPS),
+            "max_memory_allocated_gb": r6(peak / 1e9),
+            "state_gb": r6(state / 1e9),
+            "state_gb_analytic": r6(n * (2 + 12) / 1e9),
+            "state_and_grads_gb_analytic": r6(n * 16 / 1e9)}
+
+
+@contextlib.contextmanager
+def batches_recorded(seen: list):
+    """Every batch the Trainer draws, as (step, tokens on the host)."""
+    real = train_loop_mod.make_batch
+
+    def recording(cfg, ds, step, **kw):
+        batch = real(cfg, ds, step, **kw)
+        seen.append((step, batch["tokens"].cpu()))
+        return batch
+
+    train_loop_mod.make_batch = recording
+    try:
+        yield
+    finally:
+        train_loop_mod.make_batch = real
+
+
+def replayed_batches_equal(seen: list) -> int:
+    """How many steps drew their batch twice; fails unless each replay drew
+    the same tokens bit for bit."""
+    first, replays = {}, 0
+    for step, toks in seen:
+        if step in first:
+            replays += 1
+            if not torch.equal(first[step], toks):
+                fail(f"train: the replayed batch of step {step} differs")
+        first[step] = toks
+    return replays
+
+
+def trainer_config(name: str, steps: int, **kw):
+    return train_loop_mod.TrainerConfig(
+        num_steps=steps, log_every=1, checkpoint_dir=str(TRAIN_DIR / name), **kw)
+
+
+def losses_finite(rows: list, what: str, falling: bool) -> dict:
+    """Fails on a non-finite loss or gradient norm at any step (one
+    non-finite gradient entry makes the norm so), and with ``falling`` on a
+    last loss not under the first."""
+    losses = [r["loss"] for r in rows]
+    norms = [r["grad_norm"] for r in rows]
+    if not all(math.isfinite(v) for v in losses + norms):
+        fail(f"{what}: a non-finite loss or gradient norm: {losses} {norms}")
+    if falling and not losses[-1] < losses[0]:
+        fail(f"{what}: the loss did not fall ({losses[0]} → {losses[-1]})")
+    return {"loss_first": r6(losses[0]), "loss_last": r6(losses[-1]),
+            "grad_norms": [r6(v) for v in norms]}
+
+
+def watch_restores(trainer, at: int) -> dict:
+    """Wraps the Trainer's step and restore: the ``state_digest`` after step
+    ``at`` and after each restore (with the step it resumes at and its
+    seconds) go into the dict returned."""
+    seen = {"restores": []}
+    do_step, restore = trainer._do_step, trainer._restore
+
+    def step_and_digest(step):
+        do_step(step)
+        if step == at and "digest" not in seen:
+            seen["digest"] = state_digest(trainer._state())
+
+    def timed_restore():
+        t = time.perf_counter()
+        out = restore()
+        seen["restores"].append({"to_step": out, "seconds": r6(time.perf_counter() - t),
+                                 "digest": state_digest(trainer._state())})
+        return out
+
+    trainer._do_step, trainer._restore = step_and_digest, timed_restore
+    return seen
+
+
+def train_dense(dev) -> dict:
+    """granite-3-8b at full width, 8 layers, 2 x 4096 tokens: the Trainer
+    for 8 steps with a WorkerFailure at step 4, before any checkpoint (one
+    restart from the seeded init, steps 0-3 replayed: the same batches bit
+    for bit, the same losses within TRAIN_REPLAY_TOL), its final checkpoint
+    restored into a fresh Trainer (every leaf bit for bit the first's);
+    accum=2 against accum=1 on one batch; one profiled step.  One
+    checkpoint only: the state is 28 GB, and the run keeps its disk writes
+    under 45 GiB (a mid-run checkpoint and its replay run on granite-4m in
+    ``train_converge``)."""
+    cfg = dataclasses.replace(get_config(GRANITE), num_layers=TRAIN_LAYERS)
+    ds = data_mod.SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=0)
+    tc = trainer_config("dense", TRAIN_STEPS, checkpoint_every=TRAIN_STEPS, keep=1,
+                        peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    t0 = time.perf_counter()
+    first = FanInTrainer(cfg, ds, tc, device=dev)
+    init_s = time.perf_counter() - t0
+    first._failure_at = TRAIN_FAIL_AT
+    seen = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with batches_recorded(seen):
+        stats = first.run()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = stats["metrics"]
+    steps = [r["step"] for r in rows]
+    if stats["restarts"] != 1 or steps != list(range(TRAIN_FAIL_AT)) + list(range(TRAIN_STEPS)):
+        fail(f"train_dense: restarts {stats['restarts']}, steps {steps}")
+    replays = replayed_batches_equal(seen)
+    errs = [abs(rows[TRAIN_FAIL_AT + s]["loss"] - rows[s]["loss"]) / abs(rows[s]["loss"])
+            for s in range(TRAIN_FAIL_AT)]
+    if max(errs) > TRAIN_REPLAY_TOL:
+        fail(f"train_dense: replayed losses {[r['loss'] for r in rows]}")
+    out = {"layers": TRAIN_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat,
+           "dtype": str(cfg.dtype), "optimizer": cfg.optimizer, "init_s": r6(init_s),
+           "run_s": r6(run_s), "restarts": stats["restarts"],
+           "replayed_batches_bitwise": replays, "replayed_loss_rel_err": [r6(e) for e in errs]}
+    out.update(train_numbers(cfg, first, rows, TRAIN_BATCH, TRAIN_SEQ, peak))
+    out.update(losses_finite(rows[TRAIN_FAIL_AT:], "train_dense", falling=True))
+
+    # a fresh Trainer restores the final checkpoint: every leaf bit for bit
+    torch.cuda.empty_cache()
+    fresh = FanInTrainer(cfg, ds, tc, device=dev)
+    t0 = time.perf_counter()
+    if fresh._restore() != TRAIN_STEPS:
+        fail("train_dense: the fresh Trainer did not restore the final checkpoint")
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(tree_flatten(first._state()), tree_flatten(fresh._state())))
+    unequal = sum(not torch.equal(a, b) for a, b in pairs)
+    if unequal:
+        fail(f"train_dense: {unequal} leaves of the restored state differ from the trainer's")
+    out["fresh_trainer"] = {"restore_s": r6(restore_s), "leaves": len(pairs),
+                            "leaves_bitwise_equal": len(pairs) - unequal,
+                            "checkpoint_gb": r6(tree_bytes(fresh._state()) / 1e9)}
+    del first, pairs
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR / "dense", ignore_errors=True)
+
+    # accum=2 against accum=1 on the same batch (no update)
+    batch = data_mod.make_batch(cfg, ds, 0, device=dev)
+    l1, _, g1 = train_loop_mod.loss_and_grads(cfg, fresh.params, batch, 1)
+    n1 = float(optimizer_mod.global_norm(g1))
+    l2, _, g2 = train_loop_mod.loss_and_grads(cfg, fresh.params, batch, 2)
+    n2 = float(optimizer_mod.global_norm(g2))
+    leaf_err = max(float((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(tree_flatten(g1), tree_flatten(g2)))
+    del g1, g2
+    accum = {"loss_1": r6(float(l1)), "loss_2": r6(float(l2)), "grad_norm_1": r6(n1),
+             "grad_norm_2": r6(n2), "worst_leaf_err_of_leaf_max": r6(leaf_err),
+             "loss_and_norm_tolerance": TRAIN_ACCUM_TOL}
+    if abs(float(l2) - float(l1)) > TRAIN_ACCUM_TOL * abs(float(l1)) or \
+            abs(n2 - n1) > TRAIN_ACCUM_TOL * n1:
+        fail(f"train_dense: accum=2 against accum=1: {accum}")
+    out["accum"] = accum
+    out["profile"] = train_profile(fresh, cfg, ds, out["step_s_median"])
+    return out
+
+
+def train_profile(trainer, cfg, ds, step_s: float) -> dict:
+    """One train step under ``torch.profiler`` (``profile_call``: wall,
+    device busy, the largest kernels).  The profiler slows the host, so the
+    idle share is given twice: of the profiled wall, and of the median
+    unprofiled step (``step_s``), 1 - busy / step_s."""
+    batch = data_mod.make_batch(cfg, ds, 0, device=trainer.device)
+    step = lambda: trainer.step_fn(trainer.params, trainer.opt_state, batch, 1)  # noqa: E731
+    prof = profile_call(step)
+    out = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_span_ms", "idle_share",
+                                "device_launches", "top_kernels_ms")}
+    out["idle_share_of_unprofiled_step"] = r6(1.0 - prof["device_busy_ms"] / 1e3 / step_s)
+    return out
+
+
+def train_ssm(dev) -> dict:
+    """mamba2-780m at full width and depth, batch 1 x 4096, 4 steps: the
+    loss and every gradient finite at every step (a finite global norm)."""
+    cfg = get_config(SSM_TRAIN["arch"])
+    ds = data_mod.SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SSM_TRAIN["seq"],
+                              global_batch=SSM_TRAIN["batch"], seed=1)
+    tc = trainer_config("ssm", SSM_TRAIN["steps"], checkpoint_every=SSM_TRAIN["steps"], keep=1,
+                        peak_lr=SSM_TRAIN["lr"], warmup_steps=TRAIN_WARMUP)
+    torch.cuda.empty_cache()
+    trainer = train_loop_mod.Trainer(cfg, ds, tc, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = trainer.run()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = stats["metrics"]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": SSM_TRAIN["batch"],
+           "seq": SSM_TRAIN["seq"], "steps": len(rows), "remat": cfg.remat}
+    out.update(losses_finite(rows, "train_ssm", falling=False))
+    out.update(train_numbers(cfg, trainer, rows, SSM_TRAIN["batch"], SSM_TRAIN["seq"], peak))
+    out["profile"] = train_profile(trainer, cfg, ds, out["step_s_median"])
+    del trainer
+    shutil.rmtree(TRAIN_DIR / "ssm", ignore_errors=True)
+    return out
+
+
+def reduced_step_errors(cpu, card, lr: float) -> dict:
+    """Each updated param leaf on the card against the CPU's (``cpu`` and
+    ``card`` are (params, state) after one step).  A first AdamW step is
+    lr·g / (|g| + eps): where |g| is near eps or 0, the leaf's gradient
+    difference between the two devices, d (read from the first moments,
+    (1 - b1)·g), moves it by up to lr·d·eps / (|g| - d + eps)², at most
+    2·lr; each entry is held to that plus TRAIN_REDUCED_TOL["step"] of the
+    leaf's magnitude.  Adafactor's step is continuous in g: the leaf's
+    magnitude rule alone."""
+    (cp, cs), (gp, gs) = cpu, card
+    moments = "m" in cs
+    worst_excess, worst_grad, top = 0.0, 0.0, 0.0
+    leaves = zip(tree_flatten(gp), tree_flatten(cp),
+                 *((tree_flatten(gs["m"]), tree_flatten(cs["m"])) if moments else ()))
+    for a, b, *m in leaves:
+        err = (a.cpu() - b).abs().double()
+        tol = TRAIN_REDUCED_TOL["step"] * float(b.abs().max().clamp_min(1e-30))
+        if moments:
+            g_card = m[0].cpu().double() / (1 - optimizer_mod.ADAM_B1)
+            g_cpu = m[1].double() / (1 - optimizer_mod.ADAM_B1)
+            d = float((g_card - g_cpu).abs().max())
+            worst_grad, top = max(worst_grad, d), max(top, float(g_cpu.abs().max()))
+            eps = optimizer_mod.ADAM_EPS
+            near = (g_cpu.abs() - d).clamp_min(0) + eps
+            tol = tol + lr * torch.clamp_max(d * eps / near ** 2, 2.0)
+        worst_excess = max(worst_excess, float((err - tol).max()))
+    return {"max_err_over_tolerance": worst_excess,
+            "grad_diff_of_largest_grad": worst_grad / top if top else 0.0}
+
+
+def train_reduced(dev) -> dict:
+    """All ten reduced configs in f32 (TF32 off): one ``make_train_step`` step
+    from the same weights and batch on the card and on the CPU."""
+    out = {}
+    for arch in list_archs():
+        cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32)
+        params = tree_map(lambda t: t.float(), init_model(
+            cfg, torch.Generator().manual_seed(0), "cpu"))
+        ds = data_mod.SyntheticLM(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4, seed=3)
+        batch = data_mod.make_batch(cfg, ds, 0, device="cpu")
+        sched = optimizer_mod.Schedule(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+        step = train_loop_mod.make_train_step(cfg, sched)
+        res = {}
+        for where in ("cpu", dev):
+            p = tree_map(lambda t: t.to(where, copy=True), params)
+            s = optimizer_mod.init_opt_state(cfg.optimizer, model_mod.param_defs(cfg), p)
+            res[str(where)] = step(p, s, {k: v.to(where) for k, v in batch.items()}, 3)
+        (cp, cs, cm), (gp, gs, gm) = res["cpu"], res[str(dev)]
+        loss_err = abs(float(gm["loss"]) - float(cm["loss"])) / abs(float(cm["loss"]))
+        norm_err = abs(float(gm["grad_norm"]) - float(cm["grad_norm"])) / float(cm["grad_norm"])
+        errs = reduced_step_errors((cp, cs), (gp, gs), float(cm["lr"]))
+        row = {"loss": r6(float(cm["loss"])), "loss_rel_err": r6(loss_err),
+               "grad_norm_rel_err": r6(norm_err), "optimizer": cfg.optimizer,
+               **{k: r6(v) for k, v in errs.items()}}
+        if (loss_err > TRAIN_REDUCED_TOL["loss"] or norm_err > TRAIN_REDUCED_TOL["grad_norm"]
+                or errs["max_err_over_tolerance"] > 0
+                or not math.isfinite(float(gm["grad_norm"]))):
+            fail(f"train_reduced {arch}: card against CPU {row}")
+        out[arch] = row
+    out["tolerance"] = TRAIN_REDUCED_TOL
+    return out
+
+
+def train_converge(dev) -> dict:
+    """``examples/train_lm.py --quick`` on the port: granite-4m, 300 steps of
+    16 x 128 tokens with a failure at 150, which restores the checkpoint of
+    step 100 (its ``state_digest`` that of the state after step 100) and
+    replays; the final loss must be under 0.6 ln V, the example's own
+    criterion."""
+    cfg = model_quick()
+    steps = CONVERGE["steps"]
+    ds = data_mod.SyntheticLM(vocab_size=cfg.vocab_size, seq_len=CONVERGE["seq"],
+                              global_batch=CONVERGE["batch"], seed=0, branching=4)
+    tc = train_loop_mod.TrainerConfig(
+        num_steps=steps, checkpoint_dir=str(TRAIN_DIR / "converge"),
+        checkpoint_every=max(steps // 6, 10), log_every=max(steps // 15, 1),
+        peak_lr=3e-3, warmup_steps=max(steps // 15, 5))
+    trainer = train_loop_mod.Trainer(cfg, ds, tc, device=dev)
+    trainer._failure_at = CONVERGE["fail_at"]
+    saved = (CONVERGE["fail_at"] - 1) // tc.checkpoint_every * tc.checkpoint_every
+    watch = watch_restores(trainer, saved)
+    t0 = time.perf_counter()
+    stats = trainer.run()
+    run_s = time.perf_counter() - t0
+    final = stats["metrics"][-1]["loss"]
+    limit = CONVERGE["criterion"] * math.log(cfg.vocab_size)
+    if stats["restarts"] != 1 or not final < limit:
+        fail(f"train_converge: restarts {stats['restarts']}, final loss {final} (limit {limit})")
+    restores = watch["restores"]
+    if [r["to_step"] for r in restores] != [saved + 1] or restores[0]["digest"] != watch["digest"]:
+        fail(f"train_converge: the state restored is not step {saved}'s")
+    shutil.rmtree(TRAIN_DIR / "converge", ignore_errors=True)
+    return {"model": cfg.name, "params": cfg.param_count(), "steps": steps,
+            "restarts": stats["restarts"], "restored_step": saved,
+            "restore_s": restores[0]["seconds"], "restored_digest_equal": True,
+            "loss_first": r6(stats["metrics"][0]["loss"]),
+            "loss_final": r6(final), "limit_0.6_lnV": r6(limit),
+            "bigram_floor_ln4": r6(math.log(4)), "run_s": r6(run_s)}
+
+
+def train_summary(report: dict) -> dict:
+    """The ``train`` line: each part's report without its per-step lists and
+    kernel tables (``--out`` keeps them)."""
+    drop = ("step_s", "grad_norms", "top_kernels_ms")
+    out = {}
+    for name, part in report.items():
+        if isinstance(part, dict) and name != "train_reduced":
+            part = {k: ({kk: vv for kk, vv in v.items() if kk not in drop}
+                        if isinstance(v, dict) else v)
+                    for k, v in part.items() if k not in drop}
+        out[name] = part
+    return out
+
+
+def drive_train(dev) -> dict:
+    """The training path (no kernel of the port is on it: the reference
+    trains in plain jnp, the port in plain torch)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    report = {}
+    for name, fn in (("train_dense", train_dense), ("train_ssm", train_ssm),
+                     ("train_reduced", train_reduced), ("train_converge", train_converge)):
+        t0 = time.perf_counter()
+        report[name] = fn(dev)
+        report[name]["seconds"] = r6(time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return {"expect": {}, "report": report}
+
+
 def drive_main_path(dev) -> dict:
     """The paper-LSTM plan, then request batches through every mode.  Returns
     the launch counts it expects, and what it saw."""
@@ -4535,6 +4977,10 @@ def main(argv=None) -> int:
                                    driven["serve_engine"])
     for key in ("engine", "pools", "drafts"):
         driven["serve_engine"].pop(key)
+    # the training path, after every serving engine is dropped
+    runtime.reset_launch_counts()
+    train_report = phase("path:train", drive_train, dev)["report"]
+    train_report["launches"] = runtime.launch_counts()
     paged_report = driven["serve_paged"]["report"]
     paged_report["launches"] = counts_by_path["serve_paged"]
     duty_report = driven["duty_cycle"]["report"]
@@ -4594,7 +5040,7 @@ def main(argv=None) -> int:
               "duty_cycle": duty_report,
               "serve_scheduler": sched_report,
               "serve_moe": moe_report, "serve_ssm": ssm_report,
-              "serve_audio": audio_report, "serve_vlm": vlm_report,
+              "serve_audio": audio_report, "serve_vlm": vlm_report, "train": train_report,
               "int8_path_shapes": path_shapes, "host_path": host,
               "chip_model": chip_model,
               "tuner": tuner, "energy": energy,
@@ -4618,6 +5064,7 @@ def main(argv=None) -> int:
     print("serve_vlm " + json.dumps(vlm_report), flush=True)
     print("duty_cycle " + json.dumps(duty_report), flush=True)
     print("serve_scheduler " + sched_line, flush=True)
+    print("train " + json.dumps(train_summary(train_report)), flush=True)
     print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)

@@ -19,8 +19,7 @@ rather than being duplicated per subsystem:
 
 Carried over from the reference package's ``core/retry.py`` name for name;
 pure Python, so it runs the same on either package's host.  The
-reference's training shim (``training/fault.py``) has no counterpart in
-the port yet.
+reference's training shim has its counterpart in ``training/fault.py``.
 """
 from __future__ import annotations
 

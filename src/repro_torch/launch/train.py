@@ -1,18 +1,31 @@
-"""Launcher.
+"""Training launcher.
 
-Only the ``--paper-lstm`` mode of the reference's launcher is ported: it
-plans the paper's own LSTM workload on the CUDA kernel mapping.  It reports
-the block-size tuner's key, winner and predicted time a call, and the launch
-geometry of the sequence kernel (``repro_torch.kernels.lstm_seq``: its path,
-batch tile, cluster size and count, projection chunk and shared memory),
-checks the kernel against the plain PyTorch per-step path, and, on the card,
-times it against the per-step cell kernel.  Despite the module's name this
-mode runs inference only.
+Two modes:
 
-The ``--arch`` modes (training plans and runs) are not ported yet; asking for
-one is an error.
+  --arch ARCH --execute   really train (a reduced config with ``--reduced``,
+                          or the full one) with the fault-tolerant
+                          ``training.train_loop.Trainer``: synthetic-bigram
+                          data, AdamW/Adafactor, async checkpoints,
+                          straggler detection, restart-with-replay.  Runs on
+                          the card unless ``--device cpu`` asks for the CPU.
+  --paper-lstm            plans the paper's own LSTM workload on the CUDA
+                          kernel mapping.  It reports the block-size tuner's
+                          key, winner and predicted time a call, and the
+                          launch geometry of the sequence kernel
+                          (``repro_torch.kernels.lstm_seq``: its path, batch
+                          tile, cluster size and count, projection chunk and
+                          shared memory), checks the kernel against the
+                          plain PyTorch per-step path, and, on the card,
+                          times it against the per-step cell kernel.  This
+                          mode runs inference only.
+
+The reference's plan mode (``--arch`` without ``--execute``: the
+parallelism plan and roofline of a pod) needs the multi-device cost model
+and is not ported (ROADMAP Queue A item 14); asking for it is an error.
 
 Examples:
+  python -m repro_torch.launch.train --arch granite-3-8b --reduced --execute --steps 20
+  python -m repro_torch.launch.train --arch granite-3-8b --reduced --execute --steps 20 --device cpu
   python -m repro_torch.launch.train --paper-lstm --batch 64
   python -m repro_torch.launch.train --paper-lstm --batch 4 --seq 6 --device cpu
 """
@@ -20,6 +33,8 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
+import tempfile
 
 import torch
 
@@ -85,24 +100,62 @@ def plan_paper_lstm(batch: int, seq: int = 0, device=None) -> dict:
     return result
 
 
+def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int, accum: int,
+          ckpt_dir: str, device=None) -> dict:
+    """Train ``arch`` with the ``Trainer`` for ``steps`` steps on ``device``
+    (``None`` means the card); returns the Trainer's run statistics."""
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.runtime import resolve_device
+    from repro_torch.training.train_loop import Trainer, TrainerConfig
+
+    dev = resolve_device(device)
+    cfg = get_reduced_config(arch) if reduced else get_config(arch)
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    tc = TrainerConfig(num_steps=steps, accum=accum, checkpoint_dir=ckpt_dir,
+                       log_every=max(steps // 10, 1))
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"training {cfg.name} on {where}: {steps} steps of {batch} x {seq} tokens, "
+          f"accum {accum}, optimizer {cfg.optimizer}")
+    stats = Trainer(cfg, ds, tc, device=dev).run()
+    first, last = stats["metrics"][0], stats["metrics"][-1]
+    print(f"steps={stats['final_step']} restarts={stats['restarts']} "
+          f"loss {first['loss']:.3f} → {last['loss']:.3f}")
+    return stats
+
+
 def main(argv=None) -> int:
+    from repro_torch.configs import list_archs
+
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", help="not ported yet")
+    ap.add_argument("--arch", choices=list_archs())
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--execute", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--paper-lstm", action="store_true",
                     help="plan the paper LSTM workload on the CUDA kernel mapping")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=None,
-                    help="sequence length (default: the paper workload's 28)")
+                    help="sequence length (default: 128, or the paper workload's 28 "
+                         "under --paper-lstm)")
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_train_ckpt"))
     ap.add_argument("--device", default=None,
                     help="'cuda' (default; fails without a card) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.arch is not None:
-        ap.error("--arch modes are not ported to repro_torch yet; use repro.launch.train")
-    if not args.paper_lstm:
-        ap.error("--paper-lstm is the only mode ported so far")
-    plan_paper_lstm(args.batch, args.seq or 0, device=args.device)
+    if args.paper_lstm:
+        plan_paper_lstm(args.batch, args.seq or 0, device=args.device)
+        return 0
+    if args.arch is None:
+        ap.error("--arch is required unless --paper-lstm is given")
+    if not args.execute:
+        ap.error("the plan mode (--arch without --execute) needs the multi-device cost "
+                 "model, not ported yet (ROADMAP Queue A item 14); add --execute to train")
+    train(args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
+          seq=args.seq or 128, accum=args.accum, ckpt_dir=args.ckpt_dir, device=args.device)
     return 0
 
 

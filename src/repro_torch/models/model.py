@@ -18,9 +18,15 @@ concat(x, x0) with x0 the embedding of the call's own tokens; its
 layer, the self-attention's (k, v), which grow with the sequence, and the
 cross-attention's (cross_k, cross_v) over ``encoder_seq`` frames, which the
 prompt's prefill or ``encoder_cross_cache`` fills once and nothing writes
-after).  The loss, and deepseek's multi-token-prediction head, whose
-parameters (``mtp``) are drawn but not used when serving, come with
-training (ROADMAP Queue A item 13).
+after).
+
+Training: ``train_loss`` (the masked mean cross-entropy of ``lm_loss``,
+sequence-chunked when ``cfg.logits_chunk`` divides S, plus the MoE
+load-balance loss and deepseek's multi-token-prediction head, whose
+parameters ``mtp`` serving draws but never uses).  Under autograd each
+layer of the stacks, and hybrid's shared block, is rematerialised as
+``cfg.remat`` says (``_remat``); serving runs under
+``torch.inference_mode`` and is untouched.
 
 The paged pool's bridges (``paged_virtual_cache``, ``paged_written_blocks``,
 ``verify_block_span``) gather every slot's cache row through its page table
@@ -40,8 +46,9 @@ returns (L, B, T, ...) snapshots of every position instead.
 Parameters are stacked over layers as in the JAX package (a leading
 "layers" axis on every block leaf), so the JAX package's parameter trees
 carry over as they are (``models.params.params_from_numpy``).  The stack is
-walked by a Python loop: ``lax.scan`` and remat have no counterpart the
-serving path needs.
+walked by a Python loop where the JAX package scans it; hybrid's segments
+need no slice of the stack (the reference's ``_stack_slice``): the shared
+block runs from the stack loops' ``before`` hook.
 """
 from __future__ import annotations
 
@@ -50,6 +57,12 @@ from functools import partial
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.runtime import resolve_device
@@ -68,6 +81,8 @@ from repro_torch.models.quant import (
 
 _PORTED = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 _RECURRENT = ("ssm", "hybrid")
+MOE_AUX_COEF = 0.01
+MTP_WEIGHT = 0.1
 
 
 def _require_ported(cfg: ArchConfig) -> None:
@@ -233,11 +248,39 @@ def _walk(stacks):
             layer += 1
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the products with no batch dimension, the
+    reference's ``dots_with_no_batch_dims_saveable``, and recompute the rest.
+    ``torch.einsum`` runs every product as ``bmm``, one with no batch
+    dimension as a ``bmm`` over a batch of 1; attention's batched products
+    (over batch and heads) are recomputed, as in the reference."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(f, cfg: ArchConfig):
+    """``f`` rematerialised under ``cfg.remat`` when autograd records:
+    ``"none"`` keeps every activation, ``"dots"`` only the products with no
+    batch dimension (``_save_dots``), anything else (``"full"``) only the
+    inputs.  Without autograd (serving) ``f`` as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return f
+    if cfg.remat == "dots":
+        context_fn = partial(create_selective_checkpoint_contexts, _save_dots)
+    else:
+        context_fn = noop_context_fn
+    return lambda *args: checkpoint(f, *args, use_reentrant=False, context_fn=context_fn)
+
+
 def run_stack(stacks, x, body, cfg: ArchConfig, before=None):
     """body(p, x) -> (x, aux) over the layers of ``stacks``, ``before(layer,
-    x) -> x`` ahead of each (hybrid's shared block).  Returns (x, aux summed
+    x) -> x`` ahead of each (hybrid's shared block).  Each layer is
+    rematerialised under ``cfg.remat`` (``_remat``).  Returns (x, aux summed
     over layers)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = _remat(body, cfg)
     for layer, p in _walk(stacks):
         if before is not None:
             x = before(layer, x)
@@ -333,10 +376,69 @@ def forward(params, tokens, cfg: ArchConfig, frontend_embeds=None):
     apply, _, _, _ = _bodies(cfg)
     apply = _with_encoder(apply, params, cfg, frontend_embeds)
     x = _embed_tokens(params, tokens, cfg, frontend_embeds)
-    before = _shared_before(params, cfg, x, lambda p, x, x0, i: T.shared_attn_apply(
-        p, x, x0, cfg))
+    shared = _remat(partial(T.shared_attn_apply, cfg=cfg), cfg)
+    before = _shared_before(params, cfg, x, lambda p, x, x0, i: shared(p, x, x0))
     x, aux = run_stack(_stacks(params), x, apply, cfg, before)
     return T.apply_norm(cfg, params["final_norm"], x), aux
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy (whole-vocab or sequence-chunked) and the training loss
+# ---------------------------------------------------------------------------
+def _ce_block(params, hidden, labels, mask, cfg: ArchConfig):
+    """CE over one block.  hidden: (B, T, D), labels/mask: (B, T).  Returns
+    (nll_sum, n).  The label's logit is gathered where the reference sums
+    logits times a one-hot: one nonzero term, the same value."""
+    logits = unembed_apply(params["embed"], hidden, cfg).to(torch.float32)
+    v = logits.shape[-1]
+    if v > cfg.vocab_size:  # mask the vocab-padding columns out of the lse
+        logits = torch.where(torch.arange(v, device=logits.device) < cfg.vocab_size, logits,
+                             torch.full((), -1e30, dtype=logits.dtype, device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    correct = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = (lse - correct) * mask
+    return torch.sum(nll), torch.sum(mask)
+
+
+def lm_loss(params, hidden, labels, cfg: ArchConfig):
+    """Masked mean CE.  labels < 0 are masked out.  With ``cfg.logits_chunk``
+    dividing S (and below it), the sum runs over chunks of the sequence, a
+    loop where the reference scans."""
+    mask = (labels >= 0).to(torch.float32)
+    labels = torch.clamp_min(labels, 0)
+    c = cfg.logits_chunk
+    s = hidden.shape[1]
+    if c and s % c == 0 and s > c:
+        tot = n = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(0, s, c):
+            t, k = _ce_block(params, hidden[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c],
+                             cfg)
+            tot, n = tot + t, n + k
+    else:
+        tot, n = _ce_block(params, hidden, labels, mask, cfg)
+    return tot / torch.clamp_min(n, 1.0)
+
+
+def train_loss(params, batch, cfg: ArchConfig):
+    """Scalar loss + metrics for one batch: {"tokens", "labels"} (B, S), and
+    for the vlm and audio families "frontend_embeds"."""
+    hidden, aux = forward(params, batch["tokens"], cfg,
+                          frontend_embeds=batch.get("frontend_embeds"))
+    ce = lm_loss(params, hidden, batch["labels"], cfg)
+    loss = ce + MOE_AUX_COEF * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp and "mtp" in params:
+        mtp = params["mtp"]
+        emb_next = embed_apply(params["embed"], batch["tokens"][:, 1:], cfg)
+        h = T.apply_norm(cfg, mtp["norm_h"], hidden[:, :-1])
+        e = T.apply_norm(cfg, mtp["norm_e"], emb_next)
+        inp = torch.einsum("bsd,de->bse", torch.cat([h, e], dim=-1), mtp["proj"])
+        h_mtp, _ = T.mla_block_apply(mtp["block"], inp, cfg)
+        mtp_ce = lm_loss(params, h_mtp, batch["labels"][:, 1:], cfg)
+        loss = loss + MTP_WEIGHT * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(params, tokens, cfg: ArchConfig, frontend_embeds=None):

@@ -60,6 +60,53 @@ def tree_leaves(tree: Pytree) -> list:
     return out
 
 
+def _is_node(tree) -> bool:
+    return isinstance(tree, dict) or (isinstance(tree, (list, tuple))
+                                      and not hasattr(tree, "_fields"))
+
+
+def tree_flatten(tree: Pytree) -> list:
+    """The leaves in the JAX package's order (``jax.tree_util.tree_flatten``:
+    dict keys sorted, lists and tuples in order), which fixes a checkpoint's
+    leaf files and an optimizer's walk over several trees of one structure."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_flatten(tree[k])]
+    if _is_node(tree):
+        return [leaf for v in tree for leaf in tree_flatten(v)]
+    return [tree]
+
+
+def tree_unflatten(like: Pytree, leaves: list) -> Pytree:
+    """``like``'s structure with ``leaves`` (in ``tree_flatten``'s order) in
+    place of its leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):  # leaves taken in sorted key order, keys kept in t's
+            built = {k: build(t[k]) for k in sorted(t)}
+            return {k: built[k] for k in t}
+        if _is_node(t):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
+def tree_structure(tree: Pytree) -> str:
+    """The tree's shape as the JAX package prints a treedef's structure:
+    ``{'a': *, 'b': [*, *]}``, dict keys sorted."""
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {tree_structure(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, list):
+        return "[" + ", ".join(tree_structure(v) for v in tree) + "]"
+    if _is_node(tree):
+        return "(" + ", ".join(tree_structure(v) for v in tree) + (",)" if len(tree) == 1 else ")")
+    return "*"
+
+
 def _initialize(gen: torch.Generator, d: ParamDef, device: torch.device) -> torch.Tensor:
     def normal():
         return torch.randn(d.shape, generator=gen, dtype=torch.float32, device=gen.device)

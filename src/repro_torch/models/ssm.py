@@ -130,14 +130,24 @@ def _conv_step(conv_state, x_new, w, b):
 # ---------------------------------------------------------------------------
 # SSD chunked scan (prefill / chunked prefill / verify)
 # ---------------------------------------------------------------------------
+def _masked_exp(keep: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
+    """exp(diff) where ``keep``, else 0.  The masked entries' argument is
+    replaced by 0 before the exp: where diff > 0 off the mask, exp(diff)
+    overflows to inf, and a ``where`` after the exp alone gives the forward
+    its 0 but the gradient 0 · inf = NaN (the reference's SSD scan does
+    this: its gradients are NaN).  Kept entries are the same bits."""
+    zero = torch.zeros((), dtype=diff.dtype, device=diff.device)
+    return torch.where(keep, torch.exp(torch.where(keep, diff, zero)), zero)
+
+
 def _segments(cum: torch.Tensor) -> torch.Tensor:
     """exp(cum_i - cum_j) for i >= j, else 0, over axis -2 of ``cum``
-    (..., L, H) → (..., L_i, L_j, H).  A ``where``, never a product with a
-    mask: exp(diff) is inf above the diagonal, and inf * 0 is NaN."""
+    (..., L, H) → (..., L_i, L_j, H).  Above the diagonal diff > 0, so the
+    exp is masked on both sides (``_masked_exp``)."""
     n = cum.shape[-2]
     diff = cum[..., :, None, :] - cum[..., None, :, :]
     tri = torch.tril(torch.ones((n, n), dtype=torch.bool, device=cum.device))[..., None]
-    return torch.where(tri, torch.exp(diff), torch.zeros((), dtype=cum.dtype, device=cum.device))
+    return _masked_exp(tri, diff)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
@@ -218,8 +228,7 @@ def ssd_state_at(cum, u, Bm, h0, idx):
     at = cum[rows, idx]  # (B, H)
     steps = torch.arange(cum.shape[1], device=cum.device)
     keep = (steps[None, :] <= idx[:, None])[..., None]  # (B, T, 1)
-    w = torch.where(keep, torch.exp(at[:, None, :] - cum),
-                    torch.zeros((), dtype=cum.dtype, device=cum.device))  # (B, T, H)
+    w = _masked_exp(keep, at[:, None, :] - cum)  # (B, T, H); > 0 past idx, masked
     h = torch.einsum("bjhp,bjn->bhpn", w[..., None] * u, Bm)
     return h + torch.exp(at)[..., None, None] * h0
 

@@ -46,6 +46,8 @@ def test_port_files_found():
     assert "pages.py" in names
     # the continuous-batching scheduler and the serving launcher
     assert {"scheduler.py", "serve.py"} <= names
+    # the training path: data, optimizers, checkpoints, the train loop
+    assert {"pipeline.py", "optimizer.py", "checkpoint.py", "fault.py", "train_loop.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -55,11 +57,13 @@ def test_no_jax_and_no_reference_imports(path):
     assert not roots & set(BANNED), f"{path} imports {sorted(roots & set(BANNED))}"
 
 
-@pytest.mark.parametrize("module", ["repro_torch.serving.scheduler", "repro_torch.launch.serve"])
+@pytest.mark.parametrize("module", ["repro_torch.serving.scheduler", "repro_torch.launch.serve",
+                                    "repro_torch.training.train_loop",
+                                    "repro_torch.launch.train"])
 def test_the_scheduler_and_the_launcher_load_neither_jax_nor_the_reference(module):
-    """Imported in a fresh interpreter, the scheduler and the launcher (and
-    everything they import) bring in no module of JAX or of the JAX
-    package."""
+    """Imported in a fresh interpreter, the scheduler, the train loop and
+    the launchers (and everything they import) bring in no module of JAX or
+    of the JAX package."""
     import os
     import subprocess
     import sys
@@ -121,8 +125,8 @@ def test_device_none_means_the_card():
 @pytest.mark.parametrize("entry", ["plan_paper_lstm", "init_params", "params_from_numpy",
                                    "compare_lstm_paths", "compare_lstm_quant",
                                    "compare_lstm_stack", "InferenceEngine", "init_model",
-                                   "SlotPool"])
-def test_entry_points_raise_without_a_card(entry):
+                                   "SlotPool", "Trainer", "make_batch", "restore", "train"])
+def test_entry_points_raise_without_a_card(entry, tmp_path):
     """Asked for the card (explicitly or by default) on a machine without
     one, an entry point raises; it does not fall back to the CPU."""
     import numpy as np
@@ -136,8 +140,16 @@ def test_entry_points_raise_without_a_card(entry):
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.slots import SlotPool
 
+    from repro_torch.data.pipeline import SyntheticLM, make_batch
+    from repro_torch.launch.train import train
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.train_loop import Trainer, TrainerConfig
+
     _needs_no_card()
     cfg = get_reduced_config("granite-3-8b")
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2)
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    ckpt.save(0, {"x": torch.zeros(2)}, blocking=True)
     calls = {
         "plan_paper_lstm": lambda dev: plan_paper_lstm(4, 6, device=dev),
         "init_params": lambda dev: init_params(lstm_defs(6, 20), torch.Generator(), device=dev),
@@ -148,6 +160,12 @@ def test_entry_points_raise_without_a_card(entry):
         "InferenceEngine": lambda dev: InferenceEngine(cfg, device=dev),
         "init_model": lambda dev: init_model(cfg, torch.Generator(), dev),
         "SlotPool": lambda dev: SlotPool(cfg, max_batch=2, max_len=8, device=dev),
+        "Trainer": lambda dev: Trainer(cfg, ds, TrainerConfig(
+            checkpoint_dir=str(tmp_path / "trainer")), device=dev),
+        "make_batch": lambda dev: make_batch(cfg, ds, 0, device=dev),
+        "restore": lambda dev: ckpt.restore(like={"x": torch.zeros(2)}, device=dev),
+        "train": lambda dev: train("granite-3-8b", reduced=True, steps=1, batch=2, seq=8,
+                                   accum=1, ckpt_dir=str(tmp_path / "train"), device=dev),
     }
     for dev in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA"):
