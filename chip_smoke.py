@@ -148,12 +148,26 @@ counters set to 0 just before it and read just after:
   width and depth, 1 x 4096, 4 steps, every loss and gradient norm finite
   (the SSD scan's gradients, NaN in the reference).  The ten reduced configs
   in f32, one ``make_train_step`` step on the card against the CPU.  And
-  ``examples/train_lm.py``'s quick model (granite-4m) for 300 steps of 16 x
+  ``examples/torch/train_lm.py --quick`` (granite-4m) for 300 steps of 16 x
   128 with a failure at 150 (the checkpoint of step 100 restored, its
   ``state_digest`` the trained state's, and replayed), its final loss under
   0.6 ln V.  Each reports step time, tokens/s, MFU against 989 TFLOP/s
   (``train_flops``), peak memory beside the state's bytes, and the idle
   share of the profiled step.
+* ``plan_decode`` (after serve_scheduler) and ``plan`` (after train): the
+  step cost model (``core/cost_model.estimate_step`` on ``H100Chip``)
+  against this run's own measurements at full width, granite-3-8b at the
+  paths' 8 layers: train_4k over ``MeshPlan(dp=128)`` (2 x 4096 a card)
+  against the train path's step, and decode_32k over ``MeshPlan(dp=32)`` (4
+  slots at ctx 32768 a card) against the replayed decode tick of
+  serve_dense's int8 weights on a 4 x 32768 pool (4.3 GB of K/V; a NaN in
+  a never-written row shows that the tick reads every row); predicted,
+  measured and their ratio, and ``GPUCostBackend``'s Generator pick for that
+  engine on one card.
+* ``examples``: ``examples/torch/{quickstart,generate_accelerator,
+  serve_workload}.py`` through their ``main`` on the card (serve_workload
+  with ``--n 12``, its int8 engine launching K5); ``train_lm --quick`` is
+  ``train_converge``.
 
 Every profiled sample must hold one kernel event of the port's kernels for
 each launch the counters saw (a replayed graph counts the launches it
@@ -188,7 +202,7 @@ Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
 the replayed and eager tick times), ``serve_paged``, ``serve_moe``, ``serve_ssm``,
 ``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``serve_scheduler``, ``train``,
-``int8_path_shapes``,
+``plan``, ``examples``, ``int8_path_shapes``,
 ``host_path`` (each kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
@@ -222,8 +236,12 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config, get_reduced_config, list_archs  # noqa: E402
+from repro_torch.configs import SHAPES, get_config, get_reduced_config, list_archs  # noqa: E402
 from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.core import constraints as constraints_mod  # noqa: E402
+from repro_torch.core import cost_model as cost_mod  # noqa: E402
+from repro_torch.core.candidates import DesignPoint  # noqa: E402
+from repro_torch.core import generator as generator_mod  # noqa: E402
 from repro_torch.core.energy import DEFAULT_CHIP  # noqa: E402
 from repro_torch.core.fpga import paper_workload  # noqa: E402
 from repro_torch.kernels import bench, ops, runtime  # noqa: E402
@@ -4406,14 +4424,18 @@ SSM_TRAIN = {"arch": "mamba2-780m", "batch": 1, "seq": 4096, "steps": 4, "lr": 1
 TRAIN_REPLAY_TOL = 1e-2             # a replayed loss against the first run's, relative
 TRAIN_ACCUM_TOL = 2e-2              # accum=2 against accum=1: bf16 grads summed apart
 TRAIN_REDUCED_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "step": 1e-5}
-CONVERGE = {"steps": 300, "batch": 16, "seq": 128, "fail_at": 150, "criterion": 0.6}
 TRAIN_DIR = pathlib.Path(__file__).resolve().parent / "build" / "train_ckpt"
 
 
-def model_quick() -> ArchConfig:
-    """``examples/train_lm.py``'s quick model (granite-4m)."""
-    return ArchConfig(name="granite-4m", family="dense", num_layers=4, d_model=192,
-                      num_heads=4, num_kv_heads=2, d_ff=512, vocab_size=1024, remat="none")
+EXAMPLES_DIR = pathlib.Path(__file__).resolve().parent / "examples" / "torch"
+
+
+def example(name: str):
+    """``examples/torch/<name>.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class FanInTrainer(train_loop_mod.Trainer):
@@ -4740,46 +4762,50 @@ def train_reduced(dev) -> dict:
 
 
 def train_converge(dev) -> dict:
-    """``examples/train_lm.py --quick`` on the port: granite-4m, 300 steps of
+    """``examples/torch/train_lm.py --quick`` on the card, its own Trainer
+    (``make_trainer``) and verdict (``report``): granite-4m, 300 steps of
     16 x 128 tokens with a failure at 150, which restores the checkpoint of
     step 100 (its ``state_digest`` that of the state after step 100) and
     replays; the final loss must be under 0.6 ln V, the example's own
-    criterion."""
-    cfg = model_quick()
-    steps = CONVERGE["steps"]
-    ds = data_mod.SyntheticLM(vocab_size=cfg.vocab_size, seq_len=CONVERGE["seq"],
-                              global_batch=CONVERGE["batch"], seed=0, branching=4)
-    tc = train_loop_mod.TrainerConfig(
-        num_steps=steps, checkpoint_dir=str(TRAIN_DIR / "converge"),
-        checkpoint_every=max(steps // 6, 10), log_every=max(steps // 15, 1),
-        peak_lr=3e-3, warmup_steps=max(steps // 15, 5))
-    trainer = train_loop_mod.Trainer(cfg, ds, tc, device=dev)
-    trainer._failure_at = CONVERGE["fail_at"]
-    saved = (CONVERGE["fail_at"] - 1) // tc.checkpoint_every * tc.checkpoint_every
+    criterion.  The example's table goes to the report, not to stdout."""
+    ex = example("train_lm")
+    args = ex.parse(["--quick", "--device", str(dev),
+                     "--ckpt-dir", str(TRAIN_DIR / "converge")])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        trainer, fail_at = ex.make_trainer(args)
+    tc, cfg = trainer.tc, trainer.cfg
+    saved = (fail_at - 1) // tc.checkpoint_every * tc.checkpoint_every
     watch = watch_restores(trainer, saved)
     t0 = time.perf_counter()
     stats = trainer.run()
     run_s = time.perf_counter() - t0
+    with contextlib.redirect_stdout(printed):
+        ok = ex.report(trainer, stats)
     final = stats["metrics"][-1]["loss"]
-    limit = CONVERGE["criterion"] * math.log(cfg.vocab_size)
-    if stats["restarts"] != 1 or not final < limit:
+    limit = ex.CRITERION * math.log(cfg.vocab_size)
+    if stats["restarts"] != 1 or not ok or not final < limit:
         fail(f"train_converge: restarts {stats['restarts']}, final loss {final} (limit {limit})")
     restores = watch["restores"]
     if [r["to_step"] for r in restores] != [saved + 1] or restores[0]["digest"] != watch["digest"]:
-        fail(f"train_converge: the state restored is not step {saved}'s")
+        fail(f"train_converge: the state restored is not step {saved}'s: restores to "
+             f"{[r['to_step'] for r in restores]}, digest equal "
+             f"{[r['digest'] == watch.get('digest') for r in restores]}")
     shutil.rmtree(TRAIN_DIR / "converge", ignore_errors=True)
-    return {"model": cfg.name, "params": cfg.param_count(), "steps": steps,
+    return {"example": "examples/torch/train_lm.py --quick", "model": cfg.name,
+            "params": cfg.param_count(), "steps": tc.num_steps, "failure_at": fail_at,
             "restarts": stats["restarts"], "restored_step": saved,
             "restore_s": restores[0]["seconds"], "restored_digest_equal": True,
             "loss_first": r6(stats["metrics"][0]["loss"]),
             "loss_final": r6(final), "limit_0.6_lnV": r6(limit),
-            "bigram_floor_ln4": r6(math.log(4)), "run_s": r6(run_s)}
+            "bigram_floor_ln4": r6(math.log(4)), "run_s": r6(run_s),
+            "printed": printed.getvalue().splitlines()}
 
 
 def train_summary(report: dict) -> dict:
     """The ``train`` line: each part's report without its per-step lists and
     kernel tables (``--out`` keeps them)."""
-    drop = ("step_s", "grad_norms", "top_kernels_ms")
+    drop = ("step_s", "grad_norms", "top_kernels_ms", "printed")
     out = {}
     for name, part in report.items():
         if isinstance(part, dict) and name != "train_reduced":
@@ -4806,6 +4832,182 @@ def drive_train(dev) -> dict:
         torch.cuda.empty_cache()
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return {"expect": {}, "report": report}
+
+
+# ---------------------------------------------------------------------------
+# plan: the step cost model (core/cost_model.py) against this run's own
+# measurements, at the shapes the card runs, full width
+# ---------------------------------------------------------------------------
+PLAN_TRAIN = ("train_4k", {"dp": 128, "tp": 1})  # 256 x 4096 over 128 cards: the train path's 2 x 4096
+PLAN_DECODE = ("decode_32k", {"dp": 32, "tp": 1})  # 128 slots at 32768 over 32 cards: 4 a card
+PLAN_DECODE_SC = {"max_batch": 4, "max_len": 32768}
+PLAN_PROMPT = 16                    # tokens each slot holds before the timed ticks
+PLAN_TICKS = 9
+PLAN_APP = {"name": "card-serve", "goal": "energy_efficiency", "period_s": 2.0,
+            "max_latency_s": 1.0}   # quickstart's serving application, on one card
+
+
+def drive_plan_decode(dev, base) -> dict:
+    """The replayed decode tick of serve_dense's int8 weights on a 4 x 32768
+    contiguous pool (decode_32k's slots and context a card: 4.3 GB of bf16
+    K/V over 8 layers): its unprofiled median, a replay alone by CUDA
+    events, one profiled tick.  Then the proof that a tick reads every
+    cache row whatever the slots' positions (so no prefill to 32768 is
+    needed): the last row of slot 0's V in layer 0, never written and
+    masked out, set to NaN makes slot 0's logits non-finite and no other
+    slot's (0 · NaN is NaN).  The pool is dropped after."""
+    sc = engine_mod.ServeConfig(**PLAN_DECODE_SC)
+    eng = engine_mod.InferenceEngine(base.cfg, params=base.params, sc=sc, device=dev)
+    pool = eng.make_pool()
+    rng = np.random.default_rng(31)
+    for slot in range(sc.max_batch):
+        prompt = rng.integers(0, eng.cfg.vocab_size, PLAN_PROMPT).astype(np.int32)
+        eng.prefill_into_slot(pool, slot, prompt, rid=slot, budget=8)
+    kv_bytes = tree_bytes(pool.cache)
+    tick = lambda: eng.masked_decode_step(pool)  # noqa: E731
+    tick()  # the capture
+    samples = []
+    for _ in range(PLAN_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, finite = tick()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+        if not finite.all():
+            fail("plan_decode: a slot's logits are not finite")
+    graph = eng.step_graphs(pool)[("decode", 0)]
+    graph.load(tok=pool.tok, pos=pool.positions(), active=pool.decode_mask())
+    replay_ms = time_ms(graph.replay, reps=3, rounds=3)
+    prof = profile_call(tick)
+    v = pool.cache["v"]
+    v[0, 0, -1] = float("nan")
+    _, finite = tick()
+    if finite[0] or not finite[1:].all():
+        fail(f"plan_decode: NaN in slot 0's last V row gave finite {finite.tolist()}: the "
+             "tick does not read every row")
+    report = {"pool": [sc.max_batch, sc.max_len], "kv_gb": r6(kv_bytes / 1e9),
+              "positions": pool.positions().tolist(),
+              "tick_ms_median": r6(statistics.median(samples)),
+              "tick_ms": [r6(t) for t in samples], "replay_only_ms": r6(replay_ms),
+              "reads_every_row": True,
+              "profiled": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                 "int8_matmul_device_ms", "device_launches",
+                                                 "top_kernels_ms")}}
+    del graph, pool, eng, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"expect": {}, "report": report}
+
+
+def plan_report(train: dict, decode: dict) -> dict:
+    """Predicted (``cost_model.estimate_step`` on ``H100Chip``, full width,
+    granite-3-8b cut to the paths' 8 layers) beside measured: the train
+    path's step at train_4k over ``MeshPlan(dp=128)`` (2 x 4096 a card, as
+    the path runs; the collective term apart: one card has no peer) and the
+    32k decode tick at decode_32k over ``MeshPlan(dp=32)`` (4 slots a card,
+    the int8 engine's pool), with ``GPUCostBackend``'s estimate of that
+    engine and its Generator's pick on one card."""
+    cfg = dataclasses.replace(get_config(GRANITE), num_layers=TRAIN_LAYERS)
+    out = {"chip": DEFAULT_CHIP.name, "arch": GRANITE, "layers": TRAIN_LAYERS}
+
+    shape, mesh = PLAN_TRAIN
+    sh = SHAPES[shape]
+    if (sh["global_batch"] // mesh["dp"], sh["seq_len"]) != (TRAIN_BATCH, TRAIN_SEQ):
+        fail(f"plan: {shape} over dp {mesh['dp']} is not the train path's shape")
+    r = cost_mod.estimate_step(cfg, shape, cost_mod.MeshPlan(**mesh))
+    step = train["train_dense"]["step_s_median"]
+    pred = {"compute": r.compute_s, "memory": r.memory_s,
+            "max": max(r.compute_s, r.memory_s)}
+    out["train"] = {
+        "shape": shape, "mesh": mesh, "per_card": [TRAIN_BATCH, TRAIN_SEQ],
+        "predicted_s": {k: r6(v) for k, v in pred.items()},
+        "collective_s_apart": r6(r.collective_s),
+        "hbm_gb_terms": {k: r6(v / 1e9) for k, v in
+                         cost_mod.hbm_bytes_terms(cfg, shape, cost_mod.MeshPlan(**mesh)).items()},
+        "measured_step_s": step,
+        "measured_over_predicted": {k: r6(step / v) for k, v in pred.items()}}
+
+    shape, mesh = PLAN_DECODE
+    sh = SHAPES[shape]
+    if (sh["global_batch"] // mesh["dp"], sh["seq_len"]) != tuple(decode["pool"]):
+        fail(f"plan: {shape} over dp {mesh['dp']} is not the decode pool's shape")
+    r = cost_mod.estimate_step(cfg, shape, cost_mod.MeshPlan(**mesh))
+    backend = cost_mod.GPUCostBackend(cfg, shape, cost_mod.MeshPlan(**mesh))
+    engine_point = DesignPoint.of(activation_impl=cfg.activation_impl,
+                                           attention_impl="naive", precision="int8")
+    int8 = backend.evaluate(engine_point).latency_s
+    tick_s, replay_s = decode["tick_ms_median"] / 1e3, decode["replay_only_ms"] / 1e3
+    pred = {"compute": r.compute_s, "memory": r.memory_s, "max": r.t_step_s,
+            "gpu_backend_int8": int8}
+    out["decode"] = {
+        "shape": shape, "mesh": mesh, "per_card": decode["pool"],
+        "predicted_s": {k: r6(v) for k, v in pred.items()},
+        "hbm_gb_terms": {k: r6(v / 1e9) for k, v in
+                         cost_mod.hbm_bytes_terms(cfg, shape, cost_mod.MeshPlan(**mesh)).items()},
+        "measured_tick_s": r6(tick_s), "measured_replay_s": r6(replay_s),
+        "tick_over_predicted": {k: r6(tick_s / v) for k, v in pred.items() if v},
+        "replay_over_predicted": {k: r6(replay_s / v) for k, v in pred.items() if v}}
+    res = generator_mod.Generator(backend, constraints_mod.ApplicationSpec(**PLAN_APP)).search(
+        method="exhaustive", refine=False)
+    best = res.best
+    out["generator_pick"] = {
+        "app": PLAN_APP, "point": best.point.as_dict(), "strategy": best.strategy,
+        "score": r6(best.score), "latency_s": r6(best.estimate.latency_s),
+        "engine_point": engine_point.as_dict(),
+        "engine_is_the_pick": best.point == engine_point,
+        "visited": res.visited, "pruned": len(res.pruned), "ranked": len(res.ranked)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# examples: the port's examples/torch/ on the card
+# ---------------------------------------------------------------------------
+EXAMPLE_ARGS = {"quickstart": [], "generate_accelerator": [],
+                "serve_workload": ["--n", "12"]}  # the reference's defaults but a smaller --n
+
+
+def drive_examples(dev) -> dict:
+    """``quickstart``, ``generate_accelerator`` and ``serve_workload`` (its
+    reduced engine with int8 weights: K5) through their ``main`` on the
+    card, each exiting 0; their printed lines go to the report.
+    ``train_lm --quick`` runs as the train path's ``train_converge``."""
+    report = {}
+    for name, argv in EXAMPLE_ARGS.items():
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = example(name).main([*argv, "--device", str(dev)])
+        lines = printed.getvalue().splitlines()
+        if rc != 0:
+            fail(f"examples: {name} exited {rc}: {lines[-3:]}")
+        report[name] = {"argv": argv, "rc": rc, "seconds": r6(time.perf_counter() - t0),
+                        "lines": lines}
+    report["train_lm"] = "run by the train path's train_converge"
+    return {"expect": {}, "report": report}
+
+
+def plan_summary(plan: dict) -> dict:
+    """The ``plan`` line: the report without the tick's samples and kernel
+    table (``--out`` keeps them)."""
+    tick = {k: v for k, v in plan["decode"]["tick"].items() if k not in ("tick_ms", "profiled")}
+    tick["device_busy_ms"] = plan["decode"]["tick"]["profiled"]["device_busy_ms"]
+    return dict(plan, decode=dict(plan["decode"], tick=tick))
+
+
+EXAMPLE_RESULT_LINES = ("GOPS/s/W", "items in the same", "improvement", "DP(", "validation",
+                        "continuous", "static", "-> continuous", "measured batch latency")
+
+
+def examples_summary(report: dict) -> dict:
+    """The ``examples`` line: each example's exit code, seconds and the
+    lines that carry its results (``--out`` keeps every line)."""
+    out = dict(report)
+    for name in EXAMPLE_ARGS:
+        part = report[name]
+        lines = [ln.strip() for ln in part["lines"]]
+        out[name] = {"rc": part["rc"], "seconds": part["seconds"],
+                     "lines": [ln for ln in lines if ln.startswith(EXAMPLE_RESULT_LINES)][:10]}
+    return out
 
 
 def drive_main_path(dev) -> dict:
@@ -4938,9 +5140,10 @@ def main(argv=None) -> int:
              "serve_paged": lambda d: drive_serve_paged(d, driven["serve_dense"]["engine"]),
              "duty_cycle": lambda d: drive_duty_cycle(d, driven["serve_dense"]["engine"], energy),
              "serve_scheduler": lambda d: drive_serve_scheduler(d, driven["serve_dense"]["engine"]),
+             "plan_decode": lambda d: drive_plan_decode(d, driven["serve_dense"]["engine"]),
              "serve_moe": drive_serve_moe, "serve_ssm": drive_serve_ssm,
              "serve_audio": drive_serve_audio, "serve_vlm": drive_serve_vlm,
-             "flash_attention": drive_flash_path}
+             "flash_attention": drive_flash_path, "examples": drive_examples}
     for name, drive in paths.items():
         runtime.reset_launch_counts()
         with k5_shapes_recorded(k5_seen, name):
@@ -4981,6 +5184,14 @@ def main(argv=None) -> int:
     runtime.reset_launch_counts()
     train_report = phase("path:train", drive_train, dev)["report"]
     train_report["launches"] = runtime.launch_counts()
+    decode_report = driven["plan_decode"]["report"]
+    decode_report["launches"] = counts_by_path["plan_decode"]
+    plan = phase("plan", plan_report, train_report, decode_report)
+    plan["decode"]["tick"] = decode_report
+    examples_report = driven["examples"]["report"]
+    examples_report["launches"] = counts_by_path["examples"]
+    if examples_report["launches"].get("int8_matmul", 0) < 1:
+        fail("examples: serve_workload never launched int8_matmul")
     paged_report = driven["serve_paged"]["report"]
     paged_report["launches"] = counts_by_path["serve_paged"]
     duty_report = driven["duty_cycle"]["report"]
@@ -5041,6 +5252,7 @@ def main(argv=None) -> int:
               "serve_scheduler": sched_report,
               "serve_moe": moe_report, "serve_ssm": ssm_report,
               "serve_audio": audio_report, "serve_vlm": vlm_report, "train": train_report,
+              "plan": plan, "examples": examples_report,
               "int8_path_shapes": path_shapes, "host_path": host,
               "chip_model": chip_model,
               "tuner": tuner, "energy": energy,
@@ -5065,6 +5277,8 @@ def main(argv=None) -> int:
     print("duty_cycle " + json.dumps(duty_report), flush=True)
     print("serve_scheduler " + sched_line, flush=True)
     print("train " + json.dumps(train_summary(train_report)), flush=True)
+    print("plan " + json.dumps(plan_summary(plan)), flush=True)
+    print("examples " + json.dumps(examples_summary(examples_report)), flush=True)
     print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)

@@ -5,10 +5,11 @@ A ``DesignPoint`` is an immutable assignment of values to named design axes
 product of axis domains; the Generator explores it with exhaustive, beam, or
 evolutionary search (core/generator.py).
 
-A hardware backend exposes its axes through this machinery; the port has
-the FPGA one so far:
+Both hardware backends expose their axes through this machinery:
 
   FPGA backend   n_mac × n_act × act_impl × pipelined   (RTL templates, RQ1)
+  GPU backend    act_impl × attention_impl × precision × remat × scan
+                 (core/cost_model.GPUCostBackend, beyond the paper)
 
 plus the shared workload-strategy axis (RQ2): strategy × threshold-mode.
 """

@@ -1,7 +1,15 @@
 """Training launcher.
 
-Two modes:
+Three modes:
 
+  --arch ARCH [--shape SHAPE] [--multi-pod]
+                          plan only: print the parallelism plan, parameter
+                          and optimizer footprint per device, and the
+                          analytical roofline of the chosen (arch × shape ×
+                          mesh) on ``core.energy.H100Chip``, what to check
+                          before spending GPU-hours.  The
+                          mesh is the reference's: dp 16 (32 with
+                          ``--multi-pod``) × tp 16, FSDP above 10 B params.
   --arch ARCH --execute   really train (a reduced config with ``--reduced``,
                           or the full one) with the fault-tolerant
                           ``training.train_loop.Trainer``: synthetic-bigram
@@ -19,11 +27,8 @@ Two modes:
                           times it against the per-step cell kernel.  This
                           mode runs inference only.
 
-The reference's plan mode (``--arch`` without ``--execute``: the
-parallelism plan and roofline of a pod) needs the multi-device cost model
-and is not ported (ROADMAP Queue A item 14); asking for it is an error.
-
 Examples:
+  python -m repro_torch.launch.train --arch granite-3-8b --shape train_4k
   python -m repro_torch.launch.train --arch granite-3-8b --reduced --execute --steps 20
   python -m repro_torch.launch.train --arch granite-3-8b --reduced --execute --steps 20 --device cpu
   python -m repro_torch.launch.train --paper-lstm --batch 64
@@ -37,6 +42,28 @@ import os
 import tempfile
 
 import torch
+
+from repro_torch.core.energy import DEFAULT_CHIP, H100Chip
+
+
+def plan(arch: str, shape_id: str, multi_pod: bool, chip: H100Chip = DEFAULT_CHIP) -> None:
+    """Print the reference's five plan lines, estimated on ``chip``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import MeshPlan, bytes_per_device_estimate, estimate_step
+
+    cfg = get_config(arch)
+    dp = 32 if multi_pod else 16
+    p = MeshPlan(dp=dp, tp=16, fsdp=cfg.param_count() > 10e9)
+    r = estimate_step(cfg, shape_id, p, chip=chip)
+    print(f"arch={arch} shape={shape_id} chips={p.chips} (dp={p.dp} tp={p.tp} fsdp={p.fsdp})")
+    print(f"params={cfg.param_count() / 1e9:.2f}B active={cfg.active_param_count() / 1e9:.2f}B "
+          f"optimizer={cfg.optimizer}")
+    print(f"resident/device ≈ {bytes_per_device_estimate(cfg, shape_id, p) / 1e9:.2f} GB")
+    s = r.summary()
+    print(f"roofline: compute={s['compute_s']:.3f}s memory={s['memory_s']:.3f}s "
+          f"collective={s['collective_s']:.3f}s → T={s['t_step_s']:.3f}s "
+          f"bottleneck={s['bottleneck']} mfu={s['mfu']:.3f}")
+    print(f"energy/step ≈ {s['energy_j'] / 1e3:.1f} kJ → {s['gflops_per_j']:.0f} GFLOPs/J")
 
 
 def plan_paper_lstm(batch: int, seq: int = 0, device=None) -> dict:
@@ -125,13 +152,15 @@ def train(arch: str, *, reduced: bool, steps: int, batch: int, seq: int, accum: 
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs import list_archs
+    from repro_torch.configs import SHAPES, list_archs
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=list_archs())
+    ap.add_argument("--shape", default="train_4k", choices=list(SHAPES))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--execute", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--paper-lstm", action="store_true",
                     help="plan the paper LSTM workload on the CUDA kernel mapping")
@@ -152,8 +181,8 @@ def main(argv=None) -> int:
     if args.arch is None:
         ap.error("--arch is required unless --paper-lstm is given")
     if not args.execute:
-        ap.error("the plan mode (--arch without --execute) needs the multi-device cost "
-                 "model, not ported yet (ROADMAP Queue A item 14); add --execute to train")
+        plan(args.arch, args.shape, args.multi_pod)
+        return 0
     train(args.arch, reduced=args.reduced, steps=args.steps, batch=args.batch,
           seq=args.seq or 128, accum=args.accum, ckpt_dir=args.ckpt_dir, device=args.device)
     return 0

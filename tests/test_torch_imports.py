@@ -8,7 +8,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "ssm_rescale_check.py", ROOT / "agreement_check.py"]
+    ROOT / "chip_smoke.py", ROOT / "ssm_rescale_check.py", ROOT / "agreement_check.py"] + sorted(
+    (ROOT / "examples" / "torch").glob("*.py"))
 BANNED = ("jax", "repro")
 
 
@@ -48,6 +49,8 @@ def test_port_files_found():
     assert {"scheduler.py", "serve.py"} <= names
     # the training path: data, optimizers, checkpoints, the train loop
     assert {"pipeline.py", "optimizer.py", "checkpoint.py", "fault.py", "train_loop.py"} <= names
+    # the examples
+    assert {"quickstart.py", "generate_accelerator.py", "serve_workload.py", "train_lm.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 

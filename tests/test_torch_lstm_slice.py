@@ -160,8 +160,10 @@ def test_plan_paper_lstm_runs_on_cpu(capsys):
 
 def test_train_main_modes(capsys):
     assert ttrain.main(["--paper-lstm", "--batch", "2", "--seq", "3", "--device", "cpu"]) == 0
-    with pytest.raises(SystemExit):
-        ttrain.main(["--arch", "granite-3-8b"])
+    capsys.readouterr()
+    # --arch without --execute is the plan mode: five lines, no training
+    assert ttrain.main(["--arch", "granite-3-8b"]) == 0
+    assert len(capsys.readouterr().out.splitlines()) == 5
     with pytest.raises(SystemExit):
         ttrain.main([])
     capsys.readouterr()

@@ -12,7 +12,16 @@ wherever |g| ≫ eps = 1e-8, so a gradient entry near eps or 0 (whose size
 and sign the two frameworks' gradients, equal to 1e-4 of a leaf's largest
 |g|, do not fix) moves its weight by up to 2·lr: a step is held to 1e-6 of
 each leaf's largest magnitude plus the move that gradient tolerance allows
-each entry (``step_close``)."""
+each entry (``step_close``).
+
+AdamW's state after that step (m, v and the f32 master weights) is held,
+for both packages, to the same step taken in float64 from the port's loss
+in float64 (``adamw_f64``): the two f32 gradients differ from the float64
+one by up to 1.7e-5 (port) and 2.1e-5 (reference) of a leaf's largest
+|g| (granite-3-8b, reduced), f32 reduction noise within the gradients'
+1e-4; held to each other instead, one master entry whose gradient is
+-4.56e-9 (float64; port -4.18e-9, reference -2.76e-9, all near eps) sat
+6.4e-5 apart, over 1e-4 of the leaf's largest weight."""
 import dataclasses
 
 import jax
@@ -33,13 +42,14 @@ from repro_torch.models.model import init_model, param_defs
 from repro_torch.models.params import params_from_numpy, tree_flatten, tree_map
 from repro_torch.training import train_loop
 from repro_torch.training.optimizer import Schedule, init_opt_state
-from repro_torch.training.train_loop import Trainer, TrainerConfig, make_train_step
+from repro_torch.training.train_loop import Trainer, TrainerConfig, _grads_of, make_train_step
 
 from test_torch_moe import numpy_params
 from test_torch_train_loss import GRAD_TOL, numpy_batch
 
 torch.set_num_threads(1)
 STEP_TOL = 1e-6
+WEIGHT_DECAY = 0.1  # adamw_update's default in both packages
 
 
 def tiny_cfg() -> ArchConfig:
@@ -97,12 +107,32 @@ def step_close(got: torch.Tensor, want, lr: float, grad=None):
     assert (err <= tol).all(), err.max()
 
 
+def adamw_f64(arch: str, params: dict, batch: dict, lr: float) -> dict:
+    """The first AdamW step in float64 (torch on the CPU) from the port's
+    loss in float64: the clipped gradient ``g`` and the state ``m``, ``v``,
+    ``master``, numpy leaves in tree order.  At t = 1 the bias-corrected
+    step is g / (|g| + eps), plus weight decay on matrices."""
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float64)
+    p64 = tree_map(lambda t: t.double(), params_from_numpy(params, "cpu"))
+    _, _, grads = _grads_of(p64, {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)
+    g = [t.numpy() for t in tree_flatten(grads)]
+    norm = np.sqrt(sum(float((x * x).sum()) for x in g))
+    g = [x * min(1.0, jopt.CLIP_NORM / max(norm, 1e-9)) for x in g]
+    p = [t.numpy() for t in tree_flatten(p64)]
+    step = [x / (np.abs(x) + jopt.ADAM_EPS) + (WEIGHT_DECAY * w if w.ndim >= 2 else 0.0)
+            for x, w in zip(g, p)]
+    return {"g": g, "m": [(1 - jopt.ADAM_B1) * x for x in g],
+            "v": [(1 - jopt.ADAM_B2) * x * x for x in g],
+            "master": [w - lr * s for w, s in zip(p, step)]}
+
+
 @pytest.mark.parametrize("arch, accum", [("granite-3-8b", 1), ("granite-3-8b", 2),
                                          ("deepseek-v3-671b", 1)])
 def test_train_step_matches_jax(arch, accum):
     """One step of ``make_train_step`` (granite: AdamW; deepseek: Adafactor
     with the MTP loss) from the same f32 weights and batch: the metrics,
-    and every param and optimizer-state leaf."""
+    and every param and optimizer-state leaf (AdamW's, of both packages,
+    against ``adamw_f64``)."""
     jcfg = dataclasses.replace(jax_config(arch), dtype=jnp.float32)
     tcfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32)
     rng = np.random.default_rng(0)
@@ -129,9 +159,19 @@ def test_train_step_matches_jax(arch, accum):
     for g, w in zip(tree_flatten(ts), jax.tree.leaves(js)):
         if g.dtype == torch.int32:
             assert int(g) == int(w) == 1
-        elif jcfg.optimizer == "adamw":  # moments of the same gradients: the loss's tolerance
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
-                                       atol=1e-4 * max(float(np.abs(np.asarray(w)).max()), 1e-30))
+    if jcfg.optimizer != "adamw":
+        return
+    want = adamw_f64(arch, params, batch, lr)
+    for name in ("m", "v", "master"):
+        for pkg, leaves in (("port", [t.numpy() for t in tree_flatten(ts[name])]),
+                            ("reference", [np.asarray(t) for t in jax.tree.leaves(js[name])])):
+            assert len(leaves) == len(want[name])
+            for got, ref, grad in zip(leaves, want[name], want["g"]):
+                if name == "master":  # a step: near eps a gradient's noise moves it
+                    step_close(torch.tensor(got), ref, lr, grad)
+                else:  # moments: the gradients' tolerance
+                    np.testing.assert_allclose(got, ref, rtol=0, err_msg=f"{pkg} {name}",
+                                               atol=1e-4 * max(float(np.abs(ref).max()), 1e-30))
 
 
 def small_trainer(tmp_path, name: str, steps: int = 8, **kw) -> Trainer:
@@ -223,7 +263,12 @@ def test_launcher_accumulates_with_adafactor(tmp_path, capsys):
 
 
 def test_launcher_plan_mode_names_the_item_it_waits_for(capsys):
-    with pytest.raises(SystemExit) as exc:
-        launcher.main(["--arch", "granite-3-8b"])
-    assert exc.value.code == 2
-    assert "Queue A item 14" in capsys.readouterr().err
+    """The plan mode waited for the step cost model (Queue A item 14's
+    single-device part), which is ported now: ``--arch`` without
+    ``--execute`` prints the plan on the card's constants and exits 0
+    (its lines against the reference's: ``tests/test_torch_step_model.py``)."""
+    assert launcher.main(["--arch", "granite-3-8b"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 5
+    assert out[0] == "arch=granite-3-8b shape=train_4k chips=256 (dp=16 tp=16 fsdp=False)"
+    assert out[3].startswith("roofline: compute=") and "bottleneck=" in out[3]
