@@ -168,6 +168,29 @@ counters set to 0 just before it and read just after:
   serve_workload}.py`` through their ``main`` on the card (serve_workload
   with ``--n 12``, its int8 engine launching K5); ``train_lm --quick`` is
   ``train_converge``.
+* ``multi_device`` (after plan): the mesh layer with several ranks on the
+  one card, processes spawned over gloo (NCCL refuses two ranks on one card;
+  gloo's collectives of CUDA tensors are staged through host memory
+  at the port's choke point, ``core/collectives.py``, and the line names
+  them).  In a world of 4 on a (2, 2) ("data", "model") mesh: (a) one
+  granite-moe-3b-a800m MoE layer at full width with int8 experts, in the
+  a2a mode (8 x 64 tokens, tp_split 2) and the gather mode (8 x 1), on rank
+  0 (a2a: against ``md_moe_reference``, the dense layer's expert outputs
+  over the routes a plain per-expert count keeps at capacity, 99.9% within
+  5e-2 and 3e-2 of the largest |y|; gather: against the dense path, 3e-2 of
+  the largest |y|), K5 launched 3 times a rank a call; (b) the Trainer,
+  granite-3-8b at full width and 2 layers, AdamW, 4 x 512 tokens, 3 steps,
+  each loss and gradient norm held to the one-device Trainer's (run here
+  before the world) within ``TRAIN_REPLAY_TOL``, its final checkpoint
+  (gathered to rank 0 and saved from the mesh) restored onto a (4, 1) mesh
+  and onto one device for the next step's loss and gradient norm, every
+  step's collectives recorded and equal to ``step_collectives``; (c)
+  ``dp_value_and_grad`` on (4, 1) meshes of the card and of the CPU,
+  compressed against exact, and the card's compressed mean within one step
+  of the largest rank's payload of the CPU's; then (d) a world of one NCCL
+  rank: the Trainer of granite-3-8b's reduced config on a (1, 1) mesh for 2
+  steps, bit for bit ``mesh=None``; (e) the dry-run CLI.  Each rank's peak
+  memory, the step time, collective bytes recorded and analytic.
 
 Every profiled sample must hold one kernel event of the port's kernels for
 each launch the counters saw (a replayed graph counts the launches it
@@ -202,7 +225,7 @@ Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
 the replayed and eager tick times), ``serve_paged``, ``serve_moe``, ``serve_ssm``,
 ``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``serve_scheduler``, ``train``,
-``plan``, ``examples``, ``int8_path_shapes``,
+``plan``, ``examples``, ``multi_device``, ``int8_path_shapes``,
 ``host_path`` (each kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
@@ -222,6 +245,7 @@ import importlib.util
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -288,6 +312,12 @@ from repro_torch.serving.kv_cache import cache_defs  # noqa: E402
 from repro_torch.serving.pages import SCRATCH  # noqa: E402
 from repro_torch.training import optimizer as optimizer_mod  # noqa: E402
 from repro_torch.training import train_loop as train_loop_mod  # noqa: E402
+from repro_torch.training import grad_compress as grad_compress_mod  # noqa: E402
+from repro_torch.core import collectives as collectives_mod  # noqa: E402
+from repro_torch.launch import world as world_mod  # noqa: E402
+from repro_torch.sharding import layout as layout_mod  # noqa: E402
+from repro_torch.sharding import rules as rules_mod  # noqa: E402
+from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # the f32 rate outside the tensor cores, and the dense tensor-core rates of
@@ -4557,26 +4587,32 @@ def losses_finite(rows: list, what: str, falling: bool) -> dict:
             "grad_norms": [r6(v) for v in norms]}
 
 
-def watch_restores(trainer, at: int) -> dict:
-    """Wraps the Trainer's step and restore: the ``state_digest`` after step
-    ``at`` and after each restore (with the step it resumes at and its
-    seconds) go into the dict returned."""
-    seen = {"restores": []}
-    do_step, restore = trainer._do_step, trainer._restore
+def watch_restores(trainer) -> dict:
+    """Wraps the Trainer's checkpoint save and its restore: each save's step
+    (a periodic checkpoint or a straggler snapshot) and for each restore the
+    step it resumes at, its seconds, the ``state_digest`` of the state after
+    it, and the latest save before it with the digest of the state that save
+    was handed go into the dict returned."""
+    seen = {"saves": [], "restores": []}
+    save, restore = trainer.ckpt.save, trainer._restore
+    last = {}
 
-    def step_and_digest(step):
-        do_step(step)
-        if step == at and "digest" not in seen:
-            seen["digest"] = state_digest(trainer._state())
+    def save_and_digest(step, tree, **kw):
+        seen["saves"].append(step)
+        last.update(step=step, digest=state_digest(tree))
+        return save(step, tree, **kw)
 
     def timed_restore():
+        before = dict(last)
         t = time.perf_counter()
         out = restore()
         seen["restores"].append({"to_step": out, "seconds": r6(time.perf_counter() - t),
-                                 "digest": state_digest(trainer._state())})
+                                 "digest": state_digest(trainer._state()),
+                                 "saved_step": before.get("step"),
+                                 "saved_digest": before.get("digest")})
         return out
 
-    trainer._do_step, trainer._restore = step_and_digest, timed_restore
+    trainer.ckpt.save, trainer._restore = save_and_digest, timed_restore
     return seen
 
 
@@ -4685,9 +4721,10 @@ def train_ssm(dev) -> dict:
     torch.cuda.empty_cache()
     trainer = train_loop_mod.Trainer(cfg, ds, tc, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    stats = trainer.run()
+    for step in range(SSM_TRAIN["steps"]):  # no final checkpoint: nothing here reads one
+        trainer._do_step(step)
     peak = torch.cuda.max_memory_allocated(dev)
-    rows = stats["metrics"]
+    rows = trainer.metrics_log
     out = {"arch": cfg.name, "layers": cfg.num_layers, "batch": SSM_TRAIN["batch"],
            "seq": SSM_TRAIN["seq"], "steps": len(rows), "remat": cfg.remat}
     out.update(losses_finite(rows, "train_ssm", falling=False))
@@ -4764,8 +4801,9 @@ def train_reduced(dev) -> dict:
 def train_converge(dev) -> dict:
     """``examples/torch/train_lm.py --quick`` on the card, its own Trainer
     (``make_trainer``) and verdict (``report``): granite-4m, 300 steps of
-    16 x 128 tokens with a failure at 150, which restores the checkpoint of
-    step 100 (its ``state_digest`` that of the state after step 100) and
+    16 x 128 tokens with a failure at 150, which restores the latest save
+    before it, the checkpoint of step 100 or a straggler snapshot taken after
+    it (its ``state_digest`` that of the state the save was handed), and
     replays; the final loss must be under 0.6 ln V, the example's own
     criterion.  The example's table goes to the report, not to stdout."""
     ex = example("train_lm")
@@ -4775,8 +4813,8 @@ def train_converge(dev) -> dict:
     with contextlib.redirect_stdout(printed):
         trainer, fail_at = ex.make_trainer(args)
     tc, cfg = trainer.tc, trainer.cfg
-    saved = (fail_at - 1) // tc.checkpoint_every * tc.checkpoint_every
-    watch = watch_restores(trainer, saved)
+    periodic = (fail_at - 1) // tc.checkpoint_every * tc.checkpoint_every
+    watch = watch_restores(trainer)
     t0 = time.perf_counter()
     stats = trainer.run()
     run_s = time.perf_counter() - t0
@@ -4786,15 +4824,24 @@ def train_converge(dev) -> dict:
     limit = ex.CRITERION * math.log(cfg.vocab_size)
     if stats["restarts"] != 1 or not ok or not final < limit:
         fail(f"train_converge: restarts {stats['restarts']}, final loss {final} (limit {limit})")
-    restores = watch["restores"]
-    if [r["to_step"] for r in restores] != [saved + 1] or restores[0]["digest"] != watch["digest"]:
-        fail(f"train_converge: the state restored is not step {saved}'s: restores to "
-             f"{[r['to_step'] for r in restores]}, digest equal "
-             f"{[r['digest'] == watch.get('digest') for r in restores]}")
+    # the restore resumes after the latest save before the failure: step
+    # ``periodic``'s checkpoint, or a straggler snapshot the detector took
+    # after it (a save on its thread can slow the steps that follow)
+    restores, saves = watch["restores"], watch["saves"]
+    saved = restores[0]["saved_step"] if len(restores) == 1 else None
+    snapshots = [s for s in saves if s % tc.checkpoint_every and s != tc.num_steps - 1]
+    if (periodic not in saves or saved is None or saved < periodic
+            or [r["to_step"] for r in restores] != [saved + 1]
+            or restores[0]["digest"] != restores[0]["saved_digest"]):
+        fail(f"train_converge: the state restored is not that of the save before the "
+             f"failure (saves at {saves}): restores to {[r['to_step'] for r in restores]} "
+             f"after saves at {[r['saved_step'] for r in restores]}, digest equal "
+             f"{[r['digest'] == r['saved_digest'] for r in restores]}")
     shutil.rmtree(TRAIN_DIR / "converge", ignore_errors=True)
     return {"example": "examples/torch/train_lm.py --quick", "model": cfg.name,
             "params": cfg.param_count(), "steps": tc.num_steps, "failure_at": fail_at,
             "restarts": stats["restarts"], "restored_step": saved,
+            "straggler_snapshots": snapshots,
             "restore_s": restores[0]["seconds"], "restored_digest_equal": True,
             "loss_first": r6(stats["metrics"][0]["loss"]),
             "loss_final": r6(final), "limit_0.6_lnV": r6(limit),
@@ -4832,6 +4879,493 @@ def drive_train(dev) -> dict:
         torch.cuda.empty_cache()
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return {"expect": {}, "report": report}
+
+
+# ---------------------------------------------------------------------------
+# multi_device: the mesh layer (sharding rules as DTensor placements, the
+# sharded MoE, the int8 gradient all-reduce, the Trainer on a mesh with
+# elastic restore, the dry run) with several ranks on the one card
+# ---------------------------------------------------------------------------
+MD_RANKS, MD_MESH = 4, (2, 2)        # processes over gloo on cuda:0, ("data", "model")
+MD_MOE_X = {"a2a": (8, 64), "gather": (8, 1)}  # (batch, seq): a2a with tp_split 2, and gather
+MD_MOE_REF_SHARE = 0.999            # a2a against md_moe_reference (the dense layer's expert outputs
+#   over the routes a plain per-expert count keeps): share of y within 5e-2 relative, the rule of
+#   tests/test_distributed.py held at 0.999, since capacity's drops are in the reference
+MD_MOE_GATHER_TOL = 3e-2             # gather against dense, and a2a against md_moe_reference: of
+#   the largest |y| (bf16)
+MD_K5_PER_CALL = 3                   # the expert FFN's gate, up and down products: one launch each
+MD_TRAIN = {"layers": 2, "batch": 4, "seq": 512, "steps": 3}  # granite-3-8b, full width, 40 → 2
+MD_FSDP = True                       # the TP rules with fsdp: 4 ranks' AdamW state (11.2 GB whole)
+#   fits the one card only sharded over "data" as well, on the (4, 1) mesh too
+MD_COMPRESS = (64, 4096, 1024)       # dp_value_and_grad: rows, d_in, d_out
+MD_COMPRESS_REL = 0.02               # compressed against exact (the reference's test)
+MD_CPU_REL = 1e-5                    # card against CPU, the exact mean (f32, TF32 off)
+MD_FLIP_SLACK = 1e-3                 # card against CPU, the compressed mean: one rank's payload
+#   one step apart (the largest rank's scale / n), times 1 + this for the f32 dequantized sum
+MD_NCCL_ARCH = GRANITE               # (d) the one-rank NCCL world: its reduced config, 2 steps
+MD_DRYRUN_TIMEOUT_S = 300            # (e) the dry-run CLI, from its start beside (a)-(d)
+
+
+def sent(summary: dict) -> dict:
+    """A ``CollectiveStats.summary()`` without its count of staged
+    collectives: what was sent, as the analytic count gives it."""
+    return {k: v for k, v in summary.items() if k != "staged"}
+
+
+def md_log(rank: int, msg: str) -> None:
+    """Rank 0's progress on stderr, with the time and the host's available
+    memory: where a long or failed run went."""
+    if rank == 0:
+        avail = next((ln.split()[1] for ln in open("/proc/meminfo")
+                      if ln.startswith("MemAvailable")), "?")
+        print(f"multi_device rank 0 {time.strftime('%H:%M:%S')} {msg} (host MemAvailable "
+              f"{avail} kB)", file=sys.stderr, flush=True)
+
+
+def md_config():
+    return dataclasses.replace(get_config(GRANITE), num_layers=MD_TRAIN["layers"])
+
+
+def md_data():
+    cfg = md_config()
+    return cfg, data_mod.SyntheticLM(vocab_size=cfg.vocab_size, seq_len=MD_TRAIN["seq"],
+                                     global_batch=MD_TRAIN["batch"], seed=0)
+
+
+def md_moe(rank: int, mesh, dev) -> dict:
+    """One granite-moe-3b-a800m MoE layer at full width with int8 experts on
+    the (2, 2) mesh, in both sharded modes; rank 0 holds each against the
+    whole layer's dense path on its own."""
+    cfg = get_config(MOE)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = init_params(moe_mod.moe_defs(cfg), gen, dev)  # the same draws on every rank
+    for k in ("wg", "wu", "wd"):
+        params[k] = quantize_weight(params[k], lead=1, n_contract=1)
+    out = {}
+    for mode, (b, s) in MD_MOE_X.items():
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+        spec = rules_mod.batch_spec(b, mesh)
+        xs = layout_mod.block_of(x, mesh, spec)
+        ep_axes, got_mode, tp_split = moe_mod.sharded_plan(cfg, mesh, xs.shape[0], s)
+        if got_mode != mode:
+            fail(f"multi_device: {b} x {s} tokens took the {got_mode} mode, not {mode}")
+        e_spec = moe_mod._e_spec(ep_axes)
+        local = dict(params)
+        for k in ("wg", "wu", "wd"):
+            local[k] = QuantTensor(layout_mod.block_of(params[k].q, mesh, e_spec).contiguous(),
+                                   layout_mod.block_of(params[k].scale, mesh, e_spec).contiguous())
+        torch.cuda.synchronize(dev)
+        runtime.reset_launch_counts()
+        t0 = time.perf_counter()
+        with rules_mod.activate_mesh(mesh), collectives_mod.recording() as rec:
+            y, aux = moe_mod.moe_apply(local, xs, cfg)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = runtime.launch_counts().get("int8_matmul", 0)
+        want = moe_mod.moe_collectives(cfg, mesh, xs.shape[0], s, cfg.dtype).summary()
+        if sent(rec.summary()) != want:
+            fail(f"multi_device moe {mode}: recorded {rec.summary()}, analytic {want}")
+        y = layout_mod.full(y, mesh, spec + (None,))
+        row = {"tokens": [b, s], "tp_split": tp_split, "ep_axes": list(ep_axes),
+               "experts_a_rank": local["wg"].q.shape[0], "k5_launches": launches,
+               "ms_first_call": r6(ms), "collectives": rec.summary()}
+        if rank == 0:
+            y_dense, aux_dense = moe_mod.moe_apply(params, x, cfg)
+            yd, yg = y_dense.float(), y.float()
+            near = lambda a, b: (a - b).abs() / (b.abs() + 1e-3) < 5e-2  # noqa: E731
+            if mode == "a2a":
+                if tp_split != 2:
+                    fail(f"multi_device moe a2a: tp_split {tp_split}, not 2")
+                y_ref, dropped = md_moe_reference(params, x, cfg, MD_MESH[0], tp_split)
+                whole = dropped == 0
+                share = float(near(yg, y_ref).float().mean())
+                err = float((yg - y_ref).abs().max() / y_ref.abs().max())
+                row["against_the_reference"] = {
+                    "share_within_5e-2": r6(share), "max_err_of_max": r6(err),
+                    "share_within_5e-2_of_tokens_with_a_dropped_route": r6(float(
+                        near(yg, y_ref)[~whole].float().mean()))}
+                row["tokens_with_a_dropped_route"] = r6(float((~whole).float().mean()))
+                row["routes_dropped"] = int(dropped.sum())
+                row["against_dense"] = {  # capacity's drops make these differ; not a check
+                    "share_within_5e-2": r6(float(near(yg, yd).float().mean())),
+                    "share_within_5e-2_of_tokens_kept_whole": r6(float(
+                        near(yg, yd)[whole].float().mean()))}
+                if share < MD_MOE_REF_SHARE or err > MD_MOE_GATHER_TOL:
+                    fail(f"multi_device moe a2a: y against the reference: {share} of the elements "
+                         f"within 5e-2, {err} of the largest |y|")
+            else:
+                err = float((yg - yd).abs().max() / yd.abs().max())
+                row["max_err_of_max"] = r6(err)
+                if err > MD_MOE_GATHER_TOL:
+                    fail(f"multi_device moe gather: {err} of the largest |y| from dense")
+            row["aux"], row["aux_dense"] = r6(float(aux)), r6(float(aux_dense))
+            if not math.isfinite(float(aux)):
+                fail("multi_device moe: a non-finite aux loss")
+        out[mode] = row
+    return out
+
+
+def md_moe_reference(params, x, cfg, n_data: int, tp_split: int):
+    """The a2a mode's y for the whole x (B, S, D), written plainly from the
+    dense layer's expert outputs: the router's top-k (``torch.topk``), then
+    for each rank's group of tokens (its "data" slice of the batch, cut in
+    ``tp_split`` along its flattened tokens: consecutive groups of t tokens)
+    a running count per expert over the group's routes, token by token in
+    top-k order; a route past the expert's capacity ceil(t·k/E·cf) is
+    dropped.  Returns y (f32: the kept routes' gate-weighted expert outputs
+    summed) and each token's number of dropped routes (B, S)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    logits = xf.float() @ params["router"].float()
+    logits[:, m.num_experts:] = -math.inf  # the padding experts
+    w, ids = torch.topk(torch.softmax(logits, dim=-1), m.top_k, dim=-1)
+    w = w / w.sum(-1, keepdim=True)
+    ep = logits.shape[1]
+    h = moe_mod._expert_ffn(params["wg"], params["wu"], params["wd"],
+                            xf[None].expand(ep, b * s, d), cfg)  # (E, T, D): the dense layer's
+    t = b // n_data * s // tp_split
+    capacity = max(1, math.ceil(t * m.top_k / m.num_experts * m.capacity_factor))
+    keep = torch.ones((b * s, m.top_k), dtype=torch.bool)
+    routes = ids.cpu().tolist()
+    for g in range(0, b * s, t):
+        count: dict = {}
+        for tok in range(g, g + t):
+            for j, e in enumerate(routes[tok]):
+                count[e] = count.get(e, 0) + 1
+                keep[tok, j] = count[e] <= capacity
+    keep = keep.to(x.device)
+    rows = torch.arange(b * s, device=x.device)
+    y = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    for j in range(m.top_k):
+        y += torch.where(keep[:, j, None], w[:, j, None] * h[ids[:, j], rows].float(), 0.0)
+    return y.reshape(b, s, d), (~keep).sum(1).reshape(b, s)
+
+
+def md_compress(rank: int, dev) -> dict:
+    """dp_value_and_grad of the reference's test loss on (4, 1) meshes of the
+    card and of the CPU: compressed against exact, the card against the CPU."""
+    n, d_in, d_out = MD_COMPRESS
+    gen = torch.Generator().manual_seed(5)
+    w = torch.randn((d_in, d_out), generator=gen) / math.sqrt(d_in)
+    x, y = torch.randn((n, d_in), generator=gen), torch.randn((n, d_out), generator=gen)
+
+    def loss(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+    got = {}
+    for kind in ("cuda", "cpu"):
+        mesh = init_device_mesh(kind, (MD_RANKS, 1), mesh_dim_names=("data", "model"))
+        target = dev if kind == "cuda" else torch.device("cpu")
+        spec = rules_mod.batch_spec(n, mesh)
+        batch = {k: layout_mod.block_of(v, mesh, spec).to(target) for k, v in (("x", x), ("y", y))}
+        for name, compressed in (("exact", False), ("compressed", True)):
+            with collectives_mod.recording() as rec:
+                l, g = grad_compress_mod.dp_value_and_grad(loss, mesh, compressed=compressed)(
+                    {"w": w.to(target)}, batch)
+            got[kind, name] = (float(l), g["w"].cpu(), rec.summary())
+    # one step of one rank's payload (the largest rank's scale / n) with f32 slack: the card's
+    # and the CPU's gradients differ at f32 noise, which can move an entry of a rank's payload
+    # across a rounding boundary; a wrong rounding mode moves many entries by more
+    steps = [float((2.0 * xb.T @ (xb @ w - yb) / (xb.shape[0] * d_out)).abs().max()) / 127.0
+             / MD_RANKS for xb, yb in zip(x.chunk(MD_RANKS), y.chunk(MD_RANKS))]
+    step = max(steps) * (1 + MD_FLIP_SLACK)
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    apart = (got["cuda", "compressed"][1] - got["cpu", "compressed"][1]).abs()
+    out = {"rows": n, "shape": [d_in, d_out],
+           "compressed_vs_exact_rel": r6(rel(got["cuda", "compressed"][1], got["cuda", "exact"][1])),
+           "card_vs_cpu_exact_rel": r6(rel(got["cuda", "exact"][1], got["cpu", "exact"][1])),
+           "card_vs_cpu_compressed_max_abs": r6(float(apart.max())),
+           "card_vs_cpu_compressed_entries_flipped": int((apart > min(steps) / 2).sum()),
+           "one_step_of_the_largest_rank": r6(step),
+           "collectives": {"exact": got["cuda", "exact"][2],
+                           "compressed": got["cuda", "compressed"][2]}}
+    if out["compressed_vs_exact_rel"] >= MD_COMPRESS_REL:
+        fail(f"multi_device grad_compress: {out['compressed_vs_exact_rel']} from the exact mean")
+    if out["card_vs_cpu_exact_rel"] > MD_CPU_REL:
+        fail(f"multi_device grad_compress: the card's exact mean {out['card_vs_cpu_exact_rel']} "
+             "from the CPU's")
+    if float(apart.max()) > step:
+        fail(f"multi_device grad_compress: the card's compressed mean {float(apart.max())} from "
+             f"the CPU's, over one step of the largest rank {step}")
+    return out
+
+
+def md_train(rank: int, mesh22, dev) -> dict:
+    """granite-3-8b at full width, 2 layers, AdamW, 4 x 512 tokens on the
+    (2, 2) mesh for 3 steps, every step recorded; its final checkpoint (saved
+    from the mesh) restored onto a (4, 1) mesh for the next step."""
+    cfg, ds = md_data()
+    steps = MD_TRAIN["steps"]
+    tc = trainer_config("mesh", steps, checkpoint_every=steps + 1, keep=1,
+                        peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    rules = rules_mod.tensor_parallel_rules(fsdp=MD_FSDP)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with rules_mod.activate_mesh(mesh22, rules):  # the Trainer lays its state out by these rules
+        tr = FanInTrainer(cfg, ds, tc, mesh=mesh22)  # draws 11.2 GB, keeps 2.8
+    md_log(rank, "train: the (2, 2) Trainers built")
+    recs, step_fn = [], tr.step_fn
+
+    def recorded(*a):
+        with collectives_mod.recording() as rec:
+            out = step_fn(*a)
+        recs.append(rec.summary())
+        md_log(rank, f"train: step {a[-1]} done")
+        return out
+
+    tr.step_fn = recorded
+    stats = tr.run()
+    md_log(rank, "train: run and its checkpoint done")
+    rows = stats["metrics"]
+    m = step_fn(tr.params, tr.opt_state, tr.batch(steps), steps)[2]
+    next_22 = (float(m["loss"]), float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    analytic = train_loop_mod.step_collectives(cfg, mesh22, rules, ds.global_batch,
+                                               ds.seq_len).summary()
+    if any(sent(r) != analytic for r in recs):
+        fail(f"multi_device train: recorded {recs[0]}, analytic {analytic}")
+    del tr, step_fn, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh41 = init_device_mesh("cuda", (MD_RANKS, 1), mesh_dim_names=("data", "model"))
+    tc41 = dataclasses.replace(tc, num_steps=steps + 1)
+    with rules_mod.activate_mesh(mesh41, rules):
+        tr = FanInTrainer(cfg, ds, tc41, mesh=mesh41)
+    md_log(rank, "train: the (4, 1) Trainers built")
+    t0 = time.perf_counter()
+    start = tr._restore()
+    restore_s = time.perf_counter() - t0
+    md_log(rank, "train: restored onto (4, 1)")
+    m = tr.step_fn(tr.params, tr.opt_state, tr.batch(start), start)[2]
+    md_log(rank, "train: the (4, 1) step done")
+    out = {"losses": [r["loss"] for r in rows], "grad_norms": [r["grad_norm"] for r in rows],
+           "step_s": [r6(r["time_s"]) for r in rows], "restarts": stats["restarts"],
+           "next_2x2": next_22, "restored_4x1": {
+               "start": start, "next": (float(m["loss"]), float(m["grad_norm"])),
+               "restore_s": r6(restore_s)},
+           "peak_memory_gb": r6(peak / 1e9),
+           "collectives_a_step": {"recorded": recs[0], "analytic": analytic}}
+    del tr, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def md_rank(rank: int, world: int, part: str) -> dict:
+    """One rank of a multi_device world: ``part`` "mesh" (4 gloo ranks: the
+    MoE, the int8 all-reduce, the Trainer) or "nccl" (one NCCL rank)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    runtime.load_kernels()
+    if part == "nccl":
+        return md_nccl(dev)
+    mesh22 = init_device_mesh("cuda", MD_MESH, mesh_dim_names=("data", "model"))
+    out = {"rank": rank, "coordinate": list(mesh22.get_coordinate()), "seconds": {}}
+    for name, fn in (("moe", lambda: md_moe(rank, mesh22, dev)),
+                     ("grad_compress", lambda: md_compress(rank, dev)),
+                     ("train", lambda: md_train(rank, mesh22, dev))):
+        md_log(rank, f"{name} starts")
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out["seconds"][name] = r6(time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def md_nccl(dev) -> dict:
+    """A world of one NCCL rank: one all-reduce on the NCCL group, then the
+    Trainer of ``MD_NCCL_ARCH``'s reduced config on a (1, 1) mesh of the
+    card for 2 steps against ``mesh=None``,
+    bit for bit (deterministic kernels in this process)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    one = torch.ones((), device=dev)
+    torch.distributed.all_reduce(one)
+    if float(one) != 1.0:
+        fail("multi_device nccl: the all-reduce of one rank changed its value")
+    cfg = get_reduced_config(MD_NCCL_ARCH)  # the backend's path, not the width: (b) has that
+    ds = data_mod.SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=0)
+    got = {}
+    for name, mesh in (("mesh_none", None), ("mesh_1x1", "cuda")):
+        tc = trainer_config(f"nccl_{name}", 2, checkpoint_every=4, keep=1, peak_lr=TRAIN_LR,
+                            warmup_steps=TRAIN_WARMUP)
+        m = None if mesh is None else init_device_mesh(mesh, (1, 1),
+                                                       mesh_dim_names=("data", "model"))
+        tr = FanInTrainer(cfg, ds, tc, device=None if m else dev, mesh=m)
+        for step in range(2):  # no final checkpoint to write
+            tr._do_step(step)
+        rows = tr.metrics_log
+        state = tree_map(lambda t: t.to_local() if hasattr(t, "to_local") else t, tr._state())
+        got[name] = ([r["loss"] for r in rows], state_digest(state))
+        del tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(TRAIN_DIR / f"nccl_{name}", ignore_errors=True)
+    if got["mesh_none"] != got["mesh_1x1"]:
+        fail(f"multi_device nccl: the (1, 1) mesh's losses or state differ from mesh=None: "
+             f"{got['mesh_none'][0]} {got['mesh_1x1'][0]}")
+    return {"backend": torch.distributed.get_backend(), "arch": f"{MD_NCCL_ARCH} (reduced)",
+            "losses": got["mesh_none"][0], "state_leaves_bitwise_equal": len(got["mesh_none"][1])}
+
+
+def md_world(part: str, world: int, backend: str) -> list:
+    TRAIN_DIR.parent.mkdir(parents=True, exist_ok=True)
+    store = TRAIN_DIR.parent / f"store_{part}_{time.time_ns()}"
+    try:
+        return world_mod.run_world(md_rank, world, backend=backend, init_file=str(store),
+                                   device_type="cuda", args=(part,), timeout_s=600)
+    finally:
+        store.unlink(missing_ok=True)
+
+
+def drive_multi_device(dev) -> dict:
+    """The multi-device layer on the one card.  The ranks are processes over
+    gloo with CUDA tensors (NCCL refuses two ranks on one card); gloo's
+    collectives of CUDA tensors are staged through host memory at the
+    port's choke point, and the line names them.  (a) the MoE, (b) the
+    Trainer, (c) the int8 all-reduce in a world of 4; (d) a world of one
+    NCCL rank; (e) the dry-run CLI, a process of its own started first (it
+    uses no card, so it runs beside (a)-(d)).  The one-device Trainer of (b)
+    runs here before the world, and the mesh's checkpoint is restored here
+    after it."""
+    mode = smi_query("compute_mode")
+    if mode not in ("Default", "[N/A]"):
+        fail(f"multi_device: the card's compute mode {mode!r} refuses a second process")
+    dry_dir = TRAIN_DIR.parent / "dryrun"
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    dry_dir.mkdir(parents=True)
+    src = pathlib.Path(__file__).resolve().parent / "src"
+    t_cli = time.perf_counter()
+    with open(dry_dir / "stderr.txt", "w") as err:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", GRANITE,
+             "--shape", "train_4k", "--out", str(dry_dir)],
+            stdout=subprocess.DEVNULL, stderr=err, env={**os.environ, "PYTHONPATH": str(src)})
+    try:
+        return md_drive(dev, mode, cli, t_cli, dry_dir)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+        cli.wait()
+
+
+def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
+    """``drive_multi_device``'s phases, the dry-run CLI ``cli`` running."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    cfg, ds = md_data()
+    steps = MD_TRAIN["steps"]
+    t_one = time.perf_counter()
+    tc = trainer_config("one", steps, checkpoint_every=steps + 1, keep=1,
+                        peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    one = FanInTrainer(cfg, ds, tc, device=dev)
+    for step in range(steps):  # the mesh's schedule, and no final checkpoint to write
+        one._do_step(step)
+    m = one.step_fn(one.params, one.opt_state, one.batch(steps), steps)[2]
+    one_losses = [r["loss"] for r in one.metrics_log] + [float(m["loss"])]
+    one_norms = [r["grad_norm"] for r in one.metrics_log] + [float(m["grad_norm"])]
+    one_step_s = [r6(r["time_s"]) for r in one.metrics_log]
+    del one, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated(dev)
+    one_s = time.perf_counter() - t_one
+    md_log(0, "parent: the one-device Trainer done; spawning the ranks")
+
+    t0 = time.perf_counter()
+    ranks = md_world("mesh", MD_RANKS, "gloo")
+    world_s = time.perf_counter() - t0
+    md_log(0, "parent: the world of 4 joined")
+    train = [r["train"] for r in ranks]
+    mesh_losses, mesh_norms = train[0]["losses"], train[0]["grad_norms"]
+    # the gradient norm as well as the loss: AdamW divides each leaf's gradient by its own
+    # running scale, so a gradient summed or divided wrongly on the mesh shows in the norm alone
+    errs = [abs(a - b) / abs(b) for a, b in zip(mesh_losses + mesh_norms,
+                                                one_losses[:steps] + one_norms[:steps])]
+    if len(mesh_losses) != steps or max(errs) > TRAIN_REPLAY_TOL:
+        fail(f"multi_device train: mesh losses {mesh_losses} and gradient norms {mesh_norms}, "
+             f"one device {one_losses[:steps]} {one_norms[:steps]}")
+    if any(t["losses"] != mesh_losses or t["grad_norms"] != mesh_norms for t in train):
+        fail("multi_device train: the ranks logged different losses or gradient norms")
+
+    # the mesh's final checkpoint restored on one device: the next step
+    tc1 = trainer_config("mesh", steps + 1, checkpoint_every=steps + 2, keep=1,
+                         peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    t_fresh = time.perf_counter()
+    fresh = FanInTrainer(cfg, ds, tc1, device=dev)
+    start = fresh._restore()
+    m = fresh.step_fn(fresh.params, fresh.opt_state, fresh.batch(start), start)[2]
+    restored_one = (float(m["loss"]), float(m["grad_norm"]))
+    fresh_s = time.perf_counter() - t_fresh
+    del fresh, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (loss, gradient norm) of the step after the last
+    nexts = {"one_device_run": (one_losses[steps], one_norms[steps]),
+             "mesh_2x2": tuple(train[0]["next_2x2"]),
+             "restored_4x1": tuple(train[0]["restored_4x1"]["next"]),
+             "restored_one_device": restored_one}
+    want = nexts["mesh_2x2"]
+    if start != steps or any(t["restored_4x1"]["start"] != steps for t in train) or max(
+            abs(a - b) / abs(b) for v in nexts.values() for a, b in zip(v, want)
+    ) > TRAIN_REPLAY_TOL:
+        fail(f"multi_device train: the next step after the restores: {nexts}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    md_log(0, "parent: restored on one device; the NCCL world")
+    nccl = md_world("nccl", 1, "nccl")[0]
+    nccl_s = time.perf_counter() - t0
+    md_log(0, "parent: the NCCL world joined")
+    if cli.wait(timeout=MD_DRYRUN_TIMEOUT_S) != 0:
+        fail(f"multi_device: the dry-run CLI returned {cli.returncode}: "
+             f"{(dry_dir / 'stderr.txt').read_text()[-2000:]}")
+    cli_s = time.perf_counter() - t_cli
+    dry = json.loads((dry_dir / f"16x16__{GRANITE}__train_4k.json").read_text())
+    shutil.rmtree(dry_dir, ignore_errors=True)
+
+    moe = {mode: {"rank0": ranks[0]["moe"][mode],
+                  "k5_launches_by_rank": [r["moe"][mode]["k5_launches"] for r in ranks]}
+           for mode in MD_MOE_X}
+    expect_k5 = MD_K5_PER_CALL * len(MD_MOE_X) * MD_RANKS
+    k5 = sum(sum(m["k5_launches_by_rank"]) for m in moe.values())
+    staged = {}
+    for r in ranks:
+        for rec in [r["train"]["collectives_a_step"]["recorded"]] + [
+                r["moe"][m]["collectives"] for m in MD_MOE_X]:
+            for kind, n in rec.get("staged", {}).items():
+                staged[kind] = staged.get(kind, 0) + n
+    report = {
+        "ranks": MD_RANKS, "mesh": list(MD_MESH), "processes": "spawned", "backend": "gloo",
+        "compute_mode": mode, "staged_collectives": sorted(staged),
+        "coordinates": [r["coordinate"] for r in ranks], "rank0_seconds": ranks[0]["seconds"],
+        "parent_bytes_allocated_at_spawn": parent_bytes, "world_s": r6(world_s),
+        "one_device_run_s": r6(one_s), "one_device_restore_and_step_s": r6(fresh_s),
+        "moe": moe, "k5": {"launches": k5, "expected": expect_k5},
+        "train": {"arch": GRANITE, **MD_TRAIN, "losses_mesh": [r6(v) for v in mesh_losses],
+                  "losses_one_device": [r6(v) for v in one_losses[:steps]],
+                  "grad_norms_mesh": [r6(v) for v in mesh_norms],
+                  "grad_norms_one_device": [r6(v) for v in one_norms[:steps]],
+                  "rel_err_losses_then_norms": [r6(e) for e in errs],
+                  "next_step_loss_and_grad_norm": {
+                      k: [r6(x) for x in v] for k, v in nexts.items()},
+                  "step_s_rank0": train[0]["step_s"], "step_s_one_device": one_step_s,
+                  "peak_memory_gb_by_rank": [t["peak_memory_gb"] for t in train],
+                  "collectives_a_step": train[0]["collectives_a_step"],
+                  "restore_4x1_s": train[0]["restored_4x1"]["restore_s"]},
+        "grad_compress": ranks[0]["grad_compress"],
+        "nccl": {**nccl, "world_s": r6(nccl_s)},
+        "dryrun": {"returncode": cli.returncode, "seconds_to_join": r6(cli_s),
+                   "resident_gb_per_dev": dry["resident_gb_per_dev"],
+                   "fits_hbm_resident": dry["fits_hbm_resident"],
+                   "collective_bytes_per_dev": dry["collectives"]["analytic"]["total_bytes"],
+                   "null_fields": sorted(k for k, v in dry.items() if v is None)},
+    }
+    if k5 != expect_k5:
+        fail(f"multi_device: {k5} K5 launches on the sharded MoE, {expect_k5} expected")
+    return {"expect": {}, "report": report, "k5_launches": k5}
 
 
 # ---------------------------------------------------------------------------
@@ -5188,6 +5722,10 @@ def main(argv=None) -> int:
     decode_report["launches"] = counts_by_path["plan_decode"]
     plan = phase("plan", plan_report, train_report, decode_report)
     plan["decode"]["tick"] = decode_report
+    # the multi-device layer: its ranks count their own K5 launches around the sharded MoE
+    multi = phase("path:multi_device", drive_multi_device, dev)
+    multi_report = multi["report"]
+    k5_entry["launches_by_path"]["multi_device"] = multi["k5_launches"]
     examples_report = driven["examples"]["report"]
     examples_report["launches"] = counts_by_path["examples"]
     if examples_report["launches"].get("int8_matmul", 0) < 1:
@@ -5252,7 +5790,7 @@ def main(argv=None) -> int:
               "serve_scheduler": sched_report,
               "serve_moe": moe_report, "serve_ssm": ssm_report,
               "serve_audio": audio_report, "serve_vlm": vlm_report, "train": train_report,
-              "plan": plan, "examples": examples_report,
+              "plan": plan, "examples": examples_report, "multi_device": multi_report,
               "int8_path_shapes": path_shapes, "host_path": host,
               "chip_model": chip_model,
               "tuner": tuner, "energy": energy,
@@ -5279,6 +5817,7 @@ def main(argv=None) -> int:
     print("train " + json.dumps(train_summary(train_report)), flush=True)
     print("plan " + json.dumps(plan_summary(plan)), flush=True)
     print("examples " + json.dumps(examples_summary(examples_report)), flush=True)
+    print("multi_device " + json.dumps(multi_report), flush=True)
     print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)

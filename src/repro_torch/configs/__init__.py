@@ -10,6 +10,7 @@ from repro_torch.configs.base import (  # noqa: F401
     SSMConfig,
     get_config,
     get_reduced_config,
+    input_specs,
     list_archs,
     register,
 )

@@ -4,8 +4,8 @@ Each architecture gets one module in this package defining an
 ``ArchConfig`` with the exact published dimensions, registered under its id.
 ``reduced()`` derives the CPU test config (same family, tiny dims).  The
 fields are the JAX package's, one for one, with torch dtypes in place of jnp
-ones.  ``input_specs`` (abstract, sharded stand-ins for the multi-device dry
-run) has no single-device meaning and is not ported.
+ones.  ``input_specs`` gives a cell's abstract inputs (shapes, dtypes and
+specs: ``models.params.AbstractLeaf``), the dry run's.
 """
 from __future__ import annotations
 
@@ -162,3 +162,67 @@ def get_reduced_config(name: str) -> ArchConfig:
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (abstract stand-ins with specs, zero allocation)
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ArchConfig, shape_id: str, mesh=None) -> dict[str, Any]:
+    """Abstract inputs for one (arch × shape) cell, as ``AbstractLeaf``s.
+
+    train  → {tokens, labels [, frontend_embeds]}
+    prefill→ {tokens [, frontend_embeds]}
+    decode → {token, pos, cache} — cache specs come from serving.kv_cache.
+
+    With a mesh, the batch dim is sharded by ``batch_spec`` under the active
+    rules and the cache by ``_cache_spec``.
+    """
+    from repro_torch.models.params import AbstractLeaf, abstract_params
+    from repro_torch.serving.kv_cache import cache_defs
+    from repro_torch.sharding.rules import active_rules, batch_spec
+
+    shape = SHAPES[shape_id]
+    b, s = shape["global_batch"], shape["seq_len"]
+
+    def leaf(shp, dtype):
+        if mesh is None:
+            return AbstractLeaf(shp, dtype)
+        return AbstractLeaf(shp, dtype, batch_spec(shp[0], mesh, extra_dims=len(shp) - 1))
+
+    out: dict[str, Any] = {}
+    kind = shape["kind"]
+    if kind in ("train", "prefill"):
+        out["tokens"] = leaf((b, s), torch.int32)
+        if kind == "train":
+            out["labels"] = leaf((b, s), torch.int32)
+        if cfg.frontend == "vision":
+            out["frontend_embeds"] = leaf((b, cfg.frontend_seq, cfg.d_model), cfg.dtype)
+        if cfg.frontend == "audio":
+            out["frontend_embeds"] = leaf((b, cfg.encoder_seq, cfg.d_model), cfg.dtype)
+    else:  # decode: one new token against a seq_len KV cache
+        out["token"] = leaf((b, 1), torch.int32)
+        out["pos"] = AbstractLeaf((), torch.int32, None if mesh is None else ())
+        defs = cache_defs(cfg, batch=b, max_len=s)
+        rules = active_rules()
+        if mesh is None:
+            out["cache"] = abstract_params(defs)
+        else:
+            out["cache"] = abstract_params(defs, lambda d: _cache_spec(d, b, mesh, rules))
+    return out
+
+
+def _cache_spec(d, batch: int, mesh, rules) -> tuple:
+    """KV-cache spec: batch dim over DP axes (if divisible), seq over TP."""
+    from repro_torch.sharding.rules import axis_sizes, batch_axes, spec_for
+
+    base = spec_for(d, mesh, rules)
+    axes = batch_axes(mesh)
+    sizes = axis_sizes(mesh)
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    entries = list(base)
+    for i, (dim, logical) in enumerate(zip(d.shape, d.logical)):
+        if logical == "batch" and dim % size == 0 and size > 1:
+            entries[i] = axes if len(axes) > 1 else axes[0]
+    return tuple(entries)

@@ -1,36 +1,47 @@
-"""Mixture-of-Experts, on one device.
+"""Mixture-of-Experts with expert parallelism.
 
-The JAX package has three execution paths, chosen by the mesh:
+Three execution paths, chosen by the active mesh (``sharding.rules.
+activate_mesh``), as in the JAX package:
 
   dense  — every expert on every token, weighted by top-k gates. Exact, no
-           mesh needed; what the JAX package runs on one device.
-  gather — all_gather the (few) tokens over the expert-sharding axes.
-  a2a    — capacity-bucketed scatter into per-expert slots, all_to_all over
-           the expert-sharding axes, local expert GEMMs, reverse all_to_all.
+           mesh needed (or a mesh of one rank); the numerical oracle.
+  gather — all_gather the (few) tokens over the expert-sharding axes that
+           shard tokens, each rank computes its local expert shard for all
+           of them, then sums over the expert axes. No capacity drops; right
+           for decode steps.
+  a2a    — sequence-split tokens over the "model" axis, capacity-bucketed
+           scatter into per-expert slots, all_to_all over the expert-sharding
+           axes (one hop an axis), local expert GEMMs, reverse all_to_all,
+           weighted combine, all_gather back to the full sequence.
 
-The port runs on one device, so :func:`moe_apply` takes the dense path, as
-the JAX package does with no mesh; given a mesh it raises (the sharded
-bodies wait for ROADMAP Queue A item 14).  The per-device pieces of the a2a
-path that are plain tensor functions (:func:`_positions_in_expert`,
-:func:`_dispatch_local`, :func:`_combine_local`) are here, held to the JAX
-package by the tests.  Every shape is static (capacity-overflow tokens go to
-a scratch row, not through a data-dependent index), so a CUDA graph can
-capture each of them.
+The port runs SPMD, one process a rank: under a mesh, ``moe_apply`` takes
+the rank's own block of tokens (its ``batch_spec`` slice) and the rank's own
+experts (``_e_spec``: the expert axis sharded over the chosen expert axes,
+in ``_ep_rank`` order), and returns the rank's block of y and the
+aux loss averaged over every rank, as the reference's ``shard_map`` body
+does.  Its collectives go through ``core.collectives`` and carry gradients.
+Every shape is static (capacity-overflow tokens go to a scratch row, not
+through a data-dependent index), so a CUDA graph can capture the local
+pieces.
 
 Expert weights are stacked (E_pad, d, f); E is padded at config time and the
 padding experts are masked in the router.  The three expert einsums go
 through ``qeinsum`` with the expert axis as its batch label: with int8
-weights, each is ONE launch of ``int8_matmul`` over the expert axis, and the
-dense path's token block, shared by every expert, is quantized once.
+weights, each is ONE launch of ``int8_matmul`` over the rank's experts, and
+the dense path's token block, shared by every expert, is quantized once.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import collectives as C
 from repro_torch.models.params import ParamDef
-from repro_torch.models.quant import qeinsum
+from repro_torch.models.quant import QuantTensor, qeinsum
+from repro_torch.sharding.rules import active_mesh, axis_sizes, batch_axes
 
 
 def _epad(cfg: ArchConfig) -> int:
@@ -125,7 +136,7 @@ def _moe_dense(params, x, cfg: ArchConfig):
 
 
 # ---------------------------------------------------------------------------
-# per-device pieces of the a2a path
+# sharded paths (run on each rank, on its shard)
 # ---------------------------------------------------------------------------
 def _positions_in_expert(ids_flat, ep: int):
     """Slot index of each assignment within its expert's capacity bucket."""
@@ -164,14 +175,177 @@ def _combine_local(buf_out, route, t: int, d: int, dtype):
     return y.index_add_(0, tok_idx, contrib).to(dtype)
 
 
-def moe_apply(params, x, cfg: ArchConfig, mesh=None):
-    """Returns (y, aux_loss): the dense path, as the JAX package runs it
-    with no mesh.  The sharded paths (gather, a2a) need a mesh and are not
-    ported."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded MoE paths (gather, a2a) are not ported yet "
-                                  "(ROADMAP Queue A item 14)")
-    y, aux = _moe_dense(params, x, cfg)
-    if cfg.moe.num_shared:
+def _a2a_to_experts(buf, mesh, ep_axes):
+    """(E_pad, C, D) on each rank → (E_loc, C·n_ep, D) on each expert's owner.
+
+    One all_to_all hop per expert-sharding mesh axis: split the expert axis,
+    concatenate received contributions along the capacity axis (source-rank
+    major) — the concat order is undone exactly by ``_a2a_from_experts``.
+    """
+    for ax in ep_axes:
+        buf = C.all_to_all(buf, mesh, ax, split_dim=0, concat_dim=1)
+    return buf
+
+
+def _a2a_from_experts(buf, mesh, ep_axes):
+    for ax in reversed(ep_axes):
+        buf = C.all_to_all(buf, mesh, ax, split_dim=1, concat_dim=0)
+    return buf
+
+
+def _ep_rank(ep_axes, mesh) -> int:
+    """The rank's index among the expert owners: its coordinates on
+    ``ep_axes``, row-major in ``ep_axes`` order."""
+    sizes = axis_sizes(mesh)
+    idx = 0
+    for ax in ep_axes:
+        idx = idx * sizes[ax] + C.axis_index(mesh, ax)
+    return idx
+
+
+def _moe_sharded_body(params, x, cfg: ArchConfig, mesh, ep_axes, mode, tp_split):
+    """Per-rank body. x: (B_l, S, D), the rank's shard; the expert leaves
+    the rank's ``e_loc`` experts."""
+    m = cfg.moe
+    ep = _epad(cfg)
+    sizes = axis_sizes(mesh)
+    b_l, s, d = x.shape
+    t_all = b_l * s
+    xf = x.reshape(t_all, d)
+    n_ep = math.prod(sizes[a] for a in ep_axes)
+    e_loc = ep // n_ep
+
+    if mode == "gather":
+        # Few tokens: replicate them across the EP axes that shard tokens,
+        # compute the local expert shard for all of them, sum-combine.
+        gather_axes = tuple(a for a in ep_axes if a in batch_axes(mesh))
+        xg = xf
+        for ax in gather_axes:
+            xg = C.all_gather(xg, mesh, ax, dim=0)
+        tg = xg.shape[0]
+        w, ids, probs = _router(params, xg, cfg)
+        h = _expert_ffn(params["wg"], params["wu"], params["wd"],
+                        xg[None].expand(e_loc, tg, d), cfg)
+        gates = torch.zeros((tg, ep), dtype=torch.float32, device=x.device)
+        gates = gates.scatter(1, ids, w)
+        e_start = _ep_rank(ep_axes, mesh) * e_loc
+        g_loc = gates[:, e_start:e_start + e_loc]
+        y = torch.einsum("te,etd->td", g_loc.to(x.dtype), h)
+        y = C.all_reduce(y, mesh, ep_axes)
+        # slice own token block back out (inverse of the all_gathers)
+        for ax in reversed(gather_axes):
+            blk = y.shape[0] // sizes[ax]
+            i = C.axis_index(mesh, ax)
+            y = y[i * blk:(i + 1) * blk]
+        aux = _aux_loss(probs, ids, cfg)
+    else:  # a2a
+        r = C.axis_index(mesh, "model") if tp_split > 1 else 0
+        t = t_all // tp_split
+        xt = xf[r * t:(r + 1) * t]
+        capacity = max(1, int(math.ceil(t * m.top_k / m.num_experts * m.capacity_factor)))
+        buf, route, (probs, ids) = _dispatch_local(params, xt, cfg, capacity)
+        buf = _a2a_to_experts(buf, mesh, ep_axes)  # (e_loc, C·n_ep, D)
+        h = _expert_ffn(params["wg"], params["wu"], params["wd"], buf, cfg)
+        buf_out = _a2a_from_experts(h, mesh, ep_axes)  # (E_pad, C, D)
+        y = _combine_local(buf_out, route, t, d, x.dtype)
+        if tp_split > 1:
+            y = C.all_gather(y, mesh, "model", dim=0)  # (t_all, D)
+        aux = _aux_loss(probs, ids, cfg)
+
+    y = y.reshape(b_l, s, d)
+    if m.num_shared:
         y = y + _shared_ffn(params["shared"], x, cfg)
+    denom = torch.full((), math.prod(sizes.values()), dtype=torch.float32, device=x.device)
+    aux = C.all_reduce(aux, mesh, tuple(sizes)) / denom
     return y, aux
+
+
+def sharded_plan(cfg: ArchConfig, mesh, local_batch: int, seq: int) -> tuple:
+    """(ep_axes, mode, tp_split) for a rank's (local_batch, seq) block of
+    tokens on ``mesh``: the reference's choice, from its arithmetic."""
+    m = cfg.moe
+    ep = _epad(cfg)
+    sizes = axis_sizes(mesh)
+    # expert-sharding axes actually available on this mesh
+    ep_axes = tuple(a for a in m.ep_axes if a in sizes and sizes[a] > 1)
+    n_ep = math.prod(sizes[a] for a in ep_axes)
+    while ep_axes and ep % n_ep != 0:
+        ep_axes = ep_axes[1:]
+        n_ep = math.prod(sizes[a] for a in ep_axes)
+    t_all = local_batch * seq
+    tp = sizes.get("model", 1)
+    if "model" in batch_axes(mesh):  # fsdp_only: tokens already sharded over "model" as DP
+        tp = 1
+    tp_split = tp if (t_all % tp == 0 and t_all // tp >= 64) else 1
+    t = t_all // tp_split
+    mode = "a2a" if (ep_axes and t >= 64 and t * m.top_k >= 2 * m.num_experts) else "gather"
+    return ep_axes, mode, tp_split
+
+
+def moe_apply(params, x, cfg: ArchConfig):
+    """Returns (y, aux_loss). Picks dense / gather / a2a from the active mesh;
+    under a mesh of more than one rank, ``x`` and the expert leaves are the
+    rank's shards (module docstring)."""
+    mesh = active_mesh()
+    m = cfg.moe
+    if mesh is None or math.prod(axis_sizes(mesh).values()) == 1:
+        y, aux = _moe_dense(params, x, cfg)
+        if m.num_shared:
+            y = y + _shared_ffn(params["shared"], x, cfg)
+        return y, aux
+    ep_axes, mode, tp_split = sharded_plan(cfg, mesh, x.shape[0], x.shape[1])
+    e_loc = _epad(cfg) // math.prod(axis_sizes(mesh)[a] for a in ep_axes)
+    wg = params["wg"]
+    held = (wg.q if isinstance(wg, QuantTensor) else wg).shape[0]
+    if held != e_loc:
+        raise ValueError(f"the rank holds {held} experts, the mesh gives it {e_loc} (_e_spec)")
+    return _moe_sharded_body(params, x, cfg, mesh, ep_axes, mode, tp_split)
+
+
+def _e_spec(ep_axes) -> tuple:
+    """Spec of the stacked expert leaves (E_pad, ., .): E over ``ep_axes``."""
+    if not ep_axes:
+        return (None, None, None)
+    return (ep_axes if len(ep_axes) > 1 else ep_axes[0], None, None)
+
+
+def moe_collectives(cfg: ArchConfig, mesh, local_batch: int, seq: int, dtype,
+                    *, backward: bool = False):
+    """What one ``moe_apply`` call sends from each rank (its forward, and
+    with ``backward`` its gradient's transposes), counted from the plan and
+    the shapes: a ``core.collectives.CollectiveStats``."""
+    stats = C.CollectiveStats()
+    sizes = axis_sizes(mesh)
+    if math.prod(sizes.values()) == 1:
+        return stats
+    m = cfg.moe
+    ep = _epad(cfg)
+    ep_axes, mode, tp_split = sharded_plan(cfg, mesh, local_batch, seq)
+    item = torch.empty((), dtype=dtype).element_size()
+    d = cfg.d_model
+    t_all = local_batch * seq
+    passes = 2 if backward else 1
+    if mode == "gather":
+        t = t_all
+        for ax in (a for a in ep_axes if a in batch_axes(mesh)):
+            if sizes[ax] > 1:  # all-gather forward, reduce-scatter (of n× the rows) back
+                stats.add("all-gather", t * d * item)
+                if backward:
+                    stats.add("reduce-scatter", t * sizes[ax] * d * item)
+            t *= sizes[ax]
+        for ax in ep_axes:
+            stats.add("all-reduce", t * d * item, passes)
+    else:
+        t = t_all // tp_split
+        capacity = max(1, int(math.ceil(t * m.top_k / m.num_experts * m.capacity_factor)))
+        buf = ep * capacity * d * item  # every hop moves the same bytes
+        for ax in ep_axes:
+            stats.add("all-to-all", buf, 2 * passes)
+        if tp_split > 1:
+            stats.add("all-gather", t * d * item)
+            if backward:
+                stats.add("reduce-scatter", t_all * d * item)
+    for ax in sizes:
+        if sizes[ax] > 1:
+            stats.add("all-reduce", 4, passes)  # the aux loss, f32
+    return stats

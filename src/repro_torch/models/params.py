@@ -7,10 +7,9 @@ Every model module declares its parameters once as a tree of ``ParamDef``
 counts.  :func:`params_from_numpy` carries a tree of numpy arrays, such as
 the JAX package's parameters, into tensors on a device: bfloat16 arrays bit
 for bit, and quantized weights (a pair with fields ``q`` and ``scale``) as
-the port's ``models.quant.QuantTensor``.
-
-The sharding-side derivations of the reference (abstract parameter trees,
-partition specs) are not ported yet.
+the port's ``models.quant.QuantTensor``.  :func:`abstract_params` gives
+the tree's shapes, dtypes and specs with nothing allocated, and
+:func:`param_specs` its specs (``sharding.rules``).
 """
 from __future__ import annotations
 
@@ -163,6 +162,38 @@ def params_from_numpy(tree: Pytree, device=None) -> Pytree:
         return _tensor_from_numpy(a, dev)
 
     return tree_map(leaf, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractLeaf:
+    """A tensor's shape, dtype and spec (one entry a dim, as
+    ``sharding.rules.spec_for`` gives; ``None`` unsharded), with no storage:
+    the port's ``jax.ShapeDtypeStruct`` with a sharding."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+    spec: tuple | None = None
+
+    def shard_shape(self, mesh) -> tuple[int, ...]:
+        """The block each rank of ``mesh`` holds (``mesh``: a ``DeviceMesh`` or
+        a ``sharding.rules.MeshShape``)."""
+        if self.spec is None:
+            return tuple(self.shape)
+        from repro_torch.sharding.rules import shard_shape
+
+        return shard_shape(self.shape, self.spec, mesh)
+
+
+def abstract_params(defs: Pytree, spec_fn: Callable[[ParamDef], Any] | None = None) -> Pytree:
+    """``AbstractLeaf`` tree (with ``spec_fn(d)``'s spec when given) — zero
+    allocation."""
+    return tree_map(lambda d: AbstractLeaf(tuple(d.shape), d.dtype,
+                                           None if spec_fn is None else spec_fn(d)), defs)
+
+
+def param_specs(defs: Pytree, spec_fn: Callable[[ParamDef], Any]) -> Pytree:
+    """Spec tree matching the ParamDef tree."""
+    return tree_map(spec_fn, defs)
 
 
 def count_params(defs: Pytree) -> int:

@@ -6,13 +6,30 @@ on one device: microbatch gradient accumulation (``accum``, a loop over
 batch slices where the reference scans), AdamW / Adafactor by
 ``cfg.optimizer``, the cosine schedule and the global-norm clip.  The params
 and the optimizer state are updated in place (the reference donates them)
-and returned.  The reference's mesh argument and its sharding helpers
-(``state_shardings``, ``abstract_state``) wait for multi-device training,
-ROADMAP Queue A item 14.
+and returned.  ``state_shardings`` and ``abstract_state`` lay the state out
+on a mesh by the sharding rules, as the reference's do.
 
 ``Trainer`` drives it: data → step → metrics / checkpoints / fault handling
 (checkpoint every N steps on a thread, straggler detection, restart on a
 ``WorkerFailure`` with the data replayed from the restored step).
+
+On a mesh (``Trainer(..., mesh=)``, SPMD: every rank of the mesh runs the
+same Trainer) the params and the optimizer state are DTensors laid out by
+``state_shardings``, each rank holding its shard, and each rank trains on its
+``batch_spec`` slice of ``make_batch``.  The reference's GSPMD
+tensor-parallel compute is not ported (a deliberate difference): for the
+step each rank gathers every leaf whole, except the MoE expert leaves,
+which it lays out by the expert axes the sharded MoE body takes
+(``_compute_spec``).  Every rank's backward starts from its own loss; the
+collectives carry their transposes, so a leaf's gradient is the sum over the
+ranks that share its block, divided by the mesh size (``_grad_plan``): a
+reduce-scatter over an axis that splits the leaf's storage, an all-reduce
+over one that does not, or over the DP axes the int8 all-reduce
+(``TrainerConfig.grad_compress``), in the gradient's dtype.  Each rank then keeps its shard:
+the global-norm clip all-reduces the shards' sums of squares, each block
+counted once; AdamW updates the local shards; Adafactor's factored moments
+come from the whole gradient, and each rank keeps its shard of them.
+``step_collectives`` counts what a step sends.
 """
 from __future__ import annotations
 
@@ -21,19 +38,47 @@ import os
 import tempfile
 import time
 
+import math
+
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import collectives as C
 from repro_torch.data.pipeline import SyntheticLM, make_batch
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import moe
 from repro_torch.models.model import init_model, param_defs, train_loss
-from repro_torch.models.params import tree_flatten, tree_unflatten
+from repro_torch.models.params import (
+    ParamDef,
+    abstract_params,
+    tree_flatten,
+    tree_map,
+    tree_unflatten,
+)
+from repro_torch.sharding import layout
+from repro_torch.sharding.rules import (
+    ShardingRules,
+    activate_mesh,
+    active_rules,
+    axis_sizes,
+    batch_axes,
+    batch_spec,
+    entry_axes,
+    spec_for,
+    spec_placements,
+)
+from repro_torch.training import grad_compress
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.fault import StragglerDetector, WorkerFailure, run_with_restarts
 from repro_torch.training.optimizer import (
+    CLIP_NORM,
     Schedule,
+    adafactor_update,
+    adamw_update,
     clip_by_global_norm,
     init_opt_state,
+    opt_state_defs,
     opt_update,
 )
 
@@ -94,6 +139,282 @@ def make_train_step(cfg: ArchConfig, schedule: Schedule | None = None, *, accum:
 
 
 # ---------------------------------------------------------------------------
+# Sharding helpers
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """The reference's ``NamedSharding``: a mesh and a spec, with its DTensor
+    placements."""
+
+    mesh: object
+    spec: tuple
+
+    @property
+    def placements(self) -> list:
+        return spec_placements(self.spec, self.mesh)
+
+
+def state_shardings(cfg: ArchConfig, mesh, rules: ShardingRules):
+    """``Sharding``s for (params, opt_state) from their ParamDef trees."""
+    defs = param_defs(cfg)
+    odefs = opt_state_defs(cfg.optimizer, defs)
+    fn = lambda d: Sharding(mesh, spec_for(d, mesh, rules))  # noqa: E731
+    return tree_map(fn, defs), tree_map(fn, odefs)
+
+
+def abstract_state(cfg: ArchConfig, mesh, rules: ShardingRules):
+    """(params, opt_state) as ``AbstractLeaf``s with their specs — dry-run inputs."""
+    defs = param_defs(cfg)
+    odefs = opt_state_defs(cfg.optimizer, defs)
+    fn = lambda d: spec_for(d, mesh, rules)  # noqa: E731
+    return abstract_params(defs, fn), abstract_params(odefs, fn)
+
+
+def _is_expert(path: tuple) -> bool:
+    """A stacked expert leaf: ``.../moe/{wg,wu,wd}``."""
+    return len(path) >= 2 and path[-2] == "moe" and path[-1] in ("wg", "wu", "wd")
+
+
+def _paths(tree, prefix=()) -> list:
+    """Each leaf's key path, in ``tree_flatten``'s order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return [p for i, v in enumerate(tree) for p in _paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def _compute_spec(cfg: ArchConfig, path: tuple, d: ParamDef, mesh, local_batch: int,
+                  seq: int) -> tuple:
+    """The layout a leaf takes for the step: whole, or for an expert leaf
+    its expert dim over the expert axes ``moe_apply`` picks for the rank's
+    tokens."""
+    spec = [None] * len(d.shape)
+    if _is_expert(path):
+        ep_axes = moe.sharded_plan(cfg, mesh, local_batch, seq)[0]
+        spec[d.logical.index("experts")] = moe._e_spec(ep_axes)[0]
+    return tuple(spec)
+
+
+@dataclasses.dataclass
+class MeshLayout:
+    """Where each state leaf lives on ``mesh`` (its storage spec) and the
+    layout the step computes it in, with the rank's batch slice."""
+
+    cfg: ArchConfig
+    mesh: object
+    rules: ShardingRules
+    global_batch: int
+    seq: int
+    accum: int = 1
+
+    def __post_init__(self):
+        defs = param_defs(self.cfg)
+        odefs = opt_state_defs(self.cfg.optimizer, defs)
+        self.param_defs = tree_flatten(defs)
+        self.opt_defs = tree_flatten(odefs)
+        self.param_specs = [spec_for(d, self.mesh, self.rules) for d in self.param_defs]
+        self.opt_specs = [spec_for(d, self.mesh, self.rules) for d in self.opt_defs]
+        self.batch_spec = batch_spec(self.global_batch, self.mesh, rules=self.rules)
+        sizes = axis_sizes(self.mesh)
+        self.local_batch = self.global_batch // math.prod(
+            sizes[a] for a in entry_axes(self.batch_spec[0]))
+        mb = self.local_batch // self.accum
+        self.compute_specs = [_compute_spec(self.cfg, p, d, self.mesh, mb, self.seq)
+                              for p, d in zip(_paths(defs), self.param_defs)]
+        self.dp = batch_axes(self.mesh, self.rules)
+
+    def shard(self, tree, specs) -> list:
+        """DTensors of this rank's blocks of the whole tensors in ``tree``."""
+        return [DTensor.from_local(layout.block_of(t, self.mesh, sp).contiguous(), self.mesh,
+                                   spec_placements(sp, self.mesh), run_check=False)
+                for t, sp in zip(tree_flatten(tree), specs)]
+
+    def batch_slice(self, batch: dict) -> dict:
+        return {k: layout.block_of(v, self.mesh, self.batch_spec + (None,) * (v.dim() - 2))
+                for k, v in batch.items()}
+
+    def reduce_grad(self, g: torch.Tensor, spec, store, compressed: bool) -> torch.Tensor:
+        """This rank's shard (layout ``store``) of the step's gradient of a
+        leaf computed in layout ``spec``: the sum over the ranks that share
+        its block (``_grad_plan``), divided by the mesh size, in the
+        gradient's dtype (the int8 path quantizes from f32)."""
+        sizes = axis_sizes(self.mesh)
+        ops, now, dp = _grad_plan(spec, store, sizes, self.dp, compressed)
+        for axis, dim in ops:
+            g = (C.all_reduce(g, self.mesh, axis) if dim is None
+                 else C.reduce_scatter(g, self.mesh, axis, dim))
+        n = math.prod(sizes.values()) // math.prod(sizes[a] for a in dp)
+        g = g / torch.full((), n, dtype=torch.float32, device=g.device)
+        if compressed:
+            g = grad_compress._int8_pmean(g, self.mesh, dp)
+        return layout.relayout(g, self.mesh, now, store)
+
+
+def _grad_plan(spec, store, sizes: dict, dp_axes, compressed: bool) -> tuple:
+    """How a gradient computed in layout ``spec`` is summed over the axes
+    that replicate it: ``[(axis, dim)]`` in mesh order, a reduce-scatter
+    along ``dim`` where the storage layout ``store`` splits ``dim`` over
+    ``axis`` next, an all-reduce (``dim`` None) elsewhere; the layout it
+    ends in; and, with ``compressed``, the DP axes left to the int8 mean."""
+    now = [entry_axes(e) for e in spec]
+    used = {a for e in now for a in e}
+    ops, dp = [], []
+    for axis in sizes:
+        if axis in used:
+            continue
+        if compressed and axis in dp_axes:
+            dp.append(axis)
+            continue
+        dim = next((i for i, e in enumerate(store)
+                    if entry_axes(e)[:len(now[i]) + 1] == now[i] + (axis,)), None)
+        if dim is not None:
+            now[dim] = now[dim] + (axis,)
+        ops.append((axis, dim))
+    spec_now = tuple(None if not a else (a[0] if len(a) == 1 else a) for a in now)
+    return ops, spec_now, tuple(dp)
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _global_norm(grads: list, specs: list, mesh) -> torch.Tensor:
+    """The norm of the whole gradient from the ranks' shards: each block's
+    sum of squares counted by one rank (``layout.first_replica``), summed
+    over the mesh."""
+    dev = grads[0].device
+    sq = torch.zeros((), dtype=torch.float32, device=dev)
+    for g, sp in zip(grads, specs):
+        if layout.first_replica(mesh, sp):
+            sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+    return torch.sqrt(C.all_reduce(sq, mesh, tuple(axis_sizes(mesh))))
+
+
+def make_mesh_step(cfg: ArchConfig, lay: MeshLayout, schedule: Schedule | None = None, *,
+                   compressed: bool = False):
+    """Returns train_step(params, opt_state, batch, step) for one rank of
+    ``lay.mesh``: the state trees of DTensors (updated in place on their
+    local shards), ``batch`` the rank's slice.  The metrics are the mesh's
+    means."""
+    schedule = schedule or Schedule()
+    mesh = lay.mesh
+
+    def train_step(params, opt_state, batch, step):
+        with torch.no_grad():
+            compute = [layout.relayout(_local(p), mesh, s, c)
+                       for p, s, c in zip(tree_flatten(params), lay.param_specs,
+                                          lay.compute_specs)]
+        with activate_mesh(mesh, lay.rules):
+            _, metrics, grads = loss_and_grads(cfg, tree_unflatten(params, compute), batch,
+                                               lay.accum)
+        del compute
+        with torch.no_grad():
+            names = sorted(metrics)
+            stacked = torch.stack([metrics[k].to(torch.float32) for k in names])
+            stacked = C.all_reduce(stacked, mesh, tuple(axis_sizes(mesh))) / torch.full(
+                (), mesh.size(), dtype=torch.float32, device=stacked.device)
+            metrics = dict(zip(names, stacked.unbind(0)))
+            shards = [lay.reduce_grad(g, c, s, compressed) for g, c, s in
+                      zip(tree_flatten(grads), lay.compute_specs, lay.param_specs)]
+            del grads
+            gnorm = _global_norm(shards, lay.param_specs, mesh)
+            scale = torch.clamp_max(torch.full_like(gnorm, CLIP_NORM)
+                                    / torch.clamp_min(gnorm, 1e-9), 1.0)
+            lr = schedule(step)
+            local_params = [_local(p) for p in tree_flatten(params)]
+            shards = [(g.to(torch.float32) * scale).to(p.dtype)
+                      for g, p in zip(shards, local_params)]
+            if cfg.optimizer == "adamw":
+                local_state = tree_unflatten(opt_state, [_local(t) for t in
+                                                         tree_flatten(opt_state)])
+                adamw_update(tree_unflatten(params, local_params),
+                             tree_unflatten(params, shards), local_state, lr)
+            else:
+                _adafactor_on_mesh(lay, params, opt_state, shards, lr)
+        return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
+
+    return train_step
+
+
+def _adafactor_on_mesh(lay: MeshLayout, params, opt_state, shards, lr) -> None:
+    """Adafactor from the whole tensors: gather the params, the gradient and
+    the moments, update them whole, keep this rank's shards."""
+    mesh = lay.mesh
+    whole = lambda ts, specs: [layout.full(_local(t), mesh, s)  # noqa: E731
+                               for t, s in zip(ts, specs)]
+    p_all = whole(tree_flatten(params), lay.param_specs)
+    g_all = whole(shards, lay.param_specs)
+    o_leaves = tree_flatten(opt_state)
+    o_all = whole(o_leaves, lay.opt_specs)
+    state = tree_unflatten(opt_state, o_all)
+    adafactor_update(tree_unflatten(params, p_all), tree_unflatten(params, g_all), state, lr)
+    for t, w, s in zip(tree_flatten(params) + o_leaves, p_all + o_all,
+                       lay.param_specs + lay.opt_specs):
+        _local(t).copy_(layout.block_of(w, mesh, s))
+
+
+def step_collectives(cfg: ArchConfig, mesh, rules: ShardingRules, global_batch: int,
+                     seq: int, *, accum: int = 1, compressed: bool = False,
+                     dtype=None) -> C.CollectiveStats:
+    """What one ``make_mesh_step`` step sends from each rank, counted from
+    the layouts and shapes: the weight gathers, the sharded MoE layers
+    (forward, the recomputed forward under remat, backward, each microbatch),
+    the metrics' means, the gradients' sums and means, the relayout back to
+    the shards, the norm, and Adafactor's gathers.  ``dtype``: the params'
+    and the activations' dtype where it is not the ParamDefs' and the
+    config's (a state cast to f32)."""
+    lay = MeshLayout(cfg, mesh, rules, global_batch, seq, accum)
+    stats = C.CollectiveStats()
+    sizes = axis_sizes(mesh)
+    if math.prod(sizes.values()) == 1:
+        return stats
+    pdt = lambda d: dtype or d.dtype  # noqa: E731
+    for d, s, c in zip(lay.param_defs, lay.param_specs, lay.compute_specs):
+        layout.relayout_sends(d.shape, pdt(d), mesh, s, c, stats)
+    moe_layers = cfg.num_layers - cfg.first_k_dense if cfg.moe is not None else 0
+    if moe_layers:
+        mb = lay.local_batch // accum
+        act = dtype or cfg.dtype
+        passes = moe.moe_collectives(cfg, mesh, mb, seq, act, backward=True)
+        fwd = moe.moe_collectives(cfg, mesh, mb, seq, act)
+        times = moe_layers * accum
+        for part, n in ((passes, times), (fwd, times if cfg.remat != "none" else 0)):
+            for k in part.counts:
+                stats.add(k, part.operand_bytes[k] // part.counts[k], part.counts[k] * n)
+    n_metrics = 3 + (1 if cfg.mtp else 0)
+    live = [a for a in sizes if sizes[a] > 1]
+    for _ in live:
+        stats.add("all-reduce", 4 * n_metrics)
+    for d, s, c in zip(lay.param_defs, lay.param_specs, lay.compute_specs):
+        block = [dim // math.prod(sizes[a] for a in entry_axes(e)) for dim, e in zip(d.shape, c)]
+        gdt = torch.float32 if accum > 1 else pdt(d)  # microbatches sum into f32
+        ops, now, dp = _grad_plan(c, s, sizes, lay.dp, compressed)
+        for a, dim in ops:
+            if sizes[a] > 1:
+                stats.add("all-reduce" if dim is None else "reduce-scatter",
+                          gdt.itemsize * math.prod(block))
+            if dim is not None:
+                block[dim] //= sizes[a]
+        scales = 1
+        for a in dp:
+            if sizes[a] > 1:  # int8 payload and f32 scales, axis by axis
+                stats.add("all-gather", math.prod(block) * scales)
+                stats.add("all-gather", 4 * scales)
+                scales *= sizes[a]
+        layout.relayout_sends(d.shape, gdt, mesh, now, s, stats)
+    for _ in live:
+        stats.add("all-reduce", 4)  # the norm's sum of squares
+    if cfg.optimizer != "adamw":
+        for d, s in zip(lay.param_defs, lay.param_specs):
+            for _ in range(2):  # the params and the clipped gradient, in the params' dtype
+                layout.relayout_sends(d.shape, pdt(d), mesh, s, (None,) * len(s), stats)
+        for d, s in zip(lay.opt_defs, lay.opt_specs):
+            layout.relayout_sends(d.shape, d.dtype, mesh, s, (None,) * len(s), stats)
+    return stats
+
+
+# ---------------------------------------------------------------------------
 # Trainer
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
@@ -107,15 +428,29 @@ class TrainerConfig:
     peak_lr: float = 3e-3
     warmup_steps: int = 20
     seed: int = 0
+    grad_compress: bool = False  # on a mesh: the int8 gradient all-reduce over the DP axes
 
 
 class Trainer:
     """End to end: data → step → metrics/checkpoints/fault handling,
-    on ``device`` (``None`` means the card).  The parameters are drawn from
-    a generator on that device seeded with ``tc.seed``."""
+    on ``device`` (``None`` means the card), or on every rank of ``mesh``
+    (a ``DeviceMesh``; the rank's device is the mesh's, and the state is
+    laid out by ``active_rules()``: the rules of the ``activate_mesh``
+    the Trainer is built under, e.g. the TP rules with fsdp to shard the
+    optimizer state over "data" too, else the reference's TP rules, its
+    Trainer's ``activate_mesh`` default).  The parameters are
+    drawn from a generator on that device seeded with ``tc.seed``; on a
+    mesh every rank draws them whole and keeps its shards."""
 
-    def __init__(self, cfg: ArchConfig, ds: SyntheticLM, tc: TrainerConfig, device=None):
+    def __init__(self, cfg: ArchConfig, ds: SyntheticLM, tc: TrainerConfig, device=None,
+                 mesh=None):
         self.cfg, self.ds, self.tc = cfg, ds, tc
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device_type}")
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if mesh.device_type == "cuda" else mesh.device_type)
         self.device = resolve_device(device)
         self.schedule = Schedule(
             peak_lr=tc.peak_lr, warmup_steps=tc.warmup_steps, total_steps=tc.num_steps
@@ -123,8 +458,15 @@ class Trainer:
         self.ckpt = CheckpointManager(tc.checkpoint_dir, keep=tc.keep)
         self.detector = StragglerDetector()
         self.metrics_log: list[dict] = []
-        self.step_fn = make_train_step(cfg, self.schedule, accum=tc.accum)
-        self.params, self.opt_state = self._init_state()
+        if mesh is None:
+            self.layout = None
+            self.step_fn = make_train_step(cfg, self.schedule, accum=tc.accum)
+        else:
+            self.layout = MeshLayout(cfg, mesh, active_rules(), ds.host_batch, ds.seq_len,
+                                     tc.accum)
+            self.step_fn = make_mesh_step(cfg, self.layout, self.schedule,
+                                          compressed=tc.grad_compress)
+        self.params, self.opt_state = self._placed(*self._init_state())
         self._failure_at: int | None = None  # test hook: inject WorkerFailure
 
     def _init_state(self):
@@ -132,19 +474,42 @@ class Trainer:
         params = init_model(self.cfg, gen, self.device)
         return params, init_opt_state(self.cfg.optimizer, param_defs(self.cfg), params)
 
+    def _placed(self, params, opt_state):
+        """The whole state as it is (one device), or as DTensors of this
+        rank's shards (a mesh)."""
+        if self.layout is None:
+            return params, opt_state
+        lay = self.layout
+        return (tree_unflatten(params, lay.shard(params, lay.param_specs)),
+                tree_unflatten(opt_state, lay.shard(opt_state, lay.opt_specs)))
+
+    def batch(self, step: int) -> dict:
+        """The step's batch: ``make_batch``'s, or on a mesh this rank's slice."""
+        batch = make_batch(self.cfg, self.ds, step, device=self.device)
+        return batch if self.layout is None else self.layout.batch_slice(batch)
+
+    def _straggling(self, dt: float) -> bool:
+        """The detector's verdict; on a mesh every rank's, so that all of them
+        snapshot together (a snapshot gathers)."""
+        slow = self.detector.observe(dt)
+        if self.mesh is None:
+            return slow
+        flag = torch.full((), float(slow), dtype=torch.float32, device=self.device)
+        return bool(C.all_reduce(flag, self.mesh, tuple(axis_sizes(self.mesh))) > 0)
+
     # -- one step -------------------------------------------------------------
     def _do_step(self, step: int):
         if self._failure_at is not None and step == self._failure_at:
             self._failure_at = None  # fail once
             raise WorkerFailure(f"injected failure at step {step}")
-        batch = make_batch(self.cfg, self.ds, step, device=self.device)
+        batch = self.batch(step)
         t0 = time.perf_counter()
         self.params, self.opt_state, metrics = self.step_fn(
             self.params, self.opt_state, batch, step)
         if self.device.type == "cuda":  # the step's time is the card's, not its enqueue
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
-        if self.detector.observe(dt):
+        if self._straggling(dt):
             self.detector.reset()  # mitigation: snapshot now, keep going
             self.ckpt.save(step, self._state(), metadata={"straggler": True})
         if step % self.tc.log_every == 0 or step == self.tc.num_steps - 1:
@@ -157,8 +522,9 @@ class Trainer:
         return {"params": self.params, "opt_state": self.opt_state}
 
     def _restore(self) -> int:
-        """Back to the latest committed checkpoint, in place (every tensor
-        keeps its storage), or to the seeded init when there is none.
+        """Back to the latest committed checkpoint, in place on one device
+        (every tensor keeps its storage), or to the seeded init when there
+        is none.
         Waits for a save in flight first, which the reference does not:
         its restore then finds the previous checkpoint, or none."""
         self.ckpt.wait()
@@ -166,12 +532,21 @@ class Trainer:
         if latest is None:
             # no checkpoint yet: restart from scratch (deterministic init)
             self.params = self.opt_state = None  # one state on the device at a time
-            self.params, self.opt_state = self._init_state()
+            self.params, self.opt_state = self._placed(*self._init_state())
             return 0
-        step, state, _ = self.ckpt.restore(like=self._state(), device="cpu")
-        for dst, src in zip(tree_flatten(self._state()), tree_flatten(state)):
-            dst.copy_(src)
-        return step + 1  # resume after the checkpointed step
+        if self.layout is None:
+            step, state, _ = self.ckpt.restore(like=self._state(), device="cpu")
+            for dst, src in zip(tree_flatten(self._state()), tree_flatten(state)):
+                dst.copy_(src)
+            return step + 1  # resume after the checkpointed step
+        # on a mesh the restored shards replace the state: one state on the device at a time
+        like = tree_map(lambda t: None, self._state())  # the structure alone
+        self.params = self.opt_state = None
+        specs = self.layout.opt_specs + self.layout.param_specs  # the state's leaf order
+        step, state, _ = self.ckpt.restore(
+            like=like, sharding_fn=lambda i, a: (self.mesh, spec_placements(specs[i], self.mesh)))
+        self.params, self.opt_state = state["params"], state["opt_state"]
+        return step + 1
 
     # -- loop -------------------------------------------------------------------
     def run(self, start_step: int = 0) -> dict:

@@ -17,7 +17,8 @@ PAGES = sorted((ROOT / "docs").glob("torch_*.md"))
 
 
 def test_the_port_has_its_docs():
-    assert [p.name for p in PAGES] == ["torch_kernels.md", "torch_serving.md"]
+    assert [p.name for p in PAGES] == ["torch_distributed.md", "torch_kernels.md",
+                                       "torch_serving.md"]
 
 
 @pytest.mark.parametrize("field", [f.name for f in dataclasses.fields(ServeConfig)])

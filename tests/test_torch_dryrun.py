@@ -1,0 +1,64 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) against the
+reference's arithmetic: for every cell of ``iter_cells`` on both production
+meshes, the resident bytes a device, the model FLOPs and fits-in-HBM (the
+reference's resident bytes against ``H100Chip``'s 80 GB) equal what the
+reference computes from its abstract inputs in a subprocess with 512 forced
+host devices, without compiling (``tests/jax_reference_runs.py rules``).
+The fields only a compiled module gives are ``null``; the CLI returns 0."""
+import json
+
+import pytest
+
+from repro_torch.core.energy import DEFAULT_CHIP
+from repro_torch.launch import dryrun
+
+from test_torch_sharding_rules import reference_run
+
+NULL_FIELDS = ("lower_s", "compile_s", "cost_analysis", "live_bytes_per_dev",
+               "fits_hbm_live", "memory_analysis", "hlo_bytes")
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("dryrun") / "rules.json")
+    reference_run("rules", out, 512)
+    with open(out) as f:
+        return json.load(f)
+
+
+def test_the_cells_are_the_reference_cells(ref):
+    assert [list(c) for c in dryrun.iter_cells()] == ref["iter_cells"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch, shape_id", list(dryrun.iter_cells()))
+def test_cell_arithmetic_matches_the_reference(ref, arch, shape_id, multi_pod):
+    got = dryrun.run_cell(arch, shape_id, multi_pod=multi_pod, verbose=False)
+    mesh = "2x16x16" if multi_pod else "16x16"
+    assert got["mesh"] == mesh and got["chips"] == (512 if multi_pod else 256)
+    assert got["fsdp"] == ref["fsdp"][arch]
+    resident = ref["cells"][arch][shape_id][mesh]["tp_fsdp" if got["fsdp"] else "tp"]["resident"]
+    assert got["resident_bytes_per_dev"] == resident
+    assert got["fits_hbm_resident"] == (resident <= DEFAULT_CHIP.hbm_bytes)
+    assert got["model_flops"] == pytest.approx(ref["model_flops"][arch][shape_id], rel=1e-12)
+    for field in NULL_FIELDS:
+        assert got[field] is None, field
+    assert got["collectives"]["hlo"] is None
+    assert got["collectives"]["analytic"]["total_bytes"] > 0
+
+
+def test_main_returns_zero_and_writes_the_cell(tmp_path, capsys):
+    assert dryrun.main(["--arch", "granite-3-8b", "--shape", "train_4k",
+                        "--out", str(tmp_path)]) == 0
+    with open(tmp_path / "16x16__granite-3-8b__train_4k.json") as f:
+        cell = json.load(f)
+    assert cell["fits_hbm_resident"] and cell["memory_analysis"] is None
+    assert "granite-3-8b × train_4k" in capsys.readouterr().out
+
+
+def test_overrides_parse_as_the_reference_does():
+    assert dryrun._parse_override("remat=none") == ("remat", "none")
+    assert dryrun._parse_override("attn_chunk=512") == ("attn_chunk", 512)
+    assert dryrun._parse_override("scan_layers=False") == ("scan_layers", False)
+    cfg = dryrun.apply_overrides(dryrun.get_config("granite-3-8b"), {"kv_dtype": "float32"})
+    assert str(cfg.kv_dtype) == "torch.float32"

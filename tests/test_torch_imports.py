@@ -51,6 +51,10 @@ def test_port_files_found():
     assert {"pipeline.py", "optimizer.py", "checkpoint.py", "fault.py", "train_loop.py"} <= names
     # the examples
     assert {"quickstart.py", "generate_accelerator.py", "serve_workload.py", "train_lm.py"} <= names
+    # the multi-device layer: rules, layouts, meshes, worlds, the dry run, the
+    # int8 gradient all-reduce and the record of collectives
+    assert {"rules.py", "layout.py", "mesh.py", "world.py", "dryrun.py", "grad_compress.py",
+            "collectives.py"} <= names
     assert all(p.exists() for p in PORT_FILES)
 
 
@@ -62,7 +66,12 @@ def test_no_jax_and_no_reference_imports(path):
 
 @pytest.mark.parametrize("module", ["repro_torch.serving.scheduler", "repro_torch.launch.serve",
                                     "repro_torch.training.train_loop",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train", "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.mesh", "repro_torch.launch.world",
+                                    "repro_torch.sharding.rules",
+                                    "repro_torch.sharding.layout",
+                                    "repro_torch.training.grad_compress",
+                                    "repro_torch.core.collectives"])
 def test_the_scheduler_and_the_launcher_load_neither_jax_nor_the_reference(module):
     """Imported in a fresh interpreter, the scheduler, the train loop and
     the launchers (and everything they import) bring in no module of JAX or

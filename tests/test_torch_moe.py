@@ -218,10 +218,20 @@ def test_moe_apply_with_int8_weights_matches_jax(arch):
 
 
 def test_moe_apply_refuses_a_mesh():
+    """``moe_apply`` takes no mesh argument: it reads the active mesh, as
+    the reference does, and under a mesh of one rank takes the dense path
+    (the sharded paths: ``tests/test_torch_distributed.py``)."""
+    from repro_torch.sharding.rules import MeshShape, activate_mesh
+
     _, tcfg = configs(GRANITE_MOE)
     _, tp = moe_params(configs(GRANITE_MOE)[0])
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        tmoe.moe_apply(tp, torch.zeros((1, 2, tcfg.d_model)), tcfg, mesh=object())
+    x = torch.from_numpy(tokens(3, (1, 2, tcfg.d_model)))
+    with pytest.raises(TypeError):
+        tmoe.moe_apply(tp, x, tcfg, mesh=object())
+    want = tmoe.moe_apply(tp, x, tcfg)
+    with activate_mesh(MeshShape({"data": 1, "model": 1})):
+        got = tmoe.moe_apply(tp, x, tcfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------

@@ -407,3 +407,40 @@ def test_checkpoint_written_by_the_port_restores_in_jax(tmp_path):
     jckpt.CheckpointManager(str(ref)).save(7, like, metadata={"final": True}, blocking=True)
     want = json.loads((ref / "step_000007" / "manifest.json").read_text())
     assert manifest == want
+
+
+@pytest.mark.parametrize("fail_in", [None, "gather", "write"])
+def test_written_behind_commits_only_a_whole_save(tmp_path, fail_in):
+    """A mesh save writes each leaf on a thread while the next is gathered
+    (``checkpoint._written_behind``): every leaf and the commit when both
+    sides finish; no COMMITTED marker when the gather fails, and the
+    writer's error raised on the caller's thread when the write fails."""
+    from repro_torch.training import checkpoint as ckpt
+
+    mgr = CheckpointManager(str(tmp_path))
+    tree = {"a": torch.arange(6.0), "b": torch.ones((2, 3), dtype=torch.bfloat16),
+            "c": torch.zeros(4)}
+
+    def leaves():
+        for i, t in enumerate(tree_flatten(tree)):
+            if fail_in == "gather" and i == 1:
+                raise ConnectionError("a rank left")
+            yield t.clone()
+
+    def failing(ts):
+        for i, t in enumerate(ts):
+            if i == 1:
+                raise OSError("disk full")
+            yield t
+
+    def write(ts):
+        mgr._write(3, failing(ts) if fail_in == "write" else ts, "{}", {})
+
+    if fail_in is None:
+        ckpt._written_behind(write, leaves())
+        step, got, _ = mgr.restore(like=tree, device="cpu")
+        assert step == 3 and all(torch.equal(got[k], tree[k]) for k in tree)
+        return
+    with pytest.raises(ConnectionError if fail_in == "gather" else OSError):
+        ckpt._written_behind(write, leaves())
+    assert mgr.latest_step() is None

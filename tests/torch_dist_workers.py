@@ -1,0 +1,287 @@
+"""The port's side of ``tests/test_torch_distributed.py``: the body every
+rank of a spawned gloo world runs (``repro_torch.launch.world.run_world``),
+and the single process that builds the production meshes under torch's fake
+process group.  No JAX here: each rank imports torch and the port only."""
+import dataclasses
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
+
+from repro_torch.configs import get_reduced_config
+from repro_torch.core import collectives as C
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.models import moe
+from repro_torch.models.model import param_defs
+from repro_torch.models.params import params_from_numpy, tree_flatten, tree_unflatten
+from repro_torch.models.quant import QuantTensor, quantize_weight
+from repro_torch.sharding import layout
+from repro_torch.sharding.rules import activate_mesh, batch_spec, tensor_parallel_rules
+from repro_torch.training import train_loop as TL
+from repro_torch.training.checkpoint import CheckpointManager
+from repro_torch.training.grad_compress import dp_value_and_grad
+from repro_torch.training.optimizer import init_opt_state
+
+MOE_CASES = ("a2a", "a2a_split", "gather")
+TRAIN_ARCHS = ("granite-3-8b", "granite-moe-3b-a800m")
+
+
+def f32_config(arch: str):
+    return dataclasses.replace(get_reduced_config(arch), dtype=torch.float32)
+
+
+def numpy_trainer(leaves: list):
+    """A Trainer whose state starts from the given f32 leaves (``param_defs``
+    order), on every rank."""
+
+    class NumpyTrainer(TL.Trainer):
+        def _init_state(self):
+            defs = param_defs(self.cfg)
+            params = tree_unflatten(defs, [torch.from_numpy(a.copy()).to(self.device)
+                                           for a in leaves])
+            return params, init_opt_state(self.cfg.optimizer, defs, params)
+
+    return NumpyTrainer
+
+
+def train_setup(data: dict, arch: str):
+    cfg = f32_config(arch)
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=int(data["train/seq"]),
+                     global_batch=int(data["train/batch"]))
+    n = len(tree_flatten(param_defs(cfg)))
+    return cfg, ds, [data[f"train/{arch}/{i}"] for i in range(n)]
+
+
+def state_norms(tr) -> list:
+    """The L2 norm of each leaf of the Trainer's (params, opt_state), in
+    ``tree_flatten`` order, from the whole leaf (on a mesh every rank
+    gathers it): the optimizer's moments scale with the gradient, which the
+    losses alone do not show (AdamW and Adafactor divide it out)."""
+    leaves = tree_flatten(tr._state())
+    if tr.layout is not None:
+        specs = tr.layout.opt_specs + tr.layout.param_specs  # the state's leaf order
+        leaves = [layout.full(t.to_local(), tr.mesh, sp) for t, sp in zip(leaves, specs)]
+    return [float(np.linalg.norm(t.detach().double().numpy())) for t in leaves]
+
+
+def recorded_steps(tr) -> list:
+    """The collectives of each of the Trainer's steps from now on (the step
+    function's alone), in a list that fills as it steps."""
+    recs, step_fn = [], tr.step_fn
+
+    def recorded(*a):
+        with C.recording() as rec:
+            out = step_fn(*a)
+        recs.append(rec.summary())
+        return out
+
+    tr.step_fn = recorded
+    return recs
+
+
+def _moe(data, mesh):
+    cfg = get_reduced_config("granite-moe-3b-a800m")
+    params = params_from_numpy({k: data[f"moe/{k}"] for k in ("router", "wg", "wu", "wd")}, "cpu")
+    out = {}
+    for case in MOE_CASES:
+        x = torch.from_numpy(data[f"moe/x_{case}"])
+        xs = layout.block_of(x, mesh, batch_spec(x.shape[0], mesh))
+        ep_axes, mode, tp_split = moe.sharded_plan(cfg, mesh, xs.shape[0], xs.shape[1])
+        local = dict(params)
+        for k in ("wg", "wu", "wd"):
+            local[k] = layout.block_of(params[k], mesh, moe._e_spec(ep_axes))
+        with activate_mesh(mesh), C.recording() as rec:
+            y, aux = moe.moe_apply(local, xs, cfg)
+        want = moe.moe_collectives(cfg, mesh, xs.shape[0], xs.shape[1], x.dtype)
+        y = layout.full(y, mesh, batch_spec(x.shape[0], mesh) + (None,))
+        out[case] = {"mode": mode, "tp_split": tp_split, "y": y.numpy(), "aux": float(aux),
+                     "recorded": rec.summary(), "analytic": want.summary()}
+    # int8 experts (QuantTensor leaves, each rank's block of q and scale), both modes
+    qparams = dict(params)
+    for k in ("wg", "wu", "wd"):
+        qparams[k] = quantize_weight(params[k], lead=1, n_contract=1)
+    for case in ("a2a", "gather"):
+        x = torch.from_numpy(data[f"moe/x_{case}"])
+        xs = layout.block_of(x, mesh, batch_spec(x.shape[0], mesh))
+        ep_axes = moe.sharded_plan(cfg, mesh, xs.shape[0], xs.shape[1])[0]
+        local = dict(qparams)
+        for k in ("wg", "wu", "wd"):
+            local[k] = QuantTensor(*(layout.block_of(t, mesh, moe._e_spec(ep_axes))
+                                     for t in qparams[k]))
+        with activate_mesh(mesh):
+            y, _ = moe.moe_apply(local, xs, cfg)
+        out[f"int8_{case}"] = layout.full(y, mesh, batch_spec(x.shape[0], mesh) + (None,)).numpy()
+    return out
+
+
+def _dp(data, mesh):
+    params = {"w": torch.from_numpy(data["dp/w"])}
+    xs = {k: layout.block_of(torch.from_numpy(data[f"dp/{k}"]), mesh, batch_spec(64, mesh))
+          for k in ("x", "y")}
+
+    def loss(p, b):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+    out = {}
+    for name, compressed in (("exact", False), ("compressed", True)):
+        l, g = dp_value_and_grad(loss, mesh, compressed=compressed)(params, xs)
+        out[name] = {"loss": float(l), "g": g["w"].numpy()}
+    # the per-rank gradients and scales the compressed mean was built from
+    l_local = loss({"w": params["w"].requires_grad_()}, xs)
+    g_local = torch.autograd.grad(l_local, params["w"])[0].detach()
+    out["scale"] = float(g_local.abs().max() / 127.0)
+    return out
+
+
+def _elastic(rank, mesh, root):
+    tree = {"w": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+            "b": torch.ones((8,), dtype=torch.bfloat16)}
+    mgr = CheckpointManager(os.path.join(root, "elastic"))
+    if rank == 0:
+        mgr.save(1, tree, blocking=True)  # saved unsharded ("old mesh")
+    dist.barrier()
+    from torch.distributed.tensor import Shard, Replicate
+
+    # tree-flatten order is alphabetical: 'b', then 'w'
+    shardings = [(mesh, [Replicate(), Shard(0)]), (mesh, [Shard(0), Shard(1)])]
+    step, restored, _ = mgr.restore(like=tree, sharding_fn=lambda i, a: shardings[i])
+    w, b = restored["w"], restored["b"]
+    return {"step": step, "w_placements": [str(p) for p in w.placements],
+            "w_local": w.to_local().numpy(), "b_local": b.to_local().float().numpy(),
+            "w_full": layout.full(w.to_local(), mesh, ("data", "model")).numpy(),
+            "is_dtensor": isinstance(w, DTensor) and isinstance(b, DTensor)}
+
+
+def _trainer(rank, data, arch, mesh24, mesh42, root):
+    cfg, ds, leaves = train_setup(data, arch)
+    steps = int(data["train/steps"])
+    tc = TL.TrainerConfig(num_steps=steps, log_every=1, checkpoint_every=2,
+                          checkpoint_dir=os.path.join(root, arch))
+    tr = numpy_trainer(leaves)(cfg, ds, tc, mesh=mesh24)
+    tr._failure_at = steps - 1  # a restart from step 2's checkpoint, replaying the last step
+    observe = tr.detector.observe
+    tr.detector.observe = lambda dt: (rank == 0 and len(tr.metrics_log) == 1) or observe(dt)
+    stats = tr.run()
+    out = {"losses": [m["loss"] for m in stats["metrics"]], "restarts": stats["restarts"],
+           "grad_norms": [m["grad_norm"] for m in stats["metrics"]],
+           "checkpoints": sorted(os.listdir(tc.checkpoint_dir)), "state_norms": state_norms(tr)}
+    with C.recording() as rec:
+        _, _, metrics = tr.step_fn(tr.params, tr.opt_state, tr.batch(steps), steps)
+    out["next_loss"] = float(metrics["loss"])
+    out["next_grad_norm"] = float(metrics["grad_norm"])
+    out["recorded"] = rec.summary()
+    out["analytic"] = TL.step_collectives(cfg, mesh24, tensor_parallel_rules(), ds.global_batch,
+                                          ds.seq_len, dtype=torch.float32).summary()
+    if arch == TRAIN_ARCHS[0]:  # the final checkpoint, restored onto a 4 x 2 mesh
+        tc2 = dataclasses.replace(tc, num_steps=steps + 1)
+        tr2 = numpy_trainer(leaves)(cfg, ds, tc2, mesh=mesh42)
+        start = tr2._restore()
+        _, _, metrics = tr2.step_fn(tr2.params, tr2.opt_state, tr2.batch(start), start)
+        out["restored_42"] = {"start": start, "loss": float(metrics["loss"]),
+                              "grad_norm": float(metrics["grad_norm"])}
+        # the Trainer with the int8 gradient all-reduce: every step, the first recorded
+        tc3 = dataclasses.replace(tc, grad_compress=True, checkpoint_every=1000,
+                                  checkpoint_dir=os.path.join(root, "compressed"))
+        tr3 = numpy_trainer(leaves)(cfg, ds, tc3, mesh=mesh24)
+        recs = recorded_steps(tr3)
+        for step in range(steps):
+            tr3._do_step(step)
+        out["compressed"] = {
+            "losses": [m["loss"] for m in tr3.metrics_log],
+            "grad_norms": [m["grad_norm"] for m in tr3.metrics_log],
+            "lrs": [m["lr"] for m in tr3.metrics_log], "recorded": recs[0],
+            "analytic": TL.step_collectives(cfg, mesh24, tensor_parallel_rules(),
+                                            ds.global_batch, ds.seq_len, compressed=True,
+                                            dtype=torch.float32).summary()}
+        out["adafactor"] = adafactor_steps(cfg, ds, leaves, mesh24, os.path.join(root, "af"))
+    return out
+
+
+def adafactor_steps(cfg, ds, leaves, mesh, directory: str) -> dict:
+    """Two Adafactor steps (its factored moments from the whole gradient,
+    each rank keeping its shard), the second recorded; on one device when
+    ``mesh`` is None."""
+    cfg = dataclasses.replace(cfg, optimizer="adafactor")
+    tc = TL.TrainerConfig(num_steps=2, log_every=1, checkpoint_every=1000,
+                          checkpoint_dir=directory)
+    tr = numpy_trainer(leaves)(cfg, ds, tc, device="cpu" if mesh is None else None, mesh=mesh)
+    recs = recorded_steps(tr)
+    for step in range(2):
+        tr._do_step(step)
+    rows = tr.metrics_log
+    out = {"losses": [m["loss"] for m in rows], "grad_norms": [m["grad_norm"] for m in rows],
+           "state_norms": state_norms(tr), "recorded": recs[1]}
+    if mesh is not None:
+        out["analytic"] = TL.step_collectives(cfg, mesh, tensor_parallel_rules(),
+                                              ds.global_batch, ds.seq_len,
+                                              dtype=torch.float32).summary()
+    return out
+
+
+def world_main(rank: int, world: int, in_path: str, root: str) -> dict:
+    """Everything the port's tests ask of one world of 8 gloo ranks."""
+    torch.set_num_threads(1)
+    data = dict(np.load(in_path))
+    mesh24 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    mesh42 = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    mesh81 = init_device_mesh("cpu", (8, 1), mesh_dim_names=("data", "model"))
+    out = {"moe": _moe(data, mesh24), "dp": _dp(data, mesh81),
+           "elastic": _elastic(rank, mesh42, root)}
+    for arch in TRAIN_ARCHS:
+        out[arch] = _trainer(rank, data, arch, mesh24, mesh42, root)
+    return out
+
+
+def fake_meshes() -> dict:
+    """The production meshes under torch's fake process group, one world
+    after another: 512 ranks, 256, then 100 (too few)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    out = {}
+    for world in (512, 256, 100):
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+        try:
+            for multi in (False, True):
+                key = f"{world}/{'multi' if multi else 'single'}"
+                try:
+                    m = make_production_mesh(multi_pod=multi, device_type="cpu")
+                    out[key] = {"shape": list(m.shape), "names": list(m.mesh_dim_names)}
+                except RuntimeError as e:
+                    out[key] = {"error": str(e)}
+            host = make_host_mesh(device_type="cpu")
+            out[f"{world}/host"] = {"shape": list(host.shape), "names": list(host.mesh_dim_names)}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def collectives_main(rank: int, world: int) -> dict:
+    """Each collective of ``core.collectives`` once over a (1, 4) mesh, with
+    a backward through it, recorded."""
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+    x = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6) * (rank + 1)
+    out = {}
+    with C.recording() as rec:
+        for name, op in (("all_gather", lambda t: C.all_gather(t, mesh, "model", 0)),
+                         ("all_reduce", lambda t: C.all_reduce(t, mesh, ("data", "model"))),
+                         ("all_to_all", lambda t: C.all_to_all(t, mesh, "model", 0, 1))):
+            xs = x.clone().requires_grad_()
+            y = op(xs)
+            out[name] = y.detach().numpy()
+            y.sum().backward()
+            out[f"grad_{name}"] = xs.grad.numpy()
+    out["recorded"] = rec.summary()
+    # gathers to the first ranks alone (a checkpoint save's) on a (2, 2) mesh
+    mesh22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    whole = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    for spec in (("data", "model"), (("data", "model"), None), ("data", None)):
+        with C.recording() as rec:
+            got = layout.full_on_first(layout.block_of(whole, mesh22, spec).clone(), mesh22, spec)
+        out[f"first/{spec}"] = (None if got is None else got.numpy(), rec.summary())
+    return out
