@@ -4476,12 +4476,10 @@ class FanInTrainer(train_loop_mod.Trainer):
     loss does not fall in 8 steps at any learning rate: the reference's
     model behaves so too, on the CPU at narrower widths."""
 
-    def _init_state(self):
-        gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
-        params = init_model(self.cfg, gen, self.device)
+    def _init_params(self, keep):
+        params = super()._init_params(keep)  # on a mesh the rank's blocks: scaled alike
         attention_fan_in(params, self.cfg)
-        return params, optimizer_mod.init_opt_state(self.cfg.optimizer,
-                                                    model_mod.param_defs(self.cfg), params)
+        return params
 
 
 def state_digest(tree) -> list[int]:
@@ -5102,7 +5100,12 @@ def md_train(rank: int, mesh22, dev) -> dict:
     rules = rules_mod.tensor_parallel_rules(fsdp=MD_FSDP)
     torch.cuda.reset_peak_memory_stats(dev)
     with rules_mod.activate_mesh(mesh22, rules):  # the Trainer lays its state out by these rules
-        tr = FanInTrainer(cfg, ds, tc, mesh=mesh22)  # draws 11.2 GB, keeps 2.8
+        tr = FanInTrainer(cfg, ds, tc, mesh=mesh22)  # keeps 2.8 GB, one whole leaf at a time
+    built_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # the leaves the step computes on the rank's "model" block (tensor-parallel compute)
+    tp_leaves = sum("model" in c for c in tr.layout.compute_specs)
+    if not tp_leaves:
+        fail("multi_device train: no leaf computes on its \"model\" block")
     md_log(rank, "train: the (2, 2) Trainers built")
     recs, step_fn = [], tr.step_fn
 
@@ -5144,7 +5147,8 @@ def md_train(rank: int, mesh22, dev) -> dict:
            "next_2x2": next_22, "restored_4x1": {
                "start": start, "next": (float(m["loss"]), float(m["grad_norm"])),
                "restore_s": r6(restore_s)},
-           "peak_memory_gb": r6(peak / 1e9),
+           "peak_memory_gb": r6(peak / 1e9), "peak_after_build_gb": r6(built_gb),
+           "tp_leaves": tp_leaves, "leaves": len(tr.layout.compute_specs),
            "collectives_a_step": {"recorded": recs[0], "analytic": analytic}}
     del tr, m
     gc.collect()
@@ -5236,7 +5240,7 @@ def drive_multi_device(dev) -> dict:
     shutil.rmtree(dry_dir, ignore_errors=True)
     dry_dir.mkdir(parents=True)
     src = pathlib.Path(__file__).resolve().parent / "src"
-    t_cli = time.perf_counter()
+    t_cli = time.perf_counter()  # the phase's start
     with open(dry_dir / "stderr.txt", "w") as err:
         cli = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", GRANITE,
@@ -5352,7 +5356,14 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
                   "next_step_loss_and_grad_norm": {
                       k: [r6(x) for x in v] for k, v in nexts.items()},
                   "step_s_rank0": train[0]["step_s"], "step_s_one_device": one_step_s,
+                  "step_s_by_rank": [t["step_s"] for t in train],
                   "peak_memory_gb_by_rank": [t["peak_memory_gb"] for t in train],
+                  "peak_after_build_gb_by_rank": [t["peak_after_build_gb"] for t in train],
+                  "tp_leaves_of": [train[0]["tp_leaves"], train[0]["leaves"]],
+                  "bytes_a_rank_a_step_by_kind": {
+                      k: {side: train[0]["collectives_a_step"][side]["by_op"][k]["operand_bytes"]
+                          for side in ("recorded", "analytic")}
+                      for k in train[0]["collectives_a_step"]["analytic"]["by_op"]},
                   "collectives_a_step": train[0]["collectives_a_step"],
                   "restore_4x1_s": train[0]["restored_4x1"]["restore_s"]},
         "grad_compress": ranks[0]["grad_compress"],
@@ -5365,6 +5376,7 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
     }
     if k5 != expect_k5:
         fail(f"multi_device: {k5} K5 launches on the sharded MoE, {expect_k5} expected")
+    report["phase_s"] = r6(time.perf_counter() - t_cli)
     return {"expect": {}, "report": report, "k5_launches": k5}
 
 

@@ -22,6 +22,26 @@ receives along ``concat_dim``, source rank major.  ``all_gather``,
 its transpose (a reduce-scatter, an all-reduce, the reverse all-to-all), the
 gradient of the sum of every rank's loss.
 
+Tensor-parallel layers (``models/layers.py``: GQA over local heads, the MLP
+over local columns, the vocab-parallel embedding and loss) use two
+operators in Megatron's terms.  *Reduce-from-TP-region* is ``all_reduce``
+over "model": the sum of the ranks' partial outputs forward, and backward
+its transpose, the all-reduce of the cotangents.  *Copy-to-TP-region*, where
+a replicated activation enters the split weights, is the identity both
+ways, and no function.  That is the port's convention: every rank's
+backward starts from its own loss, and a step differentiates the sum of the
+ranks' losses, each rank's copy of a replicated tensor a variable of its
+own.  Megatron's copy instead all-reduces the cotangent and its reduce
+passes it through; that is the convention of one loss, where the ranks of
+a tensor-parallel group hold one cotangent.  Both give the same step; the
+port keeps its own because the expert-parallel MoE's collectives (an
+all-gather over "model" whose transpose is a reduce-scatter, the
+all-to-alls, the aux loss's sum) are transposes under it.  So a split
+leaf's gradient carries the "model" ranks' n copies of the loss, as a
+replicated leaf's does once summed over "model", and the step divides
+every gradient by the mesh size (``train_loop.MeshLayout.reduce_grad``).
+``all_reduce_max`` (no gradient) is the vocab-parallel loss's shift.
+
 Gloo has no CUDA path for some collectives, so over a gloo group a CUDA
 tensor is staged through host memory here, and only here (a copy to the
 host, the collective there, a copy back); such collectives are counted in
@@ -155,6 +175,12 @@ def _sum(x, group, n):
     return y
 
 
+def _max(x, group, n):
+    y = x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
 def _exchange0(x, group, n):
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
@@ -238,6 +264,13 @@ def all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     for axis in (axes,) if isinstance(axes, str) else axes:
         x = _AllReduce.apply(x, mesh, axis)
     return x
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise maximum over ``axis`` (no gradient)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _run("all-reduce", mesh, axis, x.detach(), _max)
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:

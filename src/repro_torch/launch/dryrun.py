@@ -117,7 +117,10 @@ def model_flops_of(cfg: ArchConfig, shape_id: str) -> float:
 
 def forward_collectives(cfg: ArchConfig, mesh, rules, batch: int, seq: int) -> C.CollectiveStats:
     """What a forward pass (prefill, a decode step) of the port sends from
-    each rank: the weight gathers to the compute layout, and each MoE
+    each rank: the weight gathers to the compute layout, the
+    tensor-parallel sums of the embedding and the layers
+    (``train_loop.tp_collectives``), the last position's logits (f32)
+    gathered over "model" where the vocabulary is split, and each MoE
     layer's forward on the rank's tokens."""
     lay = train_loop.MeshLayout(cfg, mesh, rules, batch, seq)
     stats = C.CollectiveStats()
@@ -125,6 +128,12 @@ def forward_collectives(cfg: ArchConfig, mesh, rules, batch: int, seq: int) -> C
         return stats
     for d, s, c in zip(lay.param_defs, lay.param_specs, lay.compute_specs):
         layout.relayout_sends(d.shape, d.dtype, mesh, s, c, stats)
+    tp = train_loop.tp_collectives(lay, lay.local_batch, seq, cfg.dtype)
+    for what, nbytes, count in tp:
+        if what in ("layer", "layer_last", "embed"):
+            stats.add("all-reduce", nbytes, count)
+    if any(what == "loss" for what, _, _ in tp):  # the vocabulary is split
+        stats.add("all-gather", 4 * lay.local_batch * cfg.padded_vocab // mesh.shape["model"])
     if cfg.moe is not None:
         fwd = moe.moe_collectives(cfg, mesh, lay.local_batch, seq, cfg.dtype)
         for k in fwd.counts:

@@ -18,14 +18,30 @@ public op of its own and no path of the model calls it.
 
 Differences from the JAX package, all of them without effect on the numbers:
 
-* ``constrain`` (sharding annotations) has no meaning on one device and is
-  dropped.
+* ``constrain`` (sharding annotations) is not called: on a mesh each rank
+  computes on its own shard, and the shapes of the leaves it is given say
+  which (below).
 * Decode and chunk take one position per sequence, ``pos`` of shape (B,),
   where the JAX package takes a scalar and maps the whole step over the
   slots of a pool; RoPE, the cache write and the validity mask read each
   row's own position (query ``i`` of row ``b`` sits at ``pos[b] + i``).
 * The cache write is in place (``cache_update`` "dus" and "onehot" are the
   same write on one device), where JAX returns a new cache.
+
+Tensor parallelism.  Under an active mesh (``sharding.rules.activate_mesh``)
+a rank may be given its "model" block of a leaf (the train step's compute
+layout, ``training.train_loop.MeshLayout``), and the layers compute on it:
+GQA on the rank's heads (wq and the biases column-parallel, wo
+row-parallel), k and v on the heads its q heads read when "kv_heads" does
+not divide "model" and wk and wv stay whole; the MLP on the rank's columns
+(wg, wu, wi, bi column-parallel, wd and wo row-parallel, bo added once after
+the sum); the embedding on the rank's vocabulary rows (a masked lookup) and
+the logits on its vocabulary columns (``model.lm_loss`` reduces the
+log-sum-exp over the ranks).  A row-parallel product is followed by the
+sum over "model" (``tp_sum``, reduce-from-TP-region;
+``core.collectives`` says how it differentiates).  Which leaves are split
+is read from their shapes against the config's (``tp_split``), so one
+device, a whole leaf and a (1, 1) mesh run the code they ran before.
 
 MLA attention (DeepSeek-V3) has a prefill form that decompresses K/V per
 head and runs ``run_attention`` (q/k of width nope + rope, v of its own
@@ -38,8 +54,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import collectives as C
 from repro_torch.models.params import ParamDef
-from repro_torch.models.quant import qeinsum
+from repro_torch.models.quant import QuantTensor, qeinsum
+from repro_torch.sharding.rules import MODEL, active_mesh
 
 NEG_INF = -1e30
 
@@ -51,6 +69,33 @@ def _where_valid(mask: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def _sqrt(d: int) -> float:
     """``jnp.sqrt`` of an int: the f32 square root."""
     return float(torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model"
+# ---------------------------------------------------------------------------
+def _dim(w, i: int) -> int:
+    return (w.q if isinstance(w, QuantTensor) else w).shape[i]
+
+
+def tp_split(local: int, whole: int):
+    """``None`` when a leaf's dim holds all ``whole`` entries; else (mesh,
+    this rank's index on "model") for a rank holding the ``local`` entries
+    of its block, one block each of the active mesh's "model" ranks."""
+    if local == whole:
+        return None
+    mesh = active_mesh()
+    n = C.axis_size(mesh, MODEL) if mesh is not None else 0
+    if n * local != whole:
+        raise ValueError(f"a rank holds {local} of {whole} entries; the active mesh's "
+                         f"{MODEL!r} axis has {n} ranks")
+    return mesh, C.axis_index(mesh, MODEL)
+
+
+def tp_sum(y: torch.Tensor, split) -> torch.Tensor:
+    """Reduce-from-TP-region: the sum over "model" of the ranks' partial
+    ``y`` when ``split`` (``tp_split``'s) is a split, else ``y``."""
+    return y if split is None else C.all_reduce(y, split[0], MODEL)
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +281,20 @@ def gqa_defs(cfg: ArchConfig, *, cross: bool = False) -> dict:
     return defs
 
 
+def _local_kv(q, k, v, cfg: ArchConfig):
+    """k and v for the rank's q heads.  Split over "model" with q, or whole
+    with q, they are as they are; whole while q is split (kv_heads does not
+    divide "model"), each local q head takes its own KV head (global q head
+    j reads KV head j // (heads / kv_heads)), one a q head."""
+    h_loc = q.shape[2]
+    if k.shape[2] != cfg.num_kv_heads or h_loc == cfg.num_heads:
+        return k, v
+    _, r = tp_split(h_loc, cfg.num_heads)
+    group = cfg.num_heads // cfg.num_kv_heads
+    idx = (r * h_loc + torch.arange(h_loc, device=k.device)) // group
+    return k[:, :, idx], v[:, :, idx]
+
+
 def gqa_project_qkv(params, x, cfg: ArchConfig, positions, *, rope: bool = True):
     q = qeinsum("bsd,dhe->bshe", x, params["wq"])
     k = qeinsum("bsd,dhe->bshe", x, params["wk"])
@@ -244,10 +303,18 @@ def gqa_project_qkv(params, x, cfg: ArchConfig, positions, *, rope: bool = True)
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
+    k, v = _local_kv(q, k, v, cfg)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_out(params, out, cfg: ArchConfig):
+    """The attention output (B, S, H, hd) through wo, summed over "model"
+    when the rank holds its block of the heads."""
+    y = qeinsum("bshe,hed->bsd", out, params["wo"])
+    return tp_sum(y, tp_split(_dim(params["wo"], 0), cfg.num_heads))
 
 
 def gqa_apply(params, x, cfg: ArchConfig, *, causal: bool = True, rope: bool = True):
@@ -255,7 +322,7 @@ def gqa_apply(params, x, cfg: ArchConfig, *, causal: bool = True, rope: bool = T
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = gqa_project_qkv(params, x, cfg, positions, rope=rope)
     out = run_attention(cfg, q, k, v, causal=causal)
-    return qeinsum("bshe,hed->bsd", out, params["wo"])
+    return gqa_out(params, out, cfg)
 
 
 def gqa_cross_apply(params, x, kv_pair, cfg: ArchConfig):
@@ -444,15 +511,20 @@ def mlp_defs(cfg: ArchConfig, d_ff: int | None = None) -> dict:
 
 
 def mlp_apply(params, x, cfg: ArchConfig):
+    """The MLP; on the rank's block of its ``d_ff`` columns, the sum over
+    "model" of the down projection, then ``bo``."""
     from repro_torch.models.activations import get_activation
 
     act = get_activation(cfg.activation, cfg.activation_impl)
     if "wi" in params:
         h = qeinsum("bsd,df->bsf", x, params["wi"]) + params["bi"].to(x.dtype)
-        return qeinsum("bsf,fd->bsd", act(h), params["wo"]) + params["bo"].to(x.dtype)
+        y = qeinsum("bsf,fd->bsd", act(h), params["wo"])
+        split = tp_split(_dim(params["wo"], 0), cfg.d_ff)
+        return tp_sum(y, split) + params["bo"].to(x.dtype)
     g = qeinsum("bsd,df->bsf", x, params["wg"])
     u = qeinsum("bsd,df->bsf", x, params["wu"])
-    return qeinsum("bsf,fd->bsd", act(g) * u, params["wd"])
+    y = qeinsum("bsf,fd->bsd", act(g) * u, params["wd"])
+    return tp_sum(y, tp_split(_dim(params["wd"], 0), cfg.d_ff))
 
 
 # ---------------------------------------------------------------------------
@@ -467,11 +539,28 @@ def embed_defs(cfg: ArchConfig) -> dict:
 
 
 def embed_apply(params, tokens, cfg: ArchConfig):
-    return params["tokens"][tokens]
+    """The tokens' rows; on the rank's block of the vocabulary, the rows it
+    holds (zeros for the others) summed over "model"."""
+    table = params["tokens"]
+    split = tp_split(table.shape[0], cfg.padded_vocab)
+    if split is None:
+        return table[tokens]
+    local = tokens - split[1] * table.shape[0]
+    held = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(held, local, torch.zeros_like(local))]
+    return tp_sum(torch.where(held[..., None], rows, torch.zeros_like(rows)), split)
+
+
+def vocab_split(params, cfg: ArchConfig):
+    """``tp_split`` of the logits' vocabulary columns (the unembedding's, or
+    the tied embedding's rows)."""
+    w = params.get("unembed")
+    return tp_split(params["tokens"].shape[0] if w is None else w.shape[1], cfg.padded_vocab)
 
 
 def unembed_apply(params, x, cfg: ArchConfig):
-    """Not quantized, as in the JAX package: a plain product."""
+    """Not quantized, as in the JAX package: a plain product.  On the rank's
+    block of the vocabulary, its columns of the logits (``vocab_split``)."""
     w = params.get("unembed")
     if w is None:
         w = params["tokens"].T

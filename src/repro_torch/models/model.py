@@ -68,7 +68,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import embed_apply, embed_defs, unembed_apply
+from repro_torch.core import collectives as C
+from repro_torch.models.layers import (
+    embed_apply,
+    embed_defs,
+    tp_sum,
+    unembed_apply,
+    vocab_split,
+)
 from repro_torch.models.params import ParamDef, init_params, stacked, tree_leaves, tree_map
 from repro_torch.models.quant import (
     QUANT_KEYS,
@@ -78,6 +85,7 @@ from repro_torch.models.quant import (
     lead_axes,
     quantize_weight,
 )
+from repro_torch.sharding.rules import MODEL
 
 _PORTED = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 _RECURRENT = ("ssm", "hybrid")
@@ -123,14 +131,17 @@ def param_defs(cfg: ArchConfig) -> dict:
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator, device=None, *,
-               quantize: bool = False):
+               quantize: bool = False, keep=None):
     """Random parameters from ``generator`` on ``device`` (``None`` means the
     card).  A stacked leaf is drawn one layer at a time into its stacked
     tensor; with ``quantize`` each layer of a projection weight (all its
     experts at once) is quantized as soon as it is drawn, so no
     full-precision copy of the stack exists.
     The numbers drawn do not depend on ``quantize``: the quantized model is
-    the full-precision one, quantized."""
+    the full-precision one, quantized.  ``keep(path, leaf)``, where given,
+    is what is kept of each leaf (a rank's block), called as soon as the
+    leaf is drawn, with its key path: no more than one whole leaf exists
+    at a time, and the numbers drawn do not depend on it either."""
     dev = resolve_device(device)
 
     def draw(key: str, d: ParamDef):
@@ -160,12 +171,13 @@ def init_model(cfg: ArchConfig, generator: torch.Generator, device=None, *,
                 out[i] = w
         return out
 
-    def walk(key, d):
+    def walk(path, d):
         if isinstance(d, dict):
-            return {k: walk(k, v) for k, v in d.items()}
-        return draw(key, d)
+            return {k: walk(path + (k,), v) for k, v in d.items()}
+        w = draw(path[-1], d)
+        return w if keep is None else keep(path, w)
 
-    return walk("", param_defs(cfg))
+    return walk((), param_defs(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -388,14 +400,32 @@ def forward(params, tokens, cfg: ArchConfig, frontend_embeds=None):
 def _ce_block(params, hidden, labels, mask, cfg: ArchConfig):
     """CE over one block.  hidden: (B, T, D), labels/mask: (B, T).  Returns
     (nll_sum, n).  The label's logit is gathered where the reference sums
-    logits times a one-hot: one nonzero term, the same value."""
+    logits times a one-hot: one nonzero term, the same value.
+
+    On the rank's block of the vocabulary (``vocab_split``) the logits are
+    its columns: the vocab padding is masked by global column, the
+    log-sum-exp is the maximum over "model" (no gradient: it only shifts)
+    plus the log of the sum over "model" of the exponentials, and the
+    label's logit is the sum over "model" of the one held by its rank."""
     logits = unembed_apply(params["embed"], hidden, cfg).to(torch.float32)
     v = logits.shape[-1]
-    if v > cfg.vocab_size:  # mask the vocab-padding columns out of the lse
-        logits = torch.where(torch.arange(v, device=logits.device) < cfg.vocab_size, logits,
+    split = vocab_split(params["embed"], cfg)
+    start = 0 if split is None else split[1] * v
+    if cfg.padded_vocab > cfg.vocab_size:  # mask the vocab-padding columns out of the lse
+        cols = start + torch.arange(v, device=logits.device)
+        logits = torch.where(cols < cfg.vocab_size, logits,
                              torch.full((), -1e30, dtype=logits.dtype, device=logits.device))
-    lse = torch.logsumexp(logits, dim=-1)
-    correct = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    if split is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        correct = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    else:
+        top = C.all_reduce_max(logits.detach().amax(dim=-1), split[0], MODEL)
+        local = labels.to(torch.int64) - start
+        held = (local >= 0) & (local < v)
+        picked = torch.gather(logits, -1, torch.clamp(local, 0, v - 1)[..., None])[..., 0]
+        sums = tp_sum(torch.stack([torch.sum(torch.exp(logits - top[..., None]), dim=-1),
+                                   torch.where(held, picked, torch.zeros_like(picked))]), split)
+        lse, correct = top + torch.log(sums[0]), sums[1]
     nll = (lse - correct) * mask
     return torch.sum(nll), torch.sum(mask)
 

@@ -25,6 +25,7 @@ from repro_torch.models.layers import (
     gqa_cross_apply,
     gqa_decode_apply,
     gqa_defs,
+    gqa_out,
     gqa_project_qkv,
     layernorm,
     layernorm_defs,
@@ -79,7 +80,7 @@ def gqa_full(p, x, cfg: ArchConfig, *, causal: bool, rope: bool):
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = gqa_project_qkv(p, x, cfg, positions, rope=rope)
     out = run_attention(cfg, q, k, v, causal=causal)
-    return qeinsum("bshe,hed->bsd", out, p["wo"]), (k, v)
+    return gqa_out(p, out, cfg), (k, v)
 
 
 def _ffn(p, x, cfg: ArchConfig):

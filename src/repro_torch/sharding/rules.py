@@ -16,9 +16,11 @@ A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named dims,
 or, for the pure arithmetic (specs, shard shapes, the dry run), anything
 whose ``shape`` maps axis names to sizes (``MeshShape``).
 
-Not ported: ``constrain``, GSPMD's layout hint for activations, which never
-changes a value (the port runs SPMD, each rank on its own shard, and has no
-compiler to hint), and ``sharding/compat.py``, a shim between JAX versions.
+Not ported: ``constrain``, GSPMD's layout hint for activations: the port
+runs SPMD, and its layers compute on the shards they are given
+(``models/layers.py``: the step's compute layout keeps the "model" split,
+``training.train_loop.MeshLayout``), which is what the hint asks of GSPMD;
+and ``sharding/compat.py``, a shim between JAX versions.
 """
 from __future__ import annotations
 

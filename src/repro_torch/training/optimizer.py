@@ -177,8 +177,14 @@ def init_opt_state(name: str, defs, params):
     start as f32 copies of the params.  A copy even of an f32 param
     (``.to(float32)`` would return the param itself): the updates write the
     masters in place."""
+    return opt_state_from_defs(opt_state_defs(name, defs), params)
+
+
+def opt_state_from_defs(state_defs: dict, params):
+    """``init_opt_state`` from the state's ParamDefs (``opt_state_defs``'s,
+    or a rank's block shapes of them, with ``params`` its blocks)."""
     dev = tree_flatten(params)[0].device
-    state_defs = opt_state_defs(name, defs)
+    state_defs = dict(state_defs)
     masters = state_defs.pop("master", None)
     state = init_params(state_defs, torch.Generator(), dev)  # zeros: nothing is drawn
     if masters is not None:

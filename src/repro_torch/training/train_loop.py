@@ -15,16 +15,22 @@ on a mesh by the sharding rules, as the reference's do.
 
 On a mesh (``Trainer(..., mesh=)``, SPMD: every rank of the mesh runs the
 same Trainer) the params and the optimizer state are DTensors laid out by
-``state_shardings``, each rank holding its shard, and each rank trains on its
-``batch_spec`` slice of ``make_batch``.  The reference's GSPMD
-tensor-parallel compute is not ported (a deliberate difference): for the
-step each rank gathers every leaf whole, except the MoE expert leaves,
-which it lays out by the expert axes the sharded MoE body takes
-(``_compute_spec``).  Every rank's backward starts from its own loss; the
+``state_shardings``, each rank holding its shard (drawn leaf by leaf, each
+rank keeping its block), and each rank trains on its ``batch_spec`` slice
+of ``make_batch``.  The step computes as the reference's partitioned step
+does (``_compute_spec``): a family with a tensor-parallel body (dense, vlm,
+granite-moe's GQA attention; ``_has_tp_body``) keeps each leaf's "model"
+split (heads, kv_heads, mlp, vocab) and computes each layer on the rank's
+shard (``models/layers.py``), gathering only the fsdp split over "data";
+the MoE expert leaves take the expert axes the sharded MoE body takes; every
+other leaf, and every leaf of the other families (MLA, Mamba2, whisper), is
+gathered whole.  Every rank's backward starts from its own loss; the
 collectives carry their transposes, so a leaf's gradient is the sum over the
-ranks that share its block, divided by the mesh size (``_grad_plan``): a
-reduce-scatter over an axis that splits the leaf's storage, an all-reduce
-over one that does not, or over the DP axes the int8 all-reduce
+ranks that share its block, divided by the mesh size (``_grad_plan``; a
+split leaf's gradient has the "model" ranks' losses in it through the
+backward of the sum over "model", ``core.collectives``): a reduce-scatter
+over an axis that splits the leaf's storage, an all-reduce over one that
+does not, or over the DP axes the int8 all-reduce
 (``TrainerConfig.grad_compress``), in the gradient's dtype.  Each rank then keeps its shard:
 the global-norm clip all-reduces the shards' sums of squares, each block
 counted once; AdamW updates the local shards; Adafactor's factored moments
@@ -58,6 +64,7 @@ from repro_torch.models.params import (
 )
 from repro_torch.sharding import layout
 from repro_torch.sharding.rules import (
+    MODEL,
     ShardingRules,
     activate_mesh,
     active_rules,
@@ -65,6 +72,7 @@ from repro_torch.sharding.rules import (
     batch_axes,
     batch_spec,
     entry_axes,
+    shard_shape,
     spec_for,
     spec_placements,
 )
@@ -79,6 +87,7 @@ from repro_torch.training.optimizer import (
     clip_by_global_norm,
     init_opt_state,
     opt_state_defs,
+    opt_state_from_defs,
     opt_update,
 )
 
@@ -184,15 +193,32 @@ def _paths(tree, prefix=()) -> list:
     return [prefix]
 
 
-def _compute_spec(cfg: ArchConfig, path: tuple, d: ParamDef, mesh, local_batch: int,
-                  seq: int) -> tuple:
-    """The layout a leaf takes for the step: whole, or for an expert leaf
-    its expert dim over the expert axes ``moe_apply`` picks for the rank's
-    tokens."""
+TP_LOGICAL = ("heads", "kv_heads", "mlp", "vocab")  # the dims a TP body computes split
+
+
+def _has_tp_body(cfg: ArchConfig) -> bool:
+    """Whether the family's layers compute on a rank's "model" shard: the
+    GQA blocks with a dense MLP or a MoE (dense, vlm, granite-moe), their
+    embedding and loss.  MLA (deepseek), Mamba2 (ssm, hybrid) and whisper
+    compute whole."""
+    return cfg.family in ("dense", "vlm") or (cfg.family == "moe" and cfg.mla is None)
+
+
+def _compute_spec(cfg: ArchConfig, path: tuple, d: ParamDef, store: tuple, mesh,
+                  rules: ShardingRules, local_batch: int, seq: int) -> tuple:
+    """The layout a leaf takes for the step, from its storage layout
+    ``store``: an expert leaf's expert dim over the expert axes ``moe_apply``
+    picks for the rank's tokens; under a family with a TP body, a TP dim's
+    "model" split kept (unless "model" is a DP axis of ``rules``); every
+    other split (fsdp's "embed" over "data") gathered."""
     spec = [None] * len(d.shape)
     if _is_expert(path):
         ep_axes = moe.sharded_plan(cfg, mesh, local_batch, seq)[0]
         spec[d.logical.index("experts")] = moe._e_spec(ep_axes)[0]
+    elif _has_tp_body(cfg) and MODEL not in rules.dp_axes:
+        for i, (logical, e) in enumerate(zip(d.logical, store)):
+            if logical in TP_LOGICAL and MODEL in entry_axes(e):
+                spec[i] = MODEL
     return tuple(spec)
 
 
@@ -220,15 +246,29 @@ class MeshLayout:
         self.local_batch = self.global_batch // math.prod(
             sizes[a] for a in entry_axes(self.batch_spec[0]))
         mb = self.local_batch // self.accum
-        self.compute_specs = [_compute_spec(self.cfg, p, d, self.mesh, mb, self.seq)
-                              for p, d in zip(_paths(defs), self.param_defs)]
+        self.paths = _paths(defs)
+        self.compute_specs = [
+            _compute_spec(self.cfg, p, d, s, self.mesh, self.rules, mb, self.seq)
+            for p, d, s in zip(self.paths, self.param_defs, self.param_specs)]
         self.dp = batch_axes(self.mesh, self.rules)
 
-    def shard(self, tree, specs) -> list:
-        """DTensors of this rank's blocks of the whole tensors in ``tree``."""
-        return [DTensor.from_local(layout.block_of(t, self.mesh, sp).contiguous(), self.mesh,
-                                   spec_placements(sp, self.mesh), run_check=False)
-                for t, sp in zip(tree_flatten(tree), specs)]
+    def keep(self):
+        """``init_model``'s ``keep``: a copy of this rank's block of a whole
+        param leaf, by its key path, so that the whole leaf can be freed."""
+        specs = dict(zip(self.paths, self.param_specs))
+        return lambda path, t: layout.block_of(t, self.mesh, specs[path]).clone(
+            memory_format=torch.contiguous_format)
+
+    def local_opt_defs(self, defs: dict) -> dict:
+        """The optimizer state's ParamDefs with this rank's block shapes."""
+        local = [dataclasses.replace(d, shape=shard_shape(d.shape, sp, self.mesh))
+                 for d, sp in zip(self.opt_defs, self.opt_specs)]
+        return tree_unflatten(opt_state_defs(self.cfg.optimizer, defs), local)
+
+    def wrap(self, blocks: list, specs) -> list:
+        """DTensors of this rank's blocks."""
+        return [DTensor.from_local(b, self.mesh, spec_placements(sp, self.mesh), run_check=False)
+                for b, sp in zip(blocks, specs)]
 
     def batch_slice(self, batch: dict) -> dict:
         return {k: layout.block_of(v, self.mesh, self.batch_spec + (None,) * (v.dim() - 2))
@@ -354,12 +394,47 @@ def _adafactor_on_mesh(lay: MeshLayout, params, opt_state, shards, lr) -> None:
         _local(t).copy_(layout.block_of(w, mesh, s))
 
 
+def tp_collectives(lay: MeshLayout, batch: int, seq: int, act, dtype=None) -> list:
+    """The sums over "model" one forward of ``batch`` x ``seq`` tokens sends
+    in ``lay``'s compute layout, as [(what, operand bytes, count)]: "layer"
+    for attention's sum after wo in a layer (``act`` the activations'
+    dtype), "layer_last" for the MLP's after its down projection, the last
+    thing its layer does, "embed" for the embedding's, "loss" for the
+    log-sum-exp's and the label logit's (f32, one a logits chunk) and "max"
+    for the maximum's.  Each is an all-reduce; all but "max" are sent again
+    by the backward.  Under remat
+    a layer's forward runs again in the backward, but torch's checkpoint
+    stops that recompute once the tensors the layer's backward saved are
+    back (its early stop), so a "layer_last" sum is not sent again."""
+    cfg, mesh = lay.cfg, lay.mesh
+    if axis_sizes(mesh).get(MODEL, 1) == 1:
+        return []
+    row = batch * seq * cfg.d_model
+    out = []
+    for path, d, c in zip(lay.paths, lay.param_defs, lay.compute_specs):
+        if MODEL not in c or _is_expert(path):
+            continue
+        if path[-1] in ("wo", "wd"):
+            out.append(("layer_last" if path[-2] == "mlp" else "layer", row * act.itemsize,
+                        d.shape[0] if d.logical[0] == "layers" else 1))
+        elif path == ("embed", "tokens"):
+            out.append(("embed", row * (dtype or d.dtype).itemsize, 1))
+        if path == ("embed", "unembed") or (path == ("embed", "tokens") and cfg.tie_embeddings):
+            c = cfg.logits_chunk
+            chunks = seq // c if c and seq % c == 0 and seq > c else 1
+            out += [("loss", 2 * 4 * batch * (seq // chunks), chunks),
+                    ("max", 4 * batch * (seq // chunks), chunks)]
+    return out
+
+
 def step_collectives(cfg: ArchConfig, mesh, rules: ShardingRules, global_batch: int,
                      seq: int, *, accum: int = 1, compressed: bool = False,
                      dtype=None) -> C.CollectiveStats:
     """What one ``make_mesh_step`` step sends from each rank, counted from
-    the layouts and shapes: the weight gathers, the sharded MoE layers
-    (forward, the recomputed forward under remat, backward, each microbatch),
+    the layouts and shapes: the weight gathers to the compute layout, the
+    tensor-parallel sums (``tp_collectives``: forward, backward, and a
+    layer's recomputed forward under remat, each microbatch), the sharded
+    MoE layers (the same passes),
     the metrics' means, the gradients' sums and means, the relayout back to
     the shards, the norm, and Adafactor's gathers.  ``dtype``: the params'
     and the activations' dtype where it is not the ParamDefs' and the
@@ -372,14 +447,19 @@ def step_collectives(cfg: ArchConfig, mesh, rules: ShardingRules, global_batch: 
     pdt = lambda d: dtype or d.dtype  # noqa: E731
     for d, s, c in zip(lay.param_defs, lay.param_specs, lay.compute_specs):
         layout.relayout_sends(d.shape, pdt(d), mesh, s, c, stats)
+    mb = lay.local_batch // accum
+    act = dtype or cfg.dtype
+    remat = cfg.remat != "none"
+    for what, nbytes, count in tp_collectives(lay, mb, seq, act, dtype):
+        # the forward; the backward, but for the max; a layer's forward again under remat
+        times = 1 + (what != "max") + (remat and what == "layer")
+        stats.add("all-reduce", nbytes, count * accum * times)
     moe_layers = cfg.num_layers - cfg.first_k_dense if cfg.moe is not None else 0
     if moe_layers:
-        mb = lay.local_batch // accum
-        act = dtype or cfg.dtype
         passes = moe.moe_collectives(cfg, mesh, mb, seq, act, backward=True)
         fwd = moe.moe_collectives(cfg, mesh, mb, seq, act)
         times = moe_layers * accum
-        for part, n in ((passes, times), (fwd, times if cfg.remat != "none" else 0)):
+        for part, n in ((passes, times), (fwd, times if remat else 0)):
             for k in part.counts:
                 stats.add(k, part.operand_bytes[k] // part.counts[k], part.counts[k] * n)
     n_metrics = 3 + (1 if cfg.mtp else 0)
@@ -440,7 +520,8 @@ class Trainer:
     optimizer state over "data" too, else the reference's TP rules, its
     Trainer's ``activate_mesh`` default).  The parameters are
     drawn from a generator on that device seeded with ``tc.seed``; on a
-    mesh every rank draws them whole and keeps its shards."""
+    mesh every rank draws them leaf by leaf and keeps its block of each
+    (``_init_params``' ``keep``), the same numbers as the whole draw's."""
 
     def __init__(self, cfg: ArchConfig, ds: SyntheticLM, tc: TrainerConfig, device=None,
                  mesh=None):
@@ -466,22 +547,27 @@ class Trainer:
                                      tc.accum)
             self.step_fn = make_mesh_step(cfg, self.layout, self.schedule,
                                           compressed=tc.grad_compress)
-        self.params, self.opt_state = self._placed(*self._init_state())
+        self.params, self.opt_state = self._init_state()
         self._failure_at: int | None = None  # test hook: inject WorkerFailure
 
-    def _init_state(self):
+    def _init_params(self, keep):
+        """The seeded parameters, each leaf passed through ``keep``
+        (``init_model``'s) where it is given."""
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
-        params = init_model(self.cfg, gen, self.device)
-        return params, init_opt_state(self.cfg.optimizer, param_defs(self.cfg), params)
+        return init_model(self.cfg, gen, self.device, keep=keep)
 
-    def _placed(self, params, opt_state):
-        """The whole state as it is (one device), or as DTensors of this
-        rank's shards (a mesh)."""
+    def _init_state(self):
+        """The whole state (one device), or DTensors of this rank's blocks
+        (a mesh), no leaf whole but the one being drawn."""
+        defs = param_defs(self.cfg)
         if self.layout is None:
-            return params, opt_state
+            params = self._init_params(None)
+            return params, init_opt_state(self.cfg.optimizer, defs, params)
         lay = self.layout
-        return (tree_unflatten(params, lay.shard(params, lay.param_specs)),
-                tree_unflatten(opt_state, lay.shard(opt_state, lay.opt_specs)))
+        params = self._init_params(lay.keep())
+        opt_state = opt_state_from_defs(lay.local_opt_defs(defs), params)
+        return (tree_unflatten(params, lay.wrap(tree_flatten(params), lay.param_specs)),
+                tree_unflatten(opt_state, lay.wrap(tree_flatten(opt_state), lay.opt_specs)))
 
     def batch(self, step: int) -> dict:
         """The step's batch: ``make_batch``'s, or on a mesh this rank's slice."""
@@ -532,7 +618,7 @@ class Trainer:
         if latest is None:
             # no checkpoint yet: restart from scratch (deterministic init)
             self.params = self.opt_state = None  # one state on the device at a time
-            self.params, self.opt_state = self._placed(*self._init_state())
+            self.params, self.opt_state = self._init_state()
             return 0
         if self.layout is None:
             step, state, _ = self.ckpt.restore(like=self._state(), device="cpu")

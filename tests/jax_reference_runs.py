@@ -11,7 +11,9 @@ CPU device):
       the sharded MoE (2 x 4), dp_value_and_grad (8 x 1) and the Trainer on
       2 x 4 (losses, gradient norms, each state leaf's norm, and a bound on
       what the int8 all-reduce over "data" can move the gradient of the first
-      two steps), from the weights and inputs in IN.npz.
+      two steps), from the weights and inputs in IN.npz; and on one device,
+      each "tp/" case's block (GQA, the MLP, the embedding, the LM loss) with
+      its gradient, the cotangent given.
 
 Specs are written as lists with one entry a dim: null, an axis name, or a
 list of names."""
@@ -132,6 +134,8 @@ def dist_mode(in_path, out_path):
         res[f"dp/{name}/loss"] = np.asarray(l)
         res[f"dp/{name}/g"] = np.asarray(g["w"])
 
+    tp_blocks(data, res)
+
     for arch in ("granite-3-8b", "granite-moe-3b-a800m"):
         tcfg = dataclasses.replace(get_reduced_config(arch), dtype=jnp.float32)
         ds = SyntheticLM(vocab_size=tcfg.vocab_size, seq_len=int(data["train/seq"]),
@@ -160,6 +164,44 @@ def dist_mode(in_path, out_path):
         res[f"train/{arch}/state_norms"] = np.asarray(
             [np.linalg.norm(np.asarray(t, np.float64)) for t in jax.tree.leaves(tr._state())])
     np.savez(out_path, **res)
+
+
+def tp_blocks(data, res):
+    """Each "tp/" case's block on one device, the reduced granite-3-8b in f32
+    with the case's overrides: its output, and the gradients (``jax.vjp``
+    with the case's cotangent) of its params and of its input x (not of an
+    embedding's tokens)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.models.layers import embed_apply, gqa_apply, mlp_apply
+    from repro.models.model import lm_loss
+
+    base = get_reduced_config("granite-3-8b")
+    for case in json.loads(str(data["tp/cases"])):
+        kind = str(data[f"tp/{case}/kind"])
+        cfg = dataclasses.replace(base, dtype=jnp.float32,
+                                  **json.loads(str(data[f"tp/{case}/overrides"])))
+        prefix = f"tp/{case}/p/"
+        params = {k[len(prefix):]: jnp.asarray(v) for k, v in data.items() if k.startswith(prefix)}
+        x, cot = jnp.asarray(data[f"tp/{case}/x"]), jnp.asarray(data[f"tp/{case}/cot"])
+        if kind == "embed":
+            y, vjp = jax.vjp(lambda p: embed_apply(p, x, cfg), params)
+            (gp,) = vjp(cot)
+        else:
+            labels = jnp.asarray(data.get(f"tp/{case}/labels", 0))
+            fn = {"gqa": lambda p, h: gqa_apply(p, h, cfg),
+                  "mlp": lambda p, h: mlp_apply(p, h, cfg),
+                  "loss": lambda p, h: lm_loss({"embed": p}, h, labels, cfg)}[kind]
+            y, vjp = jax.vjp(fn, params, x)
+            gp, gx = vjp(cot)
+            res[f"tp/{case}/dx"] = np.asarray(gx)
+        res[f"tp/{case}/y"] = np.asarray(y)
+        for k, g in gp.items():
+            res[f"tp/{case}/d/{k}"] = np.asarray(g)
 
 
 def int8_mean_bound(params, batch, cfg, n_dp):

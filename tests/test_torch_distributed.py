@@ -18,6 +18,8 @@ reference's compressed one (max scale / n) and to 2% of the exact mean, as
 the reference's test requires; the Trainer with int8 gradients to the
 reference's exact run as its test's docstring says."""
 import dataclasses
+import json
+import math
 import os
 import subprocess
 import sys
@@ -26,11 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_reduced_config
+from repro_torch.configs import get_config, get_reduced_config, list_archs
 from repro_torch.launch.world import run_world
 from repro_torch.models import moe
 from repro_torch.models.model import init_model
 from repro_torch.models.params import tree_flatten, tree_map
+from repro_torch.sharding.rules import MeshShape, shard_shape, tensor_parallel_rules
 from repro_torch.training import train_loop as TL
 
 import torch_dist_workers as W
@@ -38,6 +41,54 @@ import torch_dist_workers as W
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32_REL = 1e-4
 STEPS, BATCH, SEQ = 4, 8, 32
+# tensor-parallel blocks on 2 x 4: (kind, overrides of the reduced granite-3-8b
+# in f32, the leaves a rank holds its "model" block of; the others whole)
+TP_CASES = {
+    "gqa_kv_whole": ("gqa", {"qkv_bias": True}, {"wq", "wo", "bq"}),  # 2 KV heads on 4 ranks
+    "gqa_kv_split": ("gqa", {"num_heads": 8, "num_kv_heads": 4, "head_dim": 16},
+                     {"wq", "wk", "wv", "wo"}),  # 2 q heads a rank on its one KV head
+    "mlp_swiglu": ("mlp", {}, {"wg", "wu", "wd"}),
+    "mlp_gelu": ("mlp", {"activation": "gelu"}, {"wi", "bi", "wo"}),
+    "embed": ("embed", {}, {"tokens"}),
+    "loss_padded_chunked": ("loss", {"vocab_size": 509, "logits_chunk": 8}, {"unembed"}),
+    "loss_tied": ("loss", {"tie_embeddings": True}, {"tokens"}),
+}
+TP_BATCH, TP_SEQ = 2, 16
+
+
+def tp_inputs() -> dict:
+    """Each TP case's weights, input and cotangent (and labels, some masked),
+    drawn with numpy; the leaves are the block's ParamDefs' (a loss case's,
+    those its logits read)."""
+    from repro_torch.models.layers import embed_defs, gqa_defs, mlp_defs
+
+    rng = np.random.default_rng(1)
+    data = {"tp/cases": np.asarray(json.dumps(list(TP_CASES)))}
+    for case, (kind, over, _) in TP_CASES.items():
+        cfg = dataclasses.replace(W.f32_config("granite-3-8b"), **over)
+        defs = {"gqa": gqa_defs, "mlp": mlp_defs, "embed": embed_defs, "loss": embed_defs}[kind](cfg)
+        if kind in ("embed", "loss"):  # the table the block reads
+            keep = "unembed" if kind == "loss" and not cfg.tie_embeddings else "tokens"
+            defs = {keep: defs[keep]}
+        data[f"tp/{case}/kind"] = np.asarray(kind)
+        data[f"tp/{case}/overrides"] = np.asarray(json.dumps(over))
+        for k, d in defs.items():
+            fan_in = d.shape[0] if len(d.shape) >= 2 else 10.0  # biases at 0.3
+            data[f"tp/{case}/p/{k}"] = (rng.standard_normal(d.shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+        act = (TP_BATCH, TP_SEQ, cfg.d_model)
+        if kind == "embed":
+            data[f"tp/{case}/x"] = rng.integers(0, cfg.vocab_size, act[:2]).astype(np.int32)
+        else:
+            data[f"tp/{case}/x"] = rng.standard_normal(act).astype(np.float32)
+        if kind == "loss":
+            labels = rng.integers(0, cfg.vocab_size, act[:2]).astype(np.int32)
+            labels[:, ::5] = -1
+            data[f"tp/{case}/labels"] = labels
+            data[f"tp/{case}/cot"] = np.asarray(1.0, np.float32)
+        else:
+            data[f"tp/{case}/cot"] = rng.standard_normal(act).astype(np.float32)
+    return data
 
 
 def reference_inputs() -> dict:
@@ -59,7 +110,7 @@ def reference_inputs() -> dict:
         params = init_model(cfg, torch.Generator().manual_seed(1), "cpu")
         for i, t in enumerate(tree_flatten(params)):
             data[f"train/{arch}/{i}"] = t.float().numpy()
-    return data
+    return data | tp_inputs()
 
 
 @pytest.fixture(scope="module")
@@ -143,6 +194,93 @@ def test_moe_collectives_recorded_equal_the_analytic_count(runs, case):
         got = r["moe"][case]
         assert got["recorded"] == got["analytic"]
         assert got["recorded"]["total_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute on 2 x 4: each block on the rank's "model" shards
+# ---------------------------------------------------------------------------
+def model_block(a: np.ndarray, spec: list, m: int) -> np.ndarray:
+    """The block of ``a`` at coordinate ``m`` of the 4 "model" ranks."""
+    for dim, e in enumerate(spec):
+        if e == "model":
+            n = a.shape[dim] // 4
+            a = np.take(a, range(m * n, (m + 1) * n), axis=dim)
+    return a
+
+
+@pytest.mark.parametrize("case", TP_CASES)
+def test_tp_block_matches_the_reference_one_device_function(runs, case):
+    """The block's output, its input's gradient and each leaf's gradient
+    block on every rank against the reference's function on one device, the
+    same numpy weights and cotangent; and which leaves the rank held its
+    block of (wk and wv whole where 2 KV heads do not divide 4 ranks)."""
+    ref = runs["ref"]
+    for rank, r in enumerate(runs["ranks"]):
+        got, m = r["tp"][case], rank % 4
+        assert {k for k, sp in got["specs"].items() if "model" in sp} == TP_CASES[case][2]
+        assert rel(got["y"], ref[f"tp/{case}/y"]) < F32_REL
+        if TP_CASES[case][0] != "embed":
+            assert rel(got["dx"], ref[f"tp/{case}/dx"]) < F32_REL
+        for k, g in got["grads"].items():
+            want = model_block(ref[f"tp/{case}/d/{k}"], got["specs"][k], m)
+            assert g.shape == want.shape and rel(g, want) < F32_REL, k
+
+
+TP_FAMILY_ARCHS = ("granite-3-8b", "granite-34b", "qwen1.5-110b", "starcoder2-15b",
+                   "internvl2-76b", "granite-moe-3b-a800m")
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_compute_specs_keep_model_on_the_tp_leaves(arch):
+    """Under the TP rules with fsdp on 16 x 16: a family with a TP body (the
+    dense and vlm stacks, granite-moe's GQA attention) computes every
+    non-expert leaf on its "model" block wherever its storage splits it over
+    "model" and gathers only the "data" split; the others (MLA, Mamba2,
+    whisper) compute every non-expert leaf whole.  The expert leaves take
+    the MoE's expert axes either way."""
+    cfg = get_config(arch)
+    mesh = MeshShape({"data": 16, "model": 16})
+    lay = TL.MeshLayout(cfg, mesh, tensor_parallel_rules(fsdp=True), 256, 4096)
+    tp = arch in TP_FAMILY_ARCHS
+    split = 0
+    for path, store, c in zip(lay.paths, lay.param_specs, lay.compute_specs):
+        if path[-2:-1] == ("moe",) and path[-1] in ("wg", "wu", "wd"):
+            continue
+        assert c == tuple("model" if tp and e == "model" else None for e in store), path
+        split += "model" in c
+    assert (split > 0) == tp
+
+
+@pytest.mark.parametrize("arch, mesh, batch, seq", [
+    ("granite-3-8b", (2, 4), BATCH, SEQ), ("granite-moe-3b-a800m", (2, 4), BATCH, SEQ),
+    ("internvl2-76b", (2, 4), BATCH, SEQ), ("granite-3-8b/full", (2, 2), 4, 512)])
+def test_analytic_step_gathers_only_the_fsdp_split(arch, mesh, batch, seq):
+    """The analytic step's all-gathers under the TP rules with fsdp are the
+    "data" gathers of the fsdp split alone, one a leaf split over "data"
+    (its block's bytes): nothing is gathered over "model".  The reduced
+    configs on 2 x 4; granite-3-8b at full width, 2 layers, on 2 x 2 (the
+    card's multi-device step)."""
+    name, full = arch.split("/")[0], arch.endswith("/full")
+    cfg = (dataclasses.replace(get_config(name), num_layers=2) if full
+           else get_reduced_config(name))
+    mesh = MeshShape(dict(zip(("data", "model"), mesh)))
+    rules = tensor_parallel_rules(fsdp=True)
+    stats = TL.step_collectives(cfg, mesh, rules, batch, seq)
+    lay = TL.MeshLayout(cfg, mesh, rules, batch, seq)
+    fsdp = [(d, sp) for d, sp in zip(lay.param_defs, lay.param_specs) if "data" in sp]
+    assert fsdp and stats.counts["all-gather"] == len(fsdp)
+    assert stats.operand_bytes["all-gather"] == sum(
+        math.prod(shard_shape(d.shape, sp, mesh)) * d.dtype.itemsize for d, sp in fsdp)
+
+
+@pytest.mark.parametrize("arch", W.TRAIN_ARCHS)
+def test_mesh_trainer_first_draws_are_the_whole_draws_blocks(runs, arch):
+    """The mesh Trainer draws its state leaf by leaf, keeping its blocks: the
+    same bits as the blocks of the whole draw, both optimizers."""
+    for r in runs["ranks"]:
+        for opt in ("adamw", "adafactor"):
+            got = r["first_draws"][f"{arch}/{opt}"]
+            assert all(got["equal"]) and got["split"] > 0
 
 
 # ---------------------------------------------------------------------------

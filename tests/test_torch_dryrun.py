@@ -62,3 +62,22 @@ def test_overrides_parse_as_the_reference_does():
     assert dryrun._parse_override("scan_layers=False") == ("scan_layers", False)
     cfg = dryrun.apply_overrides(dryrun.get_config("granite-3-8b"), {"kv_dtype": "float32"})
     assert str(cfg.kv_dtype) == "torch.float32"
+
+
+def test_train_cell_counts_the_tensor_parallel_step():
+    """granite-3-8b x train_4k on 16 x 16 (no fsdp at 8 B params): the cell's
+    collectives are ``step_collectives``', and with every TP leaf computed
+    on its "model" block nothing is gathered; the activation sums (16 x
+    4096 tokens x 4096 x bf16 each: attention's and the MLP's forward and
+    backward, attention's again under remat, over 40 layers) are 200 of
+    the all-reduces."""
+    from repro_torch.configs import get_config
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.training.train_loop import step_collectives
+
+    got = dryrun.run_cell("granite-3-8b", "train_4k", verbose=False)["collectives"]["analytic"]
+    cfg = get_config("granite-3-8b")
+    want = step_collectives(cfg, dryrun.production_mesh_shape(), make_rules("tp"), 256, 4096)
+    assert got == want.summary() and "all-gather" not in got["by_op"]
+    sums = 200 * 16 * 4096 * cfg.d_model * 2
+    assert got["by_op"]["all-reduce"]["operand_bytes"] > sums

@@ -3,6 +3,7 @@ rank of a spawned gloo world runs (``repro_torch.launch.world.run_world``),
 and the single process that builds the production meshes under torch's fake
 process group.  No JAX here: each rank imports torch and the port only."""
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -15,11 +16,26 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.core import collectives as C
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import moe
-from repro_torch.models.model import param_defs
+from repro_torch.models.layers import (
+    embed_apply,
+    embed_defs,
+    gqa_apply,
+    gqa_defs,
+    mlp_apply,
+    mlp_defs,
+)
+from repro_torch.models.model import init_model, lm_loss, param_defs
 from repro_torch.models.params import params_from_numpy, tree_flatten, tree_unflatten
 from repro_torch.models.quant import QuantTensor, quantize_weight
 from repro_torch.sharding import layout
-from repro_torch.sharding.rules import activate_mesh, batch_spec, tensor_parallel_rules
+from repro_torch.sharding.rules import (
+    activate_mesh,
+    axis_sizes,
+    batch_spec,
+    entry_axes,
+    spec_for,
+    tensor_parallel_rules,
+)
 from repro_torch.training import train_loop as TL
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.grad_compress import dp_value_and_grad
@@ -34,15 +50,16 @@ def f32_config(arch: str):
 
 
 def numpy_trainer(leaves: list):
-    """A Trainer whose state starts from the given f32 leaves (``param_defs``
-    order), on every rank."""
+    """A Trainer whose params start from the given f32 leaves (``param_defs``
+    order), on every rank (each keeping its blocks on a mesh)."""
 
     class NumpyTrainer(TL.Trainer):
-        def _init_state(self):
+        def _init_params(self, keep):
             defs = param_defs(self.cfg)
-            params = tree_unflatten(defs, [torch.from_numpy(a.copy()).to(self.device)
-                                           for a in leaves])
-            return params, init_opt_state(self.cfg.optimizer, defs, params)
+            paths = TL._paths(defs)
+            return tree_unflatten(defs, [
+                t if keep is None else keep(path, t) for path, t in
+                zip(paths, (torch.from_numpy(a.copy()).to(self.device) for a in leaves))])
 
     return NumpyTrainer
 
@@ -114,6 +131,85 @@ def _moe(data, mesh):
         with activate_mesh(mesh):
             y, _ = moe.moe_apply(local, xs, cfg)
         out[f"int8_{case}"] = layout.full(y, mesh, batch_spec(x.shape[0], mesh) + (None,)).numpy()
+    return out
+
+
+def _tp_blocks(data, mesh) -> dict:
+    """Each "tp/" case's block on the rank's "model" shards (the compute
+    layout of the step under the TP rules), every rank on the whole batch:
+    its output, and the gradients of its input and of its leaves' blocks
+    reduced as the step reduces them (the sum over the ranks that share a
+    block, over the mesh size: every rank's backward starts from its own
+    loss, here all the same)."""
+    rules = tensor_parallel_rules()
+    sizes = axis_sizes(mesh)
+    defs_of = {"gqa": gqa_defs, "mlp": mlp_defs, "embed": embed_defs, "loss": embed_defs}
+
+    def reduced(g, spec):
+        used = {a for e in spec for a in entry_axes(e)}
+        summed = C.all_reduce(g, mesh, tuple(a for a in sizes if a not in used))
+        return (summed / mesh.size()).numpy()
+
+    out = {}
+    for case in json.loads(str(data["tp/cases"])):
+        kind = str(data[f"tp/{case}/kind"])
+        cfg = dataclasses.replace(f32_config("granite-3-8b"),
+                                  **json.loads(str(data[f"tp/{case}/overrides"])))
+        defs = defs_of[kind](cfg)
+        prefix = f"tp/{case}/p/"
+        whole = {k[len(prefix):]: torch.from_numpy(v) for k, v in data.items()
+                 if k.startswith(prefix)}
+        specs = {k: TL._compute_spec(cfg, (k,), defs[k], spec_for(defs[k], mesh, rules), mesh,
+                                     rules, 1, 1) for k in whole}
+        local = {k: layout.block_of(w, mesh, specs[k]).clone().requires_grad_()
+                 for k, w in whole.items()}
+        x = torch.from_numpy(data[f"tp/{case}/x"])
+        x = x if kind == "embed" else x.requires_grad_()
+        with torch.enable_grad(), activate_mesh(mesh, rules):
+            if kind == "gqa":
+                y = gqa_apply(local, x, cfg)
+            elif kind == "mlp":
+                y = mlp_apply(local, x, cfg)
+            elif kind == "embed":
+                y = embed_apply(local, x, cfg)
+            else:
+                y = lm_loss({"embed": local}, x, torch.from_numpy(data[f"tp/{case}/labels"]), cfg)
+            wrt = list(local.values()) + ([x] if x.requires_grad else [])
+            grads = torch.autograd.grad(y, wrt, torch.from_numpy(data[f"tp/{case}/cot"]))
+        with torch.no_grad():
+            out[case] = {"y": y.detach().numpy(), "specs": {k: list(s) for k, s in specs.items()},
+                         "grads": {k: reduced(g, specs[k]) for k, g in zip(local, grads)}}
+            if x.requires_grad:
+                out[case]["dx"] = reduced(grads[-1], (None,) * x.dim())
+    return out
+
+
+def _first_draws(mesh) -> dict:
+    """For each train arch, under the TP rules with fsdp: whether the mesh
+    Trainer's leaf-by-leaf initial state (params and optimizer state, both
+    optimizers) is, leaf by leaf and bit for bit, this rank's block of the
+    whole draw's."""
+    rules = tensor_parallel_rules(fsdp=True)
+    out = {}
+    for arch in TRAIN_ARCHS:
+        for opt in ("adamw", "adafactor"):
+            cfg = dataclasses.replace(get_reduced_config(arch), optimizer=opt)
+            ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8)
+            tc = TL.TrainerConfig(seed=3)
+            with activate_mesh(mesh, rules):
+                tr = TL.Trainer(cfg, ds, tc, mesh=mesh)
+            params = init_model(cfg, torch.Generator().manual_seed(tc.seed), "cpu")
+            state = init_opt_state(opt, param_defs(cfg), params)
+            lay = tr.layout
+            want = [layout.block_of(t, mesh, s) for t, s in
+                    zip(tree_flatten(params) + tree_flatten(state),
+                        lay.param_specs + lay.opt_specs)]
+            got = [t.to_local() for t in tree_flatten(tr.params) + tree_flatten(tr.opt_state)]
+            out[f"{arch}/{opt}"] = {
+                "equal": [bool(torch.equal(a, b)) and a.dtype == b.dtype
+                          for a, b in zip(got, want)],
+                "split": sum(a.numel() < b.numel() for a, b in
+                             zip(got, tree_flatten(params) + tree_flatten(state)))}
     return out
 
 
@@ -229,7 +325,8 @@ def world_main(rank: int, world: int, in_path: str, root: str) -> dict:
     mesh42 = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
     mesh81 = init_device_mesh("cpu", (8, 1), mesh_dim_names=("data", "model"))
     out = {"moe": _moe(data, mesh24), "dp": _dp(data, mesh81),
-           "elastic": _elastic(rank, mesh42, root)}
+           "elastic": _elastic(rank, mesh42, root), "tp": _tp_blocks(data, mesh24),
+           "first_draws": _first_draws(mesh24)}
     for arch in TRAIN_ARCHS:
         out[arch] = _trainer(rank, data, arch, mesh24, mesh42, root)
     return out
