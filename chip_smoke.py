@@ -202,14 +202,15 @@ a row (its split-K counters and workspace must come back to zero), the
 expert shapes of the moe family as one batched launch too (timed beside the
 same products as E separate launches); K6 within
 2e-5 in f32 and 3e-2 in bf16.  The SASS of the tensor-core kernels must hold
-HMMA (K6 bf16) and IMMA (K5) where the toolkit has ``cuobjdump``.  K3 and
+HMMA (K6, both types) and IMMA (K5) where the toolkit has ``cuobjdump``.  K3 and
 K4 run their cluster path at D = H = 256 (the plan and the card's cluster
 occupancy are in their entries) and are held to their plain versions there
 too, with a forced batch tile that leaves a ragged last cluster, and at a
 batch of 200 whose input projection no longer fits at once (it runs in
 chunks of steps); K4 also at four layers.  K2's entry gives its geometry
 (units and rows a block, grid); with ``--parent DIR``, a checkout of the
-parent commit, the parent's K2 is built from DIR and timed beside it.
+parent commit, the parent's K2 and K6 are built from DIR and timed beside
+them (K6 in f32 at the granite shape).
 
 The ``tuner`` phase holds the block-size tuner (``kernels/autotune.py``) to
 the card: at every K2-K6 shape of the paths it times the tuner's pick beside
@@ -321,9 +322,10 @@ from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # the f32 rate outside the tensor cores, and the dense tensor-core rates of
-# bf16 and int8.
+# TF32, bf16 and int8.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 
@@ -540,8 +542,9 @@ def r6(v):
 
 
 # The tensor-core kernels and the SASS opcode each of their instantiations
-# must hold: bf16 mma.sync is HMMA, s8 mma.sync is IMMA.
-TENSOR_CORE_KERNELS = {"flash_attention_bf16_kernel": "HMMA", "int8_matmul_kernel": "IMMA"}
+# must hold: bf16 and TF32 mma.sync are HMMA, s8 mma.sync is IMMA.
+TENSOR_CORE_KERNELS = {"flash_attention_bf16_kernel": "HMMA", "flash_attention_kernel": "HMMA",
+                       "int8_matmul_kernel": "IMMA"}
 
 
 def ptxas_usage(log: str) -> list[dict]:
@@ -633,6 +636,8 @@ def check_activation(dev):
             "device_ms": r6(device_ms(lambda: activation(x, fn="sigmoid", impl="exact"))),
             "plain_ms": r6(time_ms(lambda: activation_plain(x, fn="sigmoid", impl="exact"))),
             "library_ms": r6(library_ms), "ms_over_library": r6(ms / library_ms),
+            # the floor one launch of an elementwise kernel meets, beside K1's own
+            "library_device_ms": r6(device_ms(lambda: torch.sigmoid(x))),
             "ms_by_fn_exact": {fn: r6(time_ms(lambda: activation(x, fn=fn, impl="exact"), reps=10,
                                               rounds=3)) for fn in library},
             "library_ms_by_fn": {fn: r6(time_ms(lambda: call(x), reps=10, rounds=3))
@@ -643,22 +648,51 @@ def check_activation(dev):
                  "src/repro/kernels/activations.py:118", shapes)
 
 
-def load_parent_cell(parent: pathlib.Path | None, dev):
-    """K2 of another checkout (``--parent DIR``: the parent commit, unpacked
-    with ``git archive`` under the git-ignored ``build/``), built alone from
-    its ``csrc/lstm_cell.cu`` into its own library and planned by its own
-    ``kernels/lstm_cell.py``, so that both versions of the kernel are timed
-    in one run on one card.  Returns ``call(x, h, c, w, u, b) -> (h', c')``
-    at impl="exact" and ``block_b="auto"``, or None without ``--parent``."""
-    if parent is None:
-        return None
-    lib_path = runtime.BUILD_DIR / "parent" / "liblstm_cell.so"
+def parent_entry(parent: pathlib.Path, source: str, entry: str):
+    """The C entry point ``entry`` of another checkout's ``csrc/<source>.cu``
+    (``--parent DIR``: the parent commit, unpacked with ``git archive`` under
+    the git-ignored ``build/``), built alone into a library of its own, so
+    that both versions of a kernel are timed in one run on one card."""
+    lib_path = runtime.BUILD_DIR / "parent" / f"lib{source}.so"
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([runtime._find_nvcc(), *runtime.NVCC_FLAGS, "-shared", "-o", str(lib_path),
-                    str(parent / "src" / "repro_torch" / "csrc" / "lstm_cell.cu")],
+                    str(parent / "src" / "repro_torch" / "csrc" / f"{source}.cu")],
                    check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib_path)).repro_lstm_cell
+    fn = getattr(ctypes.CDLL(str(lib_path)), entry)
     fn.argtypes, fn.restype = [ctypes.c_char_p, ctypes.c_int], ctypes.c_int
+    return fn
+
+
+def load_parent_flash(parent: pathlib.Path | None, dev):
+    """K6 of the parent checkout (``parent_entry``).  Returns
+    ``call(q, k, v, causal) -> out`` for f32 inputs, or None without
+    ``--parent``; the parent's f32 kernel takes no dynamic shared memory
+    (its entry point refuses any count but 0 for f32)."""
+    if parent is None:
+        return None
+    fn = parent_entry(parent, "flash_attention", "repro_flash_attention")
+    pack = struct.Struct("14q").pack
+
+    def call(q, k, v, causal):
+        b, h, sq, d = q.shape
+        out = torch.empty_like(q)
+        rc = fn(pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, k.shape[1],
+                     sq, k.shape[2], d, int(causal), 0, 0, runtime.stream_handle(dev)), 14)
+        if rc:
+            fail(f"the parent's flash_attention refused its launch (code {rc})")
+        return out
+
+    return call
+
+
+def load_parent_cell(parent: pathlib.Path | None, dev):
+    """K2 of the parent checkout (``parent_entry``), planned by the parent's
+    own ``kernels/lstm_cell.py``.  Returns ``call(x, h, c, w, u, b) ->
+    (h', c')`` at impl="exact" and ``block_b="auto"``, or None without
+    ``--parent``."""
+    if parent is None:
+        return None
+    fn = parent_entry(parent, "lstm_cell", "repro_lstm_cell")
     spec = importlib.util.spec_from_file_location(
         "parent_lstm_cell", parent / "src" / "repro_torch" / "kernels" / "lstm_cell.py")
     module = importlib.util.module_from_spec(spec)
@@ -667,12 +701,12 @@ def load_parent_cell(parent: pathlib.Path | None, dev):
 
     def call(x, h, c, w, u, b):
         batch, d_in = x.shape
-        rows, smem = module._cell_plan("auto", batch, d_in, h.shape[1])
+        geometry = module.plan("auto", batch, d_in, h.shape[1], runtime.CUDA_BACKEND)
         h_new, c_new = torch.empty_like(h), torch.empty_like(c)
         rc = fn(pack(x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(), u.data_ptr(),
                      b.data_ptr(), table_pointer(dev, impl_code("exact")), h_new.data_ptr(),
-                     c_new.data_ptr(), batch, d_in, h.shape[1], impl_code("exact"), rows, smem,
-                     runtime.stream_handle(dev)), 16)
+                     c_new.data_ptr(), batch, d_in, h.shape[1], impl_code("exact"),
+                     geometry.rows, geometry.smem_bytes, runtime.stream_handle(dev)), 16)
         if rc:
             fail(f"the parent's lstm_cell refused its launch (code {rc})")
         return h_new, c_new
@@ -1367,7 +1401,11 @@ def flash_flops(b, h, sq, sk, d, causal) -> float:
     return 4.0 * b * h * pairs * d
 
 
-def check_flash(dev):
+FLASH_PARENT = FLASH_SHAPES[1]      # the granite shape in f32: the parent's K6 timed beside it
+
+
+def check_flash(dev, parent: pathlib.Path | None = None):
+    parent_flash = load_parent_flash(parent, dev)
     shapes = []
     for i, (b, h, kv, sq, sk, d, causal, dtype) in enumerate(FLASH_SHAPES):
         gen = torch.Generator(device=dev).manual_seed(200 + i)
@@ -1388,18 +1426,32 @@ def check_flash(dev):
         ref_err = compare(got, flash_attention_ref(q, k, v, causal=causal), "exact", tol,
                           f"flash_attention {(b, h, kv, sq, sk, d)} vs oracle")
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        bound_ms, bound_by = bound(nbytes(q, k, v) + nbytes(q),
-                                   flash_flops(b, h, sq, sk, d, causal), peak)
-        shapes.append({
+        flops = flash_flops(b, h, sq, sk, d, causal)
+        bound_ms, bound_by = bound(nbytes(q, k, v) + nbytes(q), flops, peak)
+        dev_ms = device_ms(lambda: flash_attention(q, k, v, causal=causal), reps=5)
+        row = {
             "shape": [b, h, kv, sq, sk, d], "causal": causal,
             "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tolerance": tol,
             "ms": r6(time_ms(lambda: flash_attention(q, k, v, causal=causal), reps=10)),
-            "device_ms": r6(device_ms(lambda: flash_attention(q, k, v, causal=causal), reps=5)),
+            "device_ms": r6(dev_ms),
             "plain_ms": r6(time_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
                                    reps=3, rounds=3)),
-            "library_ms": r6(time_ms(sdpa, reps=10)), "library_max_abs_diff": r6(lib_err),
+            "library_ms": r6(time_ms(sdpa, reps=10)),
+            "library_device_ms": r6(device_ms(sdpa, reps=5)), "library_max_abs_diff": r6(lib_err),
             "oracle_max_abs_diff": r6(ref_err), "bound_ms": r6(bound_ms), "bound_by": bound_by,
-        })
+        }
+        if dtype == torch.float32:
+            # the f32 kernel's three TF32 products a multiply-add, at the TF32 rate
+            tf32_ms, tf32_by = bound(nbytes(q, k, v) + nbytes(q), 3 * flops, PEAK_TF32_FLOPS)
+            row.update(bound_tf32x3_ms=r6(tf32_ms), bound_tf32x3_by=tf32_by)
+        if parent_flash is not None and (b, h, kv, sq, sk, d, causal, dtype) == FLASH_PARENT:
+            parent_err = compare(parent_flash(q, k, v, causal), want, "exact", tol,
+                                 f"parent flash_attention {(b, h, kv, sq, sk, d)}")
+            parent_ms = device_ms(lambda: parent_flash(q, k, v, causal), reps=5, uncounted=1)
+            row.update(parent_device_ms=r6(parent_ms), parent_max_abs_err=r6(parent_err),
+                       device_ms_over_parent=r6(None if parent_ms is None or dev_ms is None
+                                                else dev_ms / parent_ms))
+        shapes.append(row)
     return entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:95", shapes)
 
@@ -5618,8 +5670,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="also write the report to this JSON file")
     ap.add_argument("--parent", default=None, type=pathlib.Path,
-                    help="a checkout of the parent commit (git archive): its lstm_cell kernel "
-                         "is built and timed beside this one's")
+                    help="a checkout of the parent commit (git archive): its lstm_cell and "
+                         "flash_attention kernels are built and timed beside this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5670,7 +5722,7 @@ def main(argv=None) -> int:
                phase("lstm_stack_f32", check_stack, dev, False),
                phase("lstm_stack_q8", check_stack, dev, True),
                phase("int8_matmul", check_int8_matmul, dev),
-               phase("flash_attention", check_flash, dev)]
+               phase("flash_attention", check_flash, dev, args.parent)]
     host = phase("host_path", host_path, dev)
     chip_model = phase("chip_model", check_chip_model, dev)
     tuner = phase("tuner", check_tuner, dev)
@@ -5809,8 +5861,9 @@ def main(argv=None) -> int:
               "lut_seen": {k: {n: r6(v) for n, v in d.items()} for k, d in LUT_SEEN.items()},
               "tensor_core_kernels": {"ptxas": ptxas_usage(runtime.compile_log()),
                                       "sass": sass,
-                                      "flash_bf16_dynamic_smem_bytes": {
-                                          d: flash_smem_bytes(d) for d in HEAD_DIMS}},
+                                      "flash_dynamic_smem_bytes": {
+                                          kind: {d: flash_smem_bytes(d, kind) for d in HEAD_DIMS}
+                                          for kind in ("float32", "bfloat16")}},
               "nvcc_log": runtime.compile_log()}
     if args.out:
         out = pathlib.Path(args.out)

@@ -1,7 +1,8 @@
 // PTX helpers shared by the tensor-core kernels (flash_attention.cu,
 // int8_matmul.cu): 16-byte cp.async copies into shared memory, ldmatrix
-// fragment loads and the two warp-level mma shapes they use.  All of them
-// exist on sm_80 and later; the library is built for sm_90a.
+// fragment loads, the rounding of f32 to TF32 and the three warp-level mma
+// shapes they use.  All of them exist on sm_80 and later; the library is
+// built for sm_90a.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +59,30 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
                                                uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f32 rounded to TF32 (10 mantissa bits) to nearest, ties away from zero:
+// the result is an f32 whose low 13 mantissa bits are zero.  Half a unit of
+// the kept bits is added to the bit pattern, then the dropped bits are
+// cleared: the value of `cvt.rna.tf32.f32` for every input but a NaN (a
+// carry into the exponent gives the next power of two, or infinity), in two
+// integer operations, where cvt.rna compiles to these two plus a NaN test
+// and a select.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), f32 accumulators.  Lane l
+// (g = l / 4, t = l % 4) holds a = {A[g][t], A[g + 8][t], A[g][t + 4],
+// A[g + 8][t + 4]}, b = {B[t][g], B[t + 4][g]}, d = {D[g][2t], D[g][2t + 1],
+// D[g + 8][2t], D[g + 8][2t + 1]}.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -391,7 +391,7 @@ def _flash_analyze(p: Mapping[str, int], c: Mapping[str, int], dtype: str = "flo
     # q in and o out once; k and v read once per tile of queries
     traffic = 2 * b * h * sq * d * esize + 2 * b * h * -(-sq // c["block_q"]) * sk * d * esize
     blocks = b * h * -(-sq // c["block_q"])
-    smem = _k6.flash_smem_bytes(d) if kind == "bfloat16" else 0
+    smem = _k6.flash_smem_bytes(d, kind)
     time_s = _roofline_s(flops, traffic, kind, chip) / min(1.0, blocks / chip.sms)
     return _Analysis(float(traffic), smem, blocks, time_s)
 

@@ -7,12 +7,16 @@ aligned (query i sees keys 0..i), masked scores are ``-1e30`` (not -inf),
 and the result is ``acc / max(l, 1e-37)``, so a row whose scores are all
 masked averages its values uniformly, as the reference's does.
 
-Two kernels in ``csrc/flash_attention.cu``: f32 inputs run on scalar FMAs
-in key tiles of ``TILE_K`` rows; bf16 inputs run on the tensor cores
-(``mma.sync`` m16n8k16) in key tiles of ``TILE_K_BF16`` rows, and round the
-probabilities p to bf16 before ``p @ v`` (the reference keeps them in f32;
-the row sum l is taken before the rounding).  :func:`flash_attention_plain`
-repeats each kernel's arithmetic tile by tile in PyTorch, that rounding
+Two kernels in ``csrc/flash_attention.cu``, both on the tensor cores.  f32
+inputs run in key tiles of ``TILE_K`` rows on ``mma.sync`` m16n8k8 TF32 in
+split precision: each operand is split into a TF32 high part and a TF32
+low part, and each product is summed as lo·hi + hi·lo + hi·hi in f32, which
+holds the reference's f32 tolerance where TF32 alone would not; p stays
+f32, as in the reference.  bf16 inputs run in key tiles of ``TILE_K_BF16``
+rows on ``mma.sync`` m16n8k16, and round the probabilities p to bf16 before
+``p @ v`` (the reference keeps them in f32; the row sum l is taken before
+the rounding).  :func:`flash_attention_plain` repeats each kernel's tiles
+and online-softmax updates in plain f32 PyTorch, the bf16 rounding of p
 included.  Unlike the TPU kernel, neither asks the tiles to divide Sq or
 Sk: ragged edges are masked.
 
@@ -30,15 +34,19 @@ import torch
 from repro_torch.kernels import runtime
 
 NEG_INF = -1e30
-TILE_K = 32               # key rows per tile of the f32 kernel; `kTileK` in the .cu file
+ROWS_Q = 64               # query rows per block of both kernels; `kF32RowsQ`, `kMmaRowsQ`
+TILE_K = 32               # key rows per tile of the f32 kernel; `kF32TileK` in the .cu file
+STAGES_F32 = 2            # key/value tiles in flight; `kF32Stages`
+ROW_PAD_QK_F32 = 8        # floats of padding per shared q and k row; `kPadQK`
+ROW_PAD_V_F32 = 4         # floats of padding per shared v row; `kPadV`
 TILE_K_BF16 = 64          # key rows per tile of the bf16 kernel; `kMmaTileK`
 STAGES_BF16 = 2           # key/value tiles in flight; `kMmaStages`
 ROW_PAD_BF16 = 8          # bf16 elements of padding per shared row; `kRowPad`
 HEAD_DIMS = (16, 32, 64, 128)  # head widths the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (query rows, key rows) of a block's tiles, by input type: what each kernel
-# is built with (`kRowsQ`, `kTileK`; `kMmaRowsQ`, `kMmaTileK`)
-BUILT_TILES = {"float32": (64, TILE_K), "bfloat16": (64, TILE_K_BF16)}
+# is built with
+BUILT_TILES = {"float32": (ROWS_Q, TILE_K), "bfloat16": (ROWS_Q, TILE_K_BF16)}
 
 
 @functools.lru_cache(maxsize=1024)
@@ -67,19 +75,31 @@ def tiles(q_dtype: torch.dtype, block_q, block_k, shape: tuple[int, ...],
     return built
 
 
-def flash_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one bf16 block: ``STAGES_BF16`` key and
-    value tiles, rows of ``d + ROW_PAD_BF16`` bf16 (the padding puts the 8
-    rows one ldmatrix reads in 8 bank groups); the q tile passes through
-    stage 1's key tile before the loop starts.  The C entry point recomputes
-    it and refuses a launch (-1) on disagreement."""
-    return 2 * STAGES_BF16 * TILE_K_BF16 * (d + ROW_PAD_BF16) * 2
+def flash_smem_bytes(d: int, kind: str) -> int:
+    """Dynamic shared memory of one block of the ``kind`` ("float32" or
+    "bfloat16") kernel.  bf16: ``STAGES_BF16`` key and value tiles, rows of
+    ``d + ROW_PAD_BF16`` bf16 (the padding puts the 8 rows one ldmatrix reads
+    in 8 bank groups); the q tile passes through stage 1's key tile before
+    the loop starts.  f32: the q tile, which stays (its fragments are split
+    again at every key tile), and ``STAGES_F32`` key and value tiles; q and
+    k rows hold ``d + ROW_PAD_QK_F32`` floats and v rows ``d +
+    ROW_PAD_V_F32`` (pitches of 8 and 4 mod 16 floats, so that a warp's
+    fragment loads fall in distinct banks).  The C entry point recomputes it
+    and refuses a launch (-1) on disagreement."""
+    if kind == "bfloat16":
+        return 2 * STAGES_BF16 * TILE_K_BF16 * (d + ROW_PAD_BF16) * 2
+    if kind == "float32":
+        qk, vv = d + ROW_PAD_QK_F32, d + ROW_PAD_V_F32
+        return 4 * (ROWS_Q * qk + STAGES_F32 * TILE_K * (qk + vv))
+    raise TypeError(f"flash_attention takes float32 or bfloat16, not {kind}")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True):
     """Plain PyTorch version of the kernels: the same tiles, the same
-    online-softmax updates, over all query rows at once; for bf16 inputs
-    p is rounded to bf16 before ``p @ v``, as the bf16 kernel does."""
+    online-softmax updates, over all query rows at once, in plain f32
+    products (the f32 kernel's split TF32 products agree with them to about
+    2^-20 of each product); for bf16 inputs p is rounded to bf16 before
+    ``p @ v``, as the bf16 kernel does."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     g = h // kvh
@@ -140,7 +160,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q="auto", block_k="au
                          f"not {d}")
     ptrs = runtime.aligned_pointers("flash_attention", ("q", "k", "v"), q, k, v)
     out = torch.empty_like(q)
-    smem = flash_smem_bytes(d) if q.dtype == torch.bfloat16 else 0
+    smem = flash_smem_bytes(d, str(q.dtype).replace("torch.", ""))
     runtime.launch("flash_attention", "repro_flash_attention", dev.index, *ptrs, out.data_ptr(),
                    b, h, k.shape[1], sq, k.shape[2], d, int(causal), _DTYPES[q.dtype], smem)
     return out

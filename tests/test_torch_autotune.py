@@ -177,6 +177,7 @@ def test_lstm_stack_model_beats_sequential_traffic():
     ("lstm_cell", {"batch": 8, "d_in": 8, "hidden": 16}, "float32"),
     ("int8_matmul", {"m": 4, "k": 256, "n": 64}, "int8"),
     ("flash_attention", {"b": 1, "h": 2, "sq": 16, "sk": 16, "d": 16}, "bfloat16"),
+    ("flash_attention", {"b": 1, "h": 2, "sq": 16, "sk": 16, "d": 16}, "float32"),
 ])
 def test_measured_refinement_via_make_measure_fn(kernel, problem, dtype):
     """``bench.make_measure_fn`` re-ranks the analytic top-k by timing the

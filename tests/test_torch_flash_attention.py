@@ -1,7 +1,10 @@
 """K6 ``flash_attention`` in the port: its plain version and its oracle
 against the JAX package's kernel (interpret mode) and oracle, at the JAX
 kernel tests' shapes and tolerances (2e-5 in f32: both sum the products in
-another order; 3e-2 in bf16: the output is rounded to bf16)."""
+another order; 3e-2 in bf16: the output is rounded to bf16), and the f32
+kernel's split-TF32 arithmetic, emulated here, against the same reference."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,10 +12,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.core.energy import DEFAULT_CHIP
 from repro_torch.kernels import ops, runtime
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (
-    HEAD_DIMS, flash_attention, flash_attention_plain, flash_smem_bytes,
+    HEAD_DIMS, NEG_INF, ROW_PAD_QK_F32, ROW_PAD_V_F32, TILE_K, flash_attention,
+    flash_attention_plain, flash_smem_bytes,
 )
 
 torch.set_num_threads(1)
@@ -90,9 +95,124 @@ def test_bf16_shared_memory_fits_one_block(d):
     """The bf16 kernel's two stages of key and value tiles fit the 227 KB one
     block may use (three blocks an SM at every head width), and the padded
     rows keep ldmatrix's 16-byte alignment."""
-    assert flash_smem_bytes(d) <= runtime.MAX_SHARED_BYTES
-    assert 3 * flash_smem_bytes(d) <= runtime.MAX_SHARED_BYTES
+    assert flash_smem_bytes(d, "bfloat16") <= runtime.MAX_SHARED_BYTES
+    assert 3 * flash_smem_bytes(d, "bfloat16") <= runtime.MAX_SHARED_BYTES
     assert ((d + 8) * 2) % 16 == 0
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_f32_shared_memory_fits_one_block(d):
+    """The f32 kernel's q tile and two stages of key and value tiles fit the
+    227 KB one block may use, two blocks an SM (each SM keeps 1 KB a block);
+    its padded rows keep cp.async's 16-byte alignment, and their pitches (8
+    and 4 mod 16 floats) put a half warp's 8-byte q and k fragment loads and
+    a warp's v loads (rows 2t and 2t + 1, column g) in distinct banks."""
+    smem = flash_smem_bytes(d, "float32")
+    assert smem <= runtime.MAX_SHARED_BYTES
+    assert 2 * (smem + 1024) <= DEFAULT_CHIP.smem_per_sm
+    qk, vv = d + ROW_PAD_QK_F32, d + ROW_PAD_V_F32
+    assert (qk * 4) % 16 == 0 and (vv * 4) % 16 == 0
+    for half in (range(16), range(16, 32)):
+        words = [(g * qk + 2 * t + w) % 32 for g, t in (divmod(l, 4) for l in half) for w in (0, 1)]
+        assert len(set(words)) == 32
+    for row in (0, 1):
+        banks = [((2 * t + row) * vv + g) % 32 for g, t in (divmod(l, 4) for l in range(32))]
+        assert len(set(banks)) == 32
+    with pytest.raises(TypeError):
+        flash_smem_bytes(d, "float16")
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernel's split-TF32 arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped 13 bits'
+    unit to the bit pattern, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_product(eq: str, a, b, terms: str = "3xtf32"):
+    """``einsum(eq, a, b)`` as the kernel forms it: a = a_hi + a_lo and
+    b = b_hi + b_lo, each part rounded to TF32, summed as a_lo b_hi +
+    a_hi b_lo + a_hi b_hi in f32 (lo·lo dropped).  ``terms="hi"`` keeps only
+    a_hi b_hi: TF32 without the split."""
+    a_hi, b_hi = rna_tf32(a), rna_tf32(b)
+    big = torch.einsum(eq, a_hi, b_hi)
+    if terms == "hi":
+        return big
+    a_lo, b_lo = rna_tf32(a - a_hi), rna_tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)) + big
+
+
+def emulate_f32_kernel(q, k, v, *, causal: bool, terms: str = "3xtf32"):
+    """The f32 kernel's arithmetic tile by tile at ``TILE_K``: both products
+    split (p too, kept in f32 like the reference), scores scaled and masked
+    at -1e30, the online softmax in f32, then acc / max(l, 1e-37)."""
+    b, h, sq, d = q.shape
+    g = h // k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qpos = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq, 1), NEG_INF)
+    l = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, k.shape[2], TILE_K):
+        kt = k[:, :, k0:k0 + TILE_K].repeat_interleave(g, dim=1)
+        vt = v[:, :, k0:k0 + TILE_K].repeat_interleave(g, dim=1)
+        s = split_product("bhqd,bhkd->bhqk", q, kt, terms) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + split_product("bhqk,bhkd->bhqd", p, vt, terms)
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-37)
+
+
+def test_rna_tf32_rounds_to_nearest_ties_away():
+    """Ten mantissa bits kept: 1 + 2^-11 is a tie (rounds up, away from
+    zero, on both signs), just under it rounds down, and the result's low 13
+    bits are clear."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 1 + 3 * ulp / 2,
+                      3.0, 0.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0, 0.0], dtype=torch.float32)
+    got = rna_tf32(x)
+    assert torch.equal(got, want)
+    assert not bool((got.view(torch.int32) & 0x1FFF).any())
+
+
+# the reference's shapes, and long D = 128 rows: 2048 keys a row without a
+# mask, and with the top-left causal mask rows that see 1 to 64 keys
+SPLIT_SHAPES = SHAPES + [(1, 2, 1, 64, 2048, 128, False), (1, 2, 1, 64, 2048, 128, True)]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d,causal", SPLIT_SHAPES)
+def test_split_tf32_emulation_holds_the_f32_tolerance(b, h, kv, sq, sk, d, causal):
+    """The split-TF32 design holds 2e-5 against the JAX kernel (interpret
+    mode), as the plain version does, before any kernel runs on a card."""
+    q, k, v = _qkv(sq + d + sk, b, h, kv, sq, sk, d)
+    want = np.asarray(jax_flash(*map(jnp.asarray, (q, k, v)), causal=causal, block_q=64,
+                                block_k=64, interpret=True))
+    got = emulate_f32_kernel(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_tf32_without_the_split_fails_the_f32_tolerance():
+    """The negative control: the hi·hi term alone (TF32 products) misses
+    2e-5 at D = 128, by an order of magnitude, where the split holds it."""
+    b, h, kv, sq, sk, d, causal = SPLIT_SHAPES[-1]
+    q, k, v = _qkv(sq + d + sk, b, h, kv, sq, sk, d)
+    want = np.asarray(jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)), causal=causal))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    split = np.abs(emulate_f32_kernel(tq, tk, tv, causal=causal).numpy() - want).max()
+    hi_only = np.abs(emulate_f32_kernel(tq, tk, tv, causal=causal, terms="hi").numpy()
+                     - want).max()
+    assert split < 2e-5 < hi_only / 10
 
 
 def test_ragged_lengths_are_masked_not_refused():
