@@ -189,8 +189,17 @@ counters set to 0 just before it and read just after:
   compressed against exact, and the card's compressed mean within one step
   of the largest rank's payload of the CPU's; then (d) a world of one NCCL
   rank: the Trainer of granite-3-8b's reduced config on a (1, 1) mesh for 2
-  steps, bit for bit ``mesh=None``; (e) the dry-run CLI.  Each rank's peak
-  memory, the step time, collective bytes recorded and analytic.
+  steps, bit for bit ``mesh=None``; (e) the dry-run CLI; (f) in the world of
+  4, after (b), the other families' mesh step at full width, each layer on
+  the rank's "model" shard (``MD_FAMILIES``: deepseek-v3-671b with one dense
+  MLA block and the MTP head under Adafactor, mamba2-780m at 2 layers,
+  zamba2-7b at one Mamba2 layer and the shared block's one application,
+  whisper-tiny whole), 2 steps each, every loss and gradient norm held to
+  the one-device Trainer's (run in the parent before the world) within
+  ``TRAIN_REPLAY_TOL``, every step's collectives equal to
+  ``step_collectives``, the leaves computed on their "model" block named.
+  Each rank's peak memory, the step time, collective bytes recorded and
+  analytic.
 
 Every profiled sample must hold one kernel event of the port's kernels for
 each launch the counters saw (a replayed graph counts the launches it
@@ -1532,6 +1541,8 @@ def attention_fan_in(params, cfg) -> None:
     attns = ([params["shared"]["attn"]] if "shared" in params else
              [params[s][a] for s in ("dense_blocks", "enc_blocks", "blocks") if s in params
               for a in ("attn", "self_attn", "cross_attn") if a in params[s]])
+    if "mtp" in params:  # deepseek's MTP head: an MLA block, which training runs
+        attns.append(params["mtp"]["block"]["attn"])
     for a in attns:
         for name, now, want in rules:
             a[name].mul_((now / want) ** 0.5)
@@ -4953,6 +4964,18 @@ MD_CPU_REL = 1e-5                    # card against CPU, the exact mean (f32, TF
 MD_FLIP_SLACK = 1e-3                 # card against CPU, the compressed mean: one rank's payload
 #   one step apart (the largest rank's scale / n), times 1 + this for the f32 dequantized sum
 MD_NCCL_ARCH = GRANITE               # (d) the one-rank NCCL world: its reduced config, 2 steps
+# (f) the other families' mesh step at full width, each the fewest layers that hold every block
+# kind it has, 2 steps against one device: deepseek one dense MLA block and the MTP head (no MoE
+# layer: (a) drives the expert path), Adafactor as its config pins; zamba2 one Mamba2 layer
+# after the shared block's one application; whisper whole
+MD_FAMILIES = {
+    "deepseek-v3-671b": {"layers": {"num_layers": 1, "first_k_dense": 1}, "batch": 2, "seq": 512},
+    "mamba2-780m": {"layers": {"num_layers": 2}, "batch": 4, "seq": 512},
+    "zamba2-7b": {"layers": {"num_layers": 1}, "batch": 4, "seq": 512},
+    "whisper-tiny": {"layers": {}, "batch": 4, "seq": 448},
+}
+MD_FAMILY_STEPS = 2
+MD_WORLD_TIMEOUT_S = 900
 MD_DRYRUN_TIMEOUT_S = 300            # (e) the dry-run CLI, from its start beside (a)-(d)
 
 
@@ -5092,6 +5115,101 @@ def md_moe_reference(params, x, cfg, n_data: int, tp_split: int):
     return y.reshape(b, s, d), (~keep).sum(1).reshape(b, s)
 
 
+def md_family_data(arch: str):
+    """(config, dataset) of an ``MD_FAMILIES`` run: full width, its layers."""
+    run = MD_FAMILIES[arch]
+    cfg = dataclasses.replace(get_config(arch), **run["layers"])
+    return cfg, data_mod.SyntheticLM(vocab_size=cfg.vocab_size, seq_len=run["seq"],
+                                     global_batch=run["batch"], seed=0)
+
+
+def md_family_steps(arch: str, name: str, dev, mesh=None):
+    """``MD_FAMILY_STEPS`` steps of ``arch``'s ``MD_FAMILIES`` Trainer on
+    ``dev`` or on every rank of ``mesh`` (built under the TP rules with
+    fsdp), each step's collectives recorded: (losses, gradient norms, step
+    s, the records, the Trainer's layout, this process's peak bytes)."""
+    cfg, ds = md_family_data(arch)
+    tc = trainer_config(name, MD_FAMILY_STEPS, checkpoint_every=MD_FAMILY_STEPS + 1, keep=1,
+                        peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    torch.cuda.reset_peak_memory_stats(dev)
+    if mesh is None:
+        tr = FanInTrainer(cfg, ds, tc, device=dev)
+    else:
+        with rules_mod.activate_mesh(mesh, rules_mod.tensor_parallel_rules(fsdp=MD_FSDP)):
+            tr = FanInTrainer(cfg, ds, tc, mesh=mesh)
+    recs, step_fn = [], tr.step_fn
+
+    def recorded(*a):
+        with collectives_mod.recording() as rec:
+            out = step_fn(*a)
+        recs.append(rec.summary())
+        return out
+
+    tr.step_fn = recorded
+    for step in range(MD_FAMILY_STEPS):  # no final checkpoint to write
+        tr._do_step(step)
+    rows, lay = tr.metrics_log, tr.layout
+    out = ([r["loss"] for r in rows], [r["grad_norm"] for r in rows],
+           [r6(r["time_s"]) for r in rows], recs, lay, torch.cuda.max_memory_allocated(dev))
+    del tr, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_DIR / name, ignore_errors=True)
+    return out
+
+
+def md_family(rank: int, arch: str, mesh22, dev) -> dict:
+    """``arch``'s mesh step on the (2, 2) mesh: each layer on the rank's
+    "model" shard; every step's collectives equal to ``step_collectives``."""
+    losses, norms, step_s, recs, lay, peak = md_family_steps(arch, f"mesh_{arch}", dev, mesh22)
+    cfg, ds = md_family_data(arch)
+    analytic = train_loop_mod.step_collectives(
+        cfg, mesh22, rules_mod.tensor_parallel_rules(fsdp=MD_FSDP), ds.global_batch,
+        ds.seq_len).summary()
+    if any(sent(r) != analytic for r in recs):
+        fail(f"multi_device {arch}: recorded {recs[0]}, analytic {analytic}")
+    tp_leaves = ["/".join(map(str, p)) for p, c in zip(lay.paths, lay.compute_specs)
+                 if "model" in c and not train_loop_mod._is_expert(p)]
+    if not tp_leaves:
+        fail(f"multi_device {arch}: no leaf computes on its \"model\" block")
+    md_log(rank, f"{arch}: {MD_FAMILY_STEPS} steps done")
+    return {"losses": losses, "grad_norms": norms, "step_s": step_s,
+            "peak_memory_gb": r6(peak / 1e9), "tp_leaves_of": [len(tp_leaves), len(lay.paths)],
+            "tp_leaves": tp_leaves, "collectives_a_step": {"recorded": recs[0],
+                                                           "analytic": analytic}}
+
+
+def md_family_report(arch: str, runs: list, one: dict) -> dict:
+    """An ``MD_FAMILIES`` run's entry of the line: every rank's losses and
+    gradient norms the same, within ``TRAIN_REPLAY_TOL`` of one device's
+    (the gradient norm as well as the loss: a gradient summed or divided
+    wrongly on the mesh shows in the norm alone), and finite."""
+    mesh = runs[0]
+    errs = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"] + mesh["grad_norms"],
+                                                one["losses"] + one["grad_norms"])]
+    if (len(mesh["losses"]) != MD_FAMILY_STEPS
+            or not all(math.isfinite(v) for v in mesh["losses"] + mesh["grad_norms"])
+            or max(errs) > TRAIN_REPLAY_TOL):
+        fail(f"multi_device {arch}: mesh losses {mesh['losses']} and gradient norms "
+             f"{mesh['grad_norms']}, one device {one['losses']} {one['grad_norms']}")
+    if any(t["losses"] != mesh["losses"] or t["grad_norms"] != mesh["grad_norms"] for t in runs):
+        fail(f"multi_device {arch}: the ranks logged different losses or gradient norms")
+    coll = mesh["collectives_a_step"]
+    return {**MD_FAMILIES[arch], "steps": MD_FAMILY_STEPS,
+            "losses_mesh": [r6(v) for v in mesh["losses"]],
+            "losses_one_device": [r6(v) for v in one["losses"]],
+            "grad_norms_mesh": [r6(v) for v in mesh["grad_norms"]],
+            "grad_norms_one_device": [r6(v) for v in one["grad_norms"]],
+            "rel_err_losses_then_norms": [r6(e) for e in errs],
+            "step_s_by_rank": [t["step_s"] for t in runs], "step_s_one_device": one["step_s"],
+            "peak_memory_gb_by_rank": [t["peak_memory_gb"] for t in runs],
+            "peak_memory_gb_one_device": one["peak_memory_gb"],
+            "tp_leaves_of": mesh["tp_leaves_of"], "tp_leaves": mesh["tp_leaves"],
+            "bytes_a_rank_a_step_by_kind": {
+                k: {side: coll[side]["by_op"][k]["operand_bytes"]
+                    for side in ("recorded", "analytic")} for k in coll["analytic"]["by_op"]}}
+
+
 def md_compress(rank: int, dev) -> dict:
     """dp_value_and_grad of the reference's test loss on (4, 1) meshes of the
     card and of the CPU: compressed against exact, the card against the CPU."""
@@ -5218,9 +5336,10 @@ def md_rank(rank: int, world: int, part: str) -> dict:
         return md_nccl(dev)
     mesh22 = init_device_mesh("cuda", MD_MESH, mesh_dim_names=("data", "model"))
     out = {"rank": rank, "coordinate": list(mesh22.get_coordinate()), "seconds": {}}
-    for name, fn in (("moe", lambda: md_moe(rank, mesh22, dev)),
+    families = [(arch, lambda a=arch: md_family(rank, a, mesh22, dev)) for arch in MD_FAMILIES]
+    for name, fn in [("moe", lambda: md_moe(rank, mesh22, dev)),
                      ("grad_compress", lambda: md_compress(rank, dev)),
-                     ("train", lambda: md_train(rank, mesh22, dev))):
+                     ("train", lambda: md_train(rank, mesh22, dev))] + families:
         md_log(rank, f"{name} starts")
         t0 = time.perf_counter()
         out[name] = fn()
@@ -5268,11 +5387,20 @@ def md_nccl(dev) -> dict:
 def md_world(part: str, world: int, backend: str) -> list:
     TRAIN_DIR.parent.mkdir(parents=True, exist_ok=True)
     store = TRAIN_DIR.parent / f"store_{part}_{time.time_ns()}"
+    # the ranks share the card: the allocator grows its segments in place rather than caching
+    # blocks of the forward's sizes beside the optimizer's (deepseek's f32 transients of 3.7 GB)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         return world_mod.run_world(md_rank, world, backend=backend, init_file=str(store),
-                                   device_type="cuda", args=(part,), timeout_s=600)
+                                   device_type="cuda", args=(part,),
+                                   timeout_s=MD_WORLD_TIMEOUT_S)
     finally:
         store.unlink(missing_ok=True)
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
 
 
 def drive_multi_device(dev) -> dict:
@@ -5280,11 +5408,11 @@ def drive_multi_device(dev) -> dict:
     gloo with CUDA tensors (NCCL refuses two ranks on one card); gloo's
     collectives of CUDA tensors are staged through host memory at the
     port's choke point, and the line names them.  (a) the MoE, (b) the
-    Trainer, (c) the int8 all-reduce in a world of 4; (d) a world of one
-    NCCL rank; (e) the dry-run CLI, a process of its own started first (it
-    uses no card, so it runs beside (a)-(d)).  The one-device Trainer of (b)
-    runs here before the world, and the mesh's checkpoint is restored here
-    after it."""
+    Trainer, (c) the int8 all-reduce, (f) the other families' Trainers in a
+    world of 4; (d) a world of one NCCL rank; (e) the dry-run CLI, a process
+    of its own started first (it uses no card, so it runs beside (a)-(d)).
+    The one-device Trainers of (b) and (f) run here before the world, and
+    the mesh's checkpoint is restored here after it."""
     mode = smi_query("compute_mode")
     if mode not in ("Default", "[N/A]"):
         fail(f"multi_device: the card's compute mode {mode!r} refuses a second process")
@@ -5326,8 +5454,16 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
     del one, m
     gc.collect()
     torch.cuda.empty_cache()
-    parent_bytes = torch.cuda.memory_allocated(dev)
     one_s = time.perf_counter() - t_one
+    t_fam = time.perf_counter()
+    one_family = {}
+    for arch in MD_FAMILIES:
+        losses, norms, step_s, _, _, peak = md_family_steps(arch, f"one_{arch}", dev)
+        one_family[arch] = {"losses": losses, "grad_norms": norms, "step_s": step_s,
+                            "peak_memory_gb": r6(peak / 1e9)}
+        md_log(0, f"parent: the one-device {arch} Trainer done")
+    family_one_s = time.perf_counter() - t_fam
+    parent_bytes = torch.cuda.memory_allocated(dev)
     md_log(0, "parent: the one-device Trainer done; spawning the ranks")
 
     t0 = time.perf_counter()
@@ -5345,6 +5481,9 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
              f"one device {one_losses[:steps]} {one_norms[:steps]}")
     if any(t["losses"] != mesh_losses or t["grad_norms"] != mesh_norms for t in train):
         fail("multi_device train: the ranks logged different losses or gradient norms")
+
+    families = {arch: md_family_report(arch, [r[arch] for r in ranks], one_family[arch])
+                for arch in MD_FAMILIES}
 
     # the mesh's final checkpoint restored on one device: the next step
     tc1 = trainer_config("mesh", steps + 1, checkpoint_every=steps + 2, keep=1,
@@ -5390,7 +5529,8 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
     staged = {}
     for r in ranks:
         for rec in [r["train"]["collectives_a_step"]["recorded"]] + [
-                r["moe"][m]["collectives"] for m in MD_MOE_X]:
+                r["moe"][m]["collectives"] for m in MD_MOE_X] + [
+                r[arch]["collectives_a_step"]["recorded"] for arch in MD_FAMILIES]:
             for kind, n in rec.get("staged", {}).items():
                 staged[kind] = staged.get(kind, 0) + n
     report = {
@@ -5418,6 +5558,7 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
                       for k in train[0]["collectives_a_step"]["analytic"]["by_op"]},
                   "collectives_a_step": train[0]["collectives_a_step"],
                   "restore_4x1_s": train[0]["restored_4x1"]["restore_s"]},
+        "families": families, "families_one_device_s": r6(family_one_s),
         "grad_compress": ranks[0]["grad_compress"],
         "nccl": {**nccl, "world_s": r6(nccl_s)},
         "dryrun": {"returncode": cli.returncode, "seconds_to_join": r6(cli_s),

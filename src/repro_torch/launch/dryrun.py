@@ -12,8 +12,8 @@ the mesh's shape, and reports per device:
     (``core.cost_model``: ``hbm_bytes_terms``, ``estimate_step``);
   * the collective bytes one step of the port sends, counted from the
     placements and shapes (``training.train_loop.step_collectives`` for a
-    train cell; the weight gathers and the sharded MoE's forward for prefill
-    and decode).
+    train cell; the weight gathers, the tensor-parallel sums and the sharded
+    MoE's forward for prefill and decode: ``forward_collectives``).
 
 The reference (``repro.launch.dryrun``) lowers and compiles each cell
 through GSPMD on 512 forced host devices and reads the compiled module.  The
@@ -115,11 +115,15 @@ def model_flops_of(cfg: ArchConfig, shape_id: str) -> float:
     return decode_model_flops(cfg, b, s)
 
 
-def forward_collectives(cfg: ArchConfig, mesh, rules, batch: int, seq: int) -> C.CollectiveStats:
+def forward_collectives(cfg: ArchConfig, mesh, rules, batch: int, seq: int, *,
+                        decode: bool = False) -> C.CollectiveStats:
     """What a forward pass (prefill, a decode step) of the port sends from
     each rank: the weight gathers to the compute layout, the
     tensor-parallel sums of the embedding and the layers
-    (``train_loop.tp_collectives``), the last position's logits (f32)
+    (``train_loop.tp_collectives``: every kind but the loss's and the MTP
+    head's, which only training runs, and with ``decode`` but whisper's
+    encoder's: a decode step reads the cross K/V its prompt's prefill
+    left), the last position's logits (f32)
     gathered over "model" where the vocabulary is split, and each MoE
     layer's forward on the rank's tokens."""
     lay = train_loop.MeshLayout(cfg, mesh, rules, batch, seq)
@@ -129,10 +133,10 @@ def forward_collectives(cfg: ArchConfig, mesh, rules, batch: int, seq: int) -> C
     for d, s, c in zip(lay.param_defs, lay.param_specs, lay.compute_specs):
         layout.relayout_sends(d.shape, d.dtype, mesh, s, c, stats)
     tp = train_loop.tp_collectives(lay, lay.local_batch, seq, cfg.dtype)
-    for what, nbytes, count in tp:
-        if what in ("layer", "layer_last", "embed"):
+    for what, nbytes, count, _ in tp:
+        if what in ("layer", "norm", "shared", "embed") or (what == "encoder" and not decode):
             stats.add("all-reduce", nbytes, count)
-    if any(what == "loss" for what, _, _ in tp):  # the vocabulary is split
+    if any(what == "loss" for what, *_ in tp):  # the vocabulary is split
         stats.add("all-gather", 4 * lay.local_batch * cfg.padded_vocab // mesh.shape["model"])
     if cfg.moe is not None:
         fwd = moe.moe_collectives(cfg, mesh, lay.local_batch, seq, cfg.dtype)
@@ -147,7 +151,9 @@ def cell_collectives(cfg: ArchConfig, shape_id: str, mesh, rules) -> C.Collectiv
     b, s = sh["global_batch"], sh["seq_len"]
     if sh["kind"] == "train":
         return train_loop.step_collectives(cfg, mesh, rules, b, s)
-    return forward_collectives(cfg, mesh, rules, b, s if sh["kind"] == "prefill" else 1)
+    if sh["kind"] == "prefill":
+        return forward_collectives(cfg, mesh, rules, b, s)
+    return forward_collectives(cfg, mesh, rules, b, 1, decode=True)
 
 
 # ---------------------------------------------------------------------------

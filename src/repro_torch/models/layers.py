@@ -33,7 +33,12 @@ a rank may be given its "model" block of a leaf (the train step's compute
 layout, ``training.train_loop.MeshLayout``), and the layers compute on it:
 GQA on the rank's heads (wq and the biases column-parallel, wo
 row-parallel), k and v on the heads its q heads read when "kv_heads" does
-not divide "model" and wk and wv stay whole; the MLP on the rank's columns
+not divide "model" and wk and wv stay whole, whisper's cross-attention the
+same over the encoder's K/V; MLA's prefill form on the rank's heads (wq_b,
+wk_b, wv_b column-parallel, the shared k_rope expanded to the local heads,
+wo row-parallel; wq_a, wkv_a and the norms whole, so their gradient on a
+rank covers its heads alone and the step's all-reduce over "model" sums
+it); the MLP on the rank's columns
 (wg, wu, wi, bi column-parallel, wd and wo row-parallel, bo added once after
 the sum); the embedding on the rank's vocabulary rows (a masked lookup) and
 the logits on its vocabulary columns (``model.lm_loss`` reduces the
@@ -47,7 +52,8 @@ MLA attention (DeepSeek-V3) has a prefill form that decompresses K/V per
 head and runs ``run_attention`` (q/k of width nope + rope, v of its own
 width), and decode and chunk forms that attend over the compressed
 (c, k_rope) cache with ``q_nope`` absorbed through ``wk_b``, one position
-per row as for GQA.
+per row as for GQA.  The decode and chunk forms of every attention serve
+one device: whole leaves.
 """
 from __future__ import annotations
 
@@ -328,13 +334,16 @@ def gqa_apply(params, x, cfg: ArchConfig, *, causal: bool = True, rope: bool = T
 def gqa_cross_apply(params, x, kv_pair, cfg: ArchConfig):
     """Cross-attention (whisper's decoder): queries from ``x`` (B, T, D)
     through wq (+ bq), attending without a mask over ``kv_pair`` = (k, v),
-    (B, Sk, KV, hd) precomputed from the encoder output; then wo."""
+    (B, Sk, KV, hd) precomputed from the encoder output (on the rank's KV
+    heads when wk and wv are split; ``_local_kv`` when they are whole and wq
+    is not); then wo, as ``gqa_out``."""
     q = qeinsum("bsd,dhe->bshe", x, params["wq"])
     if cfg.qkv_bias:
         q = q + params["bq"]
-    k, v = kv_pair
+    k, v = _local_kv(q, *kv_pair, cfg)
     out = run_attention(cfg, q, k, v, causal=False)
-    return qeinsum("bshe,hed->bsd", out, params["wo"])
+    # on the rank's heads the sum over "model" after wo (ROADMAP Queue A item 17)
+    return gqa_out(params, out, cfg)
 
 
 def write_cache(cache, new, pos, cfg: ArchConfig):
@@ -420,22 +429,37 @@ def _mla_ckv(params, x, cfg, positions):
     return c, k_rope  # (B,S,r), (B,S,rope_d)
 
 
+def _mla_heads(params) -> int:
+    """The heads a rank computes MLA on: wq_b's, wk_b's, wv_b's and wo's,
+    which the rules split together (a rank holding some of them split and
+    others whole has no body)."""
+    held = {_dim(params["wq_b"], 1), _dim(params["wk_b"], 1), _dim(params["wv_b"], 1),
+            _dim(params["wo"], 0)}
+    if len(held) != 1:
+        raise ValueError(f"wq_b, wk_b, wv_b and wo hold {sorted(held)} heads: one count expected")
+    return held.pop()
+
+
 def mla_prefill_attn(params, x, cfg: ArchConfig, *, causal: bool = True):
     """Train/prefill MLA: decompress K/V per head, then standard attention
     (q/k of width nope + rope against v of width ``v_head_dim``).  Returns
-    (out, (c, k_rope)), the compressed cache rows for a prefill."""
+    (out, (c, k_rope)), the compressed cache rows for a prefill.  On the
+    rank's block of the heads (wq_b, wk_b, wv_b split, wo row-parallel) the
+    shared k_rope is expanded to those heads and wo's product is summed over
+    "model"; wq_a, wkv_a and the two norms are whole."""
     m = cfg.mla
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q_nope, q_rope = _mla_q(params, x, cfg, positions)
     c, k_rope = _mla_ckv(params, x, cfg, positions)
     k_nope = qeinsum("bsr,rhe->bshe", c, params["wk_b"])
     v = qeinsum("bsr,rhe->bshe", c, params["wv_b"])
-    h = cfg.num_heads
+    h = _mla_heads(params)
     k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], h, m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     out = run_attention(cfg, q, k, v, causal=causal)  # kv heads == q heads (decompressed)
-    return qeinsum("bshe,hed->bsd", out, params["wo"]), (c, k_rope)
+    y = qeinsum("bshe,hed->bsd", out, params["wo"])
+    return tp_sum(y, tp_split(h, cfg.num_heads)), (c, k_rope)
 
 
 def mla_apply(params, x, cfg: ArchConfig, *, causal: bool = True):

@@ -151,6 +151,8 @@ def init_model(cfg: ArchConfig, generator: torch.Generator, device=None, *,
             lead = lead_axes(d.logical)
             return quantize_weight(w, lead=lead, n_contract=contract_axes(
                 key, w.dim() - lead)) if quant else w
+        if d.shape[0] == 0:  # an empty stack (deepseek with every layer dense): nothing to draw
+            return torch.empty(d.shape, dtype=d.dtype, device=dev)  # nor to quantize
         one = dataclasses.replace(d, shape=d.shape[1:], logical=d.logical[1:])
         out = None
         for i in range(d.shape[0]):

@@ -22,7 +22,10 @@ aux loss averaged over every rank, as the reference's ``shard_map`` body
 does.  Its collectives go through ``core.collectives`` and carry gradients.
 Every shape is static (capacity-overflow tokens go to a scratch row, not
 through a data-dependent index), so a CUDA graph can capture the local
-pieces.
+pieces.  The shared experts (``_shared_ffn``) compute on the rank's block
+of their ``mlp`` columns where the step's layout keeps it, with a sum over
+"model"; the reference's ``shard_map`` takes them replicated, whole on
+every device.
 
 Expert weights are stacked (E_pad, d, f); E is padded at config time and the
 padding experts are masked in the router.  The three expert einsums go
@@ -39,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as C
+from repro_torch.models.layers import _dim, tp_split, tp_sum
 from repro_torch.models.params import ParamDef
 from repro_torch.models.quant import QuantTensor, qeinsum
 from repro_torch.sharding.rules import active_mesh, axis_sizes, batch_axes
@@ -98,13 +102,17 @@ def _expert_ffn(wg, wu, wd, x, cfg: ArchConfig):
 
 
 def _shared_ffn(shared, x, cfg: ArchConfig):
-    """The shared-expert MLP."""
+    """The shared-expert MLP; on the rank's block of its ``mlp`` columns
+    (wg, wu column-parallel, wd row-parallel), the sum over "model" of the
+    down projection."""
     from repro_torch.models.activations import get_activation
 
     act = get_activation(cfg.activation, cfg.activation_impl)
     g = qeinsum("bsd,df->bsf", x, shared["wg"])
     u = qeinsum("bsd,df->bsf", x, shared["wu"])
-    return qeinsum("bsf,fd->bsd", act(g) * u, shared["wd"])
+    y = qeinsum("bsf,fd->bsd", act(g) * u, shared["wd"])
+    m = cfg.moe
+    return tp_sum(y, tp_split(_dim(shared["wd"], 0), m.shared_d_ff * m.num_shared))
 
 
 def _aux_loss(probs, ids, cfg: ArchConfig):

@@ -21,6 +21,18 @@ As in the JAX package:
     path to; ``ssd_states`` the per-position snapshots of the JAX package's
     verify path, held to it by the tests.
 
+Tensor parallelism (the train step on a mesh, ``training.train_loop.
+MeshLayout``): given the rank's "model" block of the block's leaves,
+``mamba_apply`` and ``mamba_prefill_apply`` compute on its heads, as the
+reference's partitioned step does: wz, wx and the x conv by ``inner``
+(channels), wdt, A_log, dt_bias and D by ``ssm_heads``, wB, wC and the B/C
+convs whole (one group, shared by every head), the SSD scan over the local
+heads, the norm over the whole d_inner (its sum of squares summed over
+"model", each rank scaling by its block of the whole ``scale``), wo
+row-parallel and the sum over "model" (``layers.tp_sum``).  A rank holds
+whole heads (``_inner_split`` raises otherwise).  The chunk, verify and
+decode forms serve one device: whole leaves.
+
 Differences, deliberate:
   * ``mamba_prefill_apply`` left-pads the conv tail with zeros to W-1 rows
     when the prompt is shorter than that (the JAX package returns fewer
@@ -43,7 +55,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import rmsnorm, rmsnorm_defs
+from repro_torch.models.layers import _dim, rmsnorm, rmsnorm_defs, tp_split, tp_sum
 from repro_torch.models.params import ParamDef
 from repro_torch.models.quant import qeinsum, _einsum
 
@@ -266,22 +278,52 @@ def _split(conv_state, cfg: ArchConfig):
 
 
 def _ssd_inputs(params, xs, dt, cfg: ArchConfig):
-    """(x per head f32, dt after softplus, A) of a (B, T) block."""
-    s = cfg.ssm
+    """(x per head f32, dt after softplus, A) of a (B, T) block, on the
+    heads the block holds."""
     b, t, _ = xs.shape
-    xh = xs.reshape(b, t, s.num_heads(cfg.d_model), s.head_dim).to(torch.float32)
+    xh = xs.reshape(b, t, -1, cfg.ssm.head_dim).to(torch.float32)
     dtf = softplus(dt.to(torch.float32) + params["dt_bias"])
     A = -torch.exp(params["A_log"].to(torch.float32))
     return xh, dtf, A
 
 
+def _inner_split(params, cfg: ArchConfig):
+    """``tp_split`` of the block's d_inner columns (wo's rows), checked
+    against the heads it holds (wdt's columns): a rank holds whole heads,
+    ``head_dim`` columns each."""
+    s = cfg.ssm
+    local, heads = _dim(params["wo"], 0), _dim(params["wdt"], 1)
+    if heads * s.head_dim != local:
+        raise ValueError(f"the block holds {local} of d_inner's columns and {heads} heads of "
+                         f"{s.head_dim}: a rank holds whole heads")
+    return tp_split(local, s.d_inner(cfg.d_model))
+
+
+def _split_rmsnorm(params, y, split, whole: int, eps: float):
+    """``rmsnorm`` over a d_inner split over "model": the mean of squares is
+    the sum over "model" of the ranks' partial sums (f32), over ``whole``;
+    each rank scales its columns by its block of the whole ``scale``."""
+    yf = y.to(torch.float32)
+    squares = tp_sum(torch.sum(yf * yf, dim=-1, keepdim=True), split)
+    n = y.shape[-1]
+    scale = params["scale"][split[1] * n:(split[1] + 1) * n]
+    return (yf * torch.rsqrt(squares / whole + eps) * scale).to(y.dtype)
+
+
 def _gate_out(params, y, xh, z, x, cfg: ArchConfig):
-    """D skip, the z gate, the norm and the output projection."""
+    """D skip, the z gate, the norm and the output projection; on the rank's
+    heads the norm across "model" and wo row-parallel, summed over
+    "model"."""
     b, t = x.shape[:2]
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(b, t, -1).to(x.dtype)
-    y = rmsnorm(params["norm"], y * _silu_f32(z).to(x.dtype), cfg.norm_eps)
-    return qeinsum("bsi,id->bsd", y, params["wo"])
+    y = y * _silu_f32(z).to(x.dtype)
+    split = _inner_split(params, cfg)
+    if split is None:
+        y = rmsnorm(params["norm"], y, cfg.norm_eps)
+    else:
+        y = _split_rmsnorm(params["norm"], y, split, cfg.ssm.d_inner(cfg.d_model), cfg.norm_eps)
+    return tp_sum(qeinsum("bsi,id->bsd", y, params["wo"]), split)
 
 
 def mamba_apply(params, x, cfg: ArchConfig):

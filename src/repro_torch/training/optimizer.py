@@ -130,32 +130,51 @@ def adafactor_state_defs(defs) -> dict:
     }
 
 
+def adafactor_beta2(t: torch.Tensor) -> torch.Tensor:
+    """The second-moment decay at step ``t`` (counted from 1)."""
+    return 1.0 - torch.pow(t.to(torch.float32), -FACTOR_B2_POW)
+
+
 @torch.no_grad()
+def adafactor_leaf(p, g, vr, vc, beta2, lr, *, weight_decay: float = 0.0,
+                   clip_threshold: float = 1.0) -> None:
+    """One leaf's Adafactor step, in place on ``p``, ``vr`` and ``vc``.  A
+    stacked leaf (layers first) is factored over its trailing two dims and
+    RMS-clipped as a whole, as in the reference.  The f32 work runs in
+    place on one f32 copy of the gradient: at most two f32 tensors of the
+    leaf's size exist at a time (an embedding table's update is the step's
+    largest transient)."""
+    gf = g.to(torch.float32, copy=True)
+    g2 = torch.square(gf).add_(FACTOR_EPS)
+    if _factored(p.shape):
+        vr.copy_(beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1))
+        vc.copy_(beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2))
+        del g2
+        r_factor = torch.rsqrt(
+            vr / torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True), FACTOR_EPS))
+        c_factor = torch.rsqrt(vc)
+        update = gf.mul_(r_factor[..., None]).mul_(c_factor[..., None, :])
+    else:
+        vr.copy_(beta2 * vr + (1 - beta2) * g2)
+        del g2
+        update = gf.mul_(torch.rsqrt(vr))
+    # RMS clip (adafactor's update clipping)
+    rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
+    update.div_(torch.clamp_min(rms / clip_threshold, 1.0))
+    if weight_decay and p.ndim >= 2:
+        update.add_(weight_decay * p.to(torch.float32))
+    p.copy_(p.to(torch.float32).sub_(update.mul_(lr)))
+
+
 def adafactor_update(params, grads, state, lr, *, weight_decay: float = 0.0,
                      clip_threshold: float = 1.0):
-    """One Adafactor step, in place on ``params`` and ``state``; returns
-    both.  A stacked leaf (layers first) is factored over its trailing two
-    dims and RMS-clipped as a whole, as in the reference."""
+    """One Adafactor step, in place on ``params`` and ``state``, leaf by
+    leaf (``adafactor_leaf``); returns both."""
     t = state["step"] + 1
-    beta2 = 1.0 - torch.pow(t.to(torch.float32), -FACTOR_B2_POW)
+    beta2 = adafactor_beta2(t)
     for p, g, vr, vc in zip(*map(tree_flatten, (params, grads, state["vr"], state["vc"]))):
-        gf = g.to(torch.float32)
-        g2 = gf * gf + FACTOR_EPS
-        if _factored(p.shape):
-            vr.copy_(beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1))
-            vc.copy_(beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2))
-            r_factor = torch.rsqrt(
-                vr / torch.clamp_min(torch.mean(vr, dim=-1, keepdim=True), FACTOR_EPS))
-            c_factor = torch.rsqrt(vc)
-            update = gf * r_factor[..., None] * c_factor[..., None, :]
-        else:
-            vr.copy_(beta2 * vr + (1 - beta2) * g2)
-            update = gf * torch.rsqrt(vr)
-        # RMS clip (adafactor's update clipping)
-        rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
-        update = update / torch.clamp_min(rms / clip_threshold, 1.0)
-        decay = weight_decay * p.to(torch.float32) if p.ndim >= 2 else 0.0
-        p.copy_(p.to(torch.float32) - lr * (update + decay))
+        adafactor_leaf(p, g, vr, vc, beta2, lr, weight_decay=weight_decay,
+                       clip_threshold=clip_threshold)
     state["step"].copy_(t)
     return params, state
 

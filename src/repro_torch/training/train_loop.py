@@ -18,13 +18,14 @@ same Trainer) the params and the optimizer state are DTensors laid out by
 ``state_shardings``, each rank holding its shard (drawn leaf by leaf, each
 rank keeping its block), and each rank trains on its ``batch_spec`` slice
 of ``make_batch``.  The step computes as the reference's partitioned step
-does (``_compute_spec``): a family with a tensor-parallel body (dense, vlm,
-granite-moe's GQA attention; ``_has_tp_body``) keeps each leaf's "model"
-split (heads, kv_heads, mlp, vocab) and computes each layer on the rank's
-shard (``models/layers.py``), gathering only the fsdp split over "data";
-the MoE expert leaves take the expert axes the sharded MoE body takes; every
-other leaf, and every leaf of the other families (MLA, Mamba2, whisper), is
-gathered whole.  Every rank's backward starts from its own loss; the
+does (``_compute_spec``): every family keeps each leaf's "model" split
+(heads, kv_heads, mlp, vocab, Mamba2's inner and ssm_heads) and computes
+each layer on the rank's shard (``models/layers.py``: GQA, MLA, the MLPs
+and the shared experts, the embedding and the loss; ``models/ssm.py``:
+Mamba2), gathering only the fsdp split over "data"; a Mamba2 block whose
+heads do not divide "model" computes whole (a rank holds whole heads); the
+MoE expert leaves take the expert axes the sharded MoE body takes; every
+other leaf is gathered whole.  Every rank's backward starts from its own loss; the
 collectives carry their transposes, so a leaf's gradient is the sum over the
 ranks that share its block, divided by the mesh size (``_grad_plan``; a
 split leaf's gradient has the "model" ranks' losses in it through the
@@ -34,7 +35,8 @@ does not, or over the DP axes the int8 all-reduce
 (``TrainerConfig.grad_compress``), in the gradient's dtype.  Each rank then keeps its shard:
 the global-norm clip all-reduces the shards' sums of squares, each block
 counted once; AdamW updates the local shards; Adafactor's factored moments
-come from the whole gradient, and each rank keeps its shard of them.
+come from the whole gradient, a leaf at a time, and each rank keeps its
+shard of them.
 ``step_collectives`` counts what a step sends.
 """
 from __future__ import annotations
@@ -82,7 +84,8 @@ from repro_torch.training.fault import StragglerDetector, WorkerFailure, run_wit
 from repro_torch.training.optimizer import (
     CLIP_NORM,
     Schedule,
-    adafactor_update,
+    adafactor_beta2,
+    adafactor_leaf,
     adamw_update,
     clip_by_global_norm,
     init_opt_state,
@@ -193,29 +196,32 @@ def _paths(tree, prefix=()) -> list:
     return [prefix]
 
 
-TP_LOGICAL = ("heads", "kv_heads", "mlp", "vocab")  # the dims a TP body computes split
+TP_LOGICAL = ("heads", "kv_heads", "mlp", "vocab", "inner", "ssm_heads")  # split by a TP body
 
 
-def _has_tp_body(cfg: ArchConfig) -> bool:
-    """Whether the family's layers compute on a rank's "model" shard: the
-    GQA blocks with a dense MLP or a MoE (dense, vlm, granite-moe), their
-    embedding and loss.  MLA (deepseek), Mamba2 (ssm, hybrid) and whisper
-    compute whole."""
-    return cfg.family in ("dense", "vlm") or (cfg.family == "moe" and cfg.mla is None)
+def _mamba_heads_split(cfg: ArchConfig, mesh, rules: ShardingRules) -> bool:
+    """Whether a Mamba2 block's ``ssm_heads`` (and with them its ``inner``
+    columns, a head's ``head_dim`` each) split over "model" under
+    ``rules``: a rank holds whole heads or the block computes whole."""
+    s = cfg.ssm
+    heads = ParamDef((s.num_heads(cfg.d_model),), ("ssm_heads",))
+    return MODEL in spec_for(heads, mesh, rules)
 
 
 def _compute_spec(cfg: ArchConfig, path: tuple, d: ParamDef, store: tuple, mesh,
                   rules: ShardingRules, local_batch: int, seq: int) -> tuple:
     """The layout a leaf takes for the step, from its storage layout
     ``store``: an expert leaf's expert dim over the expert axes ``moe_apply``
-    picks for the rank's tokens; under a family with a TP body, a TP dim's
-    "model" split kept (unless "model" is a DP axis of ``rules``); every
+    picks for the rank's tokens; a TP dim's "model" split kept (unless
+    "model" is a DP axis of ``rules``, or the leaf is a Mamba2 block's whose
+    heads do not split: ``inner`` would then cut a head in two); every
     other split (fsdp's "embed" over "data") gathered."""
     spec = [None] * len(d.shape)
     if _is_expert(path):
         ep_axes = moe.sharded_plan(cfg, mesh, local_batch, seq)[0]
         spec[d.logical.index("experts")] = moe._e_spec(ep_axes)[0]
-    elif _has_tp_body(cfg) and MODEL not in rules.dp_axes:
+    elif MODEL not in rules.dp_axes and not (
+            "mamba" in path and not _mamba_heads_split(cfg, mesh, rules)):
         for i, (logical, e) in enumerate(zip(d.logical, store)):
             if logical in TP_LOGICAL and MODEL in entry_axes(e):
                 spec[i] = MODEL
@@ -378,52 +384,89 @@ def make_mesh_step(cfg: ArchConfig, lay: MeshLayout, schedule: Schedule | None =
 
 
 def _adafactor_on_mesh(lay: MeshLayout, params, opt_state, shards, lr) -> None:
-    """Adafactor from the whole tensors: gather the params, the gradient and
-    the moments, update them whole, keep this rank's shards."""
+    """Adafactor from the whole tensors, one leaf at a time: gather the
+    leaf's param, gradient and moments, update them whole
+    (``adafactor_leaf``), keep this rank's blocks.  No more than one leaf
+    is whole at a time (deepseek-v3-671b's embedding tables are 1.85 GB
+    each in bf16)."""
     mesh = lay.mesh
-    whole = lambda ts, specs: [layout.full(_local(t), mesh, s)  # noqa: E731
-                               for t, s in zip(ts, specs)]
-    p_all = whole(tree_flatten(params), lay.param_specs)
-    g_all = whole(shards, lay.param_specs)
-    o_leaves = tree_flatten(opt_state)
-    o_all = whole(o_leaves, lay.opt_specs)
-    state = tree_unflatten(opt_state, o_all)
-    adafactor_update(tree_unflatten(params, p_all), tree_unflatten(params, g_all), state, lr)
-    for t, w, s in zip(tree_flatten(params) + o_leaves, p_all + o_all,
-                       lay.param_specs + lay.opt_specs):
-        _local(t).copy_(layout.block_of(w, mesh, s))
+    specs = dict(zip(_paths(opt_state), lay.opt_specs))
+    step = _local(opt_state["step"])
+    t = step + 1
+    beta2 = adafactor_beta2(t)
+    for path, p, g, vr, vc, ps in zip(
+            lay.paths, tree_flatten(params), shards, tree_flatten(opt_state["vr"]),
+            tree_flatten(opt_state["vc"]), lay.param_specs):
+        rs, cs = specs[("vr",) + path], specs[("vc",) + path]
+        whole = [layout.full(_local(x), mesh, sp) for x, sp in ((p, ps), (g, ps), (vr, rs),
+                                                                (vc, cs))]
+        adafactor_leaf(*whole, beta2, lr)
+        for x, w, sp in ((p, whole[0], ps), (vr, whole[2], rs), (vc, whole[3], cs)):
+            _local(x).copy_(layout.block_of(w, mesh, sp))
+        del whole
+    step.copy_(t)
+
+
+def _loss_sums(batch: int, seq: int, cfg: ArchConfig) -> list:
+    """The vocab-parallel loss's sums over ``seq`` positions: the
+    log-sum-exp's and the label logit's (f32, one a logits chunk) and the
+    maximum's."""
+    c = cfg.logits_chunk
+    chunks = seq // c if c and seq % c == 0 and seq > c else 1
+    return [("loss", 2 * 4 * batch * (seq // chunks), chunks, False),
+            ("max", 4 * batch * (seq // chunks), chunks, False)]
 
 
 def tp_collectives(lay: MeshLayout, batch: int, seq: int, act, dtype=None) -> list:
     """The sums over "model" one forward of ``batch`` x ``seq`` tokens sends
-    in ``lay``'s compute layout, as [(what, operand bytes, count)]: "layer"
-    for attention's sum after wo in a layer (``act`` the activations'
-    dtype), "layer_last" for the MLP's after its down projection, the last
-    thing its layer does, "embed" for the embedding's, "loss" for the
-    log-sum-exp's and the label logit's (f32, one a logits chunk) and "max"
-    for the maximum's.  Each is an all-reduce; all but "max" are sent again
-    by the backward.  Under remat
-    a layer's forward runs again in the backward, but torch's checkpoint
-    stops that recompute once the tensors the layer's backward saved are
-    back (its early stop), so a "layer_last" sum is not sent again."""
+    in ``lay``'s compute layout, as [(what, operand bytes, count, again)],
+    each an all-reduce, all but "max" sent again by the backward: "layer"
+    for a layer's sum after a row-parallel product (``act`` the
+    activations' dtype: attention's wo, the MLP's down projection, MLA's wo,
+    the shared experts', Mamba2's wo), "norm" for Mamba2's norm's sum of
+    squares over d_inner (f32), "shared" for hybrid's shared block (its
+    attention's and its MLP's, once an application), "encoder" for
+    whisper's encoder layers (over its ``encoder_seq`` frames), "mtp" for
+    deepseek's MTP head (its embedding, block and nothing else, over
+    ``seq`` - 1 positions), "embed" for the embedding's, "loss" and "max"
+    for the vocab-parallel loss's (``_loss_sums``, the MTP loss's too).
+    ``again``: whether a rematerialised forward sends it once more.  Under
+    remat a layer's (and the shared block's) forward runs again in the
+    backward, but torch's checkpoint stops that recompute once the tensors
+    the backward saved are back (its early stop): a sum after the last
+    product that saves its inputs is not sent again (a dense MLP's, a
+    Mamba2 block's wo sum: the last thing its layer does; not the shared
+    block's MLP, which w_out follows, nor the shared experts', which the
+    aux loss's mean follows).  The MTP head is not rematerialised."""
     cfg, mesh = lay.cfg, lay.mesh
     if axis_sizes(mesh).get(MODEL, 1) == 1:
         return []
-    row = batch * seq * cfg.d_model
+    rows = {"enc_blocks": cfg.encoder_seq, "mtp": seq - 1}  # positions, where not ``seq``
+    what_of = {"enc_blocks": "encoder", "shared": "shared", "mtp": "mtp"}
+    mtp = any(p[0] == "mtp" for p in lay.paths)
     out = []
     for path, d, c in zip(lay.paths, lay.param_defs, lay.compute_specs):
         if MODEL not in c or _is_expert(path):
             continue
+        s = rows.get(path[0], seq)
+        count = d.shape[0] if d.logical[0] == "layers" else 1
+        if path[0] == "shared":  # one weight set, applied once a segment
+            count = len(range(0, cfg.num_layers, cfg.attn_every))
         if path[-1] in ("wo", "wd"):
-            out.append(("layer_last" if path[-2] == "mlp" else "layer", row * act.itemsize,
-                        d.shape[0] if d.logical[0] == "layers" else 1))
+            last = path[-2] in ("mlp", "mamba") and path[0] != "shared"
+            out.append((what_of.get(path[0], "layer"), batch * s * cfg.d_model * act.itemsize,
+                        count, not last and path[0] != "mtp"))
+            if path[-2] == "mamba":
+                out.append(("norm", 4 * batch * s, count, True))
         elif path == ("embed", "tokens"):
-            out.append(("embed", row * (dtype or d.dtype).itemsize, 1))
+            nbytes = batch * cfg.d_model * (dtype or d.dtype).itemsize
+            out.append(("embed", nbytes * seq, 1, False))
+            if mtp:
+                out.append(("mtp", nbytes * (seq - 1), 1, False))
         if path == ("embed", "unembed") or (path == ("embed", "tokens") and cfg.tie_embeddings):
-            c = cfg.logits_chunk
-            chunks = seq // c if c and seq % c == 0 and seq > c else 1
-            out += [("loss", 2 * 4 * batch * (seq // chunks), chunks),
-                    ("max", 4 * batch * (seq // chunks), chunks)]
+            out += _loss_sums(batch, seq, cfg)
+            if mtp:
+                out += _loss_sums(batch, seq - 1, cfg)
     return out
 
 
@@ -450,9 +493,9 @@ def step_collectives(cfg: ArchConfig, mesh, rules: ShardingRules, global_batch: 
     mb = lay.local_batch // accum
     act = dtype or cfg.dtype
     remat = cfg.remat != "none"
-    for what, nbytes, count in tp_collectives(lay, mb, seq, act, dtype):
+    for what, nbytes, count, again in tp_collectives(lay, mb, seq, act, dtype):
         # the forward; the backward, but for the max; a layer's forward again under remat
-        times = 1 + (what != "max") + (remat and what == "layer")
+        times = 1 + (what != "max") + (remat and again)
         stats.add("all-reduce", nbytes, count * accum * times)
     moe_layers = cfg.num_layers - cfg.first_k_dense if cfg.moe is not None else 0
     if moe_layers:

@@ -14,6 +14,12 @@ CPU device):
       two steps), from the weights and inputs in IN.npz; and on one device,
       each "tp/" case's block (GQA, the MLP, the embedding, the LM loss) with
       its gradient, the cotangent given.
+  python tests/jax_reference_runs.py tp IN.npz OUT.npz        (8 devices)
+      the families' "tp/" blocks on one device (MLA, the shared experts,
+      Mamba2, hybrid's shared block, whisper's encoder and decoder blocks
+      and cross-attention) and the Trainer of each "train/archs" arch on
+      2 x 4, the reference's chunked SSD scan with its segments' exp
+      masked, as the port's is (``masked_ssd``): its own gradients are NaN.
 
 Specs are written as lists with one entry a dim: null, an axis name, or a
 list of names."""
@@ -92,20 +98,15 @@ def rules_mode(out_path):
 
 
 def dist_mode(in_path, out_path):
-    import dataclasses
-
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
     from repro.configs import get_reduced_config
-    from repro.data.pipeline import SyntheticLM, make_batch
-    from repro.models.model import param_defs
+    from repro.data.pipeline import make_batch
     from repro.models.moe import moe_apply
     from repro.sharding.rules import activate_mesh
     from repro.training.grad_compress import dp_value_and_grad
-    from repro.training.optimizer import init_opt_state
-    from repro.training.train_loop import Trainer, TrainerConfig
 
     data = dict(np.load(in_path))
     res = {}
@@ -137,71 +138,215 @@ def dist_mode(in_path, out_path):
     tp_blocks(data, res)
 
     for arch in ("granite-3-8b", "granite-moe-3b-a800m"):
-        tcfg = dataclasses.replace(get_reduced_config(arch), dtype=jnp.float32)
-        ds = SyntheticLM(vocab_size=tcfg.vocab_size, seq_len=int(data["train/seq"]),
-                         global_batch=int(data["train/batch"]))
-        steps = int(data["train/steps"])
-        with tempfile.TemporaryDirectory() as d:
-            tc = TrainerConfig(num_steps=steps, log_every=1, checkpoint_every=1000,
-                               checkpoint_dir=d)
-            tr = Trainer(tcfg, ds, tc, mesh=mesh24)
-            treedef = jax.tree.structure(tr.params)
-            n = treedef.num_leaves
-            tr.params = jax.tree.unflatten(
-                treedef, [jnp.asarray(data[f"train/{arch}/{i}"]) for i in range(n)])
-            tr.opt_state = init_opt_state(tcfg.optimizer, param_defs(tcfg), tr.params,
-                                          jax.random.PRNGKey(0))
-            bounds = []
-            for step in range(steps):
-                if step < 2:
-                    bounds.append(int8_mean_bound(tr.params, make_batch(tcfg, ds, step), tcfg, 2))
-                tr._do_step(step)
-        rows = tr.metrics_log
-        res[f"train/{arch}/losses"] = np.asarray([m["loss"] for m in rows])
-        res[f"train/{arch}/grad_norms"] = np.asarray([m["grad_norm"] for m in rows])
-        res[f"train/{arch}/lrs"] = np.asarray([m["lr"] for m in rows])
+        bounds = []
+
+        def int8_bound(tr, step):
+            if step < 2:
+                batch = make_batch(tr.cfg, tr.ds, step)
+                bounds.append(int8_mean_bound(tr.params, batch, tr.cfg, 2))
+
+        mesh_trainer(data, res, arch, mesh24, int(data["train/steps"]), before_step=int8_bound)
         res[f"train/{arch}/int8_bounds"] = np.asarray(bounds)
-        res[f"train/{arch}/state_norms"] = np.asarray(
-            [np.linalg.norm(np.asarray(t, np.float64)) for t in jax.tree.leaves(tr._state())])
     np.savez(out_path, **res)
 
 
-def tp_blocks(data, res):
-    """Each "tp/" case's block on one device, the reduced granite-3-8b in f32
-    with the case's overrides: its output, and the gradients (``jax.vjp``
-    with the case's cotangent) of its params and of its input x (not of an
-    embedding's tokens)."""
+def case_config(data, case):
+    """A "tp/" case's config, as ``torch_dist_workers.case_config`` builds
+    the port's: its arch's reduced config (granite-3-8b where the case
+    names none) in f32 with the case's overrides, the Mamba2 ones under
+    "ssm"."""
     import dataclasses
 
-    import jax
     import jax.numpy as jnp
 
     from repro.configs import get_reduced_config
-    from repro.models.layers import embed_apply, gqa_apply, mlp_apply
+
+    arch = str(data.get(f"tp/{case}/arch", "granite-3-8b"))
+    over = json.loads(str(data[f"tp/{case}/overrides"]))
+    ssm = over.pop("ssm", None)
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype=jnp.float32, **over)
+    return cfg if ssm is None else dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, **ssm))
+
+
+def nest(flat):
+    """{"a/b": leaf} → {"a": {"b": leaf}}."""
+    out = {}
+    for k, v in flat.items():
+        *heads, last = k.split("/")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in flat(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def tp_blocks(data, res):
+    """Each "tp/" case's block on one device (``case_config``): its output,
+    and the gradients (``jax.vjp`` with the case's cotangent) of its params,
+    of its input x (not of an embedding's tokens) and of its extra input e
+    where it takes one (hybrid's x0, whisper's encoder output)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import moe, ssm
+    from repro.models import transformer as T
+    from repro.models.layers import (embed_apply, gqa_apply, gqa_cross_apply, mla_apply,
+                                     mlp_apply)
     from repro.models.model import lm_loss
 
-    base = get_reduced_config("granite-3-8b")
     for case in json.loads(str(data["tp/cases"])):
         kind = str(data[f"tp/{case}/kind"])
-        cfg = dataclasses.replace(base, dtype=jnp.float32,
-                                  **json.loads(str(data[f"tp/{case}/overrides"])))
+        cfg = case_config(data, case)
         prefix = f"tp/{case}/p/"
-        params = {k[len(prefix):]: jnp.asarray(v) for k, v in data.items() if k.startswith(prefix)}
+        params = nest({k[len(prefix):]: jnp.asarray(v) for k, v in data.items()
+                       if k.startswith(prefix)})
         x, cot = jnp.asarray(data[f"tp/{case}/x"]), jnp.asarray(data[f"tp/{case}/cot"])
         if kind == "embed":
             y, vjp = jax.vjp(lambda p: embed_apply(p, x, cfg), params)
             (gp,) = vjp(cot)
         else:
             labels = jnp.asarray(data.get(f"tp/{case}/labels", 0))
-            fn = {"gqa": lambda p, h: gqa_apply(p, h, cfg),
-                  "mlp": lambda p, h: mlp_apply(p, h, cfg),
-                  "loss": lambda p, h: lm_loss({"embed": p}, h, labels, cfg)}[kind]
-            y, vjp = jax.vjp(fn, params, x)
-            gp, gx = vjp(cot)
+            fn = {"gqa": lambda p, h, e: gqa_apply(p, h, cfg),
+                  "mlp": lambda p, h, e: mlp_apply(p, h, cfg),
+                  "loss": lambda p, h, e: lm_loss({"embed": p}, h, labels, cfg),
+                  "mla": lambda p, h, e: mla_apply(p, h, cfg),
+                  "shared_experts": lambda p, h, e: moe._shared_ffn(p, h, cfg),
+                  "mamba": lambda p, h, e: ssm.mamba_apply(p, h, cfg),
+                  "shared_attn": lambda p, h, e: T.shared_attn_apply(p, h, e, cfg),
+                  "enc_block": lambda p, h, e: T.enc_block_apply(p, h, cfg)[0],
+                  "dec_block": lambda p, h, e: T.dec_block_apply(p, h, e, cfg)[0],
+                  "cross_attn": lambda p, h, e: gqa_cross_apply(p, h, T._cross_kv(p, e, cfg),
+                                                                cfg)}[kind]
+            if f"tp/{case}/e" in data:
+                y, vjp = jax.vjp(fn, params, x, jnp.asarray(data[f"tp/{case}/e"]))
+                gp, gx, ge = vjp(cot)
+                res[f"tp/{case}/de"] = np.asarray(ge)
+            else:
+                y, vjp = jax.vjp(lambda p, h: fn(p, h, None), params, x)
+                gp, gx = vjp(cot)
             res[f"tp/{case}/dx"] = np.asarray(gx)
         res[f"tp/{case}/y"] = np.asarray(y)
-        for k, g in gp.items():
+        for k, g in flat(gp).items():
             res[f"tp/{case}/d/{k}"] = np.asarray(g)
+
+
+def masked_ssd():
+    """Puts a copy of the reference's chunked SSD scan in its place, with
+    the exp of the intra-chunk segments masked on both sides (the port's
+    ``ssm._masked_exp``): the reference takes the exp of the positive
+    differences above the diagonal and masks them after, so its backward
+    multiplies 0 by inf and its gradients are NaN.  Kept entries are the
+    same bits; the copy is otherwise the reference's, line for line."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import ssm
+
+    def ssd_chunked(x, dt, A, Bm, Cm, chunk, h0=None):
+        b, s, h, p = x.shape
+        n = Bm.shape[-1]
+        if s % chunk != 0:
+            chunk = s
+        nc = s // chunk
+        xc = x.reshape(b, nc, chunk, h, p)
+        dtc = dt.reshape(b, nc, chunk, h)
+        Bc = Bm.reshape(b, nc, chunk, n)
+        Cc = Cm.reshape(b, nc, chunk, n)
+        cum = jnp.cumsum(dtc * A, axis=2)
+        diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+        tri = jnp.tril(jnp.ones((chunk, chunk), bool))[None, None, :, :, None]
+        seg = jnp.where(tri, jnp.exp(jnp.where(tri, diff, 0.0)), 0.0)
+        cb = jnp.einsum("bcin,bcjn->bcij", Cc, Bc)
+        m = cb[:, :, :, :, None] * seg * dtc[:, :, None, :, :]
+        y_intra = jnp.einsum("bcijh,bcjhp->bcihp", m, xc)
+        decay_to_end = jnp.exp(cum[:, :, -1:, :] - cum)
+        hc = jnp.einsum("bclh,bclhp,bcln->bchpn", decay_to_end * dtc, xc, Bc)
+        chunk_decay = jnp.exp(cum[:, :, -1, :])
+
+        def step(h_prev, inp):
+            cd, hck = inp
+            return h_prev * cd[:, :, None, None] + hck, h_prev
+
+        if h0 is None:
+            h0 = jnp.zeros((b, h, p, n), jnp.float32)
+        h_final, h_in = jax.lax.scan(step, h0, (chunk_decay.swapaxes(0, 1), hc.swapaxes(0, 1)))
+        y_inter = jnp.einsum("bcin,bchpn->bcihp", Cc, h_in.swapaxes(0, 1)) * jnp.exp(cum)[
+            :, :, :, :, None]
+        return (y_intra + y_inter).reshape(b, s, h, p), h_final
+
+    ssm.ssd_chunked = ssd_chunked
+
+
+def mesh_trainer(data, res, arch, mesh, steps, before_step=None):
+    """The reference's Trainer of ``arch``'s reduced config in f32 on
+    ``mesh`` from the "train/{arch}/" leaves, ``steps`` steps: losses,
+    gradient norms, learning rates and each state leaf's norm at the end.
+    Where "train/{arch}/frames/{step}" are given, its batches carry those
+    front-end frames (the port draws its stubs with torch, the reference
+    with ``jax.random``).  ``before_step(trainer, step)``, where given, runs ahead of
+    each step."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.data.pipeline import SyntheticLM
+    from repro.models.model import param_defs
+    from repro.data.pipeline import make_batch
+    from repro.training import train_loop as TL
+    from repro.training.optimizer import init_opt_state
+    from repro.training.train_loop import Trainer, TrainerConfig
+
+    tcfg = dataclasses.replace(get_reduced_config(arch), dtype=jnp.float32)
+    ds = SyntheticLM(vocab_size=tcfg.vocab_size, seq_len=int(data["train/seq"]),
+                     global_batch=int(data["train/batch"]))
+    if f"train/{arch}/frames/0" in data:  # the port's front-end stubs, drawn by torch
+        frames = lambda step: jnp.asarray(data[f"train/{arch}/frames/{step}"])  # noqa: E731
+        TL.make_batch = lambda cfg, ds, step: dict(make_batch(cfg, ds, step),
+                                                   frontend_embeds=frames(step))
+    with tempfile.TemporaryDirectory() as d:
+        tc = TrainerConfig(num_steps=steps, log_every=1, checkpoint_every=1000, checkpoint_dir=d)
+        tr = Trainer(tcfg, ds, tc, mesh=mesh)
+        treedef = jax.tree.structure(tr.params)
+        tr.params = jax.tree.unflatten(
+            treedef, [jnp.asarray(data[f"train/{arch}/{i}"]) for i in range(treedef.num_leaves)])
+        tr.opt_state = init_opt_state(tcfg.optimizer, param_defs(tcfg), tr.params,
+                                      jax.random.PRNGKey(0))
+        for step in range(steps):
+            if before_step is not None:
+                before_step(tr, step)
+            tr._do_step(step)
+    rows = tr.metrics_log
+    res[f"train/{arch}/losses"] = np.asarray([m["loss"] for m in rows])
+    res[f"train/{arch}/grad_norms"] = np.asarray([m["grad_norm"] for m in rows])
+    res[f"train/{arch}/lrs"] = np.asarray([m["lr"] for m in rows])
+    res[f"train/{arch}/state_norms"] = np.asarray(
+        [np.linalg.norm(np.asarray(t, np.float64)) for t in jax.tree.leaves(tr._state())])
+    return tr
+
+
+def tp_mode(in_path, out_path):
+    """The families' tensor-parallel cases: the "tp/" blocks on one device
+    and the Trainer of each "train/archs" arch on 2 x 4, the SSD scan's
+    gradient finite (``masked_ssd``)."""
+    import jax
+    from jax.sharding import Mesh
+
+    masked_ssd()
+    data = dict(np.load(in_path))
+    res = {}
+    tp_blocks(data, res)
+    mesh24 = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("data", "model"))
+    for arch in json.loads(str(data["train/archs"])):
+        mesh_trainer(data, res, arch, mesh24, int(data["train/steps"]))
+    np.savez(out_path, **res)
 
 
 def int8_mean_bound(params, batch, cfg, n_dp):
@@ -231,5 +376,7 @@ def int8_mean_bound(params, batch, cfg, n_dp):
 if __name__ == "__main__":
     if sys.argv[1] == "rules":
         rules_mode(sys.argv[2])
+    elif sys.argv[1] == "tp":
+        tp_mode(sys.argv[2], sys.argv[3])
     else:
         dist_mode(sys.argv[2], sys.argv[3])

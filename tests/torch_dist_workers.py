@@ -16,11 +16,16 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.core import collectives as C
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import moe
+from repro_torch.models import ssm
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import (
     embed_apply,
     embed_defs,
     gqa_apply,
+    gqa_cross_apply,
     gqa_defs,
+    mla_apply,
+    mla_defs,
     mlp_apply,
     mlp_defs,
 )
@@ -42,6 +47,11 @@ from repro_torch.training.grad_compress import dp_value_and_grad
 from repro_torch.training.optimizer import init_opt_state
 
 MOE_CASES = ("a2a", "a2a_split", "gather")
+# the reference's subprocess: 8 forced host devices, whose in-process collectives wait for every
+# device's thread; on a loaded host (the other test files' processes) one can take longer than
+# XLA's default 40 s to arrive
+REFERENCE_XLA_FLAGS = ("--xla_force_host_platform_device_count=8 "
+                       "--xla_cpu_collective_call_terminate_timeout_seconds=600")
 TRAIN_ARCHS = ("granite-3-8b", "granite-moe-3b-a800m")
 
 
@@ -134,16 +144,65 @@ def _moe(data, mesh):
     return out
 
 
+def case_config(data, case: str):
+    """A "tp/" case's config: its arch's reduced config (granite-3-8b where
+    the case names none) in f32 with the case's overrides, the Mamba2
+    ones under "ssm"."""
+    arch = str(data.get(f"tp/{case}/arch", "granite-3-8b"))
+    over = json.loads(str(data[f"tp/{case}/overrides"]))
+    ssm = over.pop("ssm", None)
+    cfg = dataclasses.replace(f32_config(arch), **over)
+    return cfg if ssm is None else dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, **ssm))
+
+
+def nest(flat: dict) -> dict:
+    """{"a/b": leaf} → {"a": {"b": leaf}}."""
+    out: dict = {}
+    for k, v in flat.items():
+        *heads, last = k.split("/")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def flat_defs(tree, prefix: str = "") -> dict:
+    """A ParamDef tree as {"a/b": ParamDef}."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in flat_defs(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: tree}
+
+
+# each "tp/" kind: its ParamDefs, and the block as fn(params, x, extra input, labels, cfg)
+TP_KINDS = {
+    "gqa": (gqa_defs, lambda p, x, e, lb, cfg: gqa_apply(p, x, cfg)),
+    "mlp": (mlp_defs, lambda p, x, e, lb, cfg: mlp_apply(p, x, cfg)),
+    "embed": (embed_defs, lambda p, x, e, lb, cfg: embed_apply(p, x, cfg)),
+    "loss": (embed_defs, lambda p, x, e, lb, cfg: lm_loss({"embed": p}, x, lb, cfg)),
+    "mla": (mla_defs, lambda p, x, e, lb, cfg: mla_apply(p, x, cfg)),
+    "shared_experts": (lambda cfg: moe.moe_defs(cfg)["shared"],
+                       lambda p, x, e, lb, cfg: moe._shared_ffn(p, x, cfg)),
+    "mamba": (ssm.mamba_defs, lambda p, x, e, lb, cfg: ssm.mamba_apply(p, x, cfg)),
+    "shared_attn": (T.shared_attn_defs, lambda p, x, e, lb, cfg: T.shared_attn_apply(p, x, e, cfg)),
+    "enc_block": (T.enc_block_defs, lambda p, x, e, lb, cfg: T.enc_block_apply(p, x, cfg)[0]),
+    "dec_block": (T.dec_block_defs, lambda p, x, e, lb, cfg: T.dec_block_apply(p, x, e, cfg)[0]),
+    "cross_attn": (lambda cfg: gqa_defs(cfg, cross=True),
+                   lambda p, x, e, lb, cfg: gqa_cross_apply(p, x, T._cross_kv(p, e, cfg), cfg)),
+}
+
+
 def _tp_blocks(data, mesh) -> dict:
     """Each "tp/" case's block on the rank's "model" shards (the compute
     layout of the step under the TP rules), every rank on the whole batch:
-    its output, and the gradients of its input and of its leaves' blocks
-    reduced as the step reduces them (the sum over the ranks that share a
-    block, over the mesh size: every rank's backward starts from its own
-    loss, here all the same)."""
+    its output, and the gradients of its inputs (x, and the extra input e
+    where the block takes one: hybrid's x0, whisper's encoder output) and
+    of its leaves' blocks reduced as the step reduces them (the sum over the
+    ranks that share a block, over the mesh size: every rank's backward
+    starts from its own loss, here all the same).  A leaf is named by its
+    key path, "/" between keys."""
     rules = tensor_parallel_rules()
     sizes = axis_sizes(mesh)
-    defs_of = {"gqa": gqa_defs, "mlp": mlp_defs, "embed": embed_defs, "loss": embed_defs}
 
     def reduced(g, spec):
         used = {a for e in spec for a in entry_axes(e)}
@@ -153,34 +212,36 @@ def _tp_blocks(data, mesh) -> dict:
     out = {}
     for case in json.loads(str(data["tp/cases"])):
         kind = str(data[f"tp/{case}/kind"])
-        cfg = dataclasses.replace(f32_config("granite-3-8b"),
-                                  **json.loads(str(data[f"tp/{case}/overrides"])))
-        defs = defs_of[kind](cfg)
+        cfg = case_config(data, case)
+        defs_of, fn = TP_KINDS[kind]
+        defs = flat_defs(defs_of(cfg))
         prefix = f"tp/{case}/p/"
         whole = {k[len(prefix):]: torch.from_numpy(v) for k, v in data.items()
                  if k.startswith(prefix)}
-        specs = {k: TL._compute_spec(cfg, (k,), defs[k], spec_for(defs[k], mesh, rules), mesh,
+        # the leaf's path as the step sees it: a Mamba2 block's under "mamba"
+        path = lambda k: (("mamba",) if kind == "mamba" else ()) + tuple(k.split("/"))  # noqa: E731
+        specs = {k: TL._compute_spec(cfg, path(k), defs[k], spec_for(defs[k], mesh, rules), mesh,
                                      rules, 1, 1) for k in whole}
         local = {k: layout.block_of(w, mesh, specs[k]).clone().requires_grad_()
                  for k, w in whole.items()}
         x = torch.from_numpy(data[f"tp/{case}/x"])
         x = x if kind == "embed" else x.requires_grad_()
+        e = data.get(f"tp/{case}/e")
+        e = None if e is None else torch.from_numpy(e).requires_grad_()
+        labels = data.get(f"tp/{case}/labels")
+        labels = None if labels is None else torch.from_numpy(labels)
         with torch.enable_grad(), activate_mesh(mesh, rules):
-            if kind == "gqa":
-                y = gqa_apply(local, x, cfg)
-            elif kind == "mlp":
-                y = mlp_apply(local, x, cfg)
-            elif kind == "embed":
-                y = embed_apply(local, x, cfg)
-            else:
-                y = lm_loss({"embed": local}, x, torch.from_numpy(data[f"tp/{case}/labels"]), cfg)
-            wrt = list(local.values()) + ([x] if x.requires_grad else [])
+            y = fn(nest(local), x, e, labels, cfg)
+            inputs = {"dx": x} if x.requires_grad else {}
+            if e is not None:
+                inputs["de"] = e
+            wrt = list(local.values()) + list(inputs.values())
             grads = torch.autograd.grad(y, wrt, torch.from_numpy(data[f"tp/{case}/cot"]))
         with torch.no_grad():
             out[case] = {"y": y.detach().numpy(), "specs": {k: list(s) for k, s in specs.items()},
                          "grads": {k: reduced(g, specs[k]) for k, g in zip(local, grads)}}
-            if x.requires_grad:
-                out[case]["dx"] = reduced(grads[-1], (None,) * x.dim())
+            for name, g in zip(inputs, grads[len(local):]):
+                out[case][name] = reduced(g, (None,) * g.dim())
     return out
 
 
@@ -329,6 +390,43 @@ def world_main(rank: int, world: int, in_path: str, root: str) -> dict:
            "first_draws": _first_draws(mesh24)}
     for arch in TRAIN_ARCHS:
         out[arch] = _trainer(rank, data, arch, mesh24, mesh42, root)
+    return out
+
+
+def _tp_trainer(data, arch, mesh, root) -> dict:
+    """The Trainer of ``arch`` (``train_setup``) on ``mesh`` under the TP
+    rules, every step recorded: losses, gradient norms, state norms (with
+    each state leaf's key path), the leaves the step computes on their
+    "model" block, and what each step sent beside ``step_collectives``."""
+    cfg, ds, leaves = train_setup(data, arch)
+    steps = int(data["train/steps"])
+    tc = TL.TrainerConfig(num_steps=steps, log_every=1, checkpoint_every=1000,
+                          checkpoint_dir=os.path.join(root, arch))
+    tr = numpy_trainer(leaves)(cfg, ds, tc, mesh=mesh)
+    recs = recorded_steps(tr)
+    for step in range(steps):
+        tr._do_step(step)
+    rows = tr.metrics_log
+    lay = tr.layout
+    return {"losses": [m["loss"] for m in rows], "grad_norms": [m["grad_norm"] for m in rows],
+            "state_norms": state_norms(tr), "recorded": recs,
+            "state_paths": ["/".join(map(str, p)) for p in TL._paths(tr._state())],
+            "tp_leaves": ["/".join(map(str, p)) for p, c in zip(lay.paths, lay.compute_specs)
+                          if "model" in c and not TL._is_expert(p)],
+            "analytic": TL.step_collectives(cfg, mesh, tensor_parallel_rules(), ds.global_batch,
+                                            ds.seq_len, dtype=torch.float32).summary()}
+
+
+def tp_world_main(rank: int, world: int, in_path: str, root: str) -> dict:
+    """``tests/test_torch_distributed_tp.py``'s world of 8 gloo ranks on a
+    2 x 4 mesh: the families' "tp/" blocks and the Trainer of each
+    "train/archs" arch."""
+    torch.set_num_threads(1)
+    data = dict(np.load(in_path))
+    mesh24 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    out = {"tp": _tp_blocks(data, mesh24)}
+    for arch in json.loads(str(data["train/archs"])):
+        out[arch] = _tp_trainer(data, arch, mesh24, root)
     return out
 
 
