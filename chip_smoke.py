@@ -189,7 +189,15 @@ counters set to 0 just before it and read just after:
   compressed against exact, and the card's compressed mean within one step
   of the largest rank's payload of the CPU's; then (d) a world of one NCCL
   rank: the Trainer of granite-3-8b's reduced config on a (1, 1) mesh for 2
-  steps, bit for bit ``mesh=None``; (e) the dry-run CLI; (f) in the world of
+  steps, bit for bit ``mesh=None``; (e) the traced dry run, in processes
+  of its own beside (a)-(d): the CLI at granite-3-8b x train_4k and at
+  deepseek-v3-671b x train_4k (each rank's real step on fake tensors over a
+  fake 256-rank world on the CPU: matmul FLOPs, live bytes, collectives
+  recorded against the analytic count), and the steps whose peak this
+  script measures traced on fake tensors (``--traced-peaks``: the ``train``
+  step, (b)'s and each of (f)'s), each traced peak held to the card's
+  ``max_memory_allocated`` over one step (reset before it) less what the
+  process held beside the step's state, within ``PEAK_RATIO``; (f) in the world of
   4, after (b), the other families' mesh step at full width, each layer on
   the rank's "model" shard (``MD_FAMILIES``: deepseek-v3-671b with one dense
   MLA block and the MTP head under Adafactor, mamba2-780m at 2 layers,
@@ -235,7 +243,7 @@ Lines printed, in order: ``env``, the card, ``build`` (with the SASS check),
 ``phase`` lines (seconds per phase), ``serve_dense``, ``serve_engine`` (with
 the replayed and eager tick times), ``serve_paged``, ``serve_moe``, ``serve_ssm``,
 ``serve_audio``, ``serve_vlm``, ``duty_cycle``, ``serve_scheduler``, ``train``,
-``plan``, ``examples``, ``multi_device``, ``int8_path_shapes``,
+``plan``, ``examples``, ``multi_device``, ``traced_peaks``, ``int8_path_shapes``,
 ``host_path`` (each kernel wrapper's host time, ``"auto"`` against the same plan passed
 explicitly, and K1's host path piece by piece), ``chip_model``, ``tuner``,
 ``energy``, one JSON object ``{"kernels": [...]}``,
@@ -324,6 +332,7 @@ from repro_torch.training import optimizer as optimizer_mod  # noqa: E402
 from repro_torch.training import train_loop as train_loop_mod  # noqa: E402
 from repro_torch.training import grad_compress as grad_compress_mod  # noqa: E402
 from repro_torch.core import collectives as collectives_mod  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
 from repro_torch.launch import world as world_mod  # noqa: E402
 from repro_torch.sharding import layout as layout_mod  # noqa: E402
 from repro_torch.sharding import rules as rules_mod  # noqa: E402
@@ -4737,6 +4746,12 @@ def train_dense(dev) -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(TRAIN_DIR / "dense", ignore_errors=True)
 
+    # one more step of the restored state, the card's peak over it alone (held to its trace)
+    batch = fresh.batch(TRAIN_STEPS)
+    _, out["step_peak"] = step_peak(dev, lambda: fresh.step_fn(
+        fresh.params, fresh.opt_state, batch, TRAIN_STEPS), fresh._state(), batch)
+    del batch
+
     # accum=2 against accum=1 on the same batch (no update)
     batch = data_mod.make_batch(cfg, ds, 0, device=dev)
     l1, _, g1 = train_loop_mod.loss_and_grads(cfg, fresh.params, batch, 1)
@@ -4976,7 +4991,9 @@ MD_FAMILIES = {
 }
 MD_FAMILY_STEPS = 2
 MD_WORLD_TIMEOUT_S = 900
-MD_DRYRUN_TIMEOUT_S = 300            # (e) the dry-run CLI, from its start beside (a)-(d)
+MD_DRYRUN_TIMEOUT_S = 300            # (e) the dry run's processes, waited for after (a)-(d)
+MD_DRYRUN_CELLS = (GRANITE, "deepseek-v3-671b")  # (e) the CLI at each x train_4k on 16 x 16
+PEAK_RATIO = (0.8, 1.25)             # (e) a step's traced peak over the card's
 
 
 def sent(summary: dict) -> dict:
@@ -4997,6 +5014,75 @@ def md_log(rank: int, msg: str) -> None:
 
 def md_config():
     return dataclasses.replace(get_config(GRANITE), num_layers=MD_TRAIN["layers"])
+
+
+def local_bytes(tree) -> int:
+    """Device bytes of a tree of tensors, a DTensor by its local shard."""
+    return sum(t.numel() * t.element_size() for t in (
+        x.to_local() if hasattr(x, "to_local") else x for x in tree_tensors(tree)))
+
+
+def step_peak(dev, step, state, inputs=()) -> tuple:
+    """(``step()``, the card's peak over that one call, its statistics
+    reset before it: ``max_memory_allocated``, and the bytes the step holds
+    at that peak, the peak less what the process held beside ``state`` and
+    ``inputs`` when it started: what a trace of the step counts, the
+    state, the inputs and what the step makes)."""
+    torch.cuda.synchronize(dev)
+    beside = torch.cuda.memory_allocated(dev) - local_bytes(state) - local_bytes(inputs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = step()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    return out, {"peak_bytes": peak, "held_beside_bytes": beside, "step_bytes": peak - beside}
+
+
+def traced_steps() -> dict:
+    """{name: (config, mesh shape or None, batch, seq, fsdp)}: each train
+    step this script measures a peak of, as it runs it."""
+    mesh = rules_mod.MeshShape(dict(zip(("data", "model"), MD_MESH)))
+    steps = {"train": (dataclasses.replace(get_config(GRANITE), num_layers=TRAIN_LAYERS), None,
+                       TRAIN_BATCH, TRAIN_SEQ, False),
+             "multi_device/train": (md_config(), mesh, MD_TRAIN["batch"], MD_TRAIN["seq"],
+                                    MD_FSDP)}
+    for arch, run in MD_FAMILIES.items():
+        steps[f"multi_device/{arch}"] = (md_family_data(arch)[0], mesh, run["batch"],
+                                         run["seq"], MD_FSDP)
+    return steps
+
+
+def traced_peaks(path: pathlib.Path) -> None:
+    """Each ``traced_steps`` step run once on fake tensors on the CPU
+    (``launch.dryrun.lower_cell``: rank 0 of a fake world of the mesh's
+    size, or one device), its peak live bytes and their largest parts,
+    written to ``path`` as JSON.  No card."""
+    out = {}
+    for name, (cfg, mesh, batch, seq, fsdp) in traced_steps().items():
+        got, _ = dryrun_mod.lower_cell(cfg, "train_4k", mesh, fsdp=fsdp, batch=batch, seq=seq)
+        top = sorted(got.peak_by.items(), key=lambda kv: -kv[1])[:6]
+        out[name] = {"peak_bytes": got.peak_bytes, "trace_s": r6(got.seconds),
+                     "largest_at_peak": dict(top)}
+    path.write_text(json.dumps(out))
+
+
+def peak_report(traced: dict, measured: dict) -> dict:
+    """Each traced step's peak beside the card's (``step_peak``'s step
+    bytes, one a rank on the mesh), their ratio held to ``PEAK_RATIO``."""
+    out = {}
+    for name, t in traced.items():
+        if name not in measured:
+            continue
+        got = measured[name] if isinstance(measured[name], list) else [measured[name]]
+        ratios = [t["peak_bytes"] / m["step_bytes"] for m in got]
+        out[name] = {"traced_gb": r6(t["peak_bytes"] / 1e9),
+                     "measured_gb": [r6(m["step_bytes"] / 1e9) for m in got],
+                     "max_memory_allocated_gb": [r6(m["peak_bytes"] / 1e9) for m in got],
+                     "held_beside_gb": [r6(m["held_beside_bytes"] / 1e9) for m in got],
+                     "traced_over_measured": [r6(r) for r in ratios], "trace_s": t["trace_s"],
+                     "traced_largest_at_peak": t["largest_at_peak"]}
+        if not all(PEAK_RATIO[0] <= r <= PEAK_RATIO[1] for r in ratios):
+            fail(f"traced peaks: {name}'s traced / measured {ratios} outside {PEAK_RATIO}")
+    return out
 
 
 def md_data():
@@ -5127,7 +5213,8 @@ def md_family_steps(arch: str, name: str, dev, mesh=None):
     """``MD_FAMILY_STEPS`` steps of ``arch``'s ``MD_FAMILIES`` Trainer on
     ``dev`` or on every rank of ``mesh`` (built under the TP rules with
     fsdp), each step's collectives recorded: (losses, gradient norms, step
-    s, the records, the Trainer's layout, this process's peak bytes)."""
+    s, the records, the Trainer's layout, this process's peak bytes, the
+    last step's ``step_peak``)."""
     cfg, ds = md_family_data(arch)
     tc = trainer_config(name, MD_FAMILY_STEPS, checkpoint_every=MD_FAMILY_STEPS + 1, keep=1,
                         peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
@@ -5146,11 +5233,13 @@ def md_family_steps(arch: str, name: str, dev, mesh=None):
         return out
 
     tr.step_fn = recorded
-    for step in range(MD_FAMILY_STEPS):  # no final checkpoint to write
+    for step in range(MD_FAMILY_STEPS - 1):  # no final checkpoint to write
         tr._do_step(step)
+    peak = torch.cuda.max_memory_allocated(dev)
+    _, last = step_peak(dev, lambda: tr._do_step(MD_FAMILY_STEPS - 1), tr._state())
     rows, lay = tr.metrics_log, tr.layout
     out = ([r["loss"] for r in rows], [r["grad_norm"] for r in rows],
-           [r6(r["time_s"]) for r in rows], recs, lay, torch.cuda.max_memory_allocated(dev))
+           [r6(r["time_s"]) for r in rows], recs, lay, max(peak, last["peak_bytes"]), last)
     del tr, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -5161,7 +5250,8 @@ def md_family_steps(arch: str, name: str, dev, mesh=None):
 def md_family(rank: int, arch: str, mesh22, dev) -> dict:
     """``arch``'s mesh step on the (2, 2) mesh: each layer on the rank's
     "model" shard; every step's collectives equal to ``step_collectives``."""
-    losses, norms, step_s, recs, lay, peak = md_family_steps(arch, f"mesh_{arch}", dev, mesh22)
+    losses, norms, step_s, recs, lay, peak, last = md_family_steps(arch, f"mesh_{arch}", dev,
+                                                                   mesh22)
     cfg, ds = md_family_data(arch)
     analytic = train_loop_mod.step_collectives(
         cfg, mesh22, rules_mod.tensor_parallel_rules(fsdp=MD_FSDP), ds.global_batch,
@@ -5174,7 +5264,8 @@ def md_family(rank: int, arch: str, mesh22, dev) -> dict:
         fail(f"multi_device {arch}: no leaf computes on its \"model\" block")
     md_log(rank, f"{arch}: {MD_FAMILY_STEPS} steps done")
     return {"losses": losses, "grad_norms": norms, "step_s": step_s,
-            "peak_memory_gb": r6(peak / 1e9), "tp_leaves_of": [len(tp_leaves), len(lay.paths)],
+            "peak_memory_gb": r6(peak / 1e9), "step_peak": last,
+            "tp_leaves_of": [len(tp_leaves), len(lay.paths)],
             "tp_leaves": tp_leaves, "collectives_a_step": {"recorded": recs[0],
                                                            "analytic": analytic}}
 
@@ -5290,14 +5381,17 @@ def md_train(rank: int, mesh22, dev) -> dict:
     stats = tr.run()
     md_log(rank, "train: run and its checkpoint done")
     rows = stats["metrics"]
-    m = step_fn(tr.params, tr.opt_state, tr.batch(steps), steps)[2]
-    next_22 = (float(m["loss"]), float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated(dev)
+    batch = tr.batch(steps)
+    m, last = step_peak(dev, lambda: step_fn(tr.params, tr.opt_state, batch, steps)[2],
+                        tr._state(), batch)
+    next_22 = (float(m["loss"]), float(m["grad_norm"]))
+    peak = max(peak, last["peak_bytes"])
     analytic = train_loop_mod.step_collectives(cfg, mesh22, rules, ds.global_batch,
                                                ds.seq_len).summary()
     if any(sent(r) != analytic for r in recs):
         fail(f"multi_device train: recorded {recs[0]}, analytic {analytic}")
-    del tr, step_fn, m
+    del tr, step_fn, m, batch
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5318,6 +5412,7 @@ def md_train(rank: int, mesh22, dev) -> dict:
                "start": start, "next": (float(m["loss"]), float(m["grad_norm"])),
                "restore_s": r6(restore_s)},
            "peak_memory_gb": r6(peak / 1e9), "peak_after_build_gb": r6(built_gb),
+           "step_peak": last,
            "tp_leaves": tp_leaves, "leaves": len(tr.layout.compute_specs),
            "collectives_a_step": {"recorded": recs[0], "analytic": analytic}}
     del tr, m
@@ -5403,39 +5498,47 @@ def md_world(part: str, world: int, backend: str) -> list:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
 
 
-def drive_multi_device(dev) -> dict:
+def drive_multi_device(dev, train_peak: dict | None = None) -> dict:
     """The multi-device layer on the one card.  The ranks are processes over
     gloo with CUDA tensors (NCCL refuses two ranks on one card); gloo's
     collectives of CUDA tensors are staged through host memory at the
     port's choke point, and the line names them.  (a) the MoE, (b) the
     Trainer, (c) the int8 all-reduce, (f) the other families' Trainers in a
-    world of 4; (d) a world of one NCCL rank; (e) the dry-run CLI, a process
-    of its own started first (it uses no card, so it runs beside (a)-(d)).
-    The one-device Trainers of (b) and (f) run here before the world, and
-    the mesh's checkpoint is restored here after it."""
+    world of 4; (d) a world of one NCCL rank; (e) the traced dry run, the
+    CLI a process a cell and the traced peaks a process, started first (they
+    use no card, so they run beside (a)-(d)); ``train_peak``, where given,
+    is the ``train`` step's ``step_peak``, held to its trace beside (b)'s
+    and (f)'s.  The one-device Trainers of (b) and (f) run here before the
+    world, and the mesh's checkpoint is restored here after it."""
     mode = smi_query("compute_mode")
     if mode not in ("Default", "[N/A]"):
         fail(f"multi_device: the card's compute mode {mode!r} refuses a second process")
     dry_dir = TRAIN_DIR.parent / "dryrun"
     shutil.rmtree(dry_dir, ignore_errors=True)
     dry_dir.mkdir(parents=True)
-    src = pathlib.Path(__file__).resolve().parent / "src"
+    env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent / "src")}
+    commands = {arch: [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                       "--shape", "train_4k", "--out", str(dry_dir)] for arch in MD_DRYRUN_CELLS}
+    commands["traced_peaks"] = [sys.executable, str(pathlib.Path(__file__).resolve()),
+                                "--traced-peaks", str(dry_dir / "traced_peaks.json")]
     t_cli = time.perf_counter()  # the phase's start
-    with open(dry_dir / "stderr.txt", "w") as err:
-        cli = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", GRANITE,
-             "--shape", "train_4k", "--out", str(dry_dir)],
-            stdout=subprocess.DEVNULL, stderr=err, env={**os.environ, "PYTHONPATH": str(src)})
+    procs = {}
     try:
-        return md_drive(dev, mode, cli, t_cli, dry_dir)
+        for name, cmd in commands.items():
+            with open(dry_dir / f"{name}.stderr.txt", "w") as err:
+                procs[name] = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=err,
+                                               env=env)
+        return md_drive(dev, mode, procs, t_cli, dry_dir, train_peak)
     finally:
-        if cli.poll() is None:
-            cli.kill()
-        cli.wait()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
 
 
-def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
-    """``drive_multi_device``'s phases, the dry-run CLI ``cli`` running."""
+def md_drive(dev, mode: str, procs: dict, t_cli: float, dry_dir, train_peak) -> dict:
+    """``drive_multi_device``'s phases, the dry run's processes ``procs``
+    running."""
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -5458,7 +5561,7 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
     t_fam = time.perf_counter()
     one_family = {}
     for arch in MD_FAMILIES:
-        losses, norms, step_s, _, _, peak = md_family_steps(arch, f"one_{arch}", dev)
+        losses, norms, step_s, _, _, peak, _ = md_family_steps(arch, f"one_{arch}", dev)
         one_family[arch] = {"losses": losses, "grad_norms": norms, "step_s": step_s,
                             "peak_memory_gb": r6(peak / 1e9)}
         md_log(0, f"parent: the one-device {arch} Trainer done")
@@ -5514,11 +5617,34 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
     nccl = md_world("nccl", 1, "nccl")[0]
     nccl_s = time.perf_counter() - t0
     md_log(0, "parent: the NCCL world joined")
-    if cli.wait(timeout=MD_DRYRUN_TIMEOUT_S) != 0:
-        fail(f"multi_device: the dry-run CLI returned {cli.returncode}: "
-             f"{(dry_dir / 'stderr.txt').read_text()[-2000:]}")
+    deadline = time.monotonic() + MD_DRYRUN_TIMEOUT_S
+    for name, proc in procs.items():
+        if proc.wait(timeout=max(deadline - time.monotonic(), 1.0)) != 0:
+            fail(f"multi_device: the dry run's {name} process returned {proc.returncode}: "
+                 f"{(dry_dir / f'{name}.stderr.txt').read_text()[-2000:]}")
     cli_s = time.perf_counter() - t_cli
-    dry = json.loads((dry_dir / f"16x16__{GRANITE}__train_4k.json").read_text())
+    dry = {}
+    for arch in MD_DRYRUN_CELLS:
+        cell = json.loads((dry_dir / f"16x16__{arch}__train_4k.json").read_text())
+        coll = cell["collectives"]
+        if coll["traced"] != coll["analytic"]:
+            fail(f"multi_device: the dry run's {arch} step sent {coll['traced']}, "
+                 f"counted {coll['analytic']}")
+        dry[arch] = {"resident_gb_per_dev": cell["resident_gb_per_dev"],
+                     "fits_hbm_resident": cell["fits_hbm_resident"],
+                     "live_gb_per_dev": cell["live_gb_per_dev"],
+                     "fits_hbm_live": cell["fits_hbm_live"], "trace_s": cell["lower_s"],
+                     "flops_per_dev": cell["cost_analysis"]["flops_per_dev"],
+                     "fit_flops_per_dev": cell["cost_analysis"]["fit"]["flops_per_dev"],
+                     "collective_bytes_per_dev": coll["analytic"]["total_bytes"],
+                     "traced_equals_analytic": True,
+                     "null_fields": sorted(k for k, v in cell.items() if v is None)}
+    measured = {"multi_device/train": [r["train"]["step_peak"] for r in ranks]}
+    measured.update({f"multi_device/{arch}": [r[arch]["step_peak"] for r in ranks]
+                     for arch in MD_FAMILIES})
+    if train_peak is not None:
+        measured["train"] = train_peak
+    peaks = peak_report(json.loads((dry_dir / "traced_peaks.json").read_text()), measured)
     shutil.rmtree(dry_dir, ignore_errors=True)
 
     moe = {mode: {"rank0": ranks[0]["moe"][mode],
@@ -5561,11 +5687,8 @@ def md_drive(dev, mode: str, cli, t_cli: float, dry_dir) -> dict:
         "families": families, "families_one_device_s": r6(family_one_s),
         "grad_compress": ranks[0]["grad_compress"],
         "nccl": {**nccl, "world_s": r6(nccl_s)},
-        "dryrun": {"returncode": cli.returncode, "seconds_to_join": r6(cli_s),
-                   "resident_gb_per_dev": dry["resident_gb_per_dev"],
-                   "fits_hbm_resident": dry["fits_hbm_resident"],
-                   "collective_bytes_per_dev": dry["collectives"]["analytic"]["total_bytes"],
-                   "null_fields": sorted(k for k, v in dry.items() if v is None)},
+        "dryrun": {"seconds_to_join": r6(cli_s), "cells_16x16_train_4k": dry},
+        "traced_peaks": peaks,
     }
     if k5 != expect_k5:
         fail(f"multi_device: {k5} K5 launches on the sharded MoE, {expect_k5} expected")
@@ -5813,7 +5936,14 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", default=None, type=pathlib.Path,
                     help="a checkout of the parent commit (git archive): its lstm_cell and "
                          "flash_attention kernels are built and timed beside this one's")
+    ap.add_argument("--traced-peaks", default=None, type=pathlib.Path, metavar="FILE",
+                    help="only trace the train steps whose peak the run measures, on fake "
+                         "tensors on the CPU, and write their traced peaks to FILE (the "
+                         "multi_device phase runs this in a process of its own)")
     args = ap.parse_args(argv)
+    if args.traced_peaks is not None:
+        traced_peaks(args.traced_peaks)
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5928,7 +6058,8 @@ def main(argv=None) -> int:
     plan = phase("plan", plan_report, train_report, decode_report)
     plan["decode"]["tick"] = decode_report
     # the multi-device layer: its ranks count their own K5 launches around the sharded MoE
-    multi = phase("path:multi_device", drive_multi_device, dev)
+    multi = phase("path:multi_device", drive_multi_device, dev,
+                  train_report["train_dense"]["step_peak"])
     multi_report = multi["report"]
     k5_entry["launches_by_path"]["multi_device"] = multi["k5_launches"]
     examples_report = driven["examples"]["report"]
@@ -6024,6 +6155,7 @@ def main(argv=None) -> int:
     print("plan " + json.dumps(plan_summary(plan)), flush=True)
     print("examples " + json.dumps(examples_summary(examples_report)), flush=True)
     print("multi_device " + json.dumps(multi_report), flush=True)
+    print("traced_peaks " + json.dumps(multi_report["traced_peaks"]), flush=True)
     print("int8_path_shapes " + json.dumps(path_shapes), flush=True)
     print("host_path " + json.dumps(host), flush=True)
     print("chip_model " + json.dumps(chip_model), flush=True)

@@ -1,10 +1,12 @@
-"""Multi-pod dry run: the distribution config of every cell, as arithmetic.
+"""Multi-pod dry run: every cell's distribution config, as arithmetic and
+as the real step traced on fake tensors.
 
 For every (architecture × input shape) cell and both production meshes
-(single-pod 16×16, multi-pod 2×16×16) this lays out the REAL step's inputs
-(the params and optimizer state of ``training.train_loop.abstract_state``,
-the batch and caches of ``configs.input_specs``) by the sharding rules on
-the mesh's shape, and reports per device:
+(single-pod 16×16, multi-pod 2×16×16) ``cell_arithmetic`` lays out the REAL
+step's inputs (the params and optimizer state of
+``training.train_loop.abstract_state``, the batch and caches of
+``configs.input_specs``) by the sharding rules on the mesh's shape, and
+reports per device:
 
   * the resident bytes of those inputs (their shard shapes) and whether they
     fit ``core.energy.H100Chip``'s 80 GB of HBM;
@@ -16,17 +18,26 @@ the mesh's shape, and reports per device:
     MoE's forward for prefill and decode: ``forward_collectives``).
 
 The reference (``repro.launch.dryrun``) lowers and compiles each cell
-through GSPMD on 512 forced host devices and reads the compiled module.  The
-port has no GSPMD, no compile and no HLO, so what only a compiled module
-gives is written as ``null`` in each cell's JSON: ``cost_analysis`` (HLO
-FLOPs and bytes, the depth fit), ``memory_analysis`` and the live bytes,
-the HLO collective bytes, and the lower and compile times.  Nothing here
-starts a process group or touches a device.
+through GSPMD on 512 forced host devices and reads the compiled module.
+The port traces it instead (``run_cell``, ``lower_cell``): rank 0's real
+step (``make_mesh_step``; for a prefill ``make_mesh_prefill``) runs once on
+fake tensors over a fake process group of the mesh's 256 or 512 ranks
+(``launch.trace``), nothing allocated and no device touched, and the cell
+gets, per device, the step's matmul FLOPs (``cost_analysis``, with the
+depth fit over two traced depths, ``depth_fit_analysis``), its peak live
+bytes and their breakdown (``live_bytes_per_dev``, ``fits_hbm_live``,
+``memory_analysis``), the collectives it sent (``collectives.traced``,
+beside the analytic count) and the trace's wall time (``lower_s``).  There
+is no compile and no HLO: ``compile_s``, ``hlo_bytes`` and
+``collectives.hlo`` stay ``null``.  Decode cells are not traced
+(``NOT_TRACED``).  The figures are CPU traces of the port's code, not
+times on a card.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--both-meshes]
   python -m repro_torch.launch.dryrun --arch X --shape Y --override remat=none
+  python -m repro_torch.launch.dryrun --table --out DIR     # the traced cells in DIR
 """
 from __future__ import annotations
 
@@ -54,11 +65,13 @@ from repro_torch.core.cost_model import (
 )
 from repro_torch.core.energy import DEFAULT_CHIP
 from repro_torch.models import moe
-from repro_torch.models.model import param_defs
-from repro_torch.models.params import abstract_params, tree_flatten
+from repro_torch.models.layers import vocab_split
+from repro_torch.models.model import _mask_pad_logits, init_model, param_defs, prefill
+from repro_torch.models.params import abstract_params, tree_flatten, tree_unflatten
 from repro_torch.sharding import layout
-from repro_torch.sharding.rules import MeshShape, activate_mesh, make_rules, spec_for
+from repro_torch.sharding.rules import MODEL, MeshShape, activate_mesh, make_rules, spec_for
 from repro_torch.training import train_loop
+from repro_torch.training.optimizer import init_opt_state
 
 OUT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_dryrun")
 
@@ -157,18 +170,157 @@ def cell_collectives(cfg: ArchConfig, shape_id: str, mesh, rules) -> C.Collectiv
 
 
 # ---------------------------------------------------------------------------
-# One full cell: layout → arithmetic → JSON
+# Cell tracing: the rank's real step on fake tensors over a fake world
 # ---------------------------------------------------------------------------
-def run_cell(
-    arch: str,
-    shape_id: str,
-    *,
-    multi_pod: bool = False,
-    overrides: dict[str, Any] | None = None,
-    out_dir: str | None = None,
-    tag: str = "",
-    verbose: bool = True,
-) -> dict:
+NOT_TRACED = ("decode cells are not traced: the port has no decode on a mesh with the cache "
+              "split on kv_seq (ROADMAP Queue A item 18)")
+
+
+def rank_batch(cfg: ArchConfig, kind: str, batch: int, seq: int) -> dict:
+    """A rank's ``batch`` x ``seq`` slice of a train or prefill batch
+    (``Trainer.batch``'s shapes and dtypes; zeros)."""
+    out = {"tokens": torch.zeros((batch, seq), dtype=torch.int32)}
+    if kind == "train":
+        out["labels"] = torch.zeros((batch, seq), dtype=torch.int32)
+    rows = {"vision": cfg.frontend_seq, "audio": cfg.encoder_seq}.get(cfg.frontend)
+    if rows is not None:
+        out["frontend_embeds"] = torch.zeros((batch, rows, cfg.d_model), dtype=cfg.dtype)
+    return out
+
+
+def make_mesh_prefill(cfg: ArchConfig, lay: train_loop.MeshLayout):
+    """Returns prefill(params, batch) → (logits (B_l, V) f32, cache) for one
+    rank of ``lay.mesh``: the params (DTensors of the rank's blocks)
+    relayouted to the compute layout as ``make_mesh_step`` does, ``prefill``
+    on the rank's slice under the mesh, and the last position's logits
+    gathered over "model" where the vocabulary is split
+    (``forward_collectives`` counts what it sends)."""
+    mesh = lay.mesh
+
+    def run(params, batch):
+        with torch.inference_mode():
+            compute = [layout.relayout(train_loop._local(p), mesh, s, c)
+                       for p, s, c in zip(tree_flatten(params), lay.param_specs,
+                                          lay.compute_specs)]
+            p = tree_unflatten(params, compute)
+            with activate_mesh(mesh, lay.rules):
+                logits, cache = prefill(p, batch["tokens"], cfg,
+                                        frontend_embeds=batch.get("frontend_embeds"))
+                if vocab_split(p["embed"], cfg) is not None:
+                    logits = _mask_pad_logits(C.all_gather(logits, mesh, MODEL, dim=-1), cfg)
+        return logits, cache
+
+    return run
+
+
+def lower_cell(cfg: ArchConfig, shape_id: str, mesh_shape, *, fsdp: bool | None = None,
+               parallelism: str = "tp", batch: int | None = None, seq: int | None = None):
+    """Returns (``trace.Trace``, meta) for one train or prefill cell: rank
+    0's real step on fake tensors over a fake world of ``mesh_shape``'s
+    size, its state built as ``Trainer._init_state`` builds it on a mesh
+    (the params alone for a prefill).  A train cell runs ``make_mesh_step``
+    once, a prefill cell ``make_mesh_prefill``.  ``mesh_shape`` None: one
+    device and no world, ``make_train_step`` or ``prefill`` on the whole
+    state.  ``batch`` and ``seq`` replace the shape's global batch and
+    sequence length.  Nothing falls back: a missing fake backend or a step
+    that fails under fake tensors raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.trace import fake_world, trace
+
+    kind = SHAPES[shape_id]["kind"]
+    if kind not in ("train", "prefill"):
+        raise ValueError(f"{shape_id}: {NOT_TRACED}")
+    fsdp = default_fsdp(cfg) if fsdp is None else fsdp
+    b = SHAPES[shape_id]["global_batch"] if batch is None else batch
+    s = SHAPES[shape_id]["seq_len"] if seq is None else seq
+    meta = {"kind": kind, "fsdp": fsdp}
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    if mesh_shape is None:
+        with FakeTensorMode():
+            params = init_model(cfg, gen(), "cpu")
+            inputs = rank_batch(cfg, kind, b, s)
+            if kind == "train":
+                opt_state = init_opt_state(cfg.optimizer, param_defs(cfg), params)
+                _, got = trace(train_loop.make_train_step(cfg), params, opt_state, inputs, 0,
+                               state=(params, opt_state), inputs=inputs)
+            else:
+                _, got = trace(_prefill_one, cfg, params, inputs, state=params, inputs=inputs)
+        return got, meta
+    rules = make_rules(parallelism, fsdp=fsdp)
+    with fake_world(mesh_shape) as mesh, FakeTensorMode():
+        lay = train_loop.MeshLayout(cfg, mesh, rules, b, s)
+        blocks = init_model(cfg, gen(), "cpu", keep=lay.keep())
+        inputs = rank_batch(cfg, kind, lay.local_batch, s)
+        if kind == "train":
+            params, opt_state = train_loop.mesh_state(lay, blocks)
+            _, got = trace(train_loop.make_mesh_step(cfg, lay), params, opt_state, inputs, 0,
+                           state=(params, opt_state), inputs=inputs)
+        else:
+            params = tree_unflatten(blocks, lay.wrap(tree_flatten(blocks), lay.param_specs))
+            _, got = trace(make_mesh_prefill(cfg, lay), params, inputs, state=params,
+                           inputs=inputs)
+    return got, meta
+
+
+def _prefill_one(cfg: ArchConfig, params, batch):
+    with torch.inference_mode():
+        return prefill(params, batch["tokens"], cfg, frontend_embeds=batch.get("frontend_embeds"))
+
+
+def fit_depths(cfg: ArchConfig) -> tuple[int, int]:
+    """The reference's two depths of the fit: hybrid's ≡ 3 (mod
+    ``attn_every``), so that the shared block's applications stay linear."""
+    if cfg.family == "hybrid":
+        return 9, 15
+    if cfg.family == "moe" and cfg.first_k_dense:
+        return cfg.first_k_dense + 2, cfg.first_k_dense + 6
+    if cfg.family == "audio":
+        return 2, cfg.num_layers  # decoder depth; encoder fixed in the base
+    return 4, 8
+
+
+def depth_fit_analysis(cfg: ArchConfig, shape_id: str, mesh_shape, fsdp: bool,
+                       parallelism: str = "tp", **shape) -> dict:
+    """The matmul FLOPs and the collective operand bytes by kind a device at
+    ``cfg``'s depth, extrapolated from traces at the two ``fit_depths``:
+    cost(L) = base + slope·L.  The port walks its layers in Python, so a
+    full-depth trace counts every layer; the fit is its cross-check."""
+    la, lb = fit_depths(cfg)
+    lf = cfg.num_layers
+    points = {}
+    for L in (la, lb):
+        got, _ = lower_cell(dataclasses.replace(cfg, num_layers=L), shape_id, mesh_shape,
+                            fsdp=fsdp, parallelism=parallelism, **shape)
+        points[L] = {
+            "flops": float(got.flops),
+            "coll": {k: float(v["operand_bytes"])
+                     for k, v in got.collectives.summary()["by_op"].items()},
+        }
+
+    def extrap(key_a: float, key_b: float) -> float:
+        slope = (key_b - key_a) / (lb - la)
+        return max(key_a + slope * (lf - la), 0.0)
+
+    pa, pb = points[la], points[lb]
+    kinds = sorted(set(pa["coll"]) | set(pb["coll"]))
+    coll_full = {k: extrap(pa["coll"].get(k, 0.0), pb["coll"].get(k, 0.0)) for k in kinds}
+    return {
+        "depths": [la, lb],
+        "points": points,
+        "flops_per_dev": extrap(pa["flops"], pb["flops"]),
+        "coll_bytes_per_dev": sum(coll_full.values()),
+        "coll_by_op": coll_full,
+    }
+
+
+# ---------------------------------------------------------------------------
+# One full cell: layout → arithmetic → trace → JSON
+# ---------------------------------------------------------------------------
+def cell_arithmetic(arch: str, shape_id: str, *, multi_pod: bool = False,
+                    overrides: dict[str, Any] | None = None, tag: str = "") -> dict:
+    """The cell's JSON from the layouts and shapes alone: its fields that
+    only a trace gives (``TRACED_FIELDS``) are ``null``."""
     overrides = dict(overrides or {})
     parallelism = overrides.pop("parallelism", "tp")
     cfg = apply_overrides(get_config(arch), overrides)
@@ -191,7 +343,7 @@ def run_cell(
         plan = MeshPlan(dp=chips // mesh.shape["model"], tp=mesh.shape["model"], fsdp=fsdp)
     resident = resident_bytes_per_device(inputs, mesh)
     roof = estimate_step(cfg, shape_id, plan)
-    result = {
+    return {
         "arch": arch,
         "shape": shape_id,
         "mesh": mesh_name,
@@ -206,7 +358,7 @@ def run_cell(
         "cost_analysis": None,
         "mem_terms": hbm_bytes_terms(cfg, shape_id, plan),
         "model_flops": model_flops_of(cfg, shape_id),
-        "collectives": {"analytic": coll.summary(), "hlo": None},
+        "collectives": {"analytic": coll.summary(), "traced": None, "hlo": None},
         "resident_bytes_per_dev": resident,
         "resident_gb_per_dev": round(resident / 1024**3, 3),
         "live_bytes_per_dev": None,
@@ -217,14 +369,77 @@ def run_cell(
         "memory_analysis": None,
         "roofline": roof.summary(),
         "hlo_bytes": None,
+        "not_traced": None,
     }
+
+
+TRACED_FIELDS = ("lower_s", "cost_analysis", "live_bytes_per_dev", "live_gb_per_dev",
+                 "fits_hbm_live", "memory_analysis")
+
+
+def trace_cell(result: dict, overrides: dict[str, Any] | None = None) -> dict:
+    """``result`` (``cell_arithmetic``'s) with its traced fields filled in:
+    the full-depth trace's matmul FLOPs, live bytes at the peak and their
+    breakdown, collectives and wall time, and the depth fit; a decode cell
+    gets its ``not_traced`` reason instead."""
+    if result["kind"] == "decode":
+        return dict(result, not_traced=NOT_TRACED)
+    overrides = dict(overrides or {})
+    parallelism = overrides.pop("parallelism", "tp")
+    cfg = apply_overrides(get_config(result["arch"]), overrides)
+    mesh = production_mesh_shape(result["chips"] == 512)
+    got, meta = lower_cell(cfg, result["shape"], mesh, fsdp=result["fsdp"],
+                           parallelism=parallelism)
+    fit = depth_fit_analysis(cfg, result["shape"], mesh, meta["fsdp"], parallelism)
+    coll = result["collectives"]
+    return dict(
+        result,
+        lower_s=round(got.seconds, 2),
+        cost_analysis={
+            "flops_per_dev": float(got.flops),
+            "flops_counted": "matrix products (torch.utils.flop_counter), not XLA's count",
+            "bytes_per_dev": result["mem_terms"]["total"],
+            "fit": fit,
+        },
+        collectives=dict(coll, traced=got.collectives.summary(), fit_by_op=fit["coll_by_op"]),
+        live_bytes_per_dev=got.peak_bytes,
+        live_gb_per_dev=round(got.peak_bytes / 1024**3, 3),
+        fits_hbm_live=got.peak_bytes <= DEFAULT_CHIP.hbm_bytes,
+        memory_analysis=got.breakdown(2000),
+    )
+
+
+def run_cell(
+    arch: str,
+    shape_id: str,
+    *,
+    multi_pod: bool = False,
+    overrides: dict[str, Any] | None = None,
+    out_dir: str | None = None,
+    tag: str = "",
+    verbose: bool = True,
+) -> dict:
+    """One cell: ``cell_arithmetic``, then ``trace_cell``, written to
+    ``out_dir`` as JSON."""
+    result = cell_arithmetic(arch, shape_id, multi_pod=multi_pod, overrides=overrides, tag=tag)
+    if "skipped" in result:
+        return result
+    result = trace_cell(result, overrides)
+    mesh_name = result["mesh"]
     if verbose:
         r = result["roofline"]
+        traced = result["collectives"]["traced"]
+        live = ("not traced" if traced is None else
+                f"traced {result['lower_s']:.1f}s live {result['live_gb_per_dev']:.2f} GB/dev "
+                f"(fits {result['fits_hbm_live']})  flops "
+                f"{result['cost_analysis']['flops_per_dev']:.4g}/dev  traced coll == analytic "
+                f"{traced == result['collectives']['analytic']}")
         print(
             f"[{mesh_name}] {arch} × {shape_id}: resident {result['resident_gb_per_dev']:.2f} "
-            f"GB/dev (fits {result['fits_hbm_resident']})  T={r['t_step_s'] * 1e3:.2f} ms  "
-            f"bottleneck={r['bottleneck']}  mfu={r['mfu']:.3f}  "
-            f"coll={coll.total_bytes / 1e6:.1f} MB/dev (port, analytic)"
+            f"GB/dev (fits {result['fits_hbm_resident']})  {live}  "
+            f"T={r['t_step_s'] * 1e3:.2f} ms  bottleneck={r['bottleneck']}  mfu={r['mfu']:.3f}  "
+            f"coll={result['collectives']['analytic']['total_bytes'] / 1e6:.1f} MB/dev (analytic)",
+            flush=True,
         )
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -247,6 +462,43 @@ def iter_cells():
 # ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
+def table(out_dir: str) -> str:
+    """A markdown table of the traced cells written to ``out_dir``, a row a
+    cell, each column "16x16 / 2x16x16": live GiB a device and whether they
+    fit, the traced matmul FLOPs a device, over the model FLOPs a device and
+    over the step cost model's compute term, whether the traced collectives
+    equal the analytic count, and the trace seconds."""
+    cells: dict = {}
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(out_dir, name)) as f:
+                c = json.load(f)
+            if c.get("cost_analysis") is not None:
+                cells.setdefault((c["arch"], c["shape"]), {})[c["mesh"]] = c
+
+    def flops(c):
+        return c["cost_analysis"]["flops_per_dev"]
+
+    columns = (
+        ("live GiB/dev", lambda c: f"{c['live_gb_per_dev']}"),
+        ("fits_hbm_live", lambda c: f"{c['fits_hbm_live']}"),
+        ("traced FLOPs/dev", lambda c: f"{flops(c):.4g}"),
+        ("/ model_flops/dev", lambda c: f"{flops(c) * c['chips'] / c['model_flops']:.3f}"),
+        ("/ estimate_step compute",
+         lambda c: f"{flops(c) / (c['roofline']['compute_s'] * DEFAULT_CHIP.peak_flops):.3f}"),
+        ("traced = analytic",
+         lambda c: f"{c['collectives']['traced'] == c['collectives']['analytic']}"),
+        ("trace s", lambda c: f"{c['lower_s']}"),
+    )
+    rows = ["| arch | shape | " + " | ".join(h for h, _ in columns) + " |",
+            "|---|---|" + "---|" * len(columns)]
+    for (arch, shape), by in sorted(cells.items()):
+        ms = [by[m] for m in ("16x16", "2x16x16") if m in by]
+        rows.append(f"| {arch} | {shape} | " + " | ".join(
+            " / ".join(fn(c) for c in ms) for _, fn in columns) + " |")
+    return "\n".join(rows)
+
+
 def _parse_override(s: str) -> tuple[str, Any]:
     k, v = s.split("=", 1)
     for cast in (int, float):
@@ -271,11 +523,16 @@ def main(argv=None):
     ap.add_argument("--tag", default="", help="suffix for hillclimb variants")
     ap.add_argument("--out", default=OUT_DIR)
     ap.add_argument("--list", action="store_true")
+    ap.add_argument("--table", action="store_true",
+                    help="print the table of the traced cells in --out; trace nothing")
     args = ap.parse_args(argv)
 
     if args.list:
         for a, s in iter_cells():
             print(a, s)
+        return 0
+    if args.table:
+        print(table(args.out))
         return 0
 
     overrides = dict(_parse_override(s) for s in args.override)

@@ -6,7 +6,9 @@ of a whole tensor (no communication); ``relayout`` turns this rank's block
 under one spec into its block under another, all-gathering a dim over the
 axes that split it in the source (innermost first, so the blocks land in
 row-major order) and slicing it by the target's (a source split that leads
-the target's is only sliced further); ``full_on_first`` gathers the
+the target's is only sliced further), every gather ahead of every slice;
+an axis that leaves one dim for another moves by one all-to-all
+(``_plan``); ``full_on_first`` gathers the
 whole tensor to the first ranks alone; ``relayout_sends`` counts
 what ``relayout`` sends, from shapes alone.  Every collective goes through
 ``core.collectives``.
@@ -36,21 +38,51 @@ def block_of(x: torch.Tensor, mesh, spec) -> torch.Tensor:
     return x
 
 
-def _moves(a: tuple, b: tuple) -> tuple[tuple, tuple]:
-    """(axes to gather, axes to slice) taking a dim split over ``a`` to one
-    split over ``b``: a source that leads the target is only sliced on."""
-    if b[:len(a)] == a:
-        return (), b[len(a):]
-    return a, b
+def _plan(src, dst) -> tuple[list, list]:
+    """How ``relayout`` takes a block under ``src`` to one under ``dst``:
+    the moves in order, each ``("gather", axis, dim)`` (an all-gather along
+    ``dim``) or ``("a2a", axis, dim, to)`` (an all-to-all over ``axis`` that
+    concatenates ``dim`` and splits ``to``), then the cuts ``[(dim, axes)]``
+    (slices, major axis first).  A dim keeps the leading axes its source
+    and target share and gathers the rest of its source's, innermost
+    first; where the axis it gathers is the next one another dim is cut
+    by, and that dim is gathered no further, one all-to-all does both (a
+    block moves between ranks, no rank holds more than its block: an
+    expert leaf's fsdp split over "data" moving onto its expert dim)."""
+    cur = [list(entry_axes(e)) for e in src]
+    want = [entry_axes(e) for e in dst]
+
+    def prefix(i):
+        return tuple(cur[i]) == want[i][:len(cur[i])]
+
+    moves = []
+    for i in range(len(cur)):
+        while not prefix(i):
+            ax = cur[i].pop()
+            to = next((j for j in range(len(cur)) if j != i and prefix(j)
+                       and want[j][len(cur[j]):len(cur[j]) + 1] == (ax,)), None)
+            if to is None:
+                moves.append(("gather", ax, i))
+            else:
+                moves.append(("a2a", ax, i, to))
+                cur[to].append(ax)
+    return moves, [(i, want[i][len(cur[i]):]) for i in range(len(cur))]
 
 
 def relayout(x: torch.Tensor, mesh, src, dst) -> torch.Tensor:
-    """This rank's block under ``dst`` from its block ``x`` under ``src``."""
-    for dim, (a, b) in enumerate(zip(src, dst)):
-        gather, cut = _moves(entry_axes(a), entry_axes(b))
-        for ax in reversed(gather):
-            x = C.all_gather(x, mesh, ax, dim=dim)
-        x = _slice(x, mesh, dim, cut)
+    """This rank's block under ``dst`` from its block ``x`` under ``src``
+    (``_plan``'s moves); a block cut out of a gathered tensor is a copy,
+    so that the gathered tensor is freed."""
+    moves, cuts = _plan(src, dst)
+    for move in moves:
+        if move[0] == "gather":
+            x = C.all_gather(x, mesh, move[1], dim=move[2])
+        else:
+            x = C.all_to_all(x, mesh, move[1], split_dim=move[3], concat_dim=move[2])
+    for dim, axes in cuts:
+        x = _slice(x, mesh, dim, axes)
+    if moves and any(axes for _, axes in cuts):
+        x = x.contiguous()
     return x
 
 
@@ -79,13 +111,14 @@ def relayout_sends(shape, dtype, mesh, src, dst, stats: C.CollectiveStats) -> No
     sizes = axis_sizes(mesh)
     block = [dim // math.prod(sizes[a] for a in entry_axes(e)) for dim, e in zip(shape, src)]
     item = torch.empty((), dtype=dtype).element_size()
-    for dim, (a, b) in enumerate(zip(src, dst)):
-        gather, cut = _moves(entry_axes(a), entry_axes(b))
-        for ax in reversed(gather):
-            if sizes[ax] > 1:
-                stats.add("all-gather", math.prod(block) * item)
-            block[dim] *= sizes[ax]
-        block[dim] //= math.prod(sizes[ax] for ax in cut)
+    for move in _plan(src, dst)[0]:
+        ax, dim = move[1], move[2]
+        if sizes[ax] > 1:
+            stats.add("all-gather" if move[0] == "gather" else "all-to-all",
+                      math.prod(block) * item)
+        block[dim] *= sizes[ax]
+        if move[0] == "a2a":
+            block[move[3]] //= sizes[ax]
 
 
 def first_replica(mesh, spec) -> bool:

@@ -107,18 +107,18 @@ def adamw_update(params, grads, state, lr, *, weight_decay: float = 0.1):
 # ---------------------------------------------------------------------------
 # Adafactor (Shazeer & Stern 2018), factored over the trailing two dims
 # ---------------------------------------------------------------------------
-def _factored(shape) -> bool:
+def factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
 def adafactor_state_defs(defs) -> dict:
     def row(d: ParamDef):
-        if _factored(d.shape):
+        if factored(d.shape):
             return ParamDef(d.shape[:-1], d.logical[:-1], init="zeros", dtype=torch.float32)
         return ParamDef(d.shape, d.logical, init="zeros", dtype=torch.float32)
 
     def col(d: ParamDef):
-        if _factored(d.shape):
+        if factored(d.shape):
             return ParamDef(d.shape[:-2] + d.shape[-1:], d.logical[:-2] + d.logical[-1:],
                             init="zeros", dtype=torch.float32)
         return ParamDef((1,), (None,), init="zeros", dtype=torch.float32)
@@ -137,16 +137,19 @@ def adafactor_beta2(t: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def adafactor_leaf(p, g, vr, vc, beta2, lr, *, weight_decay: float = 0.0,
-                   clip_threshold: float = 1.0) -> None:
+                   clip_threshold: float = 1.0, total_sq=None, numel: int = 0) -> None:
     """One leaf's Adafactor step, in place on ``p``, ``vr`` and ``vc``.  A
     stacked leaf (layers first) is factored over its trailing two dims and
     RMS-clipped as a whole, as in the reference.  The f32 work runs in
     place on one f32 copy of the gradient: at most two f32 tensors of the
     leaf's size exist at a time (an embedding table's update is the step's
-    largest transient)."""
+    largest transient).  On a block of a leaf split along its leading dims
+    (the factored dims whole), ``total_sq`` sums the blocks' sums of
+    squares of the update over the ranks and ``numel`` is the whole leaf's
+    size: the clip's RMS is the whole leaf's."""
     gf = g.to(torch.float32, copy=True)
     g2 = torch.square(gf).add_(FACTOR_EPS)
-    if _factored(p.shape):
+    if factored(p.shape):
         vr.copy_(beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1))
         vc.copy_(beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2))
         del g2
@@ -159,7 +162,10 @@ def adafactor_leaf(p, g, vr, vc, beta2, lr, *, weight_decay: float = 0.0,
         del g2
         update = gf.mul_(torch.rsqrt(vr))
     # RMS clip (adafactor's update clipping)
-    rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
+    if total_sq is None:
+        rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
+    else:
+        rms = torch.sqrt(total_sq(torch.sum(torch.square(update))) / numel + 1e-30)
     update.div_(torch.clamp_min(rms / clip_threshold, 1.0))
     if weight_decay and p.ndim >= 2:
         update.add_(weight_decay * p.to(torch.float32))

@@ -34,9 +34,10 @@ over an axis that splits the leaf's storage, an all-reduce over one that
 does not, or over the DP axes the int8 all-reduce
 (``TrainerConfig.grad_compress``), in the gradient's dtype.  Each rank then keeps its shard:
 the global-norm clip all-reduces the shards' sums of squares, each block
-counted once; AdamW updates the local shards; Adafactor's factored moments
-come from the whole gradient, a leaf at a time, and each rank keeps its
-shard of them.
+counted once; AdamW updates the local shards; Adafactor updates a leaf at
+a time with its factored dims whole and its layers and experts split
+(``adafactor_specs``), the moments and the clip the whole leaf's, and each
+rank keeps its shard of them.
 ``step_collectives`` counts what a step sends.
 """
 from __future__ import annotations
@@ -88,6 +89,7 @@ from repro_torch.training.optimizer import (
     adafactor_leaf,
     adamw_update,
     clip_by_global_norm,
+    factored,
     init_opt_state,
     opt_state_defs,
     opt_state_from_defs,
@@ -253,6 +255,7 @@ class MeshLayout:
             sizes[a] for a in entry_axes(self.batch_spec[0]))
         mb = self.local_batch // self.accum
         self.paths = _paths(defs)
+        self.opt_paths = _paths(odefs)
         self.compute_specs = [
             _compute_spec(self.cfg, p, d, s, self.mesh, self.rules, mb, self.seq)
             for p, d, s in zip(self.paths, self.param_defs, self.param_specs)]
@@ -295,6 +298,15 @@ class MeshLayout:
         if compressed:
             g = grad_compress._int8_pmean(g, self.mesh, dp)
         return layout.relayout(g, self.mesh, now, store)
+
+
+def mesh_state(lay: MeshLayout, params) -> tuple:
+    """(params, opt_state) as DTensors of this rank's blocks, from the
+    blocks ``params`` (``init_model(..., keep=lay.keep())``'s), the
+    optimizer state drawn for them."""
+    opt_state = opt_state_from_defs(lay.local_opt_defs(param_defs(lay.cfg)), params)
+    return (tree_unflatten(params, lay.wrap(tree_flatten(params), lay.param_specs)),
+            tree_unflatten(opt_state, lay.wrap(tree_flatten(opt_state), lay.opt_specs)))
 
 
 def _grad_plan(spec, store, sizes: dict, dp_axes, compressed: bool) -> tuple:
@@ -383,27 +395,73 @@ def make_mesh_step(cfg: ArchConfig, lay: MeshLayout, schedule: Schedule | None =
     return train_step
 
 
+def adafactor_specs(shape: tuple, spec: tuple, compute: tuple, sizes: dict) -> tuple:
+    """(the param's, its row moment's, its column moment's) layouts for
+    Adafactor's update of a leaf stored in ``spec`` and computed in
+    ``compute`` on a mesh of ``sizes``: its two trailing (factored) dims
+    whole, its leading dims (layers, experts) split as ``compute`` splits
+    them where the compute layout keeps the trailing dims whole and splits
+    more (an expert leaf: a rank updates its own experts), else as ``spec``
+    does, and each axis that split the trailing dims in ``spec`` moved onto
+    the first leading dim whose block it divides (a stacked leaf: a rank
+    updates its own layers).  A leaf that is not factored is updated in
+    its storage layout."""
+    if not factored(shape):
+        return tuple(spec), tuple(spec), (None,)
+    lead = tuple(spec[:-2])
+    if (tuple(compute[-2:]) == (None, None)
+            and set(_split_axes(compute[:-2])) > set(_split_axes(lead))):
+        lead = tuple(compute[:-2])
+    axes = [list(entry_axes(e)) for e in lead]
+    for ax in _split_axes(spec[-2:]):
+        if ax in _split_axes(lead):
+            continue
+        for a, n in zip(axes, shape[:-2]):
+            if (n // math.prod(sizes[b] for b in a)) % sizes[ax] == 0:
+                a.append(ax)
+                break
+    lead = tuple(None if not a else (a[0] if len(a) == 1 else tuple(a)) for a in axes)
+    return lead + (None, None), lead + (None,), lead + (None,)
+
+
+def _split_axes(spec: tuple) -> tuple:
+    """The mesh axes that split a tensor laid out in ``spec``."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
 def _adafactor_on_mesh(lay: MeshLayout, params, opt_state, shards, lr) -> None:
-    """Adafactor from the whole tensors, one leaf at a time: gather the
-    leaf's param, gradient and moments, update them whole
-    (``adafactor_leaf``), keep this rank's blocks.  No more than one leaf
-    is whole at a time (deepseek-v3-671b's embedding tables are 1.85 GB
-    each in bf16)."""
+    """Adafactor on the rank's blocks, one leaf at a time: the param, the
+    gradient and the moments relayouted to ``adafactor_specs`` (the
+    factored dims whole, so that the row and column means are the whole
+    leaf's), the clip's sum of squares summed over the axes that split
+    that layout, the rank's storage blocks kept.  No leaf is gathered along
+    its leading dims where its layout lets a rank hold its own layers' and
+    experts' blocks alone (deepseek-v3-671b's stacked expert leaves are
+    7.5 GB a MoE layer whole, in bf16; qwen1.5-110b's stacked MLP leaves
+    64 GB whole)."""
     mesh = lay.mesh
+    sizes = axis_sizes(mesh)
     specs = dict(zip(_paths(opt_state), lay.opt_specs))
     step = _local(opt_state["step"])
     t = step + 1
     beta2 = adafactor_beta2(t)
-    for path, p, g, vr, vc, ps in zip(
-            lay.paths, tree_flatten(params), shards, tree_flatten(opt_state["vr"]),
-            tree_flatten(opt_state["vc"]), lay.param_specs):
+    for path, d, p, g, vr, vc, ps, c in zip(
+            lay.paths, lay.param_defs, tree_flatten(params), shards,
+            tree_flatten(opt_state["vr"]), tree_flatten(opt_state["vc"]), lay.param_specs,
+            lay.compute_specs):
         rs, cs = specs[("vr",) + path], specs[("vc",) + path]
-        whole = [layout.full(_local(x), mesh, sp) for x, sp in ((p, ps), (g, ps), (vr, rs),
-                                                                (vc, cs))]
-        adafactor_leaf(*whole, beta2, lr)
-        for x, w, sp in ((p, whole[0], ps), (vr, whole[2], rs), (vc, whole[3], cs)):
-            _local(x).copy_(layout.block_of(w, mesh, sp))
-        del whole
+        work = adafactor_specs(d.shape, ps, c, sizes)
+        blocks = [(_local(x), sp, w) for x, sp, w in ((p, ps, work[0]), (vr, rs, work[1]),
+                                                    (vc, cs, work[2]))]
+        pw, vrw, vcw = [layout.relayout(x, mesh, sp, w) for x, sp, w in blocks]
+        axes = _split_axes(work[0])
+        total = None if not axes else (lambda x, a=axes: C.all_reduce(x, mesh, a))
+        adafactor_leaf(pw, layout.relayout(g, mesh, ps, work[0]), vrw, vcw, beta2, lr,
+                       total_sq=total, numel=math.prod(d.shape))
+        for (x, sp, w), y in zip(blocks, (pw, vrw, vcw)):
+            if y is not x:
+                x.copy_(layout.relayout(y, mesh, w, sp))
+        del pw, vrw, vcw
     step.copy_(t)
 
 
@@ -479,7 +537,8 @@ def step_collectives(cfg: ArchConfig, mesh, rules: ShardingRules, global_batch: 
     layer's recomputed forward under remat, each microbatch), the sharded
     MoE layers (the same passes),
     the metrics' means, the gradients' sums and means, the relayout back to
-    the shards, the norm, and Adafactor's gathers.  ``dtype``: the params'
+    the shards, the norm, and Adafactor's moves to its layouts and back
+    with its clip's sums (``adafactor_specs``).  ``dtype``: the params'
     and the activations' dtype where it is not the ParamDefs' and the
     config's (a state cast to f32)."""
     lay = MeshLayout(cfg, mesh, rules, global_batch, seq, accum)
@@ -529,11 +588,22 @@ def step_collectives(cfg: ArchConfig, mesh, rules: ShardingRules, global_batch: 
     for _ in live:
         stats.add("all-reduce", 4)  # the norm's sum of squares
     if cfg.optimizer != "adamw":
-        for d, s in zip(lay.param_defs, lay.param_specs):
+        odefs = dict(zip(lay.opt_paths, zip(lay.opt_defs, lay.opt_specs)))
+        for path, d, s, c in zip(lay.paths, lay.param_defs, lay.param_specs,
+                                 lay.compute_specs):
+            work = adafactor_specs(d.shape, s, c, sizes)
             for _ in range(2):  # the params and the clipped gradient, in the params' dtype
-                layout.relayout_sends(d.shape, pdt(d), mesh, s, (None,) * len(s), stats)
-        for d, s in zip(lay.opt_defs, lay.opt_specs):
-            layout.relayout_sends(d.shape, d.dtype, mesh, s, (None,) * len(s), stats)
+                layout.relayout_sends(d.shape, pdt(d), mesh, s, work[0], stats)
+            moments = [odefs[(key,) + path] for key in ("vr", "vc")]
+            for (od, os_), w in zip(moments, work[1:]):
+                layout.relayout_sends(od.shape, od.dtype, mesh, os_, w, stats)
+            for a in _split_axes(work[0]):
+                if sizes[a] > 1:
+                    stats.add("all-reduce", 4)  # the clip's sum of squares
+            # the rank's blocks back to their storage layouts
+            layout.relayout_sends(d.shape, pdt(d), mesh, work[0], s, stats)
+            for (od, os_), w in zip(moments, work[1:]):
+                layout.relayout_sends(od.shape, od.dtype, mesh, w, os_, stats)
     return stats
 
 
@@ -602,15 +672,10 @@ class Trainer:
     def _init_state(self):
         """The whole state (one device), or DTensors of this rank's blocks
         (a mesh), no leaf whole but the one being drawn."""
-        defs = param_defs(self.cfg)
         if self.layout is None:
             params = self._init_params(None)
-            return params, init_opt_state(self.cfg.optimizer, defs, params)
-        lay = self.layout
-        params = self._init_params(lay.keep())
-        opt_state = opt_state_from_defs(lay.local_opt_defs(defs), params)
-        return (tree_unflatten(params, lay.wrap(tree_flatten(params), lay.param_specs)),
-                tree_unflatten(opt_state, lay.wrap(tree_flatten(opt_state), lay.opt_specs)))
+            return params, init_opt_state(self.cfg.optimizer, param_defs(self.cfg), params)
+        return mesh_state(self.layout, self._init_params(self.layout.keep()))
 
     def batch(self, step: int) -> dict:
         """The step's batch: ``make_batch``'s, or on a mesh this rank's slice."""

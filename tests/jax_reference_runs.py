@@ -20,6 +20,10 @@ CPU device):
       and cross-attention) and the Trainer of each "train/archs" arch on
       2 x 4, the reference's chunked SSD scan with its segments' exp
       masked, as the port's is (``masked_ssd``): its own gradients are NaN.
+  python tests/jax_reference_runs.py flops B S OUT.json      (1 device)
+      every arch's reduced config, its train step unrolled (no scan),
+      naive attention, no remat, compiled at B x S on one device: the
+      compiled module's ``cost_analysis()`` FLOPs.
 
 Specs are written as lists with one entry a dim: null, an axis name, or a
 list of names."""
@@ -373,9 +377,43 @@ def int8_mean_bound(params, batch, cfg, n_dp):
     return np.sqrt(sq)
 
 
+def flops_mode(batch, seq, out_path):
+    """Each arch's reduced config's train step, unrolled, compiled on one
+    device at ``batch`` x ``seq``: {arch: cost_analysis FLOPs}."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config, list_archs
+    from repro.models.model import param_defs
+    from repro.models.params import abstract_params
+    from repro.training.optimizer import opt_state_defs
+    from repro.training.train_loop import make_train_step
+
+    out = {}
+    for arch in list_archs():
+        cfg = dataclasses.replace(get_reduced_config(arch), scan_layers=False,
+                                  attention_impl="naive", remat="none")
+        defs = param_defs(cfg)
+        tok = jax.ShapeDtypeStruct((batch, seq), jnp.int32)
+        b = {"tokens": tok, "labels": tok}
+        rows = {"vision": cfg.frontend_seq, "audio": cfg.encoder_seq}.get(cfg.frontend)
+        if rows is not None:
+            b["frontend_embeds"] = jax.ShapeDtypeStruct((batch, rows, cfg.d_model), cfg.dtype)
+        compiled = jax.jit(make_train_step(cfg)).lower(
+            abstract_params(defs), abstract_params(opt_state_defs(cfg.optimizer, defs)), b,
+            jax.ShapeDtypeStruct((), jnp.int32)).compile()
+        out[arch] = float((compiled.cost_analysis() or {})["flops"])
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "rules":
         rules_mode(sys.argv[2])
+    elif sys.argv[1] == "flops":
+        flops_mode(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1] == "tp":
         tp_mode(sys.argv[2], sys.argv[3])
     else:

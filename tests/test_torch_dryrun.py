@@ -4,7 +4,11 @@ meshes, the resident bytes a device, the model FLOPs and fits-in-HBM (the
 reference's resident bytes against ``H100Chip``'s 80 GB) equal what the
 reference computes from its abstract inputs in a subprocess with 512 forced
 host devices, without compiling (``tests/jax_reference_runs.py rules``).
-The fields only a compiled module gives are ``null``; the CLI returns 0."""
+That is ``cell_arithmetic``, which traces nothing: its traced fields are
+``null``.  The CLI traces (``run_cell``): one full-size cell,
+granite-3-8b x train_4k on 16 x 16, its traced fields filled, its
+collectives as counted; the fields no trace gives stay ``null``.  The
+traced half itself: ``tests/test_torch_dryrun_trace.py``."""
 import json
 
 import pytest
@@ -14,8 +18,8 @@ from repro_torch.launch import dryrun
 
 from test_torch_sharding_rules import reference_run
 
-NULL_FIELDS = ("lower_s", "compile_s", "cost_analysis", "live_bytes_per_dev",
-               "fits_hbm_live", "memory_analysis", "hlo_bytes")
+NULL_FIELDS = ("compile_s", "hlo_bytes")  # no compile and no HLO: null in every cell
+TRACE_S = 60  # granite-3-8b x train_4k's full-depth trace on the CPU
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +37,7 @@ def test_the_cells_are_the_reference_cells(ref):
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
 @pytest.mark.parametrize("arch, shape_id", list(dryrun.iter_cells()))
 def test_cell_arithmetic_matches_the_reference(ref, arch, shape_id, multi_pod):
-    got = dryrun.run_cell(arch, shape_id, multi_pod=multi_pod, verbose=False)
+    got = dryrun.cell_arithmetic(arch, shape_id, multi_pod=multi_pod)
     mesh = "2x16x16" if multi_pod else "16x16"
     assert got["mesh"] == mesh and got["chips"] == (512 if multi_pod else 256)
     assert got["fsdp"] == ref["fsdp"][arch]
@@ -41,19 +45,37 @@ def test_cell_arithmetic_matches_the_reference(ref, arch, shape_id, multi_pod):
     assert got["resident_bytes_per_dev"] == resident
     assert got["fits_hbm_resident"] == (resident <= DEFAULT_CHIP.hbm_bytes)
     assert got["model_flops"] == pytest.approx(ref["model_flops"][arch][shape_id], rel=1e-12)
-    for field in NULL_FIELDS:
+    for field in NULL_FIELDS + dryrun.TRACED_FIELDS:
         assert got[field] is None, field
-    assert got["collectives"]["hlo"] is None
+    assert got["collectives"]["hlo"] is None and got["collectives"]["traced"] is None
     assert got["collectives"]["analytic"]["total_bytes"] > 0
 
 
 def test_main_returns_zero_and_writes_the_cell(tmp_path, capsys):
+    """The CLI at full size: granite-3-8b x train_4k on 16 x 16, the rank's
+    step traced in under ``TRACE_S``; it fits the card live, sends what the
+    analytic count says, and the depth fit agrees with the full depth."""
     assert dryrun.main(["--arch", "granite-3-8b", "--shape", "train_4k",
                         "--out", str(tmp_path)]) == 0
     with open(tmp_path / "16x16__granite-3-8b__train_4k.json") as f:
         cell = json.load(f)
-    assert cell["fits_hbm_resident"] and cell["memory_analysis"] is None
+    assert cell["fits_hbm_resident"] and cell["fits_hbm_live"]
+    assert 0 < cell["lower_s"] < TRACE_S
+    assert cell["resident_bytes_per_dev"] < cell["live_bytes_per_dev"] <= DEFAULT_CHIP.hbm_bytes
+    assert cell["live_gb_per_dev"] == round(cell["live_bytes_per_dev"] / 1024**3, 3)
+    assert cell["memory_analysis"].startswith("peak ") and len(cell["memory_analysis"]) <= 2000
+    coll = cell["collectives"]
+    assert coll["traced"] == coll["analytic"] and coll["hlo"] is None
+    ca = cell["cost_analysis"]
+    assert ca["fit"]["flops_per_dev"] == pytest.approx(ca["flops_per_dev"], rel=1e-9)
+    assert ca["bytes_per_dev"] == cell["mem_terms"]["total"]
+    for field in NULL_FIELDS:
+        assert cell[field] is None, field
+    assert cell["not_traced"] is None
     assert "granite-3-8b × train_4k" in capsys.readouterr().out
+    assert dryrun.main(["--table", "--out", str(tmp_path)]) == 0
+    row = capsys.readouterr().out.splitlines()[-1]
+    assert row.startswith("| granite-3-8b | train_4k | ") and row.count("|") == 10
 
 
 def test_overrides_parse_as_the_reference_does():
@@ -75,7 +97,7 @@ def test_train_cell_counts_the_tensor_parallel_step():
     from repro_torch.sharding.rules import make_rules
     from repro_torch.training.train_loop import step_collectives
 
-    got = dryrun.run_cell("granite-3-8b", "train_4k", verbose=False)["collectives"]["analytic"]
+    got = dryrun.cell_arithmetic("granite-3-8b", "train_4k")["collectives"]["analytic"]
     cfg = get_config("granite-3-8b")
     want = step_collectives(cfg, dryrun.production_mesh_shape(), make_rules("tp"), 256, 4096)
     assert got == want.summary() and "all-gather" not in got["by_op"]

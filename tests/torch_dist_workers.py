@@ -480,3 +480,66 @@ def collectives_main(rank: int, world: int) -> dict:
             got = layout.full_on_first(layout.block_of(whole, mesh22, spec).clone(), mesh22, spec)
         out[f"first/{spec}"] = (None if got is None else got.numpy(), rec.summary())
     return out
+
+
+# the specs a (2, 2) world moves a (4, 4, 6) tensor between: an axis leaving one dim for another
+# (one all-to-all), gathers, a gather and a slice on one axis, and back
+RELAYOUT_CASES = (
+    ((None, "model", "data"), (None, ("model", "data"), None)),
+    ((None, ("model", "data"), None), (None, "model", "data")),
+    (("data", "model", None), ("model", None, "data")),
+    (("data", None, None), (None, ("model", "data"), None)),
+    ((("data", "model"), None, None), (None, None, None)),
+)
+
+
+def full_ep(cfg):
+    """deepseek-v3-671b's reduced config with the full config's expert axes
+    ("model", then "data"): its experts split over both."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_axes=("model", "data")))
+
+
+def relayout_main(rank: int, world: int, root: str) -> dict:
+    """On a (2, 2) mesh: each ``RELAYOUT_CASES`` move of a (4, 4, 6) tensor
+    from its block under the source to its block under the target, against
+    the whole tensor's block, and what it sent against ``relayout_sends``;
+    then two Adafactor steps of the mesh Trainer of deepseek-v3-671b's
+    reduced config (f32, ``full_ep``) under the TP rules with fsdp (its
+    expert leaves' "data" split moves onto their expert dim and back) and
+    without."""
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    whole = torch.arange(4 * 4 * 6, dtype=torch.float32).reshape(4, 4, 6)
+    out = {"relayout": []}
+    for src, dst in RELAYOUT_CASES:
+        with C.recording() as rec:
+            got = layout.relayout(layout.block_of(whole, mesh, src).clone(), mesh, src, dst)
+        want = C.CollectiveStats()
+        layout.relayout_sends(whole.shape, whole.dtype, mesh, src, dst, want)
+        out["relayout"].append({"equal": bool(torch.equal(got, layout.block_of(whole, mesh, dst))),
+                                "recorded": rec.summary(), "analytic": want.summary()})
+    cfg = full_ep(f32_config("deepseek-v3-671b"))
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8)
+    leaves = [t.float().numpy() for t in tree_flatten(
+        init_model(cfg, torch.Generator().manual_seed(0), "cpu"))]
+    for fsdp in (True, False):
+        tc = TL.TrainerConfig(num_steps=2, log_every=1, checkpoint_every=1000,
+                              checkpoint_dir=os.path.join(root, f"fsdp_{fsdp}_{rank}"))
+        rules = tensor_parallel_rules(fsdp=fsdp)
+        with activate_mesh(mesh, rules):
+            tr = numpy_trainer(leaves)(cfg, ds, tc, mesh=mesh)
+        recs = recorded_steps(tr)
+        for step in range(2):
+            tr._do_step(step)
+        rows = tr.metrics_log
+        moved = [p for p, s, c in zip(tr.layout.paths, tr.layout.param_specs,
+                                      tr.layout.compute_specs)
+                 if any(m[0] == "a2a" for m in layout._plan(s, c)[0])]
+        out[f"fsdp={fsdp}"] = {
+            "losses": [m["loss"] for m in rows], "grad_norms": [m["grad_norm"] for m in rows],
+            "state_norms": state_norms(tr),
+            "moved_by_all_to_all": ["/".join(map(str, p)) for p in moved],
+            "recorded": recs[1],
+            "analytic": TL.step_collectives(cfg, mesh, rules, ds.global_batch, ds.seq_len,
+                                            dtype=torch.float32).summary()}
+    return out
