@@ -190,12 +190,14 @@ counters set to 0 just before it and read just after:
   of the largest rank's payload of the CPU's; then (d) a world of one NCCL
   rank: the Trainer of granite-3-8b's reduced config on a (1, 1) mesh for 2
   steps, bit for bit ``mesh=None``; (e) the traced dry run, in processes
-  of its own beside (a)-(d): the CLI at granite-3-8b x train_4k and at
-  deepseek-v3-671b x train_4k (each rank's real step on fake tensors over a
-  fake 256-rank world on the CPU: matmul FLOPs, live bytes, collectives
-  recorded against the analytic count), and the steps whose peak this
-  script measures traced on fake tensors (``--traced-peaks``: the ``train``
-  step, (b)'s and each of (f)'s), each traced peak held to the card's
+  of its own beside (a)-(d): the CLI at granite-3-8b and at
+  deepseek-v3-671b, each x train_4k and x decode_32k (each rank's real step
+  on fake tensors over a fake 256-rank world on the CPU, a decode step's
+  cache split over "model" on its positions: matmul FLOPs, live bytes,
+  collectives recorded against the analytic count, no traced field null),
+  and the steps whose peak this script measures traced on fake tensors
+  (``--traced-peaks``: the ``train`` step, (b)'s, each of (f)'s and (f)'s
+  granite decode step), each traced peak held to the card's
   ``max_memory_allocated`` over one step (reset before it) less what the
   process held beside the step's state, within ``PEAK_RATIO``; (f) in the world of
   4, after (b), the other families' mesh step at full width, each layer on
@@ -205,7 +207,15 @@ counters set to 0 just before it and read just after:
   whisper-tiny whole), 2 steps each, every loss and gradient norm held to
   the one-device Trainer's (run in the parent before the world) within
   ``TRAIN_REPLAY_TOL``, every step's collectives equal to
-  ``step_collectives``, the leaves computed on their "model" block named.
+  ``step_collectives``, the leaves computed on their "model" block named;
+  then one mesh decode step of granite-3-8b at 2 layers and of each
+  ``MD_FAMILIES`` config in f32, and of granite in bf16
+  (``MD_DECODE_RUNS``; ``MD_DECODE``: 4 rows over a cache of 512 positions
+  split over "model", random, at position 200, so that the second "model"
+  rank holds only masked rows; ``dryrun.make_mesh_decode`` on the rank's
+  blocks), its logits held to the one-device ``decode_step`` (run in the
+  parent before the world) within ``MD_DECODE_REL`` (1e-3 in f32, 0.1 in
+  bf16), its collectives equal to ``forward_collectives(decode=True)``.
   Each rank's peak memory, the step time, collective bytes recorded and
   analytic.
 
@@ -313,7 +323,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import unembed_apply  # noqa: E402
 from repro_torch.models.model import init_model  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
-    init_params, params_from_numpy, tree_flatten, tree_leaves, tree_map,
+    init_params, params_from_numpy, tree_flatten, tree_leaves, tree_map, tree_unflatten,
 )
 from repro_torch.models.quant import QuantTensor, layer_of, quantize_weight  # noqa: E402
 from repro_torch.core import workload as workload_mod  # noqa: E402
@@ -4990,10 +5000,27 @@ MD_FAMILIES = {
     "whisper-tiny": {"layers": {}, "batch": 4, "seq": 448},
 }
 MD_FAMILY_STEPS = 2
+# (f)'s decode steps, ``md_decode_config``'s cuts: each config in f32, held tightly to one device
+# (bf16 scores of whisper's sharp cross-attention move its logits by 0.34 on one device alone),
+# and granite in bf16, the step whose peak ``traced_peaks`` holds
+MD_DECODE_RUNS = {**{arch: (arch, torch.float32) for arch in (GRANITE, *MD_FAMILIES)},
+                  f"{GRANITE} bf16": (GRANITE, torch.bfloat16)}
 MD_WORLD_TIMEOUT_S = 900
 MD_DRYRUN_TIMEOUT_S = 300            # (e) the dry run's processes, waited for after (a)-(d)
-MD_DRYRUN_CELLS = (GRANITE, "deepseek-v3-671b")  # (e) the CLI at each x train_4k on 16 x 16
+MD_DRYRUN_CELLS = tuple((arch, shape) for shape in ("train_4k", "decode_32k")
+                        for arch in (GRANITE, "deepseek-v3-671b"))  # (e) the CLI on 16 x 16
 PEAK_RATIO = (0.8, 1.25)             # (e) a step's traced peak over the card's
+# (f) one mesh decode step a config (granite-3-8b at MD_TRAIN's layers, then MD_FAMILIES'): rows,
+# the cache's positions (256 a "model" rank), the position written (in the first rank's slice:
+# the second holds only masked rows)
+MD_DECODE = {"batch": 4, "capacity": 512, "pos": 200}
+MD_DECODE_SEED = 21
+# the mesh's logits against one device's, relative L2: f32 (4.98e-7 to 8.29e-5 on the card, the
+# largest granite's first rows: a reduction order that is not one device's, through a softmax
+# over 201 random keys); bf16, where each TP sum adds the ranks' bf16 partials and one device
+# rounds its product once (0.0057 to 0.0117 for granite on the card); a wrong head, slice or
+# mask gives O(1)
+MD_DECODE_REL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
 
 
 def sent(summary: dict) -> dict:
@@ -5038,16 +5065,19 @@ def step_peak(dev, step, state, inputs=()) -> tuple:
 
 
 def traced_steps() -> dict:
-    """{name: (config, mesh shape or None, batch, seq, fsdp)}: each train
-    step this script measures a peak of, as it runs it."""
+    """{name: (config, mesh shape or None, batch, seq, fsdp, shape)}: each
+    train step this script measures a peak of, as it runs it, and (f)'s
+    granite decode step (``seq`` its cache's capacity)."""
     mesh = rules_mod.MeshShape(dict(zip(("data", "model"), MD_MESH)))
     steps = {"train": (dataclasses.replace(get_config(GRANITE), num_layers=TRAIN_LAYERS), None,
-                       TRAIN_BATCH, TRAIN_SEQ, False),
+                       TRAIN_BATCH, TRAIN_SEQ, False, "train_4k"),
              "multi_device/train": (md_config(), mesh, MD_TRAIN["batch"], MD_TRAIN["seq"],
-                                    MD_FSDP)}
+                                    MD_FSDP, "train_4k")}
     for arch, run in MD_FAMILIES.items():
         steps[f"multi_device/{arch}"] = (md_family_data(arch)[0], mesh, run["batch"],
-                                         run["seq"], MD_FSDP)
+                                         run["seq"], MD_FSDP, "train_4k")
+    steps["multi_device/decode"] = (md_config(), mesh, MD_DECODE["batch"],
+                                    MD_DECODE["capacity"], MD_FSDP, "decode_32k")
     return steps
 
 
@@ -5057,8 +5087,8 @@ def traced_peaks(path: pathlib.Path) -> None:
     size, or one device), its peak live bytes and their largest parts,
     written to ``path`` as JSON.  No card."""
     out = {}
-    for name, (cfg, mesh, batch, seq, fsdp) in traced_steps().items():
-        got, _ = dryrun_mod.lower_cell(cfg, "train_4k", mesh, fsdp=fsdp, batch=batch, seq=seq)
+    for name, (cfg, mesh, batch, seq, fsdp, shape) in traced_steps().items():
+        got, _ = dryrun_mod.lower_cell(cfg, shape, mesh, fsdp=fsdp, batch=batch, seq=seq)
         top = sorted(got.peak_by.items(), key=lambda kv: -kv[1])[:6]
         out[name] = {"peak_bytes": got.peak_bytes, "trace_s": r6(got.seconds),
                      "largest_at_peak": dict(top)}
@@ -5301,6 +5331,143 @@ def md_family_report(arch: str, runs: list, one: dict) -> dict:
                     for side in ("recorded", "analytic")} for k in coll["analytic"]["by_op"]}}
 
 
+def md_decode_config(name: str) -> ArchConfig:
+    """(f)'s decode config ``name`` of ``MD_DECODE_RUNS``: granite-3-8b at
+    ``MD_TRAIN``'s layers, the others as ``MD_FAMILIES`` cuts them, in the
+    run's dtype."""
+    arch, dtype = MD_DECODE_RUNS[name]
+    cfg = md_config() if arch == GRANITE else md_family_data(arch)[0]
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def md_decode_inputs(cfg: ArchConfig, dev) -> tuple:
+    """(the whole cache of ``MD_DECODE``'s rows and positions, random,
+    the rows' tokens), the same draws in every process."""
+    gen = torch.Generator(device=dev).manual_seed(MD_DECODE_SEED)
+    b, cap = MD_DECODE["batch"], MD_DECODE["capacity"]
+    cache = {k: torch.randn(d.shape, generator=gen, device=dev).to(d.dtype)
+             for k, d in cache_defs(cfg, batch=b, max_len=cap).items()}
+    token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return cache, token
+
+
+def md_decode_params(cfg: ArchConfig, dev, keep=None):
+    """``init_model``'s draw (whole leaves, or the blocks ``keep`` cuts), in
+    f32 for an f32 config (``init_model`` draws bf16 leaves)."""
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(MD_DECODE_SEED + 1), dev,
+                        keep=keep)
+    if cfg.dtype == torch.float32:
+        params = tree_map(lambda t: t.float(), params)
+    return params
+
+
+def md_decode_one(dev) -> dict:
+    """{arch: the one-device ``decode_step``'s logits (B, V) f32 on the
+    host}: the references of ``md_decode``, run in the parent."""
+    out = {}
+    for name in MD_DECODE_RUNS:
+        cfg = md_decode_config(name)
+        params = md_decode_params(cfg, dev)
+        cache, token = md_decode_inputs(cfg, dev)
+        pos = torch.tensor(MD_DECODE["pos"], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            logits, _ = model_mod.decode_step(params, cache, token, pos, cfg)
+        out[name] = logits.cpu()
+        del params, cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def md_decode(rank: int, mesh22, dev) -> dict:
+    """(f)'s mesh decode steps on the (2, 2) mesh, each ``MD_DECODE_RUNS``
+    config: the rank's blocks of the params (drawn as
+    ``Trainer`` draws them on a mesh, under the TP rules with fsdp),
+    ``dryrun.make_mesh_decode`` on the rank's rows and its block of the
+    cache (the positions split over "model", ``dryrun.decode_cache_specs``),
+    at ``MD_DECODE["pos"]``: the logits (the rank's rows, on the host), the
+    step's collectives against ``forward_collectives(decode=True)``, and its
+    ``step_peak``."""
+    rules = rules_mod.tensor_parallel_rules(fsdp=MD_FSDP)
+    b, cap = MD_DECODE["batch"], MD_DECODE["capacity"]
+    out = {}
+    for name in MD_DECODE_RUNS:
+        cfg = md_decode_config(name)
+        lay = train_loop_mod.MeshLayout(cfg, mesh22, rules, b, 1)
+        blocks = md_decode_params(cfg, dev, keep=lay.keep())
+        params = tree_unflatten(blocks, lay.wrap(tree_flatten(blocks), lay.param_specs))
+        whole, token = md_decode_inputs(cfg, dev)
+        specs = dryrun_mod.decode_cache_specs(cfg, mesh22, rules, b, cap)
+        cache = {k: layout_mod.block_of(whole[k], mesh22, sp).clone()
+                 for k, (_, sp) in specs.items()}
+        batch = {"token": layout_mod.block_of(token, mesh22, lay.batch_spec).clone(),
+                 "pos": torch.tensor(MD_DECODE["pos"], dtype=torch.int32, device=dev)}
+        del whole, token, blocks
+        run = dryrun_mod.make_mesh_decode(cfg, lay, cap)
+
+        def step():
+            with collectives_mod.recording() as rec:
+                logits, _ = run(params, cache, batch)
+            return logits, rec.summary()
+
+        t0 = time.perf_counter()
+        (logits, rec), peak = step_peak(dev, step, (params, cache), batch)
+        step_s = time.perf_counter() - t0
+        analytic = dryrun_mod.forward_collectives(cfg, mesh22, rules, b, cap, decode=True,
+                                                  dtype=cfg.dtype).summary()
+        if sent(rec) != analytic:
+            fail(f"multi_device decode {name}: recorded {rec}, analytic {analytic}")
+        out[name] = {"logits": logits.float().cpu(), "step_s": r6(step_s), "step_peak": peak,
+                     "cache_split": sorted(k for k, (_, sp) in specs.items() if "model" in sp),
+                     "collectives": {"recorded": rec, "analytic": analytic}}
+        del params, cache, batch, logits, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    md_log(rank, "decode: the mesh decode steps done")
+    return out
+
+
+def md_decode_report(ranks: list, one: dict) -> dict:
+    """(f)'s decode entry: each rank's logits over the vocabulary (the
+    padding's -1e30 columns aside) within ``MD_DECODE_REL`` of its rows of
+    one device's, finite, every "model" rank of a row the same logits, and
+    the greedy tokens' agreement."""
+    out = {**MD_DECODE}
+    for name, want in one.items():
+        rels, agree = [], []
+        cfg = md_decode_config(name)
+        vocab, bound = cfg.vocab_size, MD_DECODE_REL[cfg.dtype]
+        for r in ranks:
+            got = r["decode"][name]["logits"][:, :vocab]
+            d = r["coordinate"][0]
+            rows = want[d * got.shape[0]:(d + 1) * got.shape[0], :vocab]
+            rels.append(float((got - rows).norm() / rows.norm()))
+            agree.append(float((got.argmax(-1) == rows.argmax(-1)).float().mean()))
+            if not bool(torch.isfinite(got).all()):
+                fail(f"multi_device decode {name}: non-finite logits on rank {r['rank']}")
+        for a, b_ in zip(ranks, ranks[1:]):
+            if a["coordinate"][0] == b_["coordinate"][0] and not torch.equal(
+                    a["decode"][name]["logits"], b_["decode"][name]["logits"]):
+                fail(f"multi_device decode {name}: the \"model\" ranks of a row differ")
+        if not max(rels) <= bound:  # a NaN fails too
+            fail(f"multi_device decode {name}: the mesh's logits {rels} from one device's, "
+                 f"over {bound}")
+        first = ranks[0]["decode"][name]
+        coll = first["collectives"]
+        out[name] = {"rel_err_by_rank": [r6(v) for v in rels], "bound": bound,
+                     "argmax_agreement_by_rank": [r6(v) for v in agree],
+                     "cache_split": first["cache_split"],
+                     "step_s_by_rank": [r["decode"][name]["step_s"] for r in ranks],
+                     "step_peak_gb_by_rank": [r6(r["decode"][name]["step_peak"]["peak_bytes"]
+                                                 / 1e9) for r in ranks],
+                     "bytes_a_rank_by_kind": {
+                         k: {side: coll[side]["by_op"][k]["operand_bytes"]
+                             for side in ("recorded", "analytic")}
+                         for k in coll["analytic"]["by_op"]}}
+    return out
+
+
 def md_compress(rank: int, dev) -> dict:
     """dp_value_and_grad of the reference's test loss on (4, 1) meshes of the
     card and of the CPU: compressed against exact, the card against the CPU."""
@@ -5434,7 +5601,8 @@ def md_rank(rank: int, world: int, part: str) -> dict:
     families = [(arch, lambda a=arch: md_family(rank, a, mesh22, dev)) for arch in MD_FAMILIES]
     for name, fn in [("moe", lambda: md_moe(rank, mesh22, dev)),
                      ("grad_compress", lambda: md_compress(rank, dev)),
-                     ("train", lambda: md_train(rank, mesh22, dev))] + families:
+                     ("train", lambda: md_train(rank, mesh22, dev))] + families + [
+                        ("decode", lambda: md_decode(rank, mesh22, dev))]:
         md_log(rank, f"{name} starts")
         t0 = time.perf_counter()
         out[name] = fn()
@@ -5517,8 +5685,13 @@ def drive_multi_device(dev, train_peak: dict | None = None) -> dict:
     shutil.rmtree(dry_dir, ignore_errors=True)
     dry_dir.mkdir(parents=True)
     env = {**os.environ, "PYTHONPATH": str(pathlib.Path(__file__).resolve().parent / "src")}
-    commands = {arch: [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                       "--shape", "train_4k", "--out", str(dry_dir)] for arch in MD_DRYRUN_CELLS}
+    # one process an arch, its cells one after the other: the world of 4 shares the host's cores
+    commands = {}
+    for arch in dict.fromkeys(a for a, _ in MD_DRYRUN_CELLS):
+        runs = [["--arch", arch, "--shape", shape, "--out", str(dry_dir)]
+                for a, shape in MD_DRYRUN_CELLS if a == arch]
+        commands[arch] = [sys.executable, "-c", "import sys; from repro_torch.launch.dryrun "
+                          f"import main; sys.exit(max(main(a) for a in {runs!r}))"]
     commands["traced_peaks"] = [sys.executable, str(pathlib.Path(__file__).resolve()),
                                 "--traced-peaks", str(dry_dir / "traced_peaks.json")]
     t_cli = time.perf_counter()  # the phase's start
@@ -5566,6 +5739,10 @@ def md_drive(dev, mode: str, procs: dict, t_cli: float, dry_dir, train_peak) -> 
                             "peak_memory_gb": r6(peak / 1e9)}
         md_log(0, f"parent: the one-device {arch} Trainer done")
     family_one_s = time.perf_counter() - t_fam
+    t_dec = time.perf_counter()
+    decode_one = md_decode_one(dev)
+    decode_one_s = time.perf_counter() - t_dec
+    md_log(0, "parent: the one-device decode steps done")
     parent_bytes = torch.cuda.memory_allocated(dev)
     md_log(0, "parent: the one-device Trainer done; spawning the ranks")
 
@@ -5587,6 +5764,7 @@ def md_drive(dev, mode: str, procs: dict, t_cli: float, dry_dir, train_peak) -> 
 
     families = {arch: md_family_report(arch, [r[arch] for r in ranks], one_family[arch])
                 for arch in MD_FAMILIES}
+    decode = md_decode_report(ranks, decode_one)
 
     # the mesh's final checkpoint restored on one device: the next step
     tc1 = trainer_config("mesh", steps + 1, checkpoint_every=steps + 2, keep=1,
@@ -5624,13 +5802,17 @@ def md_drive(dev, mode: str, procs: dict, t_cli: float, dry_dir, train_peak) -> 
                  f"{(dry_dir / f'{name}.stderr.txt').read_text()[-2000:]}")
     cli_s = time.perf_counter() - t_cli
     dry = {}
-    for arch in MD_DRYRUN_CELLS:
-        cell = json.loads((dry_dir / f"16x16__{arch}__train_4k.json").read_text())
+    for arch, shape in MD_DRYRUN_CELLS:
+        cell = json.loads((dry_dir / f"16x16__{arch}__{shape}.json").read_text())
         coll = cell["collectives"]
         if coll["traced"] != coll["analytic"]:
-            fail(f"multi_device: the dry run's {arch} step sent {coll['traced']}, "
+            fail(f"multi_device: the dry run's {arch} x {shape} step sent {coll['traced']}, "
                  f"counted {coll['analytic']}")
-        dry[arch] = {"resident_gb_per_dev": cell["resident_gb_per_dev"],
+        empty = [k for k in dryrun_mod.TRACED_FIELDS if cell[k] is None]
+        if empty:
+            fail(f"multi_device: the dry run's {arch} x {shape} cell has null traced fields "
+                 f"{empty}")
+        dry[f"{arch} x {shape}"] = {"resident_gb_per_dev": cell["resident_gb_per_dev"],
                      "fits_hbm_resident": cell["fits_hbm_resident"],
                      "live_gb_per_dev": cell["live_gb_per_dev"],
                      "fits_hbm_live": cell["fits_hbm_live"], "trace_s": cell["lower_s"],
@@ -5642,6 +5824,8 @@ def md_drive(dev, mode: str, procs: dict, t_cli: float, dry_dir, train_peak) -> 
     measured = {"multi_device/train": [r["train"]["step_peak"] for r in ranks]}
     measured.update({f"multi_device/{arch}": [r[arch]["step_peak"] for r in ranks]
                      for arch in MD_FAMILIES})
+    measured["multi_device/decode"] = [r["decode"][f"{GRANITE} bf16"]["step_peak"]
+                                       for r in ranks]
     if train_peak is not None:
         measured["train"] = train_peak
     peaks = peak_report(json.loads((dry_dir / "traced_peaks.json").read_text()), measured)
@@ -5685,9 +5869,10 @@ def md_drive(dev, mode: str, procs: dict, t_cli: float, dry_dir, train_peak) -> 
                   "collectives_a_step": train[0]["collectives_a_step"],
                   "restore_4x1_s": train[0]["restored_4x1"]["restore_s"]},
         "families": families, "families_one_device_s": r6(family_one_s),
+        "decode": decode, "decode_one_device_s": r6(decode_one_s),
         "grad_compress": ranks[0]["grad_compress"],
         "nccl": {**nccl, "world_s": r6(nccl_s)},
-        "dryrun": {"seconds_to_join": r6(cli_s), "cells_16x16_train_4k": dry},
+        "dryrun": {"seconds_to_join": r6(cli_s), "cells_16x16": dry},
         "traced_peaks": peaks,
     }
     if k5 != expect_k5:

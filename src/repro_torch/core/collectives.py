@@ -88,6 +88,14 @@ class CollectiveStats:
         self.counts[kind] = self.counts.get(kind, 0) + count
         self.operand_bytes[kind] = self.operand_bytes.get(kind, 0) + nbytes * count
 
+    def merge(self, other: "CollectiveStats", times: int = 1) -> None:
+        """Adds ``other``'s counts and bytes ``times`` over (its collectives
+        of one kind may differ in size)."""
+        for kind, count in other.counts.items():
+            self.counts[kind] = self.counts.get(kind, 0) + count * times
+            self.operand_bytes[kind] = (self.operand_bytes.get(kind, 0)
+                                        + other.operand_bytes[kind] * times)
+
     def summary(self) -> dict:
         out = {
             "total_bytes": self.total_bytes,

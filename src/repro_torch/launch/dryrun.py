@@ -15,12 +15,15 @@ reports per device:
   * the collective bytes one step of the port sends, counted from the
     placements and shapes (``training.train_loop.step_collectives`` for a
     train cell; the weight gathers, the tensor-parallel sums and the sharded
-    MoE's forward for prefill and decode: ``forward_collectives``).
+    MoE's forward for prefill and decode, and a decode step's flash-decoding
+    collectives: ``forward_collectives``).
 
 The reference (``repro.launch.dryrun``) lowers and compiles each cell
 through GSPMD on 512 forced host devices and reads the compiled module.
 The port traces it instead (``run_cell``, ``lower_cell``): rank 0's real
-step (``make_mesh_step``; for a prefill ``make_mesh_prefill``) runs once on
+step (``make_mesh_step``; for a prefill ``make_mesh_prefill``, for a decode
+``make_mesh_decode`` over the rank's block of the cache, its sequence axis
+split over "model") runs once on
 fake tensors over a fake process group of the mesh's 256 or 512 ranks
 (``launch.trace``), nothing allocated and no device touched, and the cell
 gets, per device, the step's matmul FLOPs (``cost_analysis``, with the
@@ -29,9 +32,8 @@ bytes and their breakdown (``live_bytes_per_dev``, ``fits_hbm_live``,
 ``memory_analysis``), the collectives it sent (``collectives.traced``,
 beside the analytic count) and the trace's wall time (``lower_s``).  There
 is no compile and no HLO: ``compile_s``, ``hlo_bytes`` and
-``collectives.hlo`` stay ``null``.  Decode cells are not traced
-(``NOT_TRACED``).  The figures are CPU traces of the port's code, not
-times on a card.
+``collectives.hlo`` stay ``null``.  The figures are CPU traces of the
+port's code, not times on a card.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite-3-8b --shape train_4k
@@ -53,7 +55,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs import SHAPES, get_config, input_specs, list_archs
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, _cache_spec
 from repro_torch.core import collectives as C
 from repro_torch.core.cost_model import (
     MeshPlan,
@@ -66,10 +68,25 @@ from repro_torch.core.cost_model import (
 from repro_torch.core.energy import DEFAULT_CHIP
 from repro_torch.models import moe
 from repro_torch.models.layers import vocab_split
-from repro_torch.models.model import _mask_pad_logits, init_model, param_defs, prefill
+from repro_torch.models.model import (
+    _mask_pad_logits,
+    decode_step,
+    init_model,
+    param_defs,
+    prefill,
+)
 from repro_torch.models.params import abstract_params, tree_flatten, tree_unflatten
+from repro_torch.serving.kv_cache import cache_defs
 from repro_torch.sharding import layout
-from repro_torch.sharding.rules import MODEL, MeshShape, activate_mesh, make_rules, spec_for
+from repro_torch.sharding.rules import (
+    MODEL,
+    MeshShape,
+    activate_mesh,
+    axis_sizes,
+    make_rules,
+    shard_shape,
+    spec_for,
+)
 from repro_torch.training import train_loop
 from repro_torch.training.optimizer import init_opt_state
 
@@ -129,7 +146,7 @@ def model_flops_of(cfg: ArchConfig, shape_id: str) -> float:
 
 
 def forward_collectives(cfg: ArchConfig, mesh, rules, batch: int, seq: int, *,
-                        decode: bool = False) -> C.CollectiveStats:
+                        decode: bool = False, dtype=None) -> C.CollectiveStats:
     """What a forward pass (prefill, a decode step) of the port sends from
     each rank: the weight gathers to the compute layout, the
     tensor-parallel sums of the embedding and the layers
@@ -138,25 +155,104 @@ def forward_collectives(cfg: ArchConfig, mesh, rules, batch: int, seq: int, *,
     encoder's: a decode step reads the cross K/V its prompt's prefill
     left), the last position's logits (f32)
     gathered over "model" where the vocabulary is split, and each MoE
-    layer's forward on the rank's tokens."""
-    lay = train_loop.MeshLayout(cfg, mesh, rules, batch, seq)
+    layer's forward on the rank's tokens.  With ``decode``, ``seq`` is the
+    cache's capacity, the step runs one token a row, and its attention
+    layers' flash-decoding collectives and the Mamba2 conv rows are added
+    (``decode_collectives``).  ``dtype``: the params' and the activations'
+    dtype where it is not the ParamDefs' and the config's (a state cast to
+    f32), as ``train_loop.step_collectives`` takes it."""
+    tokens = 1 if decode else seq
+    lay = train_loop.MeshLayout(cfg, mesh, rules, batch, tokens)
     stats = C.CollectiveStats()
     if mesh.size() == 1:
         return stats
     for d, s, c in zip(lay.param_defs, lay.param_specs, lay.compute_specs):
-        layout.relayout_sends(d.shape, d.dtype, mesh, s, c, stats)
-    tp = train_loop.tp_collectives(lay, lay.local_batch, seq, cfg.dtype)
+        layout.relayout_sends(d.shape, dtype or d.dtype, mesh, s, c, stats)
+    tp = train_loop.tp_collectives(lay, lay.local_batch, tokens, dtype or cfg.dtype, dtype)
     for what, nbytes, count, _ in tp:
         if what in ("layer", "norm", "shared", "embed") or (what == "encoder" and not decode):
             stats.add("all-reduce", nbytes, count)
     if any(what == "loss" for what, *_ in tp):  # the vocabulary is split
-        stats.add("all-gather", 4 * lay.local_batch * cfg.padded_vocab // mesh.shape["model"])
+        stats.add("all-gather",
+                  4 * lay.local_batch * cfg.padded_vocab // axis_sizes(mesh)[MODEL])
     if cfg.moe is not None:
-        fwd = moe.moe_collectives(cfg, mesh, lay.local_batch, seq, cfg.dtype)
-        for k in fwd.counts:
-            stats.add(k, fwd.operand_bytes[k] // fwd.counts[k],
-                      fwd.counts[k] * (cfg.num_layers - cfg.first_k_dense))
+        stats.merge(moe.moe_collectives(cfg, mesh, lay.local_batch, tokens, dtype or cfg.dtype),
+                    cfg.num_layers - cfg.first_k_dense)
+    if decode:
+        decode_collectives(lay, seq, stats, dtype)
     return stats
+
+
+def decode_cache_specs(cfg: ArchConfig, mesh, rules, batch: int, capacity: int) -> dict:
+    """{cache key: (ParamDef, the spec of its block on ``mesh``)}: the
+    decode cache of ``batch`` rows and ``capacity`` positions laid out by
+    ``configs.base._cache_spec`` (its batch over the data axes where they
+    divide it, its sequence over "model")."""
+    with activate_mesh(mesh, rules):
+        return {k: (d, _cache_spec(d, batch, mesh, rules))
+                for k, d in cache_defs(cfg, batch=batch, max_len=capacity).items()}
+
+
+def decode_collectives(lay: train_loop.MeshLayout, capacity: int, stats: C.CollectiveStats,
+                       dtype=None) -> None:
+    """Adds to ``stats`` what a decode step's attention and Mamba2 layers
+    send beyond the tensor-parallel sums, layer by layer
+    (``models/layers.py``'s flash-decoding): the gathers over "model" of the
+    step's q, k and v (GQA; MLA's absorbed q and its q_rope; whisper's
+    cross-attention q) where the rank holds a block of their heads, in the
+    activations' dtype; on a cache split over "model" on its positions, the
+    softmax's max, its sum (f32, one a row and head) and the P·V partial
+    (f32); and a Mamba2 layer's new x row of its conv window, gathered where
+    the block computes on its heads."""
+    cfg, mesh = lay.cfg, lay.mesh
+    if axis_sizes(mesh).get(MODEL, 1) == 1:
+        return
+    b, act = lay.local_batch, (dtype or cfg.dtype).itemsize
+    compute = dict(zip(lay.paths, lay.compute_specs))
+    caches = decode_cache_specs(cfg, mesh, lay.rules, lay.global_batch, capacity)
+
+    defs = dict(zip(lay.paths, lay.param_defs))
+
+    def positions_split(key: str) -> bool:
+        return MODEL in caches[key][1]
+
+    def gathers(path: tuple, row: int, count: int, n: int = 1, dim: int = -2) -> None:
+        """``n`` gathers a layer of a (b, 1, heads, row) block, the heads
+        (or Mamba2's x channels) those of ``path``'s ``dim`` on the rank."""
+        if MODEL in compute[path]:
+            heads = shard_shape(defs[path].shape, compute[path], mesh)[dim]
+            stats.add("all-gather", b * heads * row * act, n * count)
+
+    def partials(key: str, width: int, count: int) -> None:
+        if positions_split(key):
+            stats.add("all-reduce", 4 * b * cfg.num_heads, 2 * count)  # the max and the sum
+            stats.add("all-reduce", 4 * b * cfg.num_heads * width, count)  # P·V
+
+    hd = cfg.resolved_head_dim
+    if cfg.family in ("ssm", "hybrid"):
+        gathers(("blocks", "mamba", "wx"), 1, cfg.num_layers, dim=-1)
+    if cfg.family == "hybrid":
+        apps = len(range(0, cfg.num_layers, cfg.attn_every))
+        gathers(("shared", "attn", "wq"), hd, apps)
+        gathers(("shared", "attn", "wk"), hd, apps, 2)
+        partials("shared_k", hd, apps)
+    elif cfg.mla is not None:
+        m = cfg.mla
+        for stack in ("dense_blocks", "blocks"):
+            if (stack, "attn", "wk_b") not in compute:
+                continue
+            n = defs[(stack, "attn", "wk_b")].shape[0]
+            gathers((stack, "attn", "wk_b"), m.kv_lora_rank, n)  # q_abs
+            gathers((stack, "attn", "wk_b"), m.qk_rope_head_dim, n)  # q_rope
+            partials("c", m.kv_lora_rank, n)
+    elif cfg.family != "ssm":
+        attn = "self_attn" if cfg.family == "audio" else "attn"
+        gathers(("blocks", attn, "wq"), hd, cfg.num_layers)
+        gathers(("blocks", attn, "wk"), hd, cfg.num_layers, 2)
+        partials("k", hd, cfg.num_layers)
+        if cfg.family == "audio" and positions_split("cross_k"):  # else gqa_cross_apply's dataflow
+            gathers(("blocks", "cross_attn", "wq"), hd, cfg.num_layers)
+            partials("cross_k", hd, cfg.num_layers)
 
 
 def cell_collectives(cfg: ArchConfig, shape_id: str, mesh, rules) -> C.CollectiveStats:
@@ -166,19 +262,20 @@ def cell_collectives(cfg: ArchConfig, shape_id: str, mesh, rules) -> C.Collectiv
         return train_loop.step_collectives(cfg, mesh, rules, b, s)
     if sh["kind"] == "prefill":
         return forward_collectives(cfg, mesh, rules, b, s)
-    return forward_collectives(cfg, mesh, rules, b, 1, decode=True)
+    return forward_collectives(cfg, mesh, rules, b, s, decode=True)
 
 
 # ---------------------------------------------------------------------------
 # Cell tracing: the rank's real step on fake tensors over a fake world
 # ---------------------------------------------------------------------------
-NOT_TRACED = ("decode cells are not traced: the port has no decode on a mesh with the cache "
-              "split on kv_seq (ROADMAP Queue A item 18)")
-
-
 def rank_batch(cfg: ArchConfig, kind: str, batch: int, seq: int) -> dict:
     """A rank's ``batch`` x ``seq`` slice of a train or prefill batch
-    (``Trainer.batch``'s shapes and dtypes; zeros)."""
+    (``Trainer.batch``'s shapes and dtypes; zeros); of a decode step, its
+    ``batch`` tokens and the position they are written at (a 0-d int32, as
+    ``configs.input_specs`` gives it)."""
+    if kind == "decode":
+        return {"token": torch.zeros((batch, 1), dtype=torch.int32),
+                "pos": torch.zeros((), dtype=torch.int32)}
     out = {"tokens": torch.zeros((batch, seq), dtype=torch.int32)}
     if kind == "train":
         out["labels"] = torch.zeros((batch, seq), dtype=torch.int32)
@@ -213,24 +310,58 @@ def make_mesh_prefill(cfg: ArchConfig, lay: train_loop.MeshLayout):
     return run
 
 
+def make_mesh_decode(cfg: ArchConfig, lay: train_loop.MeshLayout, capacity: int):
+    """Returns decode(params, cache, batch) → (logits (B_l, V) f32, cache)
+    for one rank of ``lay.mesh`` (``lay`` of the global batch and one token
+    a row): the params relayouted to the compute layout as
+    ``make_mesh_prefill`` does, ``decode_step`` on the rank's tokens, its
+    block of the cache of ``capacity`` positions (``decode_cache_specs``)
+    and ``batch["pos"]``, under the mesh; the logits gathered over "model"
+    where the vocabulary is split (``decode_step``)."""
+    mesh = lay.mesh
+
+    def run(params, cache, batch):
+        with torch.inference_mode():
+            compute = [layout.relayout(train_loop._local(p), mesh, s, c)
+                       for p, s, c in zip(tree_flatten(params), lay.param_specs,
+                                          lay.compute_specs)]
+            p = tree_unflatten(params, compute)
+            with activate_mesh(mesh, lay.rules):
+                return decode_step(p, cache, batch["token"], batch["pos"], cfg,
+                                   capacity=capacity)
+
+    return run
+
+
+def rank_cache(cfg: ArchConfig, mesh, rules, batch: int, capacity: int) -> dict:
+    """The rank's block of a zero decode cache of ``batch`` rows and
+    ``capacity`` positions (``decode_cache_specs``); with ``mesh`` None,
+    the whole cache."""
+    if mesh is None:
+        return {k: torch.zeros(d.shape, dtype=d.dtype)
+                for k, d in cache_defs(cfg, batch=batch, max_len=capacity).items()}
+    return {k: torch.zeros(shard_shape(d.shape, spec, mesh), dtype=d.dtype)
+            for k, (d, spec) in decode_cache_specs(cfg, mesh, rules, batch, capacity).items()}
+
+
 def lower_cell(cfg: ArchConfig, shape_id: str, mesh_shape, *, fsdp: bool | None = None,
                parallelism: str = "tp", batch: int | None = None, seq: int | None = None):
-    """Returns (``trace.Trace``, meta) for one train or prefill cell: rank
-    0's real step on fake tensors over a fake world of ``mesh_shape``'s
-    size, its state built as ``Trainer._init_state`` builds it on a mesh
-    (the params alone for a prefill).  A train cell runs ``make_mesh_step``
-    once, a prefill cell ``make_mesh_prefill``.  ``mesh_shape`` None: one
-    device and no world, ``make_train_step`` or ``prefill`` on the whole
-    state.  ``batch`` and ``seq`` replace the shape's global batch and
-    sequence length.  Nothing falls back: a missing fake backend or a step
-    that fails under fake tensors raises."""
+    """Returns (``trace.Trace``, meta) for one cell: rank 0's real step on
+    fake tensors over a fake world of ``mesh_shape``'s size, its state
+    built as ``Trainer._init_state`` builds it on a mesh (the params alone
+    for a prefill, the params and the rank's block of the cache for a
+    decode).  A train cell runs ``make_mesh_step`` once, a prefill cell
+    ``make_mesh_prefill``, a decode cell ``make_mesh_decode``.
+    ``mesh_shape`` None: one device and no world, ``make_train_step``,
+    ``prefill`` or ``decode_step`` on the whole state.  ``batch`` and ``seq``
+    replace the shape's global batch and sequence length (a decode's cache
+    capacity).  Nothing falls back: a missing fake backend or a step that
+    fails under fake tensors raises."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.trace import fake_world, trace
 
     kind = SHAPES[shape_id]["kind"]
-    if kind not in ("train", "prefill"):
-        raise ValueError(f"{shape_id}: {NOT_TRACED}")
     fsdp = default_fsdp(cfg) if fsdp is None else fsdp
     b = SHAPES[shape_id]["global_batch"] if batch is None else batch
     s = SHAPES[shape_id]["seq_len"] if seq is None else seq
@@ -244,15 +375,24 @@ def lower_cell(cfg: ArchConfig, shape_id: str, mesh_shape, *, fsdp: bool | None 
                 opt_state = init_opt_state(cfg.optimizer, param_defs(cfg), params)
                 _, got = trace(train_loop.make_train_step(cfg), params, opt_state, inputs, 0,
                                state=(params, opt_state), inputs=inputs)
+            elif kind == "decode":
+                cache = rank_cache(cfg, None, None, b, s)
+                _, got = trace(_decode_one, cfg, params, cache, inputs, state=(params, cache),
+                               inputs=inputs)
             else:
                 _, got = trace(_prefill_one, cfg, params, inputs, state=params, inputs=inputs)
         return got, meta
     rules = make_rules(parallelism, fsdp=fsdp)
     with fake_world(mesh_shape) as mesh, FakeTensorMode():
-        lay = train_loop.MeshLayout(cfg, mesh, rules, b, s)
+        lay = train_loop.MeshLayout(cfg, mesh, rules, b, 1 if kind == "decode" else s)
         blocks = init_model(cfg, gen(), "cpu", keep=lay.keep())
         inputs = rank_batch(cfg, kind, lay.local_batch, s)
-        if kind == "train":
+        if kind == "decode":
+            params = tree_unflatten(blocks, lay.wrap(tree_flatten(blocks), lay.param_specs))
+            cache = rank_cache(cfg, mesh, rules, b, s)
+            _, got = trace(make_mesh_decode(cfg, lay, s), params, cache, inputs,
+                           state=(params, cache), inputs=inputs)
+        elif kind == "train":
             params, opt_state = train_loop.mesh_state(lay, blocks)
             _, got = trace(train_loop.make_mesh_step(cfg, lay), params, opt_state, inputs, 0,
                            state=(params, opt_state), inputs=inputs)
@@ -266,6 +406,11 @@ def lower_cell(cfg: ArchConfig, shape_id: str, mesh_shape, *, fsdp: bool | None 
 def _prefill_one(cfg: ArchConfig, params, batch):
     with torch.inference_mode():
         return prefill(params, batch["tokens"], cfg, frontend_embeds=batch.get("frontend_embeds"))
+
+
+def _decode_one(cfg: ArchConfig, params, cache, batch):
+    with torch.inference_mode():
+        return decode_step(params, cache, batch["token"], batch["pos"], cfg)
 
 
 def fit_depths(cfg: ArchConfig) -> tuple[int, int]:
@@ -369,7 +514,6 @@ def cell_arithmetic(arch: str, shape_id: str, *, multi_pod: bool = False,
         "memory_analysis": None,
         "roofline": roof.summary(),
         "hlo_bytes": None,
-        "not_traced": None,
     }
 
 
@@ -380,10 +524,7 @@ TRACED_FIELDS = ("lower_s", "cost_analysis", "live_bytes_per_dev", "live_gb_per_
 def trace_cell(result: dict, overrides: dict[str, Any] | None = None) -> dict:
     """``result`` (``cell_arithmetic``'s) with its traced fields filled in:
     the full-depth trace's matmul FLOPs, live bytes at the peak and their
-    breakdown, collectives and wall time, and the depth fit; a decode cell
-    gets its ``not_traced`` reason instead."""
-    if result["kind"] == "decode":
-        return dict(result, not_traced=NOT_TRACED)
+    breakdown, collectives and wall time, and the depth fit."""
     overrides = dict(overrides or {})
     parallelism = overrides.pop("parallelism", "tp")
     cfg = apply_overrides(get_config(result["arch"]), overrides)
@@ -429,8 +570,7 @@ def run_cell(
     if verbose:
         r = result["roofline"]
         traced = result["collectives"]["traced"]
-        live = ("not traced" if traced is None else
-                f"traced {result['lower_s']:.1f}s live {result['live_gb_per_dev']:.2f} GB/dev "
+        live = (f"traced {result['lower_s']:.1f}s live {result['live_gb_per_dev']:.2f} GB/dev "
                 f"(fits {result['fits_hbm_live']})  flops "
                 f"{result['cost_analysis']['flops_per_dev']:.4g}/dev  traced coll == analytic "
                 f"{traced == result['collectives']['analytic']}")

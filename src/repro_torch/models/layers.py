@@ -52,8 +52,20 @@ MLA attention (DeepSeek-V3) has a prefill form that decompresses K/V per
 head and runs ``run_attention`` (q/k of width nope + rope, v of its own
 width), and decode and chunk forms that attend over the compressed
 (c, k_rope) cache with ``q_nope`` absorbed through ``wk_b``, one position
-per row as for GQA.  The decode and chunk forms of every attention serve
-one device: whole leaves.
+per row as for GQA.  The chunk forms serve one device: whole leaves.
+
+Decode on a mesh (flash-decoding).  The decode forms also take the rank's
+block of a cache split over "model" on its sequence axis ("kv_seq", the
+dry run's decode cells), read from the cache's length against the cache's
+capacity (``capacity``; ``None``: the cache is whole) as ``tp_split`` reads a
+leaf: the step's q, k and v are gathered over "model" to every head (a few
+KB a row), the new row is written by the rank whose slice holds ``pos``
+(``write_cache``'s masked write), each rank attends over its slice with the
+global positions, and only the softmax's max, its sum and the P·V partial
+are reduced over "model" (``_attend``); the rank's heads of the result go
+through wo and ``tp_sum``.  MLA's absorbed form gathers its absorbed
+``q_abs`` and ``q_rope`` the same way.  Whole leaves and a whole cache run
+the one-device code.
 """
 from __future__ import annotations
 
@@ -102,6 +114,30 @@ def tp_sum(y: torch.Tensor, split) -> torch.Tensor:
     """Reduce-from-TP-region: the sum over "model" of the ranks' partial
     ``y`` when ``split`` (``tp_split``'s) is a split, else ``y``."""
     return y if split is None else C.all_reduce(y, split[0], MODEL)
+
+
+def tp_gather(t: torch.Tensor, split, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``t`` along ``dim`` gathered over "model" when
+    ``split`` (``tp_split``'s) is a split, else ``t``."""
+    return t if split is None else C.all_gather(t, split[0], MODEL, dim=dim)
+
+
+def own_block(t: torch.Tensor, split, n: int, dim: int) -> torch.Tensor:
+    """The rank's ``n`` entries of ``t``'s ``dim`` when ``split`` is a
+    split, else ``t``."""
+    return t if split is None else t.narrow(dim, split[1] * n, n)
+
+
+def seq_split(cache: torch.Tensor, capacity: int | None):
+    """``tp_split`` of a layer's decode cache over its sequence axis (axis
+    1): ``capacity`` positions in all (``None``: the cache's own length)."""
+    return tp_split(cache.shape[1], cache.shape[1] if capacity is None else capacity)
+
+
+def _whole_kv_heads(cache: torch.Tensor, cfg: ArchConfig) -> None:
+    if cache.shape[2] != cfg.num_kv_heads:
+        raise ValueError(f"a decode cache holding {cache.shape[2]} of {cfg.num_kv_heads} KV "
+                         f"heads: the decode body takes whole heads")
 
 
 # ---------------------------------------------------------------------------
@@ -214,20 +250,39 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int = 1024) -> torch.Tens
     return out.transpose(1, 2).to(q.dtype)  # (B,Sq,H,D)
 
 
-def attention_decode(q, k_cache, v_cache, pos) -> torch.Tensor:
+def _attend(s: torch.Tensor, v: torch.Tensor, eq: str, split) -> torch.Tensor:
+    """softmax(s) over its last axis (the cache's positions), contracted with
+    ``v`` by ``eq`` into (B, T, H, ...).  On the rank's slice of a cache
+    split over "model" (``split``), flash-decoding: the max over every rank
+    first, so that a slice of masked rows adds 0; then the sum of the
+    exponentials and the P·V partial, each summed over "model"."""
+    if split is None:
+        return torch.einsum(eq, torch.softmax(s, dim=-1), v)
+    mesh = split[0]
+    p = torch.exp(s - C.all_reduce_max(s.amax(dim=-1, keepdim=True), mesh, MODEL))
+    total = C.all_reduce(p.sum(dim=-1, keepdim=True), mesh, MODEL)  # (B, H, T, 1)
+    out = C.all_reduce(torch.einsum(eq, p, v), mesh, MODEL)
+    return out / torch.clamp_min(total.transpose(1, 2), 1e-37)
+
+
+def attention_decode(q, k_cache, v_cache, pos, split=None) -> torch.Tensor:
     """q: (B,1,H,D); caches: (B,Smax,KV,D); pos: (B,) index of each row's
     new token.  Row b attends over cache[b, 0..pos[b]] inclusive (the cache
-    is already written at pos)."""
+    is already written at pos); ``pos`` None: over every row (whisper's
+    cross-attention).  With ``split`` (``seq_split``'s) the caches are the
+    rank's slice of the positions and q holds every head (``_attend``)."""
     _, _, h, d = q.shape
     g = h // k_cache.shape[2]
     qf = q.to(torch.float32)
     k = _repeat_kv(k_cache, g)
     v = _repeat_kv(v_cache, g)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, k.to(torch.float32)) / _sqrt(d)
-    valid = torch.arange(k_cache.shape[1], device=q.device)[None, :] <= pos[:, None]
-    s = _where_valid(valid[:, None, None, :], s)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    if pos is not None:
+        kpos = torch.arange(k_cache.shape[1], device=q.device)
+        if split is not None:
+            kpos = kpos + split[1] * k_cache.shape[1]
+        s = _where_valid((kpos[None, :] <= pos[:, None])[:, None, None, :], s)
+    out = _attend(s, v.to(torch.float32), "bhqk,bkhd->bqhd", split)
     return out.to(q.dtype)
 
 
@@ -301,7 +356,7 @@ def _local_kv(q, k, v, cfg: ArchConfig):
     return k[:, :, idx], v[:, :, idx]
 
 
-def gqa_project_qkv(params, x, cfg: ArchConfig, positions, *, rope: bool = True):
+def _qkv(params, x, cfg: ArchConfig):
     q = qeinsum("bsd,dhe->bshe", x, params["wq"])
     k = qeinsum("bsd,dhe->bshe", x, params["wk"])
     v = qeinsum("bsd,dhe->bshe", x, params["wv"])
@@ -309,6 +364,11 @@ def gqa_project_qkv(params, x, cfg: ArchConfig, positions, *, rope: bool = True)
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
+    return q, k, v
+
+
+def gqa_project_qkv(params, x, cfg: ArchConfig, positions, *, rope: bool = True):
+    q, k, v = _qkv(params, x, cfg)
     k, v = _local_kv(q, k, v, cfg)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -346,13 +406,24 @@ def gqa_cross_apply(params, x, kv_pair, cfg: ArchConfig):
     return gqa_out(params, out, cfg)
 
 
-def write_cache(cache, new, pos, cfg: ArchConfig):
+def write_cache(cache, new, pos, cfg: ArchConfig, split=None):
     """Write one row per sequence, ``new[b, 0]`` at ``cache[b, pos[b]]``
-    (the sequence axis is 1), in place, and return the cache."""
+    (the sequence axis is 1), in place, and return the cache.  With
+    ``split`` (``seq_split``'s) the cache is the rank's slice of the
+    positions: a row whose ``pos`` lies outside it writes back what its
+    slice's first position holds (an index that never leaves the slice)."""
     if cfg.cache_update not in ("dus", "onehot"):
         raise ValueError(f"unknown cache_update {cfg.cache_update!r}")
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, pos] = new[:, 0].to(cache.dtype)
+    new = new[:, 0].to(cache.dtype)
+    if split is None:
+        cache[rows, pos] = new
+        return cache
+    local = pos - split[1] * cache.shape[1]
+    held = (local >= 0) & (local < cache.shape[1])
+    at = torch.where(held, local, torch.zeros_like(local))
+    held = held.reshape(-1, *(1,) * (new.dim() - 1))
+    cache[rows, at] = torch.where(held, new, cache[rows, at])
     return cache
 
 
@@ -379,16 +450,55 @@ def gqa_chunk_apply(params, x, cache_k, cache_v, pos, cfg: ArchConfig, *, rope: 
     return qeinsum("bshe,hed->bsd", out, params["wo"]), k_cache, v_cache
 
 
-def gqa_decode_apply(params, x, cache_k, cache_v, pos, cfg: ArchConfig, *, rope: bool = True):
+def _decode_qkv(params, x, cfg: ArchConfig, positions, *, rope: bool):
+    """The step's q, k and v on every head: a projection the rank holds its
+    block of heads of (``tp_split`` of wq's, wk's, wv's heads) gathered
+    over "model" after its bias and RoPE."""
+    q, k, v = _qkv(params, x, cfg)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    wholes = (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)
+    return tuple(tp_gather(t, tp_split(_dim(params[w], 1), n), 2)
+                 for t, w, n in zip((q, k, v), ("wq", "wk", "wv"), wholes))
+
+
+def _heads_out(params, out, cfg: ArchConfig):
+    """The attention output on every head (B, T, H, hd) through wo: the
+    rank's heads where wo holds its block of them, then ``gqa_out``."""
+    h = _dim(params["wo"], 0)
+    return gqa_out(params, own_block(out, tp_split(h, cfg.num_heads), h, 2), cfg)
+
+
+def gqa_decode_apply(params, x, cache_k, cache_v, pos, cfg: ArchConfig, *, rope: bool = True,
+                     capacity: int | None = None):
     """One-token decode.  x: (B,1,D); pos: (B,).  Returns (out, k_cache,
-    v_cache), the caches written in place."""
-    positions = pos[:, None]
-    q, k_new, v_new = gqa_project_qkv(params, x, cfg, positions, rope=rope)
-    k_cache = write_cache(cache_k, k_new, pos, cfg)
-    v_cache = write_cache(cache_v, v_new, pos, cfg)
-    out = attention_decode(q, k_cache, v_cache, pos)
-    out = qeinsum("bshe,hed->bsd", out, params["wo"])
-    return out, k_cache, v_cache
+    v_cache), the caches written in place.  On a mesh the caches may be the
+    rank's slice of ``capacity`` positions, with every KV head
+    (flash-decoding, the module docstring)."""
+    _whole_kv_heads(cache_k, cfg)
+    split = seq_split(cache_k, capacity)
+    q, k_new, v_new = _decode_qkv(params, x, cfg, pos[:, None], rope=rope)
+    k_cache = write_cache(cache_k, k_new, pos, cfg, split)
+    v_cache = write_cache(cache_v, v_new, pos, cfg, split)
+    out = attention_decode(q, k_cache, v_cache, pos, split)
+    return _heads_out(params, out, cfg), k_cache, v_cache
+
+
+def gqa_cross_decode(params, x, cache_k, cache_v, cfg: ArchConfig):
+    """Whisper's cross-attention of one token a row against the static
+    encoder K/V (B, encoder_seq, KV, hd): ``gqa_cross_apply`` where the K/V
+    are whole; on the rank's slice of the frames, q on every head attends
+    over it with the split softmax and no mask (``attention_decode``)."""
+    split = tp_split(cache_k.shape[1], cfg.encoder_seq)
+    if split is None:
+        return gqa_cross_apply(params, x, (cache_k, cache_v), cfg)
+    _whole_kv_heads(cache_k, cfg)
+    q = qeinsum("bsd,dhe->bshe", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    q = tp_gather(q, tp_split(_dim(params["wq"], 1), cfg.num_heads), 2)
+    return _heads_out(params, attention_decode(q, cache_k, cache_v, None, split), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -467,35 +577,48 @@ def mla_apply(params, x, cfg: ArchConfig, *, causal: bool = True):
     return mla_prefill_attn(params, x, cfg, causal=causal)[0]
 
 
-def _mla_absorbed(params, q_nope, q_rope, cache_c, cache_krope, valid, cfg, dtype):
+def _mla_absorbed(params, q_nope, q_rope, cache_c, cache_krope, valid, cfg, dtype, split=None):
     """Attention over the compressed cache: q_nope absorbed through wk_b
     into the latent space, the scores ``(q_abs·c + q_rope·k_rope) /
     sqrt(nope + rope)`` in f32 with the cache upcast, ``valid`` (B, T, S)
-    masking the dead rows, the output back through wv_b and wo."""
+    masking the dead rows, the output back through wv_b and wo.  On the
+    rank's heads ``q_abs`` and ``q_rope`` are gathered over "model" to
+    every head, and the rank's heads of ``o_c`` go through wv_b and wo,
+    then ``tp_sum``; with ``split`` the caches are the rank's slice of the
+    positions (``_attend``)."""
     m = cfg.mla
-    q_abs = qeinsum("bqhe,rhe->bqhr", q_nope, params["wk_b"])  # (B,T,H,r)
+    h = _mla_heads(params)
+    heads = tp_split(h, cfg.num_heads)
+    q_abs = tp_gather(qeinsum("bqhe,rhe->bqhr", q_nope, params["wk_b"]), heads, 2)  # (B,T,H,r)
+    q_rope = tp_gather(q_rope, heads, 2)
     s = torch.einsum("bqhr,bkr->bhqk", q_abs.to(torch.float32), cache_c.to(torch.float32))
     s = s + torch.einsum("bqhe,bke->bhqk", q_rope.to(torch.float32),
                          cache_krope.to(torch.float32))
     s = s / _sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
     s = _where_valid(valid[:, None], s)
-    p = torch.softmax(s, dim=-1)
-    o_c = torch.einsum("bhqk,bkr->bqhr", p, cache_c.to(torch.float32)).to(dtype)
-    out = qeinsum("bqhr,rhe->bqhe", o_c, params["wv_b"])
-    return qeinsum("bshe,hed->bsd", out, params["wo"])
+    o_c = _attend(s, cache_c.to(torch.float32), "bhqk,bkr->bqhr", split).to(dtype)
+    out = qeinsum("bqhr,rhe->bqhe", own_block(o_c, heads, h, 2), params["wv_b"])
+    return tp_sum(qeinsum("bshe,hed->bsd", out, params["wo"]), heads)
 
 
-def mla_decode_apply(params, x, cache_c, cache_krope, pos, cfg: ArchConfig):
+def mla_decode_apply(params, x, cache_c, cache_krope, pos, cfg: ArchConfig, *,
+                     capacity: int | None = None):
     """Absorbed-MLA decode: one token a row at ``pos`` (B,), attending
     directly over the compressed cache, O(S·r) a step instead of O(S·h·d).
-    Returns (out, cache_c, cache_krope), the caches written in place."""
+    Returns (out, cache_c, cache_krope), the caches written in place.  On a
+    mesh the caches may be the rank's slice of ``capacity`` positions
+    (flash-decoding, the module docstring)."""
+    split = seq_split(cache_c, capacity)
     positions = pos[:, None]
     q_nope, q_rope = _mla_q(params, x, cfg, positions)  # (B,1,H,*)
     c_new, krope_new = _mla_ckv(params, x, cfg, positions)  # (B,1,r), (B,1,rd)
-    cache_c = write_cache(cache_c, c_new, pos, cfg)
-    cache_krope = write_cache(cache_krope, krope_new, pos, cfg)
-    valid = torch.arange(cache_c.shape[1], device=x.device)[None, None, :] <= pos[:, None, None]
-    out = _mla_absorbed(params, q_nope, q_rope, cache_c, cache_krope, valid, cfg, x.dtype)
+    cache_c = write_cache(cache_c, c_new, pos, cfg, split)
+    cache_krope = write_cache(cache_krope, krope_new, pos, cfg, split)
+    kpos = torch.arange(cache_c.shape[1], device=x.device)
+    if split is not None:
+        kpos = kpos + split[1] * cache_c.shape[1]
+    valid = kpos[None, None, :] <= pos[:, None, None]
+    out = _mla_absorbed(params, q_nope, q_rope, cache_c, cache_krope, valid, cfg, x.dtype, split)
     return out, cache_c, cache_krope
 
 

@@ -520,18 +520,31 @@ def _run_cached(params, cache, x, body, pos, cfg: ArchConfig, shared_body):
                             pos, cfg, _shared_before(params, cfg, x, apply_shared))
 
 
-def decode_step(params, cache, token, pos, cfg: ArchConfig):
+def decode_step(params, cache, token, pos, cfg: ArchConfig, *, capacity: int | None = None):
     """token: (B, 1) integers; pos: the position each row writes, an int
-    for all rows or a (B,) tensor, one per row (the JAX package takes a
-    scalar and maps the step over a pool's slots).  The cache is written in
-    place and returned."""
+    for all rows, a 0-d tensor, or a (B,) tensor, one per row (the JAX
+    package takes a scalar and maps the step over a pool's slots).  The
+    cache is written in place and returned.
+
+    On a mesh (under ``activate_mesh``) the params may be the rank's compute
+    blocks and the cache the rank's block of ``_cache_spec``: its rows of
+    the batch, and its slice of the ``capacity`` positions where the
+    sequence axis is split over "model" (``layers.seq_split``; ``None``: the
+    cache holds every position).  The logits are gathered over "model"
+    where the vocabulary is split."""
     _, _, _, body = _bodies(cfg)
+    shared = partial(T.shared_attn_decode, capacity=capacity)
+    if cfg.family not in _RECURRENT:
+        body = partial(body, capacity=capacity)
     b = token.shape[0]
     pos = _positions(pos, b, token.device)
     x = _add_positions(embed_apply(params["embed"], token, cfg), cfg, pos)
-    x, _ = _run_cached(params, cache, x, body, pos, cfg, T.shared_attn_decode)
+    x, _ = _run_cached(params, cache, x, body, pos, cfg, shared)
     hidden = T.apply_norm(cfg, params["final_norm"], x)
     logits = unembed_apply(params["embed"], hidden, cfg)[:, 0]
+    split = vocab_split(params["embed"], cfg)
+    if split is not None:
+        logits = C.all_gather(logits.to(torch.float32), split[0], MODEL, dim=-1)
     return _mask_pad_logits(logits, cfg).to(torch.float32), cache
 
 

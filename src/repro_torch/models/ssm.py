@@ -30,8 +30,12 @@ convs whole (one group, shared by every head), the SSD scan over the local
 heads, the norm over the whole d_inner (its sum of squares summed over
 "model", each rank scaling by its block of the whole ``scale``), wo
 row-parallel and the sum over "model" (``layers.tp_sum``).  A rank holds
-whole heads (``_inner_split`` raises otherwise).  The chunk, verify and
-decode forms serve one device: whole leaves.
+whole heads (``_inner_split`` raises otherwise).  ``mamba_decode_apply``
+does the same on the rank's block of the ``state`` cache (split on
+``ssm_heads`` with the leaves); its ``conv`` cache is whole, and the step's
+new x-channel row is gathered over "model" so that every rank's ``conv``
+is one device's.  The chunk and verify forms serve one device: whole
+leaves.
 
 Differences, deliberate:
   * ``mamba_prefill_apply`` left-pads the conv tail with zeros to W-1 rows
@@ -55,7 +59,15 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import _dim, rmsnorm, rmsnorm_defs, tp_split, tp_sum
+from repro_torch.models.layers import (
+    _dim,
+    own_block,
+    rmsnorm,
+    rmsnorm_defs,
+    tp_gather,
+    tp_split,
+    tp_sum,
+)
 from repro_torch.models.params import ParamDef
 from repro_torch.models.quant import qeinsum, _einsum
 
@@ -439,13 +451,26 @@ def mamba_decode_apply(params, x, conv_state, ssm_state, cfg: ArchConfig):
     conv_state: (B, W-1, d_inner + 2N) stacked x/B/C conv windows.
     ssm_state:  (B, H, P, N)
     Returns (out, new_conv_state, new_ssm_state), O(1) in context length;
-    the inputs are not written.
+    the inputs are not written.  On the rank's heads (``_inner_split``) the
+    state holds those heads and the conv windows are whole: the rank's
+    x-channels convolve its columns of them, and the new x row is gathered
+    over "model" into the new whole windows.
     """
-    z, xs, Bm, Cm, dt = _project(params, x, cfg)
-    cs_x, cs_B, cs_C = _split(conv_state, cfg)
-    xs, cs_x = _conv_step(cs_x, xs, params["conv_x"], params["conv_x_b"])
+    split = _inner_split(params, cfg)
+    if conv_state.shape[-1] != conv_channels(cfg) or ssm_state.shape[1] != _dim(
+            params["wdt"], 1):
+        raise ValueError(f"conv {tuple(conv_state.shape)} and state {tuple(ssm_state.shape)} "
+                         f"for {_dim(params['wdt'], 1)} heads: the conv cache is whole, the "
+                         f"state holds the block's heads")
+    z, x_row, Bm, Cm, dt = _project(params, x, cfg)
+    window_x, cs_B, cs_C = _split(conv_state, cfg)
+    xs, cs_x = _conv_step(own_block(window_x, split, x_row.shape[-1], 2), x_row,
+                          params["conv_x"], params["conv_x_b"])
     Bm, cs_B = _conv_step(cs_B, Bm, params["conv_B"], params["conv_B_b"])
     Cm, cs_C = _conv_step(cs_C, Cm, params["conv_C"], params["conv_C_b"])
+    if split is not None:  # the whole x window, as ``_conv_step`` moves it on one device
+        row = tp_gather(x_row, split, 2)
+        cs_x = torch.cat([window_x.to(row.dtype), row], dim=1)[:, 1:, :]
     new_conv = torch.cat([cs_x, cs_B, cs_C], dim=-1).to(conv_state.dtype)
 
     xh, dtf, A = _ssd_inputs(params, xs, dt, cfg)  # (B, 1, H, P), (B, 1, H)

@@ -12,7 +12,10 @@
 
 Every train/prefill body returns ``(x, aux)`` or ``(x, cache slices)`` as in
 the JAX package; chunk and decode bodies consume the layer's cache slices
-and write them in place.
+and write them in place.  The attention decode bodies take ``capacity``, the
+positions of the whole cache, where the cache may be the rank's slice of
+them on a mesh (``layers.seq_split``); the Mamba2 decode body reads its
+split from its leaves.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     gqa_chunk_apply,
     gqa_cross_apply,
+    gqa_cross_decode,
     gqa_decode_apply,
     gqa_defs,
     gqa_out,
@@ -115,10 +119,10 @@ def dense_block_chunk(p, x, cache, pos, cfg: ArchConfig):
     return _ffn(p, x + a, cfg)[0], (k_cache, v_cache)
 
 
-def dense_block_decode(p, x, cache, pos, cfg: ArchConfig):
+def dense_block_decode(p, x, cache, pos, cfg: ArchConfig, capacity: int | None = None):
     k_cache, v_cache = cache
     a, k_cache, v_cache = gqa_decode_apply(
-        p["attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg
+        p["attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg, capacity=capacity
     )
     return _ffn(p, x + a, cfg)[0], (k_cache, v_cache)
 
@@ -174,9 +178,10 @@ def mla_block_chunk(p, x, cache, pos, cfg: ArchConfig):
     return _ffn(p, x + a, cfg)[0], (c, krope)
 
 
-def mla_block_decode(p, x, cache, pos, cfg: ArchConfig):
+def mla_block_decode(p, x, cache, pos, cfg: ArchConfig, capacity: int | None = None):
     c, krope = cache
-    a, c, krope = mla_decode_apply(p["attn"], apply_norm(cfg, p["ln1"], x), c, krope, pos, cfg)
+    a, c, krope = mla_decode_apply(p["attn"], apply_norm(cfg, p["ln1"], x), c, krope, pos, cfg,
+                                   capacity=capacity)
     return _ffn(p, x + a, cfg)[0], (c, krope)
 
 
@@ -271,10 +276,12 @@ def shared_attn_chunk(p, x, x0, k_cache, v_cache, pos, cfg: ArchConfig):
     return _shared_out(p, x, inp, a, cfg), k_cache, v_cache
 
 
-def shared_attn_decode(p, x, x0, k_cache, v_cache, pos, cfg: ArchConfig):
+def shared_attn_decode(p, x, x0, k_cache, v_cache, pos, cfg: ArchConfig,
+                       capacity: int | None = None):
     inp = _shared_in(p, x, x0)
     a, k_cache, v_cache = gqa_decode_apply(
-        p["attn"], apply_norm(cfg, p["ln1"], inp), k_cache, v_cache, pos, cfg)
+        p["attn"], apply_norm(cfg, p["ln1"], inp), k_cache, v_cache, pos, cfg,
+        capacity=capacity)
     return _shared_out(p, x, inp, a, cfg), k_cache, v_cache
 
 
@@ -350,18 +357,16 @@ def dec_block_chunk(p, x, cache, pos, cfg: ArchConfig):
     return _ffn(p, x, cfg)[0], (k_cache, v_cache, ck, cv)
 
 
-def dec_block_decode(p, x, cache, pos, cfg: ArchConfig):
-    """One token a row; the cross-attention inline (wq + bq, one query
-    against the static encoder K/V, wo), as in the JAX package."""
+def dec_block_decode(p, x, cache, pos, cfg: ArchConfig, capacity: int | None = None):
+    """One token a row; the cross-attention one query against the static
+    encoder K/V (``gqa_cross_decode``: on one device wq + bq, the
+    attention, wo, as in the JAX package)."""
     k_cache, v_cache, ck, cv = cache
     a, k_cache, v_cache = gqa_decode_apply(
-        p["self_attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg, rope=False)
+        p["self_attn"], apply_norm(cfg, p["ln1"], x), k_cache, v_cache, pos, cfg, rope=False,
+        capacity=capacity)
     x = x + a
-    q = qeinsum("bsd,dhe->bshe", apply_norm(cfg, p["ln_x"], x), p["cross_attn"]["wq"])
-    if cfg.qkv_bias:
-        q = q + p["cross_attn"]["bq"]
-    out = run_attention(cfg, q, ck, cv, causal=False)
-    x = x + qeinsum("bshe,hed->bsd", out, p["cross_attn"]["wo"])
+    x = x + gqa_cross_decode(p["cross_attn"], apply_norm(cfg, p["ln_x"], x), ck, cv, cfg)
     return _ffn(p, x, cfg)[0], (k_cache, v_cache, ck, cv)
 
 

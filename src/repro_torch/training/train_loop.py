@@ -561,9 +561,8 @@ def step_collectives(cfg: ArchConfig, mesh, rules: ShardingRules, global_batch: 
         passes = moe.moe_collectives(cfg, mesh, mb, seq, act, backward=True)
         fwd = moe.moe_collectives(cfg, mesh, mb, seq, act)
         times = moe_layers * accum
-        for part, n in ((passes, times), (fwd, times if remat else 0)):
-            for k in part.counts:
-                stats.add(k, part.operand_bytes[k] // part.counts[k], part.counts[k] * n)
+        stats.merge(passes, times)
+        stats.merge(fwd, times if remat else 0)
     n_metrics = 3 + (1 if cfg.mtp else 0)
     live = [a for a in sizes if sizes[a] > 1]
     for _ in live:

@@ -336,10 +336,42 @@ def mesh_trainer(data, res, arch, mesh, steps, before_step=None):
     return tr
 
 
+def decode_steps(data, res):
+    """Each "decode/archs" arch's ``decode_step`` on one device, its
+    reduced config in f32, from the "decode/" params (the port's leaves in
+    ``jax.tree`` order), cache and tokens, jitted once with ``pos`` an
+    argument and run at each of "decode/positions" from the same cache:
+    the logits and every cache leaf after the step."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_reduced_config
+    from repro.models.model import decode_step, param_defs
+    from repro.models.params import abstract_params
+
+    for arch in json.loads(str(data["decode/archs"])):
+        cfg = dataclasses.replace(get_reduced_config(arch), dtype=jnp.float32)
+        pre = f"decode/{arch}/"
+        treedef = jax.tree.structure(abstract_params(param_defs(cfg)))
+        params = jax.tree.unflatten(
+            treedef, [jnp.asarray(data[f"{pre}p/{i}"]) for i in range(treedef.num_leaves)])
+        cache = {k[len(pre + "cache/"):]: jnp.asarray(v) for k, v in data.items()
+                 if k.startswith(pre + "cache/")}
+        step = jax.jit(lambda p, c, t, pos: decode_step(p, c, t, pos, cfg))
+        for pos in data["decode/positions"]:
+            logits, out = step(params, cache, jnp.asarray(data[pre + "token"]), jnp.int32(pos))
+            res[f"{pre}{int(pos)}/logits"] = np.asarray(logits)
+            for k, v in out.items():
+                res[f"{pre}{int(pos)}/cache/{k}"] = np.asarray(v)
+
+
 def tp_mode(in_path, out_path):
-    """The families' tensor-parallel cases: the "tp/" blocks on one device
-    and the Trainer of each "train/archs" arch on 2 x 4, the SSD scan's
-    gradient finite (``masked_ssd``)."""
+    """The families' tensor-parallel cases: the "tp/" blocks and each
+    "decode/archs" arch's decode step on one device, and the Trainer of
+    each "train/archs" arch on 2 x 4, the SSD scan's gradient finite
+    (``masked_ssd``)."""
     import jax
     from jax.sharding import Mesh
 
@@ -347,6 +379,7 @@ def tp_mode(in_path, out_path):
     data = dict(np.load(in_path))
     res = {}
     tp_blocks(data, res)
+    decode_steps(data, res)
     mesh24 = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("data", "model"))
     for arch in json.loads(str(data["train/archs"])):
         mesh_trainer(data, res, arch, mesh24, int(data["train/steps"]))
@@ -379,15 +412,18 @@ def int8_mean_bound(params, batch, cfg, n_dp):
 
 def flops_mode(batch, seq, out_path):
     """Each arch's reduced config's train step, unrolled, compiled on one
-    device at ``batch`` x ``seq``: {arch: cost_analysis FLOPs}."""
+    device at ``batch`` x ``seq``, and its decode step at ``batch`` rows
+    over a cache of ``seq`` positions: {arch: the train step's
+    cost_analysis FLOPs, "decode/" + arch: the decode step's}."""
     import dataclasses
 
     import jax
     import jax.numpy as jnp
 
     from repro.configs import get_reduced_config, list_archs
-    from repro.models.model import param_defs
+    from repro.models.model import decode_step, param_defs
     from repro.models.params import abstract_params
+    from repro.serving.kv_cache import cache_defs
     from repro.training.optimizer import opt_state_defs
     from repro.training.train_loop import make_train_step
 
@@ -405,6 +441,11 @@ def flops_mode(batch, seq, out_path):
             abstract_params(defs), abstract_params(opt_state_defs(cfg.optimizer, defs)), b,
             jax.ShapeDtypeStruct((), jnp.int32)).compile()
         out[arch] = float((compiled.cost_analysis() or {})["flops"])
+        compiled = jax.jit(lambda p, c, t, pos: decode_step(p, c, t, pos, cfg)).lower(
+            abstract_params(defs), abstract_params(cache_defs(cfg, batch=batch, max_len=seq)),
+            jax.ShapeDtypeStruct((batch, 1), jnp.int32),
+            jax.ShapeDtypeStruct((), jnp.int32)).compile()
+        out[f"decode/{arch}"] = float((compiled.cost_analysis() or {})["flops"])
     with open(out_path, "w") as f:
         json.dump(out, f)
 

@@ -40,6 +40,19 @@ def test_bf16_and_explicit_groups():
     assert operand_bytes("all-gather", 512 * 2, 4) == 256
 
 
+def test_merge_keeps_the_bytes_of_collectives_of_unequal_sizes():
+    """A MoE layer's forward sends one all-reduce of its tokens and two of
+    its f32 aux loss: 32 layers of it are 96 all-reduces of those bytes,
+    not 96 of their mean rounded down."""
+    layer = CollectiveStats()
+    layer.add("all-reduce", 24576)
+    layer.add("all-reduce", 4, 2)
+    total = CollectiveStats()
+    total.merge(layer, 32)
+    assert total.counts == {"all-reduce": 96}
+    assert total.operand_bytes == {"all-reduce": 32 * (24576 + 8)}
+
+
 def test_no_collectives():
     stats = CollectiveStats()
     assert stats.total_bytes == 0 and not stats.counts

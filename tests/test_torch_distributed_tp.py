@@ -1,7 +1,9 @@
 """Tensor-parallel compute of the MLA, Mamba2, hybrid and whisper families
 on the CPU: one spawned world of 8 gloo ranks on a 2 x 4 mesh
 (``torch_dist_workers.tp_world_main``) runs each family's blocks on the
-rank's "model" shards and the mesh Trainer of the four reduced archs, while
+rank's "model" shards, each family's decode step on the rank's blocks of
+its params and of a cache split over "model" on its positions
+(flash-decoding), and the mesh Trainer of the four reduced archs, while
 the reference runs the same weights and inputs in a JAX subprocess on 8
 forced host devices (``jax_reference_runs.py tp``).  It runs beside
 ``test_torch_distributed.py`` (each file is one world and one subprocess).
@@ -10,7 +12,9 @@ Tolerances (f32): every block's output, input gradients and each leaf's
 gradient block on every rank against the reference's one-device function,
 and the Trainer's losses, gradient norms and state norms against the
 reference's mesh run, at 1e-4 relative: a collective's reduction order is
-not XLA's, so sums across ranks agree to f32 noise, not bit for bit.  An
+not XLA's, so sums across ranks agree to f32 noise, not bit for bit; the
+mesh decode step's logits and every rank's block of the cache it returns
+against the reference's one-device ``decode_step``, at 1e-4 too.  An
 attention key bias's gradient is exactly 0 (softmax ignores a shift common
 to a query's scores): rounding noise, held to 1e-6 of the case's largest
 gradient, as ``test_torch_train_loss`` holds it (the state norms:
@@ -34,11 +38,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.core import collectives as C
 from repro_torch.data.pipeline import make_batch
 from repro_torch.launch import dryrun
 from repro_torch.launch.world import run_world
 from repro_torch.models.model import init_model
 from repro_torch.models.params import tree_flatten
+from repro_torch.serving.kv_cache import cache_defs
 from repro_torch.sharding.rules import (
     MeshShape,
     entry_axes,
@@ -77,6 +83,11 @@ TP_CASES = {
     "cross_attn": ("cross_attn", "whisper-tiny", {}, "enc", set(BIAS_ATTN)),
 }
 TRAIN_ARCHS = ("deepseek-v3-671b", "mamba2-780m", "zamba2-7b", "whisper-tiny")
+# one arch a family; the cache's 32 positions 8 a "model" rank: at position 3 ranks 1-3 hold only
+# masked rows, at 21 the new row is written by rank 2
+DECODE_ARCHS = ("granite-3-8b", "internvl2-76b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+                "mamba2-780m", "zamba2-7b", "whisper-tiny")
+DECODE_BATCH, DECODE_CAPACITY, DECODE_POSITIONS = 2, 32, (3, 21)
 
 
 def tp_inputs() -> dict:
@@ -103,6 +114,26 @@ def tp_inputs() -> dict:
     return data
 
 
+def decode_inputs() -> dict:
+    """Each decode arch's params (``init_model``'s draw, in f32, leaves in
+    ``tree_flatten`` order), a whole cache drawn with numpy and one token a
+    row."""
+    rng = np.random.default_rng(4)
+    data = {"decode/archs": np.asarray(json.dumps(DECODE_ARCHS)),
+            "decode/capacity": np.asarray(DECODE_CAPACITY),
+            "decode/positions": np.asarray(DECODE_POSITIONS)}
+    for arch in DECODE_ARCHS:
+        cfg = W.f32_config(arch)
+        params = init_model(cfg, torch.Generator().manual_seed(1), "cpu")
+        for i, t in enumerate(tree_flatten(params)):
+            data[f"decode/{arch}/p/{i}"] = t.float().numpy()
+        for k, d in cache_defs(cfg, batch=DECODE_BATCH, max_len=DECODE_CAPACITY).items():
+            data[f"decode/{arch}/cache/{k}"] = rng.standard_normal(d.shape).astype(np.float32)
+        data[f"decode/{arch}/token"] = rng.integers(0, cfg.vocab_size, (DECODE_BATCH, 1)).astype(
+            np.int32)
+    return data
+
+
 def reference_inputs() -> dict:
     data = {"train/archs": np.asarray(json.dumps(TRAIN_ARCHS)), "train/steps": np.asarray(STEPS),
             "train/batch": np.asarray(BATCH), "train/seq": np.asarray(SEQ)}
@@ -115,7 +146,7 @@ def reference_inputs() -> dict:
             for step in range(STEPS):
                 data[f"train/{arch}/frames/{step}"] = make_batch(cfg, ds, step, device="cpu")[
                     "frontend_embeds"].numpy()
-    return data | tp_inputs()
+    return data | tp_inputs() | decode_inputs()
 
 
 @pytest.fixture(scope="module")
@@ -145,12 +176,15 @@ def rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def model_block(a: np.ndarray, spec: list, m: int) -> np.ndarray:
-    """The block of ``a`` at coordinate ``m`` of the 4 "model" ranks."""
+def model_block(a: np.ndarray, spec: list, m: int, d: int = 0) -> np.ndarray:
+    """The block of ``a`` at coordinate ``m`` of the 4 "model" ranks (and
+    ``d`` of the 2 "data" ranks)."""
     for dim, e in enumerate(spec):
-        if e == "model":
-            n = a.shape[dim] // 4
-            a = np.take(a, range(m * n, (m + 1) * n), axis=dim)
+        if e in ("model", "data"):
+            k = {"model": 4, "data": 2}[e]
+            c = m if e == "model" else d
+            n = a.shape[dim] // k
+            a = np.take(a, range(c * n, (c + 1) * n), axis=dim)
     return a
 
 
@@ -183,6 +217,75 @@ def test_tp_block_matches_the_reference_one_device_function(runs, case):
                 assert np.abs(g - want).max() <= ZERO_GRAD_TOL * top, k
             else:
                 assert rel(g, want) < F32_REL, k
+
+
+# ---------------------------------------------------------------------------
+# each family's decode step on the rank's blocks of a kv_seq-split cache
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pos", DECODE_POSITIONS)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_mesh_decode_matches_the_reference_one_device_step(runs, arch, pos):
+    """The logits of the rank's rows (every vocabulary column) and the
+    rank's block of each cache leaf after the step against the reference's
+    one-device ``decode_step``: the new K/V rows written only by the rank
+    whose slice holds ``pos``, Mamba2's whole conv window on every rank,
+    its state on the rank's heads."""
+    ref = runs["ref"]
+    pre = f"decode/{arch}/{pos}/"
+    for rank, r in enumerate(runs["ranks"]):
+        got, m, d = r["decode"][arch], rank % 4, rank // 4
+        logits = got[pos]["logits"]
+        want = ref[pre + "logits"]
+        rows = logits.shape[0]
+        assert logits.shape == (rows, want.shape[1])
+        assert rel(logits, want[d * rows:(d + 1) * rows]) < F32_REL
+        assert set(got[pos]["cache"]) == {k[len(pre + "cache/"):] for k in ref
+                                          if k.startswith(pre + "cache/")}
+        for k, c in got[pos]["cache"].items():
+            block = model_block(ref[pre + "cache/" + k], got["specs"][k], m, d)
+            assert c.shape == block.shape, k
+            assert rel(c, block) < F32_REL, k
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_mesh_decode_sends_what_the_dry_run_counts(runs, arch):
+    """What each rank's decode step sent over the gloo world equals
+    ``dryrun.forward_collectives(decode=True)``; the cache's positions are
+    split over "model" for every family with an attention cache (whisper's
+    cross K/V too: 32 frames at this size)."""
+    cfg = W.f32_config(arch)
+    want = dryrun.forward_collectives(cfg, MeshShape({"data": 2, "model": 4}),
+                                      tensor_parallel_rules(), DECODE_BATCH, DECODE_CAPACITY,
+                                      decode=True, dtype=torch.float32).summary()
+    for r in runs["ranks"]:
+        got = r["decode"][arch]
+        for pos in DECODE_POSITIONS:
+            assert got[pos]["recorded"] == want
+        split = {k for k, sp in got["specs"].items() if "model" in sp}
+        assert split == {k for k in got["specs"] if k not in ("conv",)}
+
+
+def test_decode_bodies_refuse_a_split_they_cannot_use():
+    """No fallback: a GQA cache split on its KV heads, and a Mamba2 conv
+    window split on its channels (its spec keeps it whole), raise."""
+    from repro_torch.models import layers, ssm
+    from repro_torch.models.params import init_params
+
+    gen = torch.Generator().manual_seed(0)
+    cfg = W.f32_config("granite-3-8b")
+    p = init_params(layers.gqa_defs(cfg), gen, "cpu")
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    cache = torch.zeros((1, 8, kv // 2, hd))
+    with pytest.raises(ValueError, match="whole heads"):
+        layers.gqa_decode_apply(p, torch.zeros((1, 1, cfg.d_model)), cache, cache.clone(),
+                                torch.zeros(1, dtype=torch.int64), cfg)
+    cfg = W.f32_config("mamba2-780m")
+    p = init_params(ssm.mamba_defs(cfg), gen, "cpu")
+    s = cfg.ssm
+    conv = torch.zeros((1, s.conv_width - 1, ssm.conv_channels(cfg) // 2))
+    state = torch.zeros((1, s.num_heads(cfg.d_model), s.head_dim, s.state_size))
+    with pytest.raises(ValueError, match="conv cache is whole"):
+        ssm.mamba_decode_apply(p, torch.zeros((1, 1, cfg.d_model)), conv, state, cfg)
 
 
 def test_mamba_heads_that_do_not_divide_model_compute_whole():
@@ -327,18 +430,25 @@ def test_step_and_forward_count_the_norm_and_the_shared_block_sums():
 
 def test_forward_counts_whisper_encoder_sums_in_a_prefill_not_a_decode():
     """whisper-tiny's encoder layers sum over its 1500 frames in a prefill;
-    a decode step reads the cross K/V its prefill left."""
+    a decode step (one token a row over a cache of 448 positions) reads the
+    cross K/V its prefill left: beside its flash-decoding collectives
+    (``decode_collectives``), it sends a one-token prefill's sums but the
+    encoder's."""
     cfg = get_config("whisper-tiny")
     mesh = MeshShape({"data": 16, "model": 16})
     rules = tensor_parallel_rules()
-    lay = TL.MeshLayout(cfg, mesh, rules, 256, 448)
-    enc = [t for t in TL.tp_collectives(lay, lay.local_batch, 448, cfg.dtype)
+    lay = TL.MeshLayout(cfg, mesh, rules, 256, 1)
+    enc = [t for t in TL.tp_collectives(lay, lay.local_batch, 1, cfg.dtype)
            if t[0] == "encoder"]
     assert enc and {t[2] for t in enc} == {cfg.encoder_layers}
     enc_bytes = sum(n * c for _, n, c, _ in enc)
-    pre = dryrun.forward_collectives(cfg, mesh, rules, 256, 448)
+    pre = dryrun.forward_collectives(cfg, mesh, rules, 256, 1)
     dec = dryrun.forward_collectives(cfg, mesh, rules, 256, 448, decode=True)
-    assert pre.operand_bytes["all-reduce"] - dec.operand_bytes["all-reduce"] == enc_bytes
+    flash = C.CollectiveStats()
+    dryrun.decode_collectives(lay, 448, flash)
+    assert flash.operand_bytes["all-reduce"] > 0
+    sent = dec.operand_bytes["all-reduce"] - flash.operand_bytes["all-reduce"]
+    assert pre.operand_bytes["all-reduce"] - sent == enc_bytes
 
 
 def test_every_arch_splits_its_model_leaves_on_16x16():

@@ -7,8 +7,10 @@ host devices, without compiling (``tests/jax_reference_runs.py rules``).
 That is ``cell_arithmetic``, which traces nothing: its traced fields are
 ``null``.  The CLI traces (``run_cell``): one full-size cell,
 granite-3-8b x train_4k on 16 x 16, its traced fields filled, its
-collectives as counted; the fields no trace gives stay ``null``.  The
-traced half itself: ``tests/test_torch_dryrun_trace.py``."""
+collectives as counted; the fields no trace gives stay ``null``.  A decode
+cell (whisper-tiny x decode_32k on 16 x 16, its cache split over "model"
+on its positions) fills every traced field too.  The traced half itself:
+``tests/test_torch_dryrun_trace.py``."""
 import json
 
 import pytest
@@ -71,11 +73,30 @@ def test_main_returns_zero_and_writes_the_cell(tmp_path, capsys):
     assert ca["bytes_per_dev"] == cell["mem_terms"]["total"]
     for field in NULL_FIELDS:
         assert cell[field] is None, field
-    assert cell["not_traced"] is None
     assert "granite-3-8b × train_4k" in capsys.readouterr().out
     assert dryrun.main(["--table", "--out", str(tmp_path)]) == 0
     row = capsys.readouterr().out.splitlines()[-1]
     assert row.startswith("| granite-3-8b | train_4k | ") and row.count("|") == 10
+
+
+def test_a_decode_cell_fills_every_traced_field():
+    """whisper-tiny x decode_32k on 16 x 16 at full size: ``trace_cell``
+    fills every ``TRACED_FIELDS`` entry; the step holds at least the
+    cell's resident bytes (its params and its block of the cache) live,
+    sends what the analytic count says, and the depth fit agrees with the
+    full depth."""
+    cell = dryrun.trace_cell(dryrun.cell_arithmetic("whisper-tiny", "decode_32k"))
+    assert cell["kind"] == "decode"
+    for field in dryrun.TRACED_FIELDS:
+        assert cell[field] is not None, field
+    for field in NULL_FIELDS:
+        assert cell[field] is None, field
+    assert cell["resident_bytes_per_dev"] <= cell["live_bytes_per_dev"] <= DEFAULT_CHIP.hbm_bytes
+    coll = cell["collectives"]
+    assert coll["traced"] == coll["analytic"] and coll["hlo"] is None
+    ca = cell["cost_analysis"]
+    assert ca["flops_per_dev"] > 0
+    assert ca["fit"]["flops_per_dev"] == pytest.approx(ca["flops_per_dev"], rel=1e-9)
 
 
 def test_overrides_parse_as_the_reference_does():

@@ -417,14 +417,53 @@ def _tp_trainer(data, arch, mesh, root) -> dict:
                                             ds.seq_len, dtype=torch.float32).summary()}
 
 
+def _mesh_decode(data, mesh) -> dict:
+    """Each "decode/archs" arch's ``decode_step`` on the rank's blocks of
+    ``mesh``: its params in the compute layout of a decode step
+    (``MeshLayout`` of the batch and one token a row, under the TP rules),
+    its block of the "decode/" cache by ``dryrun.decode_cache_specs`` (its
+    rows over "data", its positions over "model"), its rows of the tokens,
+    at each of "decode/positions" (a 0-d int32) from the same cache: the
+    logits (the rank's rows, every vocabulary column), the rank's block of
+    each cache leaf after the step, and its specs."""
+    from repro_torch.launch.dryrun import decode_cache_specs
+    from repro_torch.models.model import decode_step
+
+    rules = tensor_parallel_rules()
+    out = {}
+    for arch in json.loads(str(data["decode/archs"])):
+        cfg = f32_config(arch)
+        pre = f"decode/{arch}/"
+        batch, capacity = data[pre + "token"].shape[0], int(data["decode/capacity"])
+        lay = TL.MeshLayout(cfg, mesh, rules, batch, 1)
+        like = param_defs(cfg)
+        whole = [torch.from_numpy(data[f"{pre}p/{i}"]) for i in range(len(tree_flatten(like)))]
+        params = tree_unflatten(like, [layout.block_of(w, mesh, c).clone()
+                                       for w, c in zip(whole, lay.compute_specs)])
+        specs = decode_cache_specs(cfg, mesh, rules, batch, capacity)
+        token = layout.block_of(torch.from_numpy(data[pre + "token"]), mesh, lay.batch_spec)
+        got = {"specs": {k: list(sp) for k, (_, sp) in specs.items()}}
+        for pos in data["decode/positions"]:
+            cache = {k: layout.block_of(torch.from_numpy(data[f"{pre}cache/{k}"]), mesh,
+                                        sp).clone() for k, (_, sp) in specs.items()}
+            with torch.inference_mode(), activate_mesh(mesh, rules), C.recording() as rec:
+                logits, cache = decode_step(params, cache, token,
+                                            torch.tensor(int(pos), dtype=torch.int32), cfg,
+                                            capacity=capacity)
+            got[int(pos)] = {"logits": logits.numpy(), "recorded": rec.summary(),
+                             "cache": {k: v.numpy() for k, v in cache.items()}}
+        out[arch] = got
+    return out
+
+
 def tp_world_main(rank: int, world: int, in_path: str, root: str) -> dict:
     """``tests/test_torch_distributed_tp.py``'s world of 8 gloo ranks on a
-    2 x 4 mesh: the families' "tp/" blocks and the Trainer of each
-    "train/archs" arch."""
+    2 x 4 mesh: the families' "tp/" blocks, the mesh decode step of each
+    "decode/archs" arch and the Trainer of each "train/archs" arch."""
     torch.set_num_threads(1)
     data = dict(np.load(in_path))
     mesh24 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
-    out = {"tp": _tp_blocks(data, mesh24)}
+    out = {"tp": _tp_blocks(data, mesh24), "decode": _mesh_decode(data, mesh24)}
     for arch in json.loads(str(data["train/archs"])):
         out[arch] = _tp_trainer(data, arch, mesh24, root)
     return out
