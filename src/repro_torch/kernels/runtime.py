@@ -31,6 +31,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.core.energy import DEFAULT_CHIP
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -63,7 +64,6 @@ ENTRY_ARGS = {
 
 _lib: ctypes.CDLL | None = None
 _build_seconds: float | None = None
-_launches: dict[str, int] = {}
 # entry name -> (C function, packer of its argument array, argument count)
 _entries: dict[str, tuple] = {}
 # torch._C._cuda_getDevice and _cuda_getCurrentRawStream, bound at load time
@@ -136,34 +136,44 @@ def aligned_pointers(kernel: str, names: tuple[str, ...], *tensors) -> list[int]
 
 
 # ---------------------------------------------------------------------------
-# Launch counters
+# Launch counters: views of the port's ``launch.<kernel>`` counters
+# (``core/tracing.py``)
 # ---------------------------------------------------------------------------
+LAUNCH = "launch."
+
+
 def count_launch(kernel: str, n: int = 1) -> None:
     """``n`` launches of ``kernel``.  :func:`launch` counts each launch that
-    succeeds, and a CUDA graph (``serving/graphs.py``) counts the launches it
-    captured each time it replays them; nothing else counts."""
-    _launches[kernel] = _launches.get(kernel, 0) + n
+    succeeds, and a CUDA graph (``serving/graphs.py``) adds what its
+    capture counted each time it replays; nothing else counts."""
+    tracing.count(LAUNCH + kernel, n)
+
+
+def launches_of(counted: dict[str, int]) -> dict[str, int]:
+    """The launches per kernel among counters ``counted``."""
+    return {k[len(LAUNCH):]: n for k, n in counted.items() if k.startswith(LAUNCH)}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    return dict(_launches)
+    return launches_of(tracing.counters())
 
 
 def reset_launch_counts() -> None:
-    _launches.clear()
+    tracing.clear_counters(LAUNCH)
 
 
 @contextlib.contextmanager
 def launches_recorded():
-    """Within, :func:`launch` records its launches in the dict this yields
-    instead of counting them: a CUDA graph capture runs none of them."""
-    global _launches
-    saved, _launches = _launches, {}
-    try:
-        yield _launches
-    finally:
-        _launches = saved
+    """Within, :func:`launch` records its launches (and every other counter
+    its work moves) instead of counting them (``tracing.recorded``); the
+    launches per kernel are in the dict this yields once the block ends."""
+    launches: dict[str, int] = {}
+    with tracing.recorded() as counted:
+        try:
+            yield launches
+        finally:
+            launches.update(launches_of(counted))
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as C
+from repro_torch.core import tracing
 from repro_torch.models.params import ParamDef
 from repro_torch.models.quant import QuantTensor, qeinsum
 from repro_torch.sharding.rules import MODEL, active_mesh
@@ -270,9 +271,16 @@ def attention_decode(q, k_cache, v_cache, pos, split=None) -> torch.Tensor:
     new token.  Row b attends over cache[b, 0..pos[b]] inclusive (the cache
     is already written at pos); ``pos`` None: over every row (whisper's
     cross-attention).  With ``split`` (``seq_split``'s) the caches are the
-    rank's slice of the positions and q holds every head (``_attend``)."""
+    rank's slice of the positions and q holds every head (``_attend``).
+
+    A call over the positions counts ``attn.decode_calls`` and
+    ``attn.rows_scored``, the B x Sk cache rows it scores, live or not
+    (``core/tracing.py``)."""
     _, _, h, d = q.shape
     g = h // k_cache.shape[2]
+    if pos is not None:
+        tracing.count("attn.decode_calls")
+        tracing.count("attn.rows_scored", q.shape[0] * k_cache.shape[1])
     qf = q.to(torch.float32)
     k = _repeat_kv(k_cache, g)
     v = _repeat_kv(v_cache, g)

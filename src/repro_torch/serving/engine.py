@@ -62,6 +62,14 @@ How the JAX engine's idioms are expressed here:
   activation quantization and each output element depend only on that row;
   the int8 projections become one launch each, M = max_batch (decode) or
   max_batch x (K + 1) (verify).
+
+While tracing is on (``core/tracing.py``) the slot path records spans: a
+``tick`` (``masked_decode_step``) with ``tick.stage`` (positions, mask, the
+graph's inputs), ``tick.replay`` and ``tick.readback`` (the copies to the
+host, where it waits); a ``prefill`` (``rid``, ``tokens``) with
+``prefill.forward``, ``prefill.grow``, ``prefill.first`` and
+``prefill.admit``; a ``chunk`` (``rids``, ``pos``, ``tokens``) with
+``chunk.forward`` and ``chunk.first``.
 """
 from __future__ import annotations
 
@@ -73,7 +81,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tracing
 from repro_torch.core.energy import DEFAULT_CHIP, H100Chip
+from repro_torch.core.tracing import span
 from repro_torch.core.workload import AccelProfile, break_even_tau, learn_tau, simulate
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.model import (
@@ -233,13 +243,19 @@ class InferenceEngine:
         (s0,) = prompt.shape
         if s0 + budget > self.sc.max_len:
             raise ValueError(f"prompt {s0} + budget {budget} exceeds max_len {self.sc.max_len}")
-        toks = torch.as_tensor(prompt.astype(np.int64), device=self.device)[None]
-        logits, cache = prefill(self.params, toks, self.cfg,
-                                frontend_embeds=self._frontend_stub(1))
-        if not isinstance(pool, PagedSlotPool):  # pages take the prompt's rows as they are
-            cache = grow_cache(self.cfg, cache, self.capacity)
-        first = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
-        pool.admit(slot, cache, rid=rid, pos=s0, budget=budget, first_tok=first, prompt=prompt)
+        with span("prefill", rid=rid, tokens=s0):
+            with span("prefill.forward"):
+                toks = torch.as_tensor(prompt.astype(np.int64), device=self.device)[None]
+                logits, cache = prefill(self.params, toks, self.cfg,
+                                        frontend_embeds=self._frontend_stub(1))
+            if not isinstance(pool, PagedSlotPool):  # pages take the prompt's rows as they are
+                with span("prefill.grow"):
+                    cache = grow_cache(self.cfg, cache, self.capacity)
+            with span("prefill.first"):  # the host waits for the device here
+                first = int(torch.argmax(logits[0, : self.cfg.vocab_size]))
+            with span("prefill.admit"):
+                pool.admit(slot, cache, rid=rid, pos=s0, budget=budget, first_tok=first,
+                           prompt=prompt)
         return first
 
     @torch.inference_mode()
@@ -264,17 +280,30 @@ class InferenceEngine:
         writable first (a fresh page, or a copy of a shared one, enqueued
         ahead of the tick), and after a tick that flagged a decoding slot
         non-finite the scratch page is zeroed.
+
+        The tick counts ``attn.rows_live``: each decoding slot's pos + 1
+        rows, once for each decode attention call the step made
+        (``core/tracing.py``).
         """
-        g = self._graph(pool, "decode", 0)
-        inputs = dict(tok=pool.tok, pos=pool.positions(), active=pool.decode_mask())
-        paged = isinstance(pool, PagedSlotPool)
-        if paged:
-            self._make_writable(pool, 1)
-            inputs["table"] = pool.table
-        out = g(**inputs)
-        nxt, fin = out["next"].cpu().numpy(), out["finite"].cpu().numpy()
-        if paged and not fin[pool.decode_mask()].all():
-            pool.scrub_scratch()
+        with span("tick"):
+            with span("tick.stage"):
+                g = self._graph(pool, "decode", 0)
+                pos, active = pool.positions(), pool.decode_mask()
+                inputs = dict(tok=pool.tok, pos=pos, active=active)
+                paged = isinstance(pool, PagedSlotPool)
+                if paged:
+                    self._make_writable(pool, 1)
+                    inputs["table"] = pool.table
+                g.load(**inputs)
+            calls = tracing.counter("attn.decode_calls")
+            with span("tick.replay"):
+                out = g.run()
+            calls = tracing.counter("attn.decode_calls") - calls
+            tracing.count("attn.rows_live", calls * int((pos[active] + 1).sum()))
+            with span("tick.readback"):  # the host waits for the device here
+                nxt, fin = out["next"].cpu().numpy(), out["finite"].cpu().numpy()
+            if paged and not fin[active].all():
+                pool.scrub_scratch()
         return nxt, fin
 
     @staticmethod
@@ -570,14 +599,17 @@ class InferenceEngine:
         if st.done:
             raise ValueError("the group's prefill is done")
         t = min(chunk_tokens, st.s0 - st.pos)
-        toks = torch.as_tensor(st.prompts[:, st.pos:st.pos + t].astype(np.int64),
-                               device=self.device)
-        logits, st.cache = prefill_chunk(self.params, st.cache, toks, st.pos, self.cfg,
-                                         frontend_embeds=st.frontend)
-        st.pos += t
-        if st.done:
-            st.first = torch.argmax(logits[:, : self.cfg.vocab_size], dim=-1).to(
-                torch.int32).cpu().numpy()
+        with span("chunk", rids=st.rids, pos=st.pos, tokens=t):
+            with span("chunk.forward"):
+                toks = torch.as_tensor(st.prompts[:, st.pos:st.pos + t].astype(np.int64),
+                                       device=self.device)
+                logits, st.cache = prefill_chunk(self.params, st.cache, toks, st.pos, self.cfg,
+                                                 frontend_embeds=st.frontend)
+            st.pos += t
+            if st.done:
+                with span("chunk.first"):  # the host waits for the device here
+                    st.first = torch.argmax(logits[:, : self.cfg.vocab_size], dim=-1).to(
+                        torch.int32).cpu().numpy()
         return t
 
     @torch.inference_mode()

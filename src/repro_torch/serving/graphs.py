@@ -5,7 +5,9 @@ signature, launched as one unit.  Here a step is a plain function of the
 pool's cache and a few small integer tensors, ``step(cache, **inputs) ->
 dict of tensors``.  :class:`StepGraph` captures it once as a CUDA graph and
 replays it on every later call, so a tick costs one graph launch on the
-host instead of one launch per kernel (about 1300 at granite-3-8b's width).
+host instead of one launch per kernel (``graph.kernels``, read on an H100:
+1,336 kernels for granite-3-8b's widths at 8 layers, on 32 slots of 1536 or
+8 of 16384; 6,168 for granite-moe-3b-a800m's 32 layers).
 
 * **Inputs.**  The per-tick host arrays (tokens, positions, the decode mask,
   drafts, and a paged pool's page table) are copied into static device
@@ -29,9 +31,13 @@ host instead of one launch per kernel (about 1300 at granite-3-8b's width).
   ``ssm.VerifyCarry``) come from the graph's own memory pool at capture
   and keep their addresses on every replay; only the cache, which outlives
   the step, is part of ``signature``.
-* **Launch counts.**  A replay runs no wrapper, so the kernels' launch
-  counters (``kernels/runtime.py``) would not move: the graph records what
-  the capture launched, per kernel, and adds it on each replay.
+* **Counters.**  A replay runs no Python, so no counter of the port
+  (``core/tracing.py``: the kernels' launches, decode attention's rows)
+  would move: the capture records every counter it moved, and each replay
+  adds that record, with ``graph.kernels``, the kernel nodes of the graph
+  (read once from the captured graph through the CUDA driver API).  The
+  warm-up runs eagerly and counts as any eager call does.  No span is
+  recorded during the warm-up or the capture.
 
 On the CPU there is nothing to capture: the same step runs eagerly on the
 same static buffers.  The engine's ``masked_decode_step`` and
@@ -41,9 +47,12 @@ vary from call to call (ROADMAP Queue A item 9).
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.kernels import runtime
 
 _NUMPY = {torch.int64: np.int64, torch.int32: np.int32, torch.bool: np.bool_}
@@ -72,8 +81,13 @@ class StepGraph:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.stream: torch.cuda.Stream | None = None
         self.outputs: dict[str, torch.Tensor] | None = None
-        self.launches: dict[str, int] = {}  # kernel launches a replay runs
+        self.counted: dict[str, int] = {}  # the counters a replay adds
         self.replays = 0
+
+    @property
+    def launches(self) -> dict[str, int]:
+        """Kernel launches a replay runs, per kernel."""
+        return runtime.launches_of(self.counted)
 
     @torch.inference_mode()
     def load(self, **arrays) -> None:
@@ -84,9 +98,14 @@ class StepGraph:
 
     @torch.inference_mode()
     def __call__(self, **arrays) -> dict[str, torch.Tensor]:
-        """Load the inputs and run the step: replayed on a CUDA device
-        (captured first if it was not), eagerly on the CPU."""
+        """Load the inputs and :meth:`run` the step."""
         self.load(**arrays)
+        return self.run()
+
+    @torch.inference_mode()
+    def run(self) -> dict[str, torch.Tensor]:
+        """Run the step on the loaded inputs: replayed on a CUDA device
+        (captured first if it was not), eagerly on the CPU."""
         if self.device.type == "cpu":
             return self.step(self.cache, **self.inputs)
         if self.graph is None:
@@ -114,22 +133,53 @@ class StepGraph:
         # The warm-up writes the cache; what it wrote is put back, so that the
         # first replay starts from the cache the caller left.
         saved = {k: t.clone() for k, t in self.cache.items()}
-        self.eager()
+        with tracing.paused():
+            self.eager()
         for k, t in saved.items():
             self.cache[k].copy_(t)
         del saved
-        graph = torch.cuda.CUDAGraph()
-        with runtime.launches_recorded() as captured:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with tracing.recorded() as captured:
             with torch.cuda.graph(graph, stream=self.stream):
                 self.outputs = self.step(self.cache, **self.inputs)
-        self.graph, self.launches = graph, dict(captured)
+        graph.instantiate()
+        self.counted = dict(captured, **{"graph.kernels": kernel_nodes(graph.raw_cuda_graph())})
+        self.graph = graph
 
     @torch.inference_mode()
     def replay(self) -> dict[str, torch.Tensor]:
         """Replay the captured step on the current stream; its static
         outputs hold the result."""
         self.graph.replay()
-        for kernel, n in self.launches.items():
-            runtime.count_launch(kernel, n)
+        for name, n in self.counted.items():
+            tracing.count(name, n)
         self.replays += 1
         return self.outputs
+
+
+_KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL (cuda.h)
+
+
+def kernel_nodes(raw_graph: int) -> int:
+    """The kernel nodes of a captured ``cudaGraph_t`` (``CUDAGraph(keep_graph=True)
+    .raw_cuda_graph()``), read through the CUDA driver API: the kernels one
+    replay runs (its copy and memset nodes are not kernels)."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    get_nodes, node_type = lib.cuGraphGetNodes, lib.cuGraphNodeGetType
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    node_type.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    get_nodes.restype = node_type.restype = ctypes.c_int
+
+    def check(rc: int, what: str) -> None:
+        if rc:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    graph, n = ctypes.c_void_p(raw_graph), ctypes.c_size_t(0)
+    check(get_nodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(get_nodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, kernels = ctypes.c_int(-1), 0
+    for node in nodes[:n.value]:
+        check(node_type(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        kernels += kind.value == _KERNEL_NODE
+    return kernels
