@@ -4,8 +4,10 @@ does it.
 * **Counters** (``count(name, n)``) are integer adds, always counted:
   ``launch.<kernel>`` for each kernel launch (``kernels/runtime.py``),
   ``attn.decode_calls`` and ``attn.rows_scored`` for decode attention
-  (``models/layers.py``), ``attn.rows_live`` for the rows of those that
-  hold a live position (``serving/engine.py``), ``graph.kernels`` for the
+  (``models/layers.py``; the B x Smax cache rows a call's mask spans),
+  ``attn.rows_live`` for the rows of those that hold a live position
+  (``serving/engine.py``; the only rows the decode kernel reads, so
+  1 - rows_live / rows_scored is the share it skips), ``graph.kernels`` for the
   kernel nodes a replayed CUDA graph runs (``serving/graphs.py``).  A
   replayed graph adds every counter its capture moved
   (``serving/graphs.py``).

@@ -11,8 +11,8 @@ The kernel's geometry is chosen here, by :func:`plan` through the
 block-size tuner (``kernels.autotune``): the output tile, and how K is cut
 into chunks that separate blocks sum (split-K) so that a small M still
 spreads over the card's SMs.  The partial sums of a split meet in
-an int32 workspace that this module allocates once per device and stream
-(:func:`_workspace`) and that the kernel leaves zeroed.
+an int32 workspace kept once per device and stream
+(``runtime.zeroed_workspace``) that the kernel leaves zeroed.
 
 The operands may carry a batch axis, ``(E, M, K) @ (E, K, N)``: E products of
 one shape in ONE launch, the batch index a grid axis of the kernel, as the
@@ -188,35 +188,6 @@ def _check(x_q, w_q, x_scale, w_scale) -> tuple[int, int, int, int]:
     return batch, m, k, n
 
 
-_workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
-# workspaces that were outgrown: a captured CUDA graph may still point at them
-_outgrown: list[tuple[torch.Tensor, torch.Tensor]] = []
-
-
-def _workspace(dev: torch.device, ints: int, tiles: int):
-    """Zeroed int32 partial sums (``ints``) and arrival counters (``tiles``)
-    for split-K launches on the current stream of ``dev``, kept per device
-    and stream (two streams sharing one would mix their partial sums) and
-    grown when a call needs more.  The kernel returns them to zero, so they
-    are allocated (``torch.zeros``) only when they grow, and never while a
-    CUDA graph is being captured: a capture runs its step once uncaptured
-    first, on the capture stream, which makes the workspace it needs."""
-    key = (dev.index, runtime.stream_handle(dev))
-    ws, cnt = _workspaces.get(key, (None, None))
-    if ws is None or ws.numel() < ints or cnt.numel() < tiles:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("int8_matmul: the split-K workspace of the capture stream must "
-                               "exist before the capture (run the step once on that stream)")
-        if ws is not None:
-            _outgrown.append((ws, cnt))
-        ints = max(ints, 0 if ws is None else ws.numel())
-        tiles = max(tiles, 0 if cnt is None else cnt.numel())
-        ws = torch.zeros(ints, dtype=torch.int32, device=dev)
-        cnt = torch.zeros(tiles, dtype=torch.int32, device=dev)
-        _workspaces[key] = (ws, cnt)
-    return ws, cnt
-
-
 def _x_shared(x_q: torch.Tensor, x_scale: torch.Tensor) -> int:
     """1 if a 3-D x and its scales are one product's, shared by every
     product (``Tensor.expand``: batch stride 0), 0 if they are stacked, one
@@ -260,7 +231,9 @@ def int8_matmul(x_q, w_q, x_scale, w_scale, *, block_m="auto", block_n="auto",
     ws = cnt = 0
     if p.split_k > 1:
         tiles = p.tiles(m, n, batch)
-        ws, cnt = (t.data_ptr() for t in _workspace(dev, tiles * p.block_m * p.block_n, tiles))
+        ws = runtime.zeroed_workspace("int8_matmul.sums", dev,
+                                      tiles * p.block_m * p.block_n).data_ptr()
+        cnt = runtime.zeroed_workspace("int8_matmul.counters", dev, tiles).data_ptr()
     runtime.launch("int8_matmul", "repro_int8_matmul", dev.index, xp, wp, x_scale.data_ptr(),
                    w_scale.data_ptr(), out.data_ptr(), ws, cnt, m, n, k, vec, p.block_m,
                    p.block_n, p.split_k, p.k_chunk, batch, shared)

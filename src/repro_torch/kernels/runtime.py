@@ -60,6 +60,7 @@ ENTRY_ARGS = {
     "repro_lstm_stack": 26,
     "repro_int8_matmul": 18,
     "repro_flash_attention": 14,
+    "repro_decode_attention": 20,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -174,6 +175,35 @@ def launches_recorded():
             yield launches
         finally:
             launches.update(launches_of(counted))
+
+
+# ---------------------------------------------------------------------------
+# Workspaces the kernels leave zeroed
+# ---------------------------------------------------------------------------
+_zeroed: dict[tuple[str, int, int], torch.Tensor] = {}
+# workspaces that were outgrown: a captured CUDA graph may still point at them
+_outgrown: list[torch.Tensor] = []
+
+
+def zeroed_workspace(name: str, dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 named ``name`` for launches on the current
+    stream of ``dev``: a kernel's split-K sums, arrival counters or tickets,
+    which it returns to zero.  Kept per name, device and stream (two streams
+    sharing one would mix their sums) and grown when a call needs more, so
+    allocated (``torch.zeros``) only when they grow, and never while a CUDA
+    graph is being captured: a capture runs its step once uncaptured first,
+    on the capture stream, which makes the workspace it needs."""
+    key = (name, dev.index, stream_handle(dev))
+    t = _zeroed.get(key)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: the workspace of the capture stream must exist before "
+                               "the capture (run the step once on that stream)")
+        if t is not None:
+            _outgrown.append(t)
+        t = torch.zeros(max(n, 0 if t is None else t.numel()), dtype=torch.int32, device=dev)
+        _zeroed[key] = t
+    return t
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,13 @@ Attention has four execution paths:
   chunk   — T queries per sequence against a KV cache (chunked prefill and
             speculative verify)
 
-All four are plain tensor ops here, as they are plain jnp in the JAX
-package: the flash-attention kernel (``kernels/flash_attention``) is a
-public op of its own and no path of the model calls it.
+Naive, chunked and chunk are plain tensor ops here, as they are plain jnp
+in the JAX package: the flash-attention kernel (``kernels/flash_attention``)
+is a public op of its own and no path of the model calls it.  Decode on one
+device goes through ``kernels/decode_attention``: on the card a kernel that
+reads each live K/V row once for all query heads of its KV head and no row
+past the position, on the CPU its plain version, the tensor ops of the JAX
+package's function.
 
 Differences from the JAX package, all of them without effect on the numbers:
 
@@ -74,6 +78,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as C
 from repro_torch.core import tracing
+from repro_torch.kernels.decode_attention import decode_attention, plain_scores
 from repro_torch.models.params import ParamDef
 from repro_torch.models.quant import QuantTensor, qeinsum
 from repro_torch.sharding.rules import MODEL, active_mesh
@@ -269,29 +274,28 @@ def _attend(s: torch.Tensor, v: torch.Tensor, eq: str, split) -> torch.Tensor:
 def attention_decode(q, k_cache, v_cache, pos, split=None) -> torch.Tensor:
     """q: (B,1,H,D); caches: (B,Smax,KV,D); pos: (B,) index of each row's
     new token.  Row b attends over cache[b, 0..pos[b]] inclusive (the cache
-    is already written at pos); ``pos`` None: over every row (whisper's
-    cross-attention).  With ``split`` (``seq_split``'s) the caches are the
-    rank's slice of the positions and q holds every head (``_attend``).
+    is already written at pos): ``kernels/decode_attention.decode_attention``.
+    With ``split`` (``seq_split``'s) the caches are the rank's slice of the
+    positions and q holds every head: the plain version's scores
+    (``plain_scores``), their softmax over the ranks (``_attend``).  ``pos``
+    None comes only with a split: whisper's cross-attention over the rank's
+    slice of the frames, every row (on one device it is
+    ``gqa_cross_apply``).
 
     A call over the positions counts ``attn.decode_calls`` and
-    ``attn.rows_scored``, the B x Sk cache rows it scores, live or not
-    (``core/tracing.py``)."""
-    _, _, h, d = q.shape
-    g = h // k_cache.shape[2]
+    ``attn.rows_scored``, the B x Sk cache rows its mask spans, live or not
+    (``core/tracing.py``); the kernel reads only the live ones."""
     if pos is not None:
         tracing.count("attn.decode_calls")
         tracing.count("attn.rows_scored", q.shape[0] * k_cache.shape[1])
-    qf = q.to(torch.float32)
-    k = _repeat_kv(k_cache, g)
-    v = _repeat_kv(v_cache, g)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.to(torch.float32)) / _sqrt(d)
-    if pos is not None:
-        kpos = torch.arange(k_cache.shape[1], device=q.device)
-        if split is not None:
-            kpos = kpos + split[1] * k_cache.shape[1]
-        s = _where_valid((kpos[None, :] <= pos[:, None])[:, None, None, :], s)
-    out = _attend(s, v.to(torch.float32), "bhqk,bkhd->bqhd", split)
-    return out.to(q.dtype)
+    if split is None:
+        return decode_attention(q, k_cache, v_cache, pos)
+    valid = None
+    if pos is not None:  # the rank's slice of the positions
+        kpos = torch.arange(k_cache.shape[1], device=q.device) + split[1] * k_cache.shape[1]
+        valid = kpos[None, :] <= pos[:, None]
+    s, v = plain_scores(q, k_cache, v_cache, valid)
+    return _attend(s, v, "bhqk,bkhd->bqhd", split).to(q.dtype)
 
 
 def attention_chunk(q, k_cache, v_cache, pos) -> torch.Tensor:

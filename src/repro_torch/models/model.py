@@ -502,9 +502,11 @@ def prefill(params, tokens, cfg: ArchConfig, frontend_embeds=None):
 
 
 def _positions(pos, batch: int, device) -> torch.Tensor:
-    """An int or a (B,) tensor → (B,) int64 on ``device``; a tensor already
+    """An int or a (B,) tensor → (B,) int64 on ``device``, contiguous (the
+    decode attention kernel reads one position a row); a (B,) tensor already
     there is not copied (a captured step passes its static buffer)."""
-    return torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1).expand(batch)
+    pos = torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1)
+    return pos.expand(batch).contiguous()
 
 
 def _run_cached(params, cache, x, body, pos, cfg: ArchConfig, shared_body):
